@@ -40,6 +40,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (fuzz tapes, paced load); "
         "excluded from tier-1 via -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (siddhi_tpu_torch kernels); "
+        "skips without one -- run with `python -m pytest --noconftest -m gpu "
+        "tests/test_torch_gpu.py` on the card")
 
 
 import pytest
