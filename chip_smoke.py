@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (siddhi_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # the full check (one CUDA card)
-    python3 chip_smoke.py --quick    # small shapes, for a first build check
+    python3 chip_smoke.py [--out FILE]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. torch/CUDA versions and the card (nvidia-smi name, power limit);
@@ -11,21 +10,25 @@ Phases (any failure exits non-zero; nothing is caught):
   3. K1 expr_eval vs its plain version at N = 2^18 rows: C1's filter,
      integer arithmetic with truncating / and %, string equality,
      and/or/not, float32-mode arithmetic -- masks and columns equal;
-  4. K2 nfa_block vs its plain version on C4 blocks (P = 1024, A = 32,
-     T = the power of two the plan picks for a 2^18-event flush over 1000
-     keys), two blocks chained: new state and sorted match rows equal;
-     K1 on the same blocks' pre-masks and match rows equal to its plain
-     version.  Every comparison has tolerance 0 (the kernels are built
-     with --fmad=false and compute what the plain versions compute);
-  5. end to end, BASELINE config 4 (partitioned 3-step pattern): 4 flushes
-     of 2^18 events over 1000 keys through SiddhiManager(device="cuda")
-     send_batch, the same tape through device="cpu" (the plain versions):
-     equal rows, both kernels launched on the main path, events/s;
-  6. end to end, config 1 (filter) at 2^20 events, checked the same way;
-  7. one JSON line {"kernels": [...]} (launches on the main path, error
-     against the plain version, kernel / plain / bound times), the card's
-     name and power limit, then the last line
+  4. the main path, BASELINE config 4 (partitioned 3-step pattern): 4
+     flushes of 2^18 events over 1000 keys through
+     SiddhiManager(device="cuda") send_batch, with the launch counts set
+     to 0 just before and read just after; every block the plan hands the
+     NFA kernel is recorded.  The same tape through device="cpu" (the
+     plain versions) must give equal rows; events/s and ms per flush;
+  5. K2 nfa_block and K1 (pre-masks, selector) against their plain
+     versions on the recorded blocks: new state, sorted match rows, masks
+     and selector columns equal;
+  6. config 1 (filter) at 2^20 events, run and checked the same way, and
+     K1 on its filter program against the plain version;
+  7. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+     launches on its path, error against the plain version, device time
+     (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
+     is not in it; that is printed on its own), plain time and bound;
+     the card's name and power limit; then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+Every comparison has tolerance 0: the kernels are built with --fmad=false
+and compute what the plain versions compute.
 Exits non-zero without a CUDA card, or when the package is not beside it.
 """
 import argparse
@@ -36,6 +39,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 STOCK = "define stream StockStream (symbol string, price double, volume int);\n"
 C1 = STOCK + ("@info(name='q') from StockStream[price > 100] "
@@ -50,6 +54,8 @@ begin
 end;
 """
 C4_HEAD = "@app:partitionCapacity(1000)\n@app:deviceSlots(32)\n"
+KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
+K1_SRC = "siddhi_tpu_torch/csrc/expr_eval.cu"
 
 
 def log(msg: str) -> None:
@@ -72,17 +78,32 @@ def make_tape(np, n_events: int, batch: int, keys: int, seed: int = 0):
     return tape
 
 
-def cuda_time_ms(torch, fn, reps: int = 20) -> float:
+def graph_ms(torch, fn, reps: int = 20) -> tuple:
+    """(device ms, host dispatch ms) per call of `fn`.  The device time
+    replays `reps` calls captured in one CUDA graph, timed with CUDA
+    events, so the wrapper's Python and ctypes work before each launch is
+    not in it.  The host dispatch time is the wall clock of `reps` eager
+    calls with no synchronisation inside."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms
 
 
 def wall_ms(torch, fn) -> float:
@@ -93,8 +114,40 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_k1(torch, np, pkg, n: int) -> dict:
-    """K1 against its plain version over seeded columns with edge values."""
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, what bounds it) on the H100: bytes over HBM, operations
+    over the float32 peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def k1_work(torch, cols, mask_prog, out_progs, n: int) -> tuple:
+    """(bytes, operations) K1 needs for rows [0, n): each column a program
+    loads read once, each output and the mask words written once, one
+    operation per row for each VM instruction other than a load or a
+    constant."""
+    from siddhi_tpu_torch.core.expr import TORCH_OF_VT, decode_word
+    loaded, ops = set(), 0
+    for prog in [p for p in (mask_prog, *out_progs) if p is not None]:
+        for j in range(0, len(prog.words), 2):
+            op = decode_word(prog.words[j])[0]
+            if op == "load":
+                loaded.add(prog.words[j + 1])
+            elif op != "const":
+                ops += n
+    nbytes = sum(n * cols[s].element_size() for s in loaded)
+    nbytes += sum(n * torch.empty(0, dtype=TORCH_OF_VT[p.vt]).element_size()
+                  for p in out_progs)
+    if mask_prog is not None:
+        nbytes += -(-n // 32) * 4
+    return nbytes, ops
+
+
+def phase_k1(torch, np, n: int) -> float:
+    """K1 against its plain version over seeded columns with edge values;
+    returns the largest difference of a computed column (0 when equal)."""
     from siddhi_tpu_torch.core.expr import (F32_MODE, SingleStreamContext,
                                             compile_expression,
                                             compute_dtypes, emit_program)
@@ -147,7 +200,7 @@ def phase_k1(torch, np, pkg, n: int) -> dict:
     for mask_text, out_texts in cases:
         mask_p = prog(mask_text)
         outs_p = [prog(t) for t in out_texts] + f32_outs
-        w_k, o_k = expr_eval(cols, mask_p, outs_p, n)
+        w_k, o_k = expr_eval(cols, mask_p, outs_p, n, use="filter")
         w_p, o_p = expr_eval_plain(cols, mask_p, outs_p, n)
         torch.cuda.synchronize()
         if not torch.equal(w_k, w_p):
@@ -158,130 +211,7 @@ def phase_k1(torch, np, pkg, n: int) -> dict:
             if a.dtype != torch.bool:
                 err = max(err, float((a.double() - b.double()).abs().max()))
         log(f"  K1 {mask_text!r} + {len(outs_p)} outputs: equal")
-    return {"max_abs_err": err}
-
-
-def c4_grid(torch, np, kern, tape_flush, P: int, ts_base: int, seq0: int):
-    """One flush of the tape as the plan's dense (T, P) block."""
-    sym = tape_flush["sym_idx"]
-    n = len(sym)
-    order = np.lexsort((np.arange(n), sym))
-    idx_within = np.empty(n, dtype=np.int64)
-    s = sym[order]
-    chg = np.r_[True, s[1:] != s[:-1]]
-    run_start = np.flatnonzero(chg)
-    idx_within[order] = np.arange(n) - run_start[np.cumsum(chg) - 1]
-    T = 1 << int(np.ceil(np.log2(idx_within.max() + 1)))
-
-    def g(vals, dt, fill=0):
-        a = np.full((T, P), fill, dtype=dt)
-        a[idx_within, sym] = vals
-        return torch.from_numpy(a).cuda()
-    ev = {"__ts__": g((tape_flush["ts"] - ts_base).astype(np.int32), np.int32),
-          "__seq__": g(np.arange(seq0, seq0 + n, dtype=np.int32), np.int32),
-          "__valid__": g(True, bool),
-          "0.price": g(tape_flush["price"].astype(np.float32), np.float32),
-          "__base_ts__": ts_base}
-    if kern.grid_keys != ["0.price"]:
-        raise SystemExit(f"unexpected C4 grid columns {kern.grid_keys}")
-    return ev, T
-
-
-def sorted_rows(torch, kern, out: dict):
-    n = int(out["meta"][0])
-    rows = torch.cat([out["out_i"][:, :n].double(),
-                      out["out_f"][:, :n].double(),
-                      out["out_l"][:, :n].double()])
-    ci = kern.lane_names_i.index("__comp_seq__")
-    hi = kern.lane_names_i.index("__head_seq__")
-    key = rows[ci] * 2.0 ** 32 + rows[hi]
-    return rows[:, torch.argsort(key)]
-
-
-def phase_k2(torch, np, pkg, tape, quick: bool) -> dict:
-    from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
-    from siddhi_tpu_torch.kernels.expr_eval import (expr_eval_plain,
-                                                    unpack_mask)
-    mgr = pkg.SiddhiManager(device="cuda")
-    rt = mgr.create_app_runtime("@app:partitionCapacity(1024)\n"
-                                "@app:deviceSlots(32)\n" + C4)
-    plan = rt.plans()[0]
-    kern = plan.kernel
-    P = kern.P
-    ts_base = int(tape[0]["ts"][0])
-    state = kern.init_state("cuda")
-    err, res = 0.0, {}
-    for b in range(2):
-        ev, T = c4_grid(torch, np, kern, tape[b], P, ts_base,
-                        b * len(tape[b]["sym_idx"]))
-        pre = kern.pre_masks(ev)
-        k1_cols = [ev["0.price"].reshape(-1), ev["__ts__"].reshape(-1)]
-        for w, pr in zip(pre, kern.pre_progs):     # K1 at the path's shape
-            if pr is not None and not torch.equal(w, expr_eval_plain(
-                    k1_cols, pr, [], T * P, {"__base_ts__": ts_base})[0]):
-                raise SystemExit(f"K1 pre-mask differs (block {b})")
-        M = 1 << 20
-        new_k, out_k = nfa_block(kern, state, ev, pre, M)
-        masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
-                 for w in pre]
-        t0 = time.perf_counter()
-        new_p, out_p = nfa_block_plain(kern, state, ev, masks, M)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        for key in new_k:
-            if not torch.equal(new_k[key], new_p[key]):
-                raise SystemExit(f"K2 state {key!r} differs (block {b})")
-        if not torch.equal(out_k["meta"], out_p["meta"]):
-            raise SystemExit(f"K2 meta differs: {out_k['meta'].tolist()} vs "
-                             f"{out_p['meta'].tolist()}")
-        rk, rp = sorted_rows(torch, kern, out_k), sorted_rows(torch, kern,
-                                                              out_p)
-        if not torch.equal(rk, rp):
-            raise SystemExit(f"K2 match rows differ (block {b})")
-        n = int(out_k["meta"][0])
-        err = max(err, float((rk - rp).abs().max()) if n else 0.0)
-        sel_cols = [r for key in ("out_i", "out_f", "out_l")
-                    for r in out_k[key]]
-        hw, sel = kern.select(out_k, n, ts_base)    # K1 on the match rows
-        hp, selp = expr_eval_plain(sel_cols, kern.having_prog,
-                                   kern.sel_progs, n, {"__base_ts__": ts_base})
-        if (hw is None) != (hp is None) or (hw is not None and not
-                                            torch.equal(hw, hp)) or \
-                not all(torch.equal(a, c) for a, c in zip(sel, selp)):
-            raise SystemExit(f"K1 selector differs (block {b})")
-        log(f"  K2 block {b}: T={T} P={P} A={kern.A} matches={n} "
-            f"of_slots={int(out_k['meta'][1])}: state and rows equal")
-        if b == 0:
-            ms = cuda_time_ms(torch, lambda: nfa_block(kern, state, ev, pre,
-                                                       M), reps=10)
-            k1_ms = cuda_time_ms(torch, lambda: kern.pre_masks(ev), reps=20)
-            n_pre = sum(w is not None for w in pre)
-            # bytes each function must move once
-            grid_bytes = T * P * (4 + 4 + 1 + 4)
-            state_bytes = sum(v.numel() * v.element_size()
-                              for v in state.values())
-            rows_bytes = n * (len(kern.lane_names_i) * 4 +
-                              len(kern.rows_f) * 4 + len(kern.rows_l) * 8)
-            k2_bytes = grid_bytes + n_pre * T * P / 8 + 2 * state_bytes + \
-                rows_bytes
-            k1_bytes = n_pre * (T * P * 4 + T * P / 8)
-
-            def k1_plain():
-                for pr in kern.pre_progs:
-                    if pr is not None:
-                        expr_eval_plain(k1_cols, pr, [], T * P,
-                                        {"__base_ts__": ts_base})
-            res = {"T": T, "P": P, "A": kern.A, "matches": n,
-                   "k2_ms": ms, "k2_plain_ms": plain_ms,
-                   "k2_bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3,
-                   "k1_ms": k1_ms / n_pre,
-                   "k1_bound_ms": k1_bytes / n_pre / HBM_BYTES_PER_S * 1e3,
-                   "k1_plain_ms": wall_ms(torch, k1_plain) / n_pre}
-        state = new_k
-        if quick:
-            break
-    res["k2_max_abs_err"] = err
-    return res
+    return err
 
 
 def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
@@ -310,10 +240,190 @@ def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
     return out, per_flush, rt
 
 
+def run_c4_main_path(pkg, np, tape) -> tuple:
+    """Phase 4: C4 through the facade on the card, launch counts from 0;
+    returns (rows, ms per flush, launches, runtime, recorded blocks).  A
+    recorded block is (kernel, state in, event grid, M, meta) exactly as
+    the plan called `NFAKernel.run_block`; recording launches nothing."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    blocks = []
+    run_block = NFAKernel.run_block
+
+    def recording(kern, state, ev, M):
+        new, out = run_block(kern, state, ev, M)
+        blocks.append((kern, state, ev, M, out["meta"]))
+        return new, out
+    NFAKernel.run_block = recording
+    kernels.reset_launches()
+    rows, per_flush, rt = run_app(pkg, np, C4_HEAD + C4, tape, KEYS, "cuda")
+    launches = dict(kernels.LAUNCHES)
+    NFAKernel.run_block = run_block
+    return rows, per_flush, launches, rt, blocks
+
+
+def sorted_rows(torch, kern, out: dict):
+    n = int(out["meta"][0])
+    rows = torch.cat([out["out_i"][:, :n].double(),
+                      out["out_f"][:, :n].double(),
+                      out["out_l"][:, :n].double()])
+    ci = kern.lane_names_i.index("__comp_seq__")
+    hi = kern.lane_names_i.index("__head_seq__")
+    key = rows[ci] * 2.0 ** 32 + rows[hi]
+    return rows[:, torch.argsort(key)]
+
+
+def phase_blocks(torch, blocks) -> dict:
+    """Phase 5: K2 and K1 against their plain versions on every block the
+    main path accepted (an M overflow's first try is re-run by the plan
+    with a larger M and is left out); the last block, whose slot state
+    the earlier flushes built, is timed."""
+    from siddhi_tpu_torch.kernels.expr_eval import (expr_eval_plain,
+                                                    unpack_mask)
+    from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
+    accepted = [b[:4] for b in blocks if int(b[4][0]) <= b[3]]
+    if not accepted:
+        raise SystemExit("C4 recorded no accepted block")
+    err = {"nfa_block": 0.0, "pre_mask": 0.0, "select": 0.0}
+    for b, (kern, state, ev, M) in enumerate(accepted):
+        T, P = ev["__ts__"].shape
+        params = {"__base_ts__": ev["__base_ts__"]}
+        pre = kern.pre_masks(ev)
+        pre_cols = kern.pre_mask_cols(ev)
+        for w, pr in zip(pre, kern.pre_progs):
+            if pr is not None and not torch.equal(
+                    w, expr_eval_plain(pre_cols, pr, [], T * P, params)[0]):
+                raise SystemExit(f"K1 pre-mask differs (block {b})")
+        new_k, out_k = nfa_block(kern, state, ev, pre, M)
+        masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
+                 for w in pre]
+        t0 = time.perf_counter()
+        new_p, out_p = nfa_block_plain(kern, state, ev, masks, M)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for key in new_k:
+            if not torch.equal(new_k[key], new_p[key]):
+                raise SystemExit(f"K2 state {key!r} differs (block {b})")
+        if not torch.equal(out_k["meta"], out_p["meta"]):
+            raise SystemExit(f"K2 meta differs: {out_k['meta'].tolist()} vs "
+                             f"{out_p['meta'].tolist()}")
+        rk, rp = sorted_rows(torch, kern, out_k), sorted_rows(torch, kern,
+                                                              out_p)
+        if not torch.equal(rk, rp):
+            raise SystemExit(f"K2 match rows differ (block {b})")
+        n = int(out_k["meta"][0])
+        if n:
+            err["nfa_block"] = max(err["nfa_block"],
+                                   float((rk - rp).abs().max()))
+        sel_cols = kern.select_cols(out_k)
+        hw, sel = kern.select(out_k, n, ev["__base_ts__"])
+        hp, selp = expr_eval_plain(sel_cols, kern.having_prog,
+                                   kern.sel_progs, n, params)
+        if (hw is None) != (hp is None) or (hw is not None and not
+                                            torch.equal(hw, hp)) or \
+                not all(torch.equal(a, c) for a, c in zip(sel, selp)):
+            raise SystemExit(f"K1 selector differs (block {b})")
+        for a, c in zip(sel, selp):
+            if n and a.dtype != torch.bool:
+                err["select"] = max(err["select"], float(
+                    (a.double() - c.double()).abs().max()))
+        log(f"  block {b}: T={T} P={P} A={kern.A} M={M} matches={n} "
+            f"of_slots={int(out_k['meta'][1])}: K2 state and rows, K1 "
+            f"pre-masks and selector equal to their plain versions")
+
+    kern, state, ev, M = accepted[-1]
+    T, P = ev["__ts__"].shape
+    params = {"__base_ts__": ev["__base_ts__"]}
+    pre = kern.pre_masks(ev)
+    out = nfa_block(kern, state, ev, pre, M)[1]
+    n = int(out["meta"][0])
+    res = {"T": T, "P": P, "A": kern.A, "M": M, "matches": n,
+           "blocks": len(accepted), "err": err}
+    # K2: the grids, pre-mask words, state in and out and the match rows,
+    # each moved once; one station test per slot for each live event
+    tensors = [v for v in ev.values() if torch.is_tensor(v)]
+    k2_bytes = sum(v.numel() * v.element_size() for v in tensors)
+    k2_bytes += sum(w.numel() * 4 for w in pre if w is not None)
+    k2_bytes += 2 * sum(v.numel() * v.element_size() for v in state.values())
+    k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) * 4 +
+                     len(kern.rows_l) * 8) + 8
+    k2_ops = int(ev["__valid__"].sum()) * kern.A
+    ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
+                        reps=10)
+    res["nfa_block"] = {"ms": ms, "dispatch_ms": host, "plain_ms": plain_ms,
+                        "bytes": k2_bytes, "ops": k2_ops}
+    # K1 pre-mask: one launch per chain node with event-only conjuncts
+    pre_cols = kern.pre_mask_cols(ev)
+    progs = [p for p in kern.pre_progs if p is not None]
+    nbytes = ops = 0
+    for prog in progs:
+        b_, o_ = k1_work(torch, pre_cols, prog, [], T * P)
+        nbytes, ops = nbytes + b_, ops + o_
+    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev))
+    res["pre_mask"] = {
+        "ms": ms / len(progs), "dispatch_ms": host / len(progs),
+        "plain_ms": wall_ms(torch, lambda: [
+            expr_eval_plain(pre_cols, p, [], T * P, params)
+            for p in progs]) / len(progs),
+        "bytes": nbytes / len(progs), "ops": ops / len(progs)}
+    # K1 selector over this block's match rows
+    sel_cols = kern.select_cols(out)
+    nbytes, ops = k1_work(torch, sel_cols, kern.having_prog, kern.sel_progs,
+                          n)
+    ms, host = graph_ms(torch, lambda: kern.select(out, n, ev["__base_ts__"]))
+    res["select"] = {
+        "ms": ms, "dispatch_ms": host,
+        "plain_ms": wall_ms(torch, lambda: expr_eval_plain(
+            sel_cols, kern.having_prog, kern.sel_progs, n, params)),
+        "bytes": nbytes, "ops": ops}
+    return res
+
+
+def phase_c1(torch, np, pkg) -> dict:
+    """Phase 6: config 1 through the facade on the card (launch counts
+    from 0) and on the CPU, then K1 on the plan's filter program over the
+    batch's columns against its plain version."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.kernels.expr_eval import expr_eval, expr_eval_plain
+    tape = make_tape(np, C1_EVENTS, C1_EVENTS, KEYS, seed=2)
+    kernels.reset_launches()
+    rows, ms, rt = run_app(pkg, np, C1, tape, KEYS, "cuda")
+    launches = dict(kernels.LAUNCHES)
+    ref, _, _ = run_app(pkg, np, C1, tape, KEYS, "cpu")
+    if rows != ref or not rows or launches["expr_eval:filter"] == 0:
+        raise SystemExit(f"C1 differs or skipped the kernel: {len(rows)} "
+                         f"vs {len(ref)}, {launches}")
+    plan = rt.plans()[0]
+    cols = [torch.from_numpy(np.ascontiguousarray(tape[0][k])).cuda()
+            for k in plan._slot_keys]
+    n = C1_EVENTS
+    args = (cols, plan._mask_prog, plan._out_progs, n)
+    wk, ok = expr_eval(*args, use="filter")
+    wp, op = expr_eval_plain(*args)
+    if not torch.equal(wk, wp) or not all(torch.equal(a, b)
+                                          for a, b in zip(ok, op)):
+        raise SystemExit("K1 filter differs from its plain version at C1")
+    k_ms, host = graph_ms(torch, lambda: expr_eval(*args, use="filter"))
+    nbytes, ops = k1_work(torch, cols, plan._mask_prog, plan._out_progs, n)
+    log(f"[c1] {len(rows)} rows equal to the CPU run; launches {launches}; "
+        f"{ms[0]:.1f} ms for {n} events")
+    return {"rows": len(rows), "ms": ms, "events": n, "launches": launches,
+            "filter": {"ms": k_ms, "dispatch_ms": host,
+                       "plain_ms": wall_ms(torch,
+                                           lambda: expr_eval_plain(*args)),
+                       "bytes": nbytes, "ops": ops}}
+
+
+def kernel_entry(name, source, replaces, launches, err, m) -> dict:
+    bound_ms, by = bound(m["bytes"], m["ops"])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="small shapes (a first build-and-check call)")
     ap.add_argument("--out", help="also write the results JSON here")
     args = ap.parse_args()
 
@@ -325,7 +435,6 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import siddhi_tpu_torch as pkg
-    from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.kernels import build
 
     # 1. the card
@@ -344,95 +453,71 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    quick = args.quick
-    keys = 1000
-    flush = (1 << 14) if quick else (1 << 18)
-    n_flush = 2 if quick else 4
-
-    # 3. K1 vs plain
+    # 3. K1 vs plain over a battery of programs
     t0 = time.perf_counter()
-    k1 = phase_k1(torch, np, pkg, (1 << 12) if quick else (1 << 18))
+    k1_err = phase_k1(torch, np, 1 << 18)
     log(f"[k1] equal to plain ({time.perf_counter() - t0:.1f} s)")
 
-    # 4. K2 vs plain on C4 blocks
-    tape = make_tape(np, flush * n_flush, flush, keys)
-    t0 = time.perf_counter()
-    k2 = phase_k2(torch, np, pkg, tape, quick)
-    log(f"[k2] equal to plain ({time.perf_counter() - t0:.1f} s): "
-        f"kernel {k2['k2_ms']:.3f} ms, plain {k2['k2_plain_ms']:.1f} ms")
-
-    # 5. C4 end to end: card vs the plain versions on the CPU
-    kernels.reset_launches()
-    dev_out, per_flush, rt = run_app(pkg, np, C4_HEAD + C4, tape, keys,
-                                     "cuda")
-    c4_launches = dict(kernels.LAUNCHES)
+    # 4. the main path: C4 on the card, then the same tape on the CPU
+    tape = make_tape(np, FLUSH * N_FLUSH, FLUSH, KEYS)
+    dev_out, per_flush, c4_launches, rt, blocks = run_c4_main_path(pkg, np,
+                                                                    tape)
     plan = rt.plans()[0]
-    ref_out, cpu_flush, _ = run_app(pkg, np, C4_HEAD + C4, tape, keys, "cpu")
+    ref_out, cpu_flush, _ = run_app(pkg, np, C4_HEAD + C4, tape, KEYS, "cpu")
     if sorted(dev_out) != sorted(ref_out) or not dev_out:
         raise SystemExit(f"C4 rows differ: {len(dev_out)} vs {len(ref_out)}")
     for _ts, (p1, p2, p3) in dev_out:
         if not (p1 > 100 and p2 > p1 and p3 > p2):
             raise SystemExit(f"C4 row breaks the pattern: {(p1, p2, p3)}")
-    if min(c4_launches.values()) == 0:
+    c4_kernels = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
+    if min(c4_launches[k] for k in c4_kernels) == 0:
         raise SystemExit(f"C4 did not launch every kernel: {c4_launches}")
-    steady = per_flush[1:] or per_flush
-    eps = flush / (sum(steady) / len(steady) / 1e3)
+    steady = per_flush[1:]
+    eps = FLUSH / (sum(steady) / len(steady) / 1e3)
     log(f"[c4] {len(dev_out)} matches equal to the CPU run; launches "
         f"{c4_launches}; per flush ms {[round(x, 1) for x in per_flush]} "
         f"(cpu {[round(x) for x in cpu_flush]}); {eps:.0f} events/s "
         f"(P={plan.P} A={plan.kernel.A} blocks={plan.blocks_run})")
 
-    # 6. C1 filter end to end
-    c1_n = (1 << 14) if quick else (1 << 20)
-    c1_tape = make_tape(np, c1_n, c1_n, keys, seed=2)
-    kernels.reset_launches()
-    c1_dev, c1_ms, c1_rt = run_app(pkg, np, C1, c1_tape, keys, "cuda")
-    c1_launches = dict(kernels.LAUNCHES)
-    # K1 alone at the C1 shape: the filter program over the price column
-    from siddhi_tpu_torch.kernels.expr_eval import expr_eval, expr_eval_plain
-    fplan = c1_rt.plans()[0]
-    price = torch.from_numpy(c1_tape[0]["price"]).cuda()
-    c1_k1_ms = cuda_time_ms(torch, lambda: expr_eval(
-        [price], fplan._mask_prog, [], c1_n))
-    c1_k1_plain_ms = wall_ms(torch, lambda: expr_eval_plain(
-        [price], fplan._mask_prog, [], c1_n))
-    c1_k1_bound_ms = (c1_n * 8 + c1_n / 8) / HBM_BYTES_PER_S * 1e3
-    c1_ref, _, _ = run_app(pkg, np, C1, c1_tape, keys, "cpu")
-    if c1_dev != c1_ref or not c1_dev or c1_launches["expr_eval"] == 0:
-        raise SystemExit(f"C1 differs or skipped the kernel: {len(c1_dev)} "
-                         f"vs {len(c1_ref)}, {c1_launches}")
-    log(f"[c1] {len(c1_dev)} rows equal to the CPU run; launches "
-        f"{c1_launches}; {c1_ms[0]:.1f} ms for {c1_n} events; K1 alone "
-        f"{c1_k1_ms:.4f} ms (plain {c1_k1_plain_ms:.3f} ms, bound "
-        f"{c1_k1_bound_ms:.4f} ms)")
+    # 5. K2 and K1 vs plain on the main path's own blocks
+    t0 = time.perf_counter()
+    blk = phase_blocks(torch, blocks)
+    log(f"[blocks] {blk['blocks']} blocks equal to plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del blocks
+
+    # 6. C1 filter
+    c1 = phase_c1(torch, np, pkg)
 
     # 7. results
-    card = torch.cuda.get_device_name(0)
+    nfa_dev = "siddhi_tpu/core/nfa_device.py"
     res = {"kernels": [
-        {"name": "expr_eval", "route": "cuda",
-         "source": "siddhi_tpu_torch/csrc/expr_eval.cu",
-         "replaces": "siddhi_tpu/core/planner.py:301",
-         "launches": c4_launches["expr_eval"],
-         "max_abs_err": k1["max_abs_err"], "ms": k2["k1_ms"],
-         "plain_ms": k2["k1_plain_ms"], "bound_ms": k2["k1_bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "nfa_block", "route": "cuda",
-         "source": "siddhi_tpu_torch/csrc/nfa_block.cu",
-         "replaces": "siddhi_tpu/core/nfa_device.py:1486",
-         "launches": c4_launches["nfa_block"],
-         "max_abs_err": k2["k2_max_abs_err"], "ms": k2["k2_ms"],
-         "plain_ms": k2["k2_plain_ms"], "bound_ms": k2["k2_bound_ms"],
-         "bound_by": "bytes", "library_ms": None}]}
+        kernel_entry("expr_eval:filter", K1_SRC,
+                     "siddhi_tpu/core/planner.py:301",
+                     c1["launches"]["expr_eval:filter"], k1_err,
+                     c1["filter"]),
+        kernel_entry("expr_eval:pre_mask", K1_SRC, f"{nfa_dev}:1489",
+                     c4_launches["expr_eval:pre_mask"],
+                     blk["err"]["pre_mask"], blk["pre_mask"]),
+        kernel_entry("expr_eval:select", K1_SRC, f"{nfa_dev}:1619",
+                     c4_launches["expr_eval:select"], blk["err"]["select"],
+                     blk["select"]),
+        kernel_entry("nfa_block", "siddhi_tpu_torch/csrc/nfa_block.cu",
+                     f"{nfa_dev}:1486", c4_launches["nfa_block"],
+                     blk["err"]["nfa_block"], blk["nfa_block"])]}
+    for e, m in zip(res["kernels"], (c1["filter"], blk["pre_mask"],
+                                     blk["select"], blk["nfa_block"])):
+        log(f"  {e['name']}: device {e['ms']:.4f} ms, host dispatch "
+            f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
+            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+            f"{e['launches']} launches")
     detail = {"card": smi, "c4": {"events_per_s": eps,
                                   "ms_per_flush": per_flush,
+                                  "cpu_ms_per_flush": cpu_flush,
                                   "matches": len(dev_out),
-                                  "flush_events": flush,
+                                  "flush_events": FLUSH,
                                   "launches": c4_launches},
-              "c1": {"ms": c1_ms, "events": c1_n, "rows": len(c1_dev),
-                     "launches": c1_launches, "k1_ms": c1_k1_ms,
-                     "k1_plain_ms": c1_k1_plain_ms,
-                     "k1_bound_ms": c1_k1_bound_ms},
-              "k2_block": {k: v for k, v in k2.items()}}
+              "c1": c1, "blocks": blk}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
@@ -440,7 +525,7 @@ def main() -> int:
     print(json.dumps(res), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

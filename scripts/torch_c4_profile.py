@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Where a C4 flush spends its time in the PyTorch/CUDA port.
 
-    python3 scripts/torch_c4_profile.py [--flushes 4] [--out FILE]
+    python3 scripts/torch_c4_profile.py [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
 1000 keys, 2^18-event flushes, the chip_smoke.py tape) through
 siddhi_tpu_torch on the CUDA card, warms with one flush, then profiles
-the remaining flushes with cProfile (host clock; each flush ends in
+the next FLUSHES (4) with cProfile (host clock; each flush ends in
 torch.cuda.synchronize).  Device waits show up inside the calls that
 pull results to the host (`Tensor.cpu`).  Prints the flush times and the
 functions with the most cumulative and own time.  Needs a CUDA card.
@@ -20,11 +20,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLUSHES = 4
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--flushes", type=int, default=4)
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
     import numpy as np
@@ -37,7 +37,7 @@ def main() -> int:
     import siddhi_tpu_torch as pkg
 
     keys, flush = 1000, 1 << 18
-    tape = chip_smoke.make_tape(np, flush * (args.flushes + 1), flush, keys,
+    tape = chip_smoke.make_tape(np, flush * (FLUSHES + 1), flush, keys,
                                 seed=5)
     rt = pkg.SiddhiManager().create_app_runtime(chip_smoke.C4_HEAD +
                                                 chip_smoke.C4)

@@ -428,17 +428,23 @@ class NFAKernel:
         node with event-only conjuncts (None where it has none)."""
         from ..kernels.expr_eval import expr_eval
         T, P = ev["__ts__"].shape
-        cols = [ev[k].reshape(-1) for k in self.grid_keys] + \
-            [ev["__ts__"].reshape(-1)]
+        cols = self.pre_mask_cols(ev)
         out = []
         for prog in self.pre_progs:
             if prog is None:
                 out.append(None)
                 continue
             words, _ = expr_eval(cols, prog, [], T * P,
-                                 {"__base_ts__": ev["__base_ts__"]})
+                                 {"__base_ts__": ev["__base_ts__"]},
+                                 use="pre_mask")
             out.append(words)
         return out
+
+    def pre_mask_cols(self, ev: dict) -> list:
+        """K1's input columns for the pre-masks: the flattened grids, then
+        the ts grid."""
+        return [ev[k].reshape(-1) for k in self.grid_keys] + \
+            [ev["__ts__"].reshape(-1)]
 
     def run_block(self, state: dict, ev: dict, M: int):
         """(state', out) for one (T, P) block; out holds the raw match
@@ -450,7 +456,11 @@ class NFAKernel:
         """K1 over the first n match rows: selector columns and the
         `having` mask words (None without having)."""
         from ..kernels.expr_eval import expr_eval
-        cols = [r for r in out["out_i"]] + [r for r in out["out_f"]] + \
-            [r for r in out["out_l"]]
-        return expr_eval(cols, self.having_prog, self.sel_progs, n,
-                         {"__base_ts__": base_ts})
+        return expr_eval(self.select_cols(out), self.having_prog,
+                         self.sel_progs, n, {"__base_ts__": base_ts},
+                         use="select")
+
+    @staticmethod
+    def select_cols(out: dict) -> list:
+        """K1's input columns for the selector: every match-table row."""
+        return [*out["out_i"], *out["out_f"], *out["out_l"]]

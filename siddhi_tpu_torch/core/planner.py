@@ -210,7 +210,7 @@ class FilterProjectPlan(QueryPlan):
                 cols = [torch.zeros(batch.n, dtype=torch.int32,
                                     device=self.device)]
             words, outs = expr_eval(cols, self._mask_prog, self._out_progs,
-                                    batch.n)
+                                    batch.n, use="filter")
             mask = np.ones(batch.n, dtype=bool) if words is None else \
                 unpack_mask(words.cpu(), batch.n).numpy()
             outs = [o.cpu().numpy() for o in outs]

@@ -3,9 +3,11 @@
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 version only for tensors on the CPU; `LAUNCHES` counts kernel launches
 (one per launch, nowhere else) so a run can show that the main path went
-through the kernels.
+through the kernels.  K1 is counted per use: the filter/projection step,
+the NFA pre-masks and the pattern selector.
 """
-LAUNCHES = {"expr_eval": 0, "nfa_block": 0}
+LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
+            "expr_eval:select": 0, "nfa_block": 0}
 
 
 def reset_launches() -> None:

@@ -129,10 +129,14 @@ def expr_eval_plain(cols: list, mask_prog: Optional[Program],
 
 
 def expr_eval(cols: list, mask_prog: Optional[Program], out_progs: list,
-              n: int, params: Optional[dict] = None):
+              n: int, params: Optional[dict] = None, *, use: str):
     """Run the mask program and the output programs over rows [0, n) of
     `cols` (1-d tensors; a program's load of slot i reads cols[i]).
+    `use` ("filter", "pre_mask" or "select") names the launch counter.
     Returns (mask words int32 (ceil(n/32),) or None, [output tensors])."""
+    counter = f"expr_eval:{use}"
+    if counter not in LAUNCHES:
+        raise ValueError(f"expr_eval: unknown use {use!r}")
     dev = cols[0].device if cols else None
     if dev is None or dev.type == "cpu":
         return expr_eval_plain(cols, mask_prog, out_progs, n, params)
@@ -182,5 +186,5 @@ def expr_eval(cols: list, mask_prog: Optional[Program], out_progs: list,
         check(fn(ctypes.byref(p),
                  ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
               "expr_eval_launch")
-        LAUNCHES["expr_eval"] += 1
+        LAUNCHES[counter] += 1
     return mask_words, outs

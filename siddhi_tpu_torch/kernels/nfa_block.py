@@ -84,13 +84,14 @@ class _Params(ctypes.Structure):
 _GROUP = {"f": 0, "i": 1, "l": 2}
 
 
-def _alloc_out(k, M: int, dev) -> dict:
-    return {"out_i": torch.zeros((len(k.lane_names_i), M), dtype=torch.int32,
-                                 device=dev),
-            "out_f": torch.zeros((len(k.rows_f), M), dtype=torch.float32,
-                                 device=dev),
-            "out_l": torch.zeros((len(k.rows_l), M), dtype=torch.int64,
-                                 device=dev),
+def _alloc_out(k, M: int, dev, rows=torch.zeros) -> dict:
+    """Match rows, allocated by `rows` (the kernel writes only the first
+    meta[0] columns and takes torch.empty), and the zeroed meta counts."""
+    return {"out_i": rows((len(k.lane_names_i), M), dtype=torch.int32,
+                          device=dev),
+            "out_f": rows((len(k.rows_f), M), dtype=torch.float32,
+                          device=dev),
+            "out_l": rows((len(k.rows_l), M), dtype=torch.int64, device=dev),
             "meta": torch.zeros(2, dtype=torch.int32, device=dev)}
 
 
@@ -177,7 +178,7 @@ def _launch(k, state: dict, ev: dict, pre: list, M: int, dev):
      p.armed_out, p.ofs_out) = (nw["occ"], nw["first_ts"], nw["head_seq"],
                                 nw["caps_f"], nw["caps_i"], nw["caps_l"],
                                 nw["armed0"], nw["of_slots"])
-    out = _alloc_out(k, M, dev)
+    out = _alloc_out(k, M, dev, torch.empty)
     p.out_i, p.out_f, p.out_l, p.meta = (ptr(out["out_i"]),
                                          ptr(out["out_f"]),
                                          ptr(out["out_l"]),

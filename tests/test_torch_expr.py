@@ -130,10 +130,10 @@ def test_vm_program_matches_torch_back_end(text, f32):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     # the K1 wrapper on CPU tensors: same values, mask bit-packed
     if want.dtype == torch.bool:
-        w, _ = expr_eval(tcols, prog, [], N)
+        w, _ = expr_eval(tcols, prog, [], N, use="filter")
         assert torch.equal(unpack_mask(w, N), want)
     else:
-        _w, (o,) = expr_eval(tcols, None, [prog], N)
+        _w, (o,) = expr_eval(tcols, None, [prog], N, use="filter")
         np.testing.assert_array_equal(o.numpy(), want.numpy())
 
 

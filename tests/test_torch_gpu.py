@@ -62,12 +62,12 @@ def test_expr_eval_kernel_matches_plain(cuda, text, f32):
         prog = emit_program(ce.node, {k: (i, VT_OF_TORCH[c.dtype]) for i, (k, c)
                                       in enumerate(zip(keys, cols))})
     is_mask = prog.vt == 0
-    before = LAUNCHES["expr_eval"]
+    before = LAUNCHES["expr_eval:filter"]
     args = (cols, prog, []) if is_mask else (cols, None, [prog])
-    wk, ok = expr_eval(*args, n)
+    wk, ok = expr_eval(*args, n, use="filter")
     wp, op = expr_eval_plain(*args, n)
     torch.cuda.synchronize()
-    assert LAUNCHES["expr_eval"] == before + 1
+    assert LAUNCHES["expr_eval:filter"] == before + 1
     if is_mask:
         assert torch.equal(wk, wp)
     else:
@@ -155,5 +155,6 @@ def test_c4_end_to_end_on_the_card(cuda):
         return out
     reset_launches()
     got = run(cuda)
-    assert LAUNCHES["nfa_block"] > 0 and LAUNCHES["expr_eval"] > 0
+    assert min(LAUNCHES[k] for k in ("nfa_block", "expr_eval:pre_mask",
+                                     "expr_eval:select")) > 0
     assert got == run("cpu") and got

@@ -78,4 +78,13 @@ def test_kernel_wrappers_refuse_other_devices():
     from siddhi_tpu_torch.kernels.expr_eval import expr_eval
     col = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        expr_eval([col], None, [], 4)
+        expr_eval([col], None, [], 4, use="filter")
+
+
+def test_expr_eval_rejects_an_unknown_use():
+    """Each K1 launch is counted under its use; a use without a counter is
+    refused before anything runs."""
+    from siddhi_tpu_torch.kernels.expr_eval import expr_eval
+    col = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown use"):
+        expr_eval([col], None, [], 4, use="window")

@@ -5,7 +5,11 @@ app is compared with the JAX package at its default settings and with its
 sequential `seq` plan family; slot growth and match-buffer retries are
 forced with tiny slot counts; slot state carried over from the JAX
 package continues to the JAX package's result; shapes outside the slice
-raise when the app is created."""
+raise when the app is created.  The JAX package's rows and the port's are
+computed once per app and tape (`jax_rows`, `port_rows`) and shared by
+the tests that compare them."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -111,29 +115,53 @@ def tape(app: str, flushes: int = 3, n: int = 600, seed: int = 0) -> list:
 def run(pkg, app, sends, **kw):
     mgr = pkg.SiddhiManager(**kw)
     rt = mgr.create_app_runtime(app)
-    out, marks = [], []
+    out = []
     rt.add_callback("Out", lambda evs: out.extend(
         (e.timestamp, e.data) for e in evs))
     rt.start()
     for sid, cols, ts in sends:
         rt.input_handler(sid).send_batch(cols, ts)
         rt.flush()
-        marks.append(len(out))
-    return out, marks, rt
+    return out, rt
 
 
 SEQ_JAX = "@app:devicePatterns('prefer')\n@app:patternFamily('seq')\n"
 
 
+@functools.lru_cache(maxsize=None)
+def jax_rows(name: str, variant: str):
+    """The JAX package's rows for APPS[name] on tape(name), at its default
+    settings or with the `seq` family.  With `seq` it also returns what
+    the port needs to take over after the first half of the tape: the
+    plan's state_dict, the string table, the event seq and the rows so far
+    (None otherwise)."""
+    sends = tape(name)
+    rt = siddhi_tpu.SiddhiManager().create_app_runtime(
+        (SEQ_JAX if variant == "seq" else "") + APPS[name])
+    out, carried = [], None
+    rt.add_callback("Out", lambda evs: out.extend(
+        (e.timestamp, e.data) for e in evs))
+    rt.start()
+    for i, (sid, cols, ts) in enumerate(sends):
+        if variant == "seq" and i == len(sends) // 2:
+            jplan = next(p for p in rt._plans if isinstance(p, JPlan))
+            carried = (jplan.state_dict(), rt.strings.state(), rt._seq,
+                       len(out))
+        rt.input_handler(sid).send_batch(cols, ts)
+        rt.flush()
+    return out, carried
+
+
+@functools.lru_cache(maxsize=None)
+def port_rows(name: str) -> list:
+    return run(siddhi_tpu_torch, APPS[name], tape(name), device="cpu")[0]
+
+
 @pytest.mark.parametrize("variant", ["default", "seq"])
 @pytest.mark.parametrize("name", sorted(APPS))
 def test_pattern_rows_equal_jax(name, variant):
-    app = APPS[name]
-    sends = tape(name)
-    want, _, _ = run(siddhi_tpu, (SEQ_JAX if variant == "seq" else "") + app,
-                     sends)
-    got, _, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
-    assert got == want
+    got = port_rows(name)
+    assert got == jax_rows(name, variant)[0]
     if name != "one_shot":
         assert len(got) > 5, "tape too quiet to test anything"
 
@@ -145,9 +173,9 @@ def test_two_long_captures_match_host_matcher():
     hi/lo pairs), so the oracle here is its sequential host matcher,
     `@app:devicePatterns('never')`; the port keeps int64 rows whole."""
     sends = tape("types")
-    want, _, _ = run(siddhi_tpu, "@app:devicePatterns('never')\n" +
+    want, _ = run(siddhi_tpu, "@app:devicePatterns('never')\n" +
                      TWO_LONGS, sends)
-    got, _, _ = run(siddhi_tpu_torch, TWO_LONGS, sends, device="cpu")
+    got, _ = run(siddhi_tpu_torch, TWO_LONGS, sends, device="cpu")
     assert sorted(got) == sorted(want) and len(got) > 5
 
 
@@ -165,8 +193,8 @@ def test_slot_growth_and_match_buffer_retries(monkeypatch):
         calls.append((self.A, M, int(out["meta"][0]), int(out["meta"][1])))
         return st, out
     monkeypatch.setattr(NFAKernel, "run_block", spy)
-    got, _, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
-    want, _, _ = run(siddhi_tpu, SEQ_JAX + app, sends)
+    got, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
+    want, _ = run(siddhi_tpu, SEQ_JAX + app, sends)
     assert got == want and got
     plan = rt.plans()[0]
     assert plan.kernel.A > 2 and plan.dropped == 0
@@ -180,9 +208,9 @@ def test_slot_cap_drops_like_jax():
                              "deviceSlots(2)\n@app:deviceSlotCap(4)")
     sends = tape("c4", flushes=2, n=1500, seed=4)
     with pytest.warns(RuntimeWarning):
-        got, _, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
+        got, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
     with pytest.warns(RuntimeWarning):
-        want, _, jrt = run(siddhi_tpu, SEQ_JAX + app, sends)
+        want, jrt = run(siddhi_tpu, SEQ_JAX + app, sends)
     assert got == want
     jplan = next(p for p in jrt._plans if isinstance(p, JPlan))
     assert rt.plans()[0].dropped == jplan.dropped > 0
@@ -197,8 +225,8 @@ def test_rebase_after_a_long_gap():
     sends[2] = (sid, cols, ts + (1 << 31))
     sends.append(("StockStream", tape("c4", 1, 400, seed=7)[0][1],
                   ts[-1] + (1 << 31) + 7 + 7 * np.arange(400)))
-    want, _, _ = run(siddhi_tpu, SEQ_JAX + APPS["c4"], sends)
-    got, _, rt = run(siddhi_tpu_torch, APPS["c4"], sends, device="cpu")
+    want, _ = run(siddhi_tpu, SEQ_JAX + APPS["c4"], sends)
+    got, rt = run(siddhi_tpu_torch, APPS["c4"], sends, device="cpu")
     assert got == want and got
     assert rt.plans()[0]._ts_base > int(sends[0][2][0])
 
@@ -208,27 +236,22 @@ def test_state_carried_from_jax(name):
     """First half of the tape on the JAX package (seq family), its plan
     state carried into the port, second half on the port: equal to the
     JAX package's rows for the whole tape."""
-    app = APPS[name]
-    sends = tape(name, flushes=4)
-    half = len(sends) // 2
-    want, marks, _ = run(siddhi_tpu, SEQ_JAX + app, sends)
-    _first, _, jrt = run(siddhi_tpu, SEQ_JAX + app, sends[:half])
-    jplan = next(p for p in jrt._plans if isinstance(p, JPlan))
-    d = jplan.state_dict()
-    d["state"] = nfa_state_from_jax(d["state"], "cpu")
+    sends = tape(name)
+    want, (d, strings, seq, n_before) = jax_rows(name, "seq")
+    d = dict(d, state=nfa_state_from_jax(d["state"], "cpu"))
 
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    rt = mgr.create_app_runtime(app)
-    rt.strings.restore(jrt.strings.state())
-    rt._seq = jrt._seq
+    rt = mgr.create_app_runtime(APPS[name])
+    rt.strings.restore(strings)
+    rt._seq = seq
     rt.plans()[0].load_state_dict(d)
     got = []
     rt.add_callback("Out", lambda evs: got.extend(
         (e.timestamp, e.data) for e in evs))
-    for sid, cols, ts in sends[half:]:
+    for sid, cols, ts in sends[len(sends) // 2:]:
         rt.input_handler(sid).send_batch(cols, ts)
         rt.flush()
-    assert got == want[marks[half - 1]:]
+    assert got == want[n_before:]
     assert got
 
 
