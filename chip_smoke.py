@@ -10,22 +10,32 @@ Phases (any failure exits non-zero; nothing is caught):
   3. K1 expr_eval vs its plain version at N = 2^18 rows: C1's filter,
      integer arithmetic with truncating / and %, string equality,
      and/or/not, float32-mode arithmetic -- masks and columns equal;
-  4. the main path, BASELINE config 4 (partitioned 3-step pattern): 4
-     flushes of 2^18 events over 1000 keys through
-     SiddhiManager(device="cuda") send_batch, with the launch counts set
-     to 0 just before and read just after; every block the plan hands the
-     NFA kernel is recorded.  The same tape through device="cpu" (the
-     plain versions) must give equal rows; events/s and ms per flush;
-  5. K2 nfa_block and K1 (pre-masks, selector) against their plain
-     versions on the recorded blocks: new state, sorted match rows, masks
-     and selector columns equal;
-  6. config 1 (filter) at 2^20 events, run and checked the same way, and
+  4. the main path, BASELINE config 4 (partitioned 3-step pattern) at
+     default settings, which run the `scan` family: 4 flushes of 2^18
+     events over 1000 keys through SiddhiManager(device="cuda")
+     send_batch, with the launch counts set to 0 just before and read
+     just after (K3, K4, K5 and K1 launched, K2 not); every block the
+     plan hands ParallelChainKernel.run_block is recorded.  The same tape
+     through device="cpu" (the plain versions) must give equal rows;
+     events/s and ms per flush;
+  5. K3 seg_tree, K4 scan_chase, K5 scan_compact and K1 (pre-masks,
+     selector) against their plain versions on the recorded blocks:
+     heaps, chase status and indices, match tables equal;
+  6. config 3 unpartitioned (bench.py's C3 text): 2 flushes of 2^18
+     events through the flat `scan` block (a 2^19-leaf tree), counted,
+     recorded, checked against the CPU run and phase 5's comparisons;
+  7. config 4 with @app:patternFamily('seq') (the K2 path): 2 flushes,
+     counted, checked against the CPU run, and K2 and K1 against their
+     plain versions on its recorded blocks: new state, sorted match rows,
+     masks and selector columns equal;
+  8. config 1 (filter) at 2^20 events, run and checked the same way, and
      K1 on its filter program against the plain version;
-  7. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+  9. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
-     is not in it; that is printed on its own), plain time and bound;
-     the card's name and power limit; then the last line
+     is not in it; that is `dispatch_ms`), plain time, bound and,
+     where one PyTorch call computes the same function, that call's
+     time; the card's name and power limit; then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Every comparison has tolerance 0: the kernels are built with --fmad=false
 and compute what the plain versions compute.
@@ -54,8 +64,15 @@ begin
 end;
 """
 C4_HEAD = "@app:partitionCapacity(1000)\n@app:deviceSlots(32)\n"
+C4_SEQ = "@app:patternFamily('seq')\n"
+C3 = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
+              "e2=StockStream[price > e1.price] within 1 sec "
+              "select e1.price as p1, e2.price as p2 insert into Out;\n")
 KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
+SEQ_FLUSHES, C3_FLUSHES = 2, 2
 K1_SRC = "siddhi_tpu_torch/csrc/expr_eval.cu"
+CSRC = "siddhi_tpu_torch/csrc"
+PAR = "siddhi_tpu/core/nfa_parallel.py"
 
 
 def log(msg: str) -> None:
@@ -104,6 +121,21 @@ def graph_ms(torch, fn, reps: int = 20) -> tuple:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, host_ms
+
+
+def event_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per eager call of `fn` between CUDA events, for a call
+    that synchronises inside (and so cannot be captured in a graph)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def wall_ms(torch, fn) -> float:
@@ -240,11 +272,12 @@ def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
     return out, per_flush, rt
 
 
-def run_c4_main_path(pkg, np, tape) -> tuple:
-    """Phase 4: C4 through the facade on the card, launch counts from 0;
-    returns (rows, ms per flush, launches, runtime, recorded blocks).  A
-    recorded block is (kernel, state in, event grid, M, meta) exactly as
-    the plan called `NFAKernel.run_block`; recording launches nothing."""
+def run_seq_path(pkg, np, tape) -> tuple:
+    """Phase 7: C4 on the `seq` family through the facade on the card,
+    launch counts from 0; returns (rows, ms per flush, launches, runtime,
+    recorded blocks).  A recorded block is (kernel, state in, event grid,
+    M, meta) exactly as the plan called `NFAKernel.run_block`; recording
+    launches nothing."""
     from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.core.nfa_device import NFAKernel
     blocks = []
@@ -256,10 +289,197 @@ def run_c4_main_path(pkg, np, tape) -> tuple:
         return new, out
     NFAKernel.run_block = recording
     kernels.reset_launches()
-    rows, per_flush, rt = run_app(pkg, np, C4_HEAD + C4, tape, KEYS, "cuda")
+    rows, per_flush, rt = run_app(pkg, np, C4_SEQ + C4_HEAD + C4, tape,
+                                  KEYS, "cuda")
     launches = dict(kernels.LAUNCHES)
     NFAKernel.run_block = run_block
     return rows, per_flush, launches, rt, blocks
+
+
+def run_scan_path(pkg, np, app: str, tape) -> tuple:
+    """Phases 4 and 6: an app on its default (`scan`) family through the
+    facade on the card, launch counts from 0; returns (rows, ms per
+    flush, launches, runtime, recorded blocks).  A recorded block is
+    (kernel, event grid, M) exactly as the plan called
+    `ParallelChainKernel.run_block`; recording launches nothing."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    blocks = []
+    run_block = ParallelChainKernel.run_block
+
+    def recording(kern, ev, M):
+        blocks.append((kern, ev, M))
+        return run_block(kern, ev, M)
+    ParallelChainKernel.run_block = recording
+    kernels.reset_launches()
+    rows, per_flush, rt = run_app(pkg, np, app, tape, KEYS, "cuda")
+    launches = dict(kernels.LAUNCHES)
+    ParallelChainKernel.run_block = run_block
+    if rt.plans()[0].family != "scan":
+        raise SystemExit(f"expected the scan family, got "
+                         f"{rt.plans()[0].family}")
+    return rows, per_flush, launches, rt, blocks
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def max_err(torch, a, b) -> float:
+    """Largest |a - b| over the entries finite in both (0 when none)."""
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def phase_scan_blocks(torch, blocks, label: str) -> dict:
+    """Phase 5: K3, K4, K5 and K1 against their plain versions on every
+    block a `scan` run recorded, each kernel on the same inputs as its
+    plain version; the last block is timed."""
+    from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
+    from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
+                                                     scan_chase_plain)
+    from siddhi_tpu_torch.kernels.scan_compact import (scan_compact,
+                                                       scan_compact_plain)
+    from siddhi_tpu_torch.kernels.seg_tree import (node_masks, seg_tree,
+                                                   seg_tree_plain)
+    err = {"seg_tree": 0.0, "scan_chase": 0.0, "scan_compact": 0.0,
+           "pre_mask": 0.0, "select": 0.0}
+    for b, (kern, ev, M) in enumerate(blocks):
+        L, F = ev["__flat.__ts__"].shape
+        params = {"__base_ts__": ev["__base_ts__"]}
+        pre = kern.pre_masks(ev)
+        cols = kern.pre_mask_cols(ev)
+        for w, pr in zip(pre, kern.nfak.pre_progs):
+            if pr is not None and not torch.equal(
+                    w, expr_eval_plain(cols, pr, [], L * F, params)[0]):
+                raise SystemExit(f"[{label}] K1 pre-mask differs (block {b})")
+        masks = node_masks(kern, ev, pre)
+        hk, hp = seg_tree(kern, ev, pre), seg_tree_plain(kern, ev, masks)
+        for a, c in zip(hk, hp):
+            if a.dtype != c.dtype or not torch.equal(a, c):
+                raise SystemExit(f"[{label}] K3 heap differs (block {b})")
+            err["seg_tree"] = max(err["seg_tree"], max_err(torch, a, c))
+        sk, ik = scan_chase(kern, ev, pre, hp)
+        sp, ip = scan_chase_plain(kern, ev, masks, hp)
+        if not (torch.equal(sk, sp) and torch.equal(ik, ip)):
+            raise SystemExit(f"[{label}] K4 status/indices differ (block "
+                             f"{b})")
+        err["scan_chase"] = max(err["scan_chase"], max_err(torch, ik, ip))
+        ok = scan_compact(kern, ev, sp, ip, M)
+        op = scan_compact_plain(kern, ev, sp, ip, M)
+        torch.cuda.synchronize()
+        n = int(op["meta"][0])
+        for key in ("meta", "lane_n", "arm"):
+            if not torch.equal(ok[key], op[key]):
+                raise SystemExit(f"[{label}] K5 {key} differs (block {b})")
+        for key in ("out_i", "out_f", "out_l"):
+            if not torch.equal(ok[key][:, :n], op[key][:, :n]):
+                raise SystemExit(f"[{label}] K5 {key} differs (block {b})")
+            if n and ok[key].shape[0]:
+                err["scan_compact"] = max(err["scan_compact"], max_err(
+                    torch, ok[key][:, :n], op[key][:, :n]))
+        nfak = kern.nfak
+        hw, sel = nfak.select(ok, n, ev["__base_ts__"])
+        hp_, selp = expr_eval_plain(nfak.select_cols(ok), nfak.having_prog,
+                                    nfak.sel_progs, n, params)
+        if (hw is None) != (hp_ is None) or (hw is not None and not
+                                             torch.equal(hw, hp_)) or \
+                not all(torch.equal(a, c) for a, c in zip(sel, selp)):
+            raise SystemExit(f"[{label}] K1 selector differs (block {b})")
+        for a, c in zip(sel, selp):
+            if n and a.dtype != torch.bool:
+                err["select"] = max(err["select"], max_err(torch, a, c))
+        log(f"  [{label}] block {b}: L={L} F={F} trees={len(hk)} "
+            f"matches={n}: K3 heaps, K4 chase, K5 table, K1 pre-masks and "
+            f"selector equal to their plain versions")
+
+    kern, ev, M = blocks[-1]
+    L, F = ev["__flat.__ts__"].shape
+    Lt = kern.leaves(F)
+    params = {"__base_ts__": ev["__base_ts__"]}
+    pre = kern.pre_masks(ev)
+    masks = node_masks(kern, ev, pre)
+    heaps = seg_tree(kern, ev, pre)
+    alive: list = []
+    status, idx = scan_chase_plain(kern, ev, masks, heaps, alive)
+    out = scan_compact(kern, ev, status, idx, M)
+    n = int(out["meta"][0])
+    res = {"L": L, "F": F, "Lt": Lt, "M": M, "matches": n,
+           "blocks": len(blocks), "err": err, "alive": alive}
+    pre_used = [w for w in pre if w is not None]
+    # K3: leaf columns, masks and lane counts read once, every heap
+    # written once; one compare per internal node
+    srcs = {t.src for t in kern.trees if t.src is not None}
+    k3_bytes = nbytes(ev["__nev__"], *[ev[c] for c in srcs], *pre_used,
+                      *heaps)
+    k3_ops = len(heaps) * L * Lt
+    ms, host = graph_ms(torch, lambda: seg_tree(kern, ev, pre))
+    res["seg_tree"] = {"ms": ms, "dispatch_ms": host, "bytes": k3_bytes,
+                       "ops": k3_ops, "library_ms": None,
+                       "plain_ms": wall_ms(torch, lambda: seg_tree_plain(
+                           kern, ev, masks))}
+    # K4: grids, masks, VM columns and the heaps read once, status and
+    # indices written once; per head still alive at a hop, two descents
+    # (the killer's and the hop's) of 2 log2(Lt) compares each
+    vm_cols = {key for key, _pos in kern.loads}
+    k4_bytes = nbytes(ev["__flat.__ts__"], ev["__nev__"],
+                      *[ev[c] for c in vm_cols], *pre_used, *heaps,
+                      status, idx)
+    k4_ops = sum(alive) * 4 * max(Lt.bit_length() - 1, 1)
+    ms, host = graph_ms(torch, lambda: scan_chase(kern, ev, pre, heaps))
+    res["scan_chase"] = {"ms": ms, "dispatch_ms": host, "bytes": k4_bytes,
+                         "ops": k4_ops, "library_ms": None,
+                         "plain_ms": wall_ms(torch, lambda: scan_chase_plain(
+                             kern, ev, masks, heaps))}
+    # K5: status, indices, seq/ts grids, the captured columns and the
+    # lanes' dedup seqs read once, the n match rows written once; the
+    # library yardstick is torch.nonzero of the candidate mask
+    row_cols = {src[1] for srcs_ in kern.rows.values() for src in srcs_
+                if src[0] == "col"}
+    k5_bytes = nbytes(status, idx, ev["__flat.__seq__"], ev["__flat.__ts__"],
+                      ev["__prev_seq__"], *[ev[c] for c in row_cols])
+    k5_bytes += n * (4 * out["out_i"].shape[0] + 4 * out["out_f"].shape[0] +
+                     8 * out["out_l"].shape[0]) + 8 + 8 * L
+    k5_ops = L * F
+    cand = (status & 1).view(-1).bool()
+    lib_ms = event_ms(torch, lambda: torch.nonzero(cand))
+    ms, host = graph_ms(torch, lambda: scan_compact(kern, ev, status, idx,
+                                                    M))
+    res["scan_compact"] = {"ms": ms, "dispatch_ms": host, "bytes": k5_bytes,
+                           "ops": k5_ops, "library_ms": lib_ms,
+                           "plain_ms": wall_ms(torch, lambda:
+                                               scan_compact_plain(
+                                                   kern, ev, status, idx,
+                                                   M))}
+    # K1 on the scan block: pre-masks over the (L*F,) grid, selector
+    # over the match table
+    cols = kern.pre_mask_cols(ev)
+    progs = [p for p in kern.nfak.pre_progs if p is not None]
+    nb = ops = 0
+    for prog in progs:
+        b_, o_ = k1_work(torch, cols, prog, [], L * F)
+        nb, ops = nb + b_, ops + o_
+    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev))
+    res["pre_mask"] = {
+        "ms": ms / len(progs), "dispatch_ms": host / len(progs),
+        "plain_ms": wall_ms(torch, lambda: [
+            expr_eval_plain(cols, p, [], L * F, params)
+            for p in progs]) / len(progs),
+        "bytes": nb / len(progs), "ops": ops / len(progs),
+        "library_ms": None}
+    nfak = kern.nfak
+    sel_cols = nfak.select_cols(out)
+    nb, ops = k1_work(torch, sel_cols, nfak.having_prog, nfak.sel_progs, n)
+    ms, host = graph_ms(torch, lambda: nfak.select(out, n,
+                                                   ev["__base_ts__"]))
+    res["select"] = {
+        "ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
+        "library_ms": None,
+        "plain_ms": wall_ms(torch, lambda: expr_eval_plain(
+            sel_cols, nfak.having_prog, nfak.sel_progs, n, params))}
+    return res
 
 
 def sorted_rows(torch, kern, out: dict):
@@ -274,10 +494,11 @@ def sorted_rows(torch, kern, out: dict):
 
 
 def phase_blocks(torch, blocks) -> dict:
-    """Phase 5: K2 and K1 against their plain versions on every block the
-    main path accepted (an M overflow's first try is re-run by the plan
-    with a larger M and is left out); the last block, whose slot state
-    the earlier flushes built, is timed."""
+    """Phase 7: K2 and K1 against their plain versions on every block the
+    `seq` run accepted (an M overflow's first try is re-run by the plan
+    with a larger M and is left out); K2 is timed on the last block, whose
+    slot state the earlier flushes built (K1 is timed on the `scan`
+    blocks, phase 5)."""
     from siddhi_tpu_torch.kernels.expr_eval import (expr_eval_plain,
                                                     unpack_mask)
     from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
@@ -333,7 +554,6 @@ def phase_blocks(torch, blocks) -> dict:
 
     kern, state, ev, M = accepted[-1]
     T, P = ev["__ts__"].shape
-    params = {"__base_ts__": ev["__base_ts__"]}
     pre = kern.pre_masks(ev)
     out = nfa_block(kern, state, ev, pre, M)[1]
     n = int(out["meta"][0])
@@ -351,36 +571,12 @@ def phase_blocks(torch, blocks) -> dict:
     ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
                         reps=10)
     res["nfa_block"] = {"ms": ms, "dispatch_ms": host, "plain_ms": plain_ms,
-                        "bytes": k2_bytes, "ops": k2_ops}
-    # K1 pre-mask: one launch per chain node with event-only conjuncts
-    pre_cols = kern.pre_mask_cols(ev)
-    progs = [p for p in kern.pre_progs if p is not None]
-    nbytes = ops = 0
-    for prog in progs:
-        b_, o_ = k1_work(torch, pre_cols, prog, [], T * P)
-        nbytes, ops = nbytes + b_, ops + o_
-    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev))
-    res["pre_mask"] = {
-        "ms": ms / len(progs), "dispatch_ms": host / len(progs),
-        "plain_ms": wall_ms(torch, lambda: [
-            expr_eval_plain(pre_cols, p, [], T * P, params)
-            for p in progs]) / len(progs),
-        "bytes": nbytes / len(progs), "ops": ops / len(progs)}
-    # K1 selector over this block's match rows
-    sel_cols = kern.select_cols(out)
-    nbytes, ops = k1_work(torch, sel_cols, kern.having_prog, kern.sel_progs,
-                          n)
-    ms, host = graph_ms(torch, lambda: kern.select(out, n, ev["__base_ts__"]))
-    res["select"] = {
-        "ms": ms, "dispatch_ms": host,
-        "plain_ms": wall_ms(torch, lambda: expr_eval_plain(
-            sel_cols, kern.having_prog, kern.sel_progs, n, params)),
-        "bytes": nbytes, "ops": ops}
+                        "bytes": k2_bytes, "ops": k2_ops, "library_ms": None}
     return res
 
 
 def phase_c1(torch, np, pkg) -> dict:
-    """Phase 6: config 1 through the facade on the card (launch counts
+    """Phase 8: config 1 through the facade on the card (launch counts
     from 0) and on the CPU, then K1 on the plan's filter program over the
     batch's columns against its plain version."""
     from siddhi_tpu_torch import kernels
@@ -411,15 +607,32 @@ def phase_c1(torch, np, pkg) -> dict:
             "filter": {"ms": k_ms, "dispatch_ms": host,
                        "plain_ms": wall_ms(torch,
                                            lambda: expr_eval_plain(*args)),
-                       "bytes": nbytes, "ops": ops}}
+                       "bytes": nbytes, "ops": ops, "library_ms": None}}
 
 
 def kernel_entry(name, source, replaces, launches, err, m) -> dict:
     bound_ms, by = bound(m["bytes"], m["ops"])
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": None}
+            "ms": m["ms"], "dispatch_ms": m["dispatch_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": m["library_ms"]}
+
+
+def check_rows(label: str, dev_out: list, ref_out: list) -> None:
+    if sorted(dev_out) != sorted(ref_out) or not dev_out:
+        raise SystemExit(f"{label} rows differ from the CPU run: "
+                         f"{len(dev_out)} vs {len(ref_out)}")
+    for _ts, row in dev_out:
+        if not (row[0] > 100 and all(b > a for a, b in zip(row, row[1:]))):
+            raise SystemExit(f"{label} row breaks the pattern: {row}")
+
+
+def need_launches(label: str, launches: dict, used, unused=()) -> None:
+    if min(launches[k] for k in used) == 0 or \
+            any(launches[k] for k in unused):
+        raise SystemExit(f"{label}: launches {launches} (expected "
+                         f"{list(used)} above 0, {list(unused)} at 0)")
 
 
 def main() -> int:
@@ -458,66 +671,126 @@ def main() -> int:
     k1_err = phase_k1(torch, np, 1 << 18)
     log(f"[k1] equal to plain ({time.perf_counter() - t0:.1f} s)")
 
-    # 4. the main path: C4 on the card, then the same tape on the CPU
+    # 4. the main path: C4 at default settings (`scan`) on the card, then
+    #    the same tape on the CPU
+    scan_k = ("seg_tree", "scan_chase", "scan_compact",
+              "expr_eval:pre_mask", "expr_eval:select")
     tape = make_tape(np, FLUSH * N_FLUSH, FLUSH, KEYS)
-    dev_out, per_flush, c4_launches, rt, blocks = run_c4_main_path(pkg, np,
-                                                                    tape)
+    dev_out, per_flush, c4_launches, rt, blocks = run_scan_path(
+        pkg, np, C4_HEAD + C4, tape)
     plan = rt.plans()[0]
     ref_out, cpu_flush, _ = run_app(pkg, np, C4_HEAD + C4, tape, KEYS, "cpu")
-    if sorted(dev_out) != sorted(ref_out) or not dev_out:
-        raise SystemExit(f"C4 rows differ: {len(dev_out)} vs {len(ref_out)}")
-    for _ts, (p1, p2, p3) in dev_out:
-        if not (p1 > 100 and p2 > p1 and p3 > p2):
-            raise SystemExit(f"C4 row breaks the pattern: {(p1, p2, p3)}")
-    c4_kernels = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
-    if min(c4_launches[k] for k in c4_kernels) == 0:
-        raise SystemExit(f"C4 did not launch every kernel: {c4_launches}")
+    check_rows("C4", dev_out, ref_out)
+    need_launches("C4", c4_launches, scan_k, ("nfa_block",))
     steady = per_flush[1:]
     eps = FLUSH / (sum(steady) / len(steady) / 1e3)
-    log(f"[c4] {len(dev_out)} matches equal to the CPU run; launches "
-        f"{c4_launches}; per flush ms {[round(x, 1) for x in per_flush]} "
-        f"(cpu {[round(x) for x in cpu_flush]}); {eps:.0f} events/s "
-        f"(P={plan.P} A={plan.kernel.A} blocks={plan.blocks_run})")
+    log(f"[c4] {len(dev_out)} matches equal to the CPU run; family "
+        f"{plan.family}; launches {c4_launches}; per flush ms "
+        f"{[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); {eps:.0f} events/s "
+        f"(blocks={plan.blocks_run})")
 
-    # 5. K2 and K1 vs plain on the main path's own blocks
+    # 5. K3, K4, K5 and K1 vs plain on the main path's own blocks
     t0 = time.perf_counter()
-    blk = phase_blocks(torch, blocks)
-    log(f"[blocks] {blk['blocks']} blocks equal to plain "
+    c4b = phase_scan_blocks(torch, blocks, "c4")
+    log(f"[c4 blocks] {c4b['blocks']} blocks equal to plain "
         f"({time.perf_counter() - t0:.1f} s)")
     del blocks
 
-    # 6. C1 filter
+    # 6. C3 unpartitioned: the flat block
+    c3_tape = make_tape(np, FLUSH * C3_FLUSHES, FLUSH, KEYS, seed=3)
+    c3_out, c3_flush, c3_launches, _rt, c3_blocks = run_scan_path(
+        pkg, np, C3, c3_tape)
+    c3_ref, c3_cpu, _ = run_app(pkg, np, C3, c3_tape, KEYS, "cpu")
+    check_rows("C3", c3_out, c3_ref)
+    need_launches("C3", c3_launches, scan_k, ("nfa_block",))
+    c3b = phase_scan_blocks(torch, c3_blocks, "c3")
+    log(f"[c3] {len(c3_out)} matches equal to the CPU run; launches "
+        f"{c3_launches}; per flush ms {[round(x, 1) for x in c3_flush]} "
+        f"(cpu {[round(x) for x in c3_cpu]}); Lt={c3b['Lt']}")
+    del c3_blocks
+
+    # 7. C4 on the `seq` family: the K2 path
+    seq_tape = tape[:SEQ_FLUSHES]
+    seq_out, seq_flush, seq_launches, seq_rt, seq_blocks = run_seq_path(
+        pkg, np, seq_tape)
+    seq_ref, seq_cpu, _ = run_app(pkg, np, C4_SEQ + C4_HEAD + C4, seq_tape,
+                                  KEYS, "cpu")
+    check_rows("C4 seq", seq_out, seq_ref)
+    need_launches("C4 seq", seq_launches,
+                  ("nfa_block", "expr_eval:pre_mask", "expr_eval:select"),
+                  ("seg_tree", "scan_chase", "scan_compact"))
+    sp = seq_rt.plans()[0]
+    log(f"[c4 seq] {len(seq_out)} matches equal to the CPU run; launches "
+        f"{seq_launches}; per flush ms {[round(x, 1) for x in seq_flush]} "
+        f"(cpu {[round(x) for x in seq_cpu]}) (P={sp.P} A={sp.kernel.A} "
+        f"blocks={sp.blocks_run})")
+    t0 = time.perf_counter()
+    blk = phase_blocks(torch, seq_blocks)
+    log(f"[seq blocks] {blk['blocks']} blocks equal to plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del seq_blocks
+
+    # 8. C1 filter
     c1 = phase_c1(torch, np, pkg)
 
-    # 7. results
+    # 9. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
-    res = {"kernels": [
-        kernel_entry("expr_eval:filter", K1_SRC,
-                     "siddhi_tpu/core/planner.py:301",
-                     c1["launches"]["expr_eval:filter"], k1_err,
-                     c1["filter"]),
-        kernel_entry("expr_eval:pre_mask", K1_SRC, f"{nfa_dev}:1489",
-                     c4_launches["expr_eval:pre_mask"],
-                     blk["err"]["pre_mask"], blk["pre_mask"]),
-        kernel_entry("expr_eval:select", K1_SRC, f"{nfa_dev}:1619",
-                     c4_launches["expr_eval:select"], blk["err"]["select"],
-                     blk["select"]),
-        kernel_entry("nfa_block", "siddhi_tpu_torch/csrc/nfa_block.cu",
-                     f"{nfa_dev}:1486", c4_launches["nfa_block"],
-                     blk["err"]["nfa_block"], blk["nfa_block"])]}
-    for e, m in zip(res["kernels"], (c1["filter"], blk["pre_mask"],
-                                     blk["select"], blk["nfa_block"])):
+    entries = [
+        ("expr_eval:filter", K1_SRC, "siddhi_tpu/core/planner.py:301",
+         c1["launches"]["expr_eval:filter"], k1_err, c1["filter"]),
+        ("expr_eval:pre_mask", K1_SRC, f"{nfa_dev}:1489",
+         c4_launches["expr_eval:pre_mask"],
+         max(c4b["err"]["pre_mask"], c3b["err"]["pre_mask"]),
+         c4b["pre_mask"]),
+        ("expr_eval:select", K1_SRC, f"{nfa_dev}:1619",
+         c4_launches["expr_eval:select"],
+         max(c4b["err"]["select"], c3b["err"]["select"]), c4b["select"]),
+        ("nfa_block", f"{CSRC}/nfa_block.cu", f"{nfa_dev}:1486",
+         seq_launches["nfa_block"], blk["err"]["nfa_block"],
+         blk["nfa_block"]),
+        ("seg_tree", f"{CSRC}/seg_tree.cu", f"{PAR}:499",
+         c4_launches["seg_tree"],
+         max(c4b["err"]["seg_tree"], c3b["err"]["seg_tree"]),
+         c4b["seg_tree"]),
+        ("scan_chase", f"{CSRC}/scan_chase.cu", f"{PAR}:796",
+         c4_launches["scan_chase"],
+         max(c4b["err"]["scan_chase"], c3b["err"]["scan_chase"]),
+         c4b["scan_chase"]),
+        ("scan_compact", f"{CSRC}/scan_compact.cu", f"{PAR}:1056",
+         c4_launches["scan_compact"],
+         max(c4b["err"]["scan_compact"], c3b["err"]["scan_compact"]),
+         c4b["scan_compact"])]
+    res = {"kernels": [kernel_entry(*e) for e in entries]}
+    for e, (*_rest, m) in zip(res["kernels"], entries):
+        lib = "" if e["library_ms"] is None else \
+            f", library {e['library_ms']:.4f} ms"
         log(f"  {e['name']}: device {e['ms']:.4f} ms, host dispatch "
             f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
-            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}, "
             f"{e['launches']} launches")
+    for name in ("seg_tree", "scan_chase", "scan_compact"):
+        m = c3b[name]
+        lib = "" if m["library_ms"] is None else \
+            f", library {m['library_ms']:.4f} ms"
+        log(f"  {name} at the C3 flat block (Lt={c3b['Lt']}): device "
+            f"{m['ms']:.4f} ms, host dispatch {m['dispatch_ms']:.4f} ms, "
+            f"plain {m['plain_ms']:.3f} ms, bound "
+            f"{bound(m['bytes'], m['ops'])[0]:.5f} ms{lib}")
     detail = {"card": smi, "c4": {"events_per_s": eps,
                                   "ms_per_flush": per_flush,
                                   "cpu_ms_per_flush": cpu_flush,
                                   "matches": len(dev_out),
                                   "flush_events": FLUSH,
-                                  "launches": c4_launches},
-              "c1": c1, "blocks": blk}
+                                  "launches": c4_launches, "blocks": c4b},
+              "c3": {"ms_per_flush": c3_flush, "cpu_ms_per_flush": c3_cpu,
+                     "matches": len(c3_out), "launches": c3_launches,
+                     "blocks": c3b},
+              "c4_seq": {"ms_per_flush": seq_flush,
+                         "cpu_ms_per_flush": seq_cpu,
+                         "matches": len(seq_out), "launches": seq_launches,
+                         "blocks": blk},
+              "c1": c1}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

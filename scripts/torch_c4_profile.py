@@ -5,11 +5,15 @@
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
 1000 keys, 2^18-event flushes, the chip_smoke.py tape) through
-siddhi_tpu_torch on the CUDA card, warms with one flush, then profiles
-the next FLUSHES (4) with cProfile (host clock; each flush ends in
-torch.cuda.synchronize).  Device waits show up inside the calls that
-pull results to the host (`Tensor.cpu`).  Prints the flush times and the
-functions with the most cumulative and own time.  Needs a CUDA card.
+siddhi_tpu_torch on the CUDA card at default settings (the `scan`
+family), warms with one flush, then profiles the next FLUSHES (4) with
+cProfile (host clock; each flush ends in torch.cuda.synchronize).
+Device waits show up inside the calls that pull results to the host
+(`Tensor.cpu`).  Prints the flush times and the functions with the most
+cumulative and own time.  Then TRACED (2) more flushes run under
+torch.profiler: device time per kernel and copy, and the device's busy
+share of the traced wall time (the rest is the card's idle share).
+Needs a CUDA card.
 """
 import argparse
 import cProfile
@@ -20,7 +24,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLUSHES = 4
+FLUSHES, TRACED = 4, 2
 
 
 def main() -> int:
@@ -37,8 +41,8 @@ def main() -> int:
     import siddhi_tpu_torch as pkg
 
     keys, flush = 1000, 1 << 18
-    tape = chip_smoke.make_tape(np, flush * (FLUSHES + 1), flush, keys,
-                                seed=5)
+    tape = chip_smoke.make_tape(np, flush * (FLUSHES + TRACED + 1), flush,
+                                keys, seed=5)
     rt = pkg.SiddhiManager().create_app_runtime(chip_smoke.C4_HEAD +
                                                 chip_smoke.C4)
     got = [0]
@@ -56,7 +60,7 @@ def main() -> int:
     feed(tape[0])                                   # warm: build + first M
     prof = cProfile.Profile()
     ms = []
-    for f in tape[1:]:
+    for f in tape[1:FLUSHES + 1]:
         t0 = time.perf_counter()
         prof.enable()
         feed(f)
@@ -69,6 +73,27 @@ def main() -> int:
     st = pstats.Stats(prof, stream=buf)
     st.sort_stats("cumulative").print_stats(30)
     st.sort_stats("tottime").print_stats(20)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        for f in tape[FLUSHES + 1:]:
+            feed(f)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side activity only (kernels, copies, fills): a host op's
+    # device time repeats its kernels' and would count them twice
+    dev = [(e.key, e.count, e.self_device_time_total)
+           for e in tp.key_averages()
+           if e.self_device_time_total > 0 and
+           str(e.device_type).endswith("CUDA")]
+    dev.sort(key=lambda x: -x[2])
+    busy = sum(d for _k, _c, d in dev)
+    buf.write(f"\ntorch.profiler over {TRACED} flushes: wall {wall_us / 1e3:.1f}"
+              f" ms, device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.2f}"
+              f"%), idle {100 - 100 * busy / wall_us:.2f}%\n")
+    for k, c, d in dev[:25]:
+        buf.write(f"  {d / 1e3:9.3f} ms  {c:5d}x  {k}\n")
     report = buf.getvalue()
     print(report)
     if args.out:

@@ -1,0 +1,38 @@
+"""Plan-family annotations of the pattern plans.
+
+Port of `pattern_family_for` (siddhi_tpu/core/autotune.py:437) for the
+annotation alone: the tuning cache, which the JAX package consults after
+it, is a later slice of the port, and `chunk_lanes_for` comes with the
+`chunk` family, which reads it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..query import ast
+from .planner import PlanError
+
+PATTERN_FAMILIES = ("seq", "chunk", "scan", "dfa")
+
+
+class AutotuneError(PlanError):
+    """A malformed plan-family annotation (a PlanError, so app creation
+    fails with it)."""
+
+
+def pattern_family_for(rt, q=None) -> Optional[str]:
+    """Requested pattern execution family (seq|chunk|scan|dfa), or None
+    for automatic selection.  The plan only honours a family its
+    eligibility analysis proved sound (DevicePatternPlan.families): an
+    ineligible request falls back with a warning."""
+    an = ast.find_annotation(rt.app.annotations, "app:patternFamily")
+    if an is not None:
+        fam = str(an.element()).lower()
+        if fam in ("auto", ""):
+            return None
+        if fam not in PATTERN_FAMILIES:
+            raise AutotuneError(
+                f"@app:patternFamily({fam!r}): unknown family "
+                f"(have {PATTERN_FAMILIES} or 'auto')")
+        return fam
+    return None

@@ -75,6 +75,9 @@ class PNode:
     scode: int
     pre_conjs: list = field(default_factory=list)   # event-only -> (T, P)
     step_conjs: list = field(default_factory=list)  # capture-referencing
+    step_asts: list = field(default_factory=list)   # raw AST per step conj
+    #   (parallel to step_conjs; nfa_parallel lowers monotone comparisons
+    #   over earlier captures into segment-tree threshold hops)
 
 
 @dataclass
@@ -191,6 +194,7 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
                     "head filter references later captures")
             else:
                 pn.step_conjs.append(ce)
+                pn.step_asts.append(c)
     return spec
 
 

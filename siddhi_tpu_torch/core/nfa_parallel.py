@@ -1,0 +1,456 @@
+"""Parallel-in-time NFA plan family `scan`: lowering, classifier, block.
+
+Port of `siddhi_tpu/core/nfa_parallel.py` for the pattern algebra of this
+slice (chains of single positions joined by `->` or `,`, an `every` or
+one-shot head, `within` on every position, one or several streams,
+event-only pre-conjuncts, one monotone threshold conjunct per hop or, in a
+strict sequence, any step conjunction).  First-match semantics make the
+automaton deterministic given a head event, so every event of a flush is
+simulated as a candidate head at once and each hop is answered in
+O(log F):
+
+  * a threshold hop `own.attr OP f(earlier captures)` is "the first index
+    >= s whose masked value beats v": a descent of a perfect segment tree
+    over the hop's column (K3 builds it, K4 walks it);
+  * a static hop (no capture-dependent conjunct) is the same query on a
+    tree of its node mask;
+  * the `within` killer is the first event at or after s whose timestamp
+    passes head ts + W: a query on the i64 max-tree of the timestamps;
+  * a strict-sequence hop reads the event at s directly.
+
+Blocks carry no device state: the plan replays the last `within` window of
+events at the next flush and K5 drops completions at or before the
+previous flush's last seq (per lane for partitioned grids).  The count,
+logical and `dfa` machinery of the JAX module waits for later slices:
+`lower_chain` refuses counts and logical positions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..query import ast
+from .expr import (F32_MODE, VT_OF_TORCH, ExprError, Program,
+                   compile_expression, compute_dtypes, emit_program, subst,
+                   torch_dtype)
+from .nfa_device import (TS_SUBST, ChainSpec, NFAKernel, PatternFilterContext,
+                         _and_all, _base_ref, pow2_at_least)
+
+NUMERIC = (ast.AttrType.INT, ast.AttrType.LONG,
+           ast.AttrType.FLOAT, ast.AttrType.DOUBLE)
+# single-arm (non-`every`) resolution flag per lane
+ARM_NONE, ARM_PENDING, ARM_RESOLVED = 0, 1, 2
+
+
+class ParallelUnsupported(Exception):
+    """Chain shape outside the parallel family's sound subset."""
+
+
+@dataclass
+class HopThreshold:
+    """One monotone capture-dependent conjunct: own_col OP rhs(captures)."""
+    own_key: str                  # "e2.price" -- the arriving event's column
+    op: str                       # "gt" | "ge" | "lt" | "le"
+    rhs: object                   # CompiledExpr over earlier-ref captures
+    own_type: ast.AttrType = ast.AttrType.DOUBLE
+
+
+@dataclass
+class HopNode:
+    """One lowered stream node inside a chase position."""
+    ref: str
+    scode: int
+    pre_conjs: list = field(default_factory=list)   # CompiledExpr, event-only
+    threshold: Optional[HopThreshold] = None
+    step_conjs: list = field(default_factory=list)  # sequence-mode direct eval
+
+
+@dataclass
+class PPos:
+    """One chain position lowered for the state chase."""
+    kind: str                     # "single" (counts/logicals: later slices)
+    nodes: list                   # [HopNode]
+    within_ms: int = 0
+
+
+@dataclass
+class ParallelProgram:
+    positions: list               # [PPos], index = chain position
+    stream_ids: list
+    schemas: dict                 # ref -> StreamSchema
+    ref_of: dict                  # ref -> (position index, node index)
+    sequence: bool = False        # strict `,` succession
+    single_arm: bool = False      # non-`every` head (one instance ever)
+
+    @property
+    def S(self) -> int:
+        return len(self.positions)
+
+
+_FLIP = {"gt": "lt", "ge": "le", "lt": "gt", "le": "ge"}
+_OPN = {ast.CompareOp.GT: "gt", ast.CompareOp.GE: "ge",
+        ast.CompareOp.LT: "lt", ast.CompareOp.LE: "le"}
+
+
+def _own_var(e, node, schemas) -> Optional[str]:
+    """Attr name when `e` is a plain Variable over the node's OWN event
+    (qualified with its ref, or unqualified resolving to its schema --
+    PatternFilterContext resolution order), else None."""
+    if not isinstance(e, ast.Variable) or e.index is not None:
+        return None
+    if e.stream_ref == node.ref:
+        return e.attribute
+    if e.stream_ref is None and e.attribute in schemas[node.ref].types:
+        return e.attribute
+    return None
+
+
+def lower_parallel(spec: ChainSpec, strings) -> ParallelProgram:
+    """Lower a ChainSpec into a state-chase program, or raise
+    ParallelUnsupported with the ineligibility reason (the JAX package's
+    words, so the two plans report the same `families` entry)."""
+    if spec.S < 2:
+        raise ParallelUnsupported("single-position chain (no scan depth)")
+    sequence = bool(spec.is_sequence)
+    single_arm = not spec.every_head
+    positions: list = []
+    ref_of: dict = {}
+    for pi, pos in enumerate(spec.positions):
+        if pos.sticky and pi > 0:
+            raise ParallelUnsupported("`every` below the head")
+        if pos.within_ms is None:
+            raise ParallelUnsupported(
+                "position without a `within` bound (stateless tail replay "
+                "needs a finite horizon)")
+        n = pos.node
+        hop = HopNode(n.ref, n.scode, list(n.pre_conjs))
+        if n.step_conjs:
+            if pi == 0:
+                raise ParallelUnsupported("head filter reads captures")
+            if sequence:
+                # the strict next event is KNOWN (j+1): evaluate the
+                # conjunction directly, no monotonicity needed
+                hop.step_conjs = list(n.step_conjs)
+                _check_step_reads(n.step_conjs, n.ref, ref_of)
+            else:
+                if len(n.step_conjs) > 1:
+                    raise ParallelUnsupported(
+                        "multiple capture-dependent conjuncts on one "
+                        "position (first-match of a conjunction is not "
+                        "decomposable)")
+                hop.threshold = _lower_threshold(n, n.step_asts[0], spec,
+                                                 strings, ref_of)
+        pp = PPos("single", [hop], pos.within_ms)
+        positions.append(pp)
+        ref_of[hop.ref] = (pi, 0)
+    return ParallelProgram(positions, list(spec.stream_ids),
+                           dict(spec.schemas), ref_of, sequence=sequence,
+                           single_arm=single_arm)
+
+
+def _check_step_reads(step_conjs, own_ref, ref_of):
+    """Sequence-mode step conjuncts: reads must be the own event's
+    columns, earlier captures or __timestamp__."""
+    for ce in step_conjs:
+        for k in ce.reads:
+            if k == "__timestamp__":
+                continue
+            if "." not in k:
+                raise ParallelUnsupported(
+                    f"step filter reads non-capture key {k!r}")
+            base = _base_ref(k.split(".", 1)[0])[0]
+            if base == own_ref:
+                continue
+            if base not in ref_of:
+                raise ParallelUnsupported(
+                    f"step filter reads unresolved key {k!r}")
+
+
+def _lower_threshold(node, cond, spec, strings, ref_of) -> HopThreshold:
+    """`own.attr OP expr(earlier captures)` -> HopThreshold, else raise."""
+    if not isinstance(cond, ast.Compare) or cond.op not in _OPN:
+        raise ParallelUnsupported(
+            "capture-dependent filter is not a <,<=,>,>= comparison")
+    own_l = _own_var(cond.left, node, spec.schemas)
+    own_r = _own_var(cond.right, node, spec.schemas)
+    if (own_l is None) == (own_r is None):
+        raise ParallelUnsupported(
+            "comparison must have the arriving event's attribute on "
+            "exactly one side")
+    attr = own_l if own_l is not None else own_r
+    op = _OPN[cond.op] if own_l is not None else _FLIP[_OPN[cond.op]]
+    own_t = spec.schemas[node.ref].type_of(attr)
+    if own_t not in NUMERIC:
+        raise ParallelUnsupported(
+            f"threshold attribute {attr!r} is not numeric")
+    rhs_ast = cond.right if own_l is not None else cond.left
+    ctx = PatternFilterContext(spec.schemas, strings, node.ref)
+    try:
+        rhs = compile_expression(rhs_ast, ctx)
+    except ExprError as e:
+        raise ParallelUnsupported(f"threshold rhs not compilable: {e}")
+    if rhs.type not in NUMERIC:
+        raise ParallelUnsupported("threshold rhs is not numeric")
+    ok_reads = set()
+    for r in ref_of:
+        for a in spec.schemas[r].attributes:
+            ok_reads.add(f"{r}.{a.name}")
+    bad = set(rhs.reads) - ok_reads
+    if bad:
+        raise ParallelUnsupported(
+            f"threshold rhs reads non-capture keys {sorted(bad)!r} "
+            f"(own event / timestamp / later positions)")
+    return HopThreshold(f"{node.ref}.{attr}", op, rhs, own_t)
+
+
+def classify_parallel(spec: ChainSpec, kernel: NFAKernel, strings) -> dict:
+    """{'scan': True | reason} for one lowered chain.  True means the
+    family is sound for this ChainSpec; a string is the ineligibility
+    reason (the plan's `families` entry)."""
+    try:
+        prog = lower_parallel(spec, strings)
+        for ce in (list(kernel.sel_fns.values())
+                   + ([kernel.having] if kernel.having else [])):
+            for k in ce.reads:
+                if "." not in k or k.startswith("__"):
+                    continue
+                base, cidx = _base_ref(k.split(".", 1)[0])
+                if cidx is not None and not (cidx == "last"
+                                             and base in prog.ref_of):
+                    raise ParallelUnsupported(
+                        f"indexed capture read {k!r} outside a count "
+                        f"position")
+    except ParallelUnsupported as e:
+        return {"scan": str(e)}
+    return _classify_prog(prog)
+
+
+def _classify_prog(prog: ParallelProgram) -> dict:
+    """Family verdicts for a successfully lowered chase program.  The
+    `dfa` verdict of the JAX package belongs to the `dfa` slice."""
+    return {"scan": True}
+
+
+def grid_dtype(t: ast.AttrType) -> torch.dtype:
+    """Torch dtype of an attribute's (L, F) grid (DOUBLE travels as
+    float32 on the pattern path)."""
+    return torch.from_numpy(np.zeros(0, NFAKernel.np_dtype(t))).dtype
+
+
+def tree_vt(own: torch.dtype, rhs: torch.dtype) -> int:
+    """VM type of a threshold tree: the promotion of both comparison
+    sides, int32 widened to int64 so the sentinel lies strictly outside
+    the value range (`_tree_dtype` of the JAX package)."""
+    dt = torch.promote_types(own, rhs)
+    if dt == torch.int32:
+        dt = torch.int64
+    return VT_OF_TORCH[dt]
+
+
+# ---------------------------------------------------------------------------
+# the block
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TreeSpec:
+    """One segment tree K3 builds per lane: heap type, max or min, the
+    leaf column (None: the constant 1 of a static hop's mask tree) and
+    the chain position whose node mask gates the leaves (None: validity
+    only, the timestamp tree)."""
+    vt: int
+    agg: str
+    src: Optional[str]
+    node: Optional[int]
+
+
+@dataclass
+class HopSpec:
+    """What K4 does at one position below the head."""
+    kind: str                     # "static" | "threshold" | "strict"
+    within: int
+    tree: int = -1                # TreeSpec index (static/threshold)
+    op: str = "gt"                # threshold compare (static: gt 0)
+    prog: Optional[Program] = None    # rhs, or the strict step conjunction
+
+
+class ParallelChainKernel:
+    """Stateless block of the `scan` family over an (L, F) lane grid (the
+    flat block is L = 1): K1 pre-masks -> K3 trees -> K4 chase -> K5
+    dedup and compaction into the NFAKernel's match table, whose rows the
+    plan's selector pass (K1) and unpack read exactly as for `seq`.
+
+    `ev` holds "__flat.__ts__", "__flat.__seq__" (L, F) i32 offsets from
+    the flush's bases, "__flat.__scode__" (several streams), one
+    "__flat.<scode>.<attr>" (L, F) grid per key of `nfak.grid_keys`,
+    "__nev__" (L,) i32 events per lane, "__prev_seq__" (L,) i32 (the
+    lane's last emitted completion seq), "__arm_done__" (L,) i32 for
+    one-shot heads, and the ints "__base_ts__", "__base_seq__"."""
+
+    def __init__(self, prog: ParallelProgram, nfak: NFAKernel):
+        self.prog = prog
+        self.nfak = nfak
+        self.S = prog.S
+        self.multi = len(prog.stream_ids) > 1
+        self.grid_keys = list(nfak.grid_keys)
+        scode_of = {p.nodes[0].ref: p.nodes[0].scode for p in prog.positions}
+
+        def col_key(ref: str, attr: str) -> str:
+            key = f"{scode_of[ref]}.{attr}"
+            if key not in self.grid_keys:
+                raise ParallelUnsupported(f"no grid column for {ref}.{attr}")
+            return f"__flat.{key}"
+        self.node_scode = [p.nodes[0].scode for p in prog.positions]
+
+        # VM loads of K4's programs: (column key, position) -- the column
+        # at the position's resolved index, or at s (position -1)
+        self.loads: list = []
+
+        def slot(key: str, pos: int) -> int:
+            if (key, pos) not in self.loads:
+                self.loads.append((key, pos))
+            return self.loads.index((key, pos))
+
+        key_vt = {f"__flat.{si}.{a}": VT_OF_TORCH[grid_dtype(t)]
+                  for si, a, t in nfak.grid_attrs}
+        key_vt["__flat.__ts__"] = VT_OF_TORCH[torch.int32]
+
+        def capture_slots(reads, own: Optional[str]) -> dict:
+            out = {}
+            for k in reads:
+                if k == "__timestamp__":
+                    continue
+                refpart, attr = k.split(".", 1)
+                base = _base_ref(refpart)[0]
+                key = col_key(base, attr)
+                pos = -1 if base == own else prog.ref_of[base][0]
+                out[k] = (slot(key, pos), key_vt[key])
+            return out
+
+        self.trees: list = []
+        self.hops: list = []
+        self.ts_tree = -1
+        if not prog.sequence:
+            self.ts_tree = 0
+            self.trees.append(TreeSpec(VT_OF_TORCH[torch.int64], "max",
+                                       "__flat.__ts__", None))
+        try:
+            with compute_dtypes(F32_MODE):
+                for pi in range(1, self.S):
+                    pos = prog.positions[pi]
+                    hop = pos.nodes[0]
+                    if prog.sequence:
+                        prog_ = None
+                        if hop.step_conjs:
+                            # the arriving event's columns and timestamp
+                            # load at s, earlier captures at their index
+                            reads = set().union(*[ce.reads for ce in
+                                                  hop.step_conjs])
+                            slots = capture_slots(reads, hop.ref)
+                            slots["__ts__"] = (slot("__flat.__ts__", -1),
+                                               key_vt["__flat.__ts__"])
+                            prog_ = emit_program(subst(
+                                _and_all(hop.step_conjs), TS_SUBST), slots)
+                        self.hops.append(HopSpec("strict", pos.within_ms,
+                                                 prog=prog_))
+                    elif hop.threshold is not None:
+                        th = hop.threshold
+                        own_key = col_key(hop.ref,
+                                          th.own_key.split(".", 1)[1])
+                        vt = tree_vt(grid_dtype(th.own_type),
+                                     torch_dtype(th.rhs.type))
+                        rhs = emit_program(th.rhs.node,
+                                           capture_slots(th.rhs.reads, None))
+                        self.trees.append(TreeSpec(
+                            vt, "max" if th.op in ("gt", "ge") else "min",
+                            own_key, pi))
+                        self.hops.append(HopSpec(
+                            "threshold", pos.within_ms, len(self.trees) - 1,
+                            th.op, rhs))
+                    else:
+                        self.trees.append(TreeSpec(VT_OF_TORCH[torch.int32],
+                                                   "max", None, pi))
+                        self.hops.append(HopSpec("static", pos.within_ms,
+                                                 len(self.trees) - 1))
+        except ExprError as e:
+            raise ParallelUnsupported(f"not in the device VM: {e}") from None
+
+        # K5's match-table rows: per row of out_i / out_f / out_l, its
+        # source -- ("col", column key, position) or ("comp_ts",) /
+        # ("comp_seq",) / ("head_seq",)
+        def row_src(name: str):
+            if name == "__comp_ts__":
+                return ("comp_ts",)
+            if name == "__comp_seq__":
+                return ("comp_seq",)
+            if name == "__head_seq__":
+                return ("head_seq",)
+            refpart, attr = name.split(".", 1)
+            base = _base_ref(refpart)[0]
+            return ("col", col_key(base, attr), prog.ref_of[base][0])
+        self.rows = {"i": [row_src(n) for n in nfak.lane_names_i],
+                     "f": [row_src(n) for n in nfak.rows_f],
+                     "l": [row_src(n) for n in nfak.rows_l]}
+        self._check_limits()
+
+    def _check_limits(self) -> None:
+        """The CUDA kernels' fixed parameter blocks bound the chain: a
+        shape past them is refused here, at build, on every device (the
+        plan then demotes to `seq`), not at its first flush on the card."""
+        from ..kernels import scan_chase, scan_compact, seg_tree
+        from ..kernels.expr_eval import merge_programs
+        progs = [h.prog for h in self.hops if h.prog is not None]
+        words, consts, _o, _l = merge_programs(
+            progs, {"__base_ts__": 0})
+        over = [what for what, n, cap in (
+            ("positions", self.S, scan_chase.MAXS),
+            ("trees", len(self.trees), seg_tree.MAXT),
+            ("capture loads", len(self.loads), scan_chase.MAXLOAD),
+            ("program words", len(words), scan_chase.MAXWORDS),
+            ("constants", len(consts), scan_chase.MAXCONST),
+            ("match-table rows", sum(map(len, self.rows.values())),
+             scan_compact.MAXROWS)) if n > cap]
+        if over:
+            raise ParallelUnsupported(
+                f"chain exceeds the scan kernels' limits ({', '.join(over)})")
+
+    @staticmethod
+    def leaves(F: int) -> int:
+        """Leaf count of a lane's trees; also the `not found` index."""
+        return pow2_at_least(F, lo=2)
+
+    # -- K1 pre-masks over the flattened grid -----------------------------
+
+    def pre_mask_cols(self, ev: dict) -> list:
+        return [ev[f"__flat.{k}"].reshape(-1) for k in self.grid_keys] + \
+            [ev["__flat.__ts__"].reshape(-1)]
+
+    def pre_masks(self, ev: dict) -> list:
+        """One bit-packed word array per position over the (L*F,)
+        flattened grid (None where the node has no event-only conjunct)."""
+        from ..kernels.expr_eval import expr_eval
+        L, F = ev["__flat.__ts__"].shape
+        cols = self.pre_mask_cols(ev)
+        out = []
+        for prog in self.nfak.pre_progs:
+            if prog is None:
+                out.append(None)
+                continue
+            words, _ = expr_eval(cols, prog, [], L * F,
+                                 {"__base_ts__": ev["__base_ts__"]},
+                                 use="pre_mask")
+            out.append(words)
+        return out
+
+    def run_block(self, ev: dict, M: int) -> dict:
+        """K1 pre-masks -> K3 -> K4 -> K5: the match table of one (L, F)
+        block (see scan_compact for its layout)."""
+        from ..kernels.scan_chase import scan_chase
+        from ..kernels.scan_compact import scan_compact
+        from ..kernels.seg_tree import seg_tree
+        pre = self.pre_masks(ev)
+        heaps = seg_tree(self, ev, pre)
+        status, idx = scan_chase(self, ev, pre, heaps)
+        return scan_compact(self, ev, status, idx, M)

@@ -1,11 +1,29 @@
-"""Device pattern/sequence query plan -- host wrapper around NFAKernel.
+"""Device pattern/sequence query plan -- host wrapper around the kernels.
 
-Port of `siddhi_tpu/core/pattern_plan.py` (`DevicePatternPlan`, family
-`seq` only).  Buffers per-stream micro-batches, merges them by global
-arrival seq, buckets events into dense (T, P) blocks (one event per
-partition per step, T a power of two up to T_CAP), runs one block per
-chunk (K1 pre-masks, K2, K1 selector/having), and compacts the matches
-into an output EventBatch sorted by (completion seq, head seq).
+Port of `siddhi_tpu/core/pattern_plan.py` (`DevicePatternPlan`, families
+`seq` and `scan`).  Buffers per-stream micro-batches, merges them by
+global arrival seq, runs them through the plan's family, and compacts the
+matches into an output EventBatch sorted by (completion seq, head seq).
+
+Family selection follows the JAX package: the `families` dict records
+each family's eligibility (True or the reason), and `_choose_family`
+takes the first eligible one of FAMILY_ORDER (`scan`, `dfa`, `chunk`),
+else the sequential `seq`; `@app:patternFamily` asks for one.  This port
+runs `seq` and `scan`; `dfa` and `chunk` are later slices.
+
+`seq` buckets events into dense (T, P) blocks (one event per partition
+per step, T a power of two up to T_CAP) and runs one block per chunk (K1
+pre-masks, K2, K1 selector/having) over persistent slot state.
+
+`scan` is stateless: each flush is ONE block, [replayed tail | new
+events], as an (L, F) grid with one lane per key that has new events
+(an unpartitioned pattern is one lane; K1 pre-masks, K3, K4, K5, then
+the same K1 selector pass).  Continuity across flushes is each lane's
+tail of the last `within` window and the dedup of completions at or
+before the lane's previous last seq.  The JAX package's lane and F
+padding (pow2 lanes, sticky F buckets) only spared XLA recompiles: here
+L is the number of active lanes, F the longest lane, and M the number of
+events (a head completes at most once).
 
 Timestamps and seqs travel as i32 offsets from per-plan bases; the plan
 rebases the slot state before offsets can overflow.  Partition growth
@@ -27,10 +45,14 @@ from .batch import EventBatch
 from .expr import ExprError, MultiStreamContext, compile_expression
 from .nfa_device import (LOCAL_SPAN, ChainSpec, DeviceNFAUnsupported,
                          NFAKernel, lower_chain, pow2_at_least)
+from .nfa_parallel import (ARM_RESOLVED, ParallelChainKernel,
+                           ParallelUnsupported, classify_parallel,
+                           lower_parallel)
 from .planner import (OutputBatch, QueryPlan, selector_has_aggregators)
 from .schema import TIMESTAMP_DTYPE, StreamSchema, dtype_of
 
 _I32 = np.int32
+LATER_FAMILIES = ("dfa", "chunk")
 
 
 def _m_bucket(n: int) -> int:
@@ -59,12 +81,12 @@ class DevicePatternPlan(QueryPlan):
         if prec is not None and str(prec.element()).lower() == "f64":
             raise DeviceNFAUnsupported(
                 "@app:devicePrecision('f64') is a later slice")
-        fam = ast.find_annotation(rt.app.annotations, "app:patternFamily")
-        if fam is not None and str(fam.element()).lower() not in ("seq",
-                                                                   "auto"):
+        from .autotune import pattern_family_for
+        want = pattern_family_for(rt, q)
+        if want in LATER_FAMILIES:
             raise DeviceNFAUnsupported(
-                f"pattern family {fam.element()!r} is a later slice (this "
-                f"port runs the sequential `seq` family)")
+                f"pattern family {want!r} is a later slice (this port runs "
+                f"the `seq` and `scan` families)")
         self.output_target = target
         self.events_for = getattr(q.output, "events_for",
                                   ast.OutputEventsFor.CURRENT)
@@ -125,9 +147,87 @@ class DevicePatternPlan(QueryPlan):
         self._scode = {sid: i for i, sid in enumerate(self.spec.stream_ids)}
         self.blocks_run = 0
 
+        # ---- plan-family selection (siddhi_tpu/core/pattern_plan.py
+        # :212-262).  A within-bounded pattern can run STATELESS: every
+        # pending instance dies within W of its head, so a flush replays
+        # the last W of events and drops completions at or before the
+        # previous flush's last seq.
+        self._W: Optional[int] = None           # the chain's widest `within`
+        self._par_kern: Optional[ParallelChainKernel] = None
+        # per-lane replay tails + per-lane last emitted completion seq;
+        # one-shot heads: the arm's resolution flag
+        self._lane_tail: Optional[dict] = None
+        self._lane_prev = np.zeros(0, dtype=np.int64)
+        self._arm_done: Optional[np.ndarray] = None
+        self.family = "seq"
+        partitioned = part_key_fns is not None or partitions != 1
+        hard = None
+        if not all(p.within_ms is not None for p in self.spec.positions):
+            hard = "position without a `within` bound"
+        self.families: dict = {"seq": True}
+        if hard is not None:
+            self.families.update({"chunk": hard, "scan": hard, "dfa": hard})
+        else:
+            par = classify_parallel(self.spec, self.kernel, rt.strings)
+            if partitioned and not self.spec.every_head \
+                    and par["scan"] is True:
+                par["scan"] = ("non-`every` head with partitioned lanes "
+                               "(per-key single-arm state)")
+            self.families.update(par)
+            for f in LATER_FAMILIES:
+                self.families[f] = f"the `{f}` family is a later slice " \
+                                   f"of the port"
+        if self.families["scan"] is True:
+            # build the block now: a lowering surprise demotes here, never
+            # at the first flush
+            try:
+                self._par_kern = ParallelChainKernel(
+                    lower_parallel(self.spec, rt.strings), self.kernel)
+            except ParallelUnsupported as e:
+                self.families["scan"] = f"build validation failed: {e}"
+                warnings.warn(f"pattern {name!r}: plan family 'scan' failed "
+                              f"build validation ({e})", RuntimeWarning,
+                              stacklevel=2)
+        fam = self._choose_family(want)
+        if fam != "seq":
+            self._enter_stateless(fam)
+
+    # -- plan families -------------------------------------------------------
+
+    # auto-selection preference of the JAX package: cheapest sound family
+    # first, `seq` the universal fallback
+    FAMILY_ORDER = ("scan", "dfa", "chunk")
+
+    def _choose_family(self, want: Optional[str]) -> str:
+        if want is not None:
+            if want == "seq" or self.families.get(want) is True:
+                return want
+            warnings.warn(
+                f"pattern {self.name!r}: requested plan family {want!r} is "
+                f"not eligible ({self.families.get(want)}); falling back to "
+                f"automatic selection", RuntimeWarning, stacklevel=2)
+        for f in self.FAMILY_ORDER:
+            if self.families.get(f) is True:
+                return f
+        return "seq"
+
+    def _enter_stateless(self, fam: str) -> None:
+        """Engage a stateless family: blocks carry no device state;
+        continuity is tail replay + seq dedup, and finalize rolls its
+        bookkeeping back on failure so a failed flush can be re-run."""
+        self.family = fam
+        self._W = max(p.within_ms for p in self.spec.positions)
+        if not self.spec.every_head:
+            # non-`every`: ONE instance ever; the block reports whether
+            # the arm resolved and the plan then stops dispatching
+            self._arm_done = np.zeros(1, dtype=bool)
+
     @property
     def dropped(self) -> int:
-        """Heads lost to slot exhaustion at the A_CAP ceiling."""
+        """Heads lost to slot exhaustion at the A_CAP ceiling (none in
+        the stateless families, which have no slots)."""
+        if self.family != "seq":
+            return 0
         return int(self.state["of_slots"].sum())
 
     def part_of(self, stream_id: str, batch: EventBatch) -> np.ndarray:
@@ -142,7 +242,9 @@ class DevicePatternPlan(QueryPlan):
         for j, k in enumerate(uniq.tolist()):
             p = k2p.get(k)
             if p is None:
-                if len(k2p) >= self.P:
+                # a stateless family's lane grid is sized per flush: a
+                # hot-added key is just a new lane id
+                if self.family == "seq" and len(k2p) >= self.P:
                     self._resize(2 * self.P, self.kernel.A)
                 p = k2p[k] = len(k2p)
             parts_u[j] = p
@@ -194,7 +296,17 @@ class DevicePatternPlan(QueryPlan):
         return []
 
     def finalize(self) -> list:
-        return self._rows_to_batches(self._finalize_chunks())
+        if self.family == "seq" or not self._buffered:
+            return self._rows_to_batches(self._finalize_chunks())
+        # stateless families are retryable: blocks carry no device state
+        # and the runners roll their bookkeeping back on failure, so
+        # restoring the input buffer makes a failed flush re-runnable
+        snapshot = list(self._buffered)
+        try:
+            return self._rows_to_batches(self._finalize_chunks())
+        except Exception:
+            self._buffered = snapshot
+            raise
 
     def _finalize_chunks(self) -> list:
         if not self._buffered:
@@ -223,6 +335,8 @@ class DevicePatternPlan(QueryPlan):
         order = np.lexsort((seq,))
         ts, seq, scode, part = ts[order], seq[order], scode[order], part[order]
         cols = {k: v[order] for k, v in cols.items()}
+        if self.family != "seq":
+            return self._run_lanes_flat(ts, seq, scode, cols, part)
         by_part = np.lexsort((seq, part))
         idx_within = np.empty(N, dtype=np.int64)
         sp = part[by_part]
@@ -260,6 +374,142 @@ class DevicePatternPlan(QueryPlan):
                                          {k: v[m] for k, v in cols.items()}),
                               T))
         return self._run_chunks(chunk_evs)
+
+    # -- stateless `scan` flushes (pattern_plan.py:897-1238) ----------------
+
+    def _run_lanes_flat(self, ts, seq, scode, cols, part) -> list:
+        """A `scan` flush: each key's events are an independent
+        sub-stream -- ONE (L, F) lane grid with per-lane replay tails and
+        per-lane completion-seq dedup (an unpartitioned pattern is lane
+        0); a failure rolls the per-lane bookkeeping back."""
+        saved = (self._lane_tail, self._lane_prev.copy(), self._last_seq,
+                 None if self._arm_done is None else self._arm_done.copy())
+        try:
+            return self._run_lanes_flat_inner(ts, seq, scode, cols, part)
+        except Exception:
+            (self._lane_tail, self._lane_prev, self._last_seq,
+             self._arm_done) = saved
+            raise
+
+    def _run_lanes_flat_inner(self, ts, seq, scode, cols, part) -> list:
+        W0 = self._W
+        keyed = self.part_key_fns is not None      # else all lane 0
+        tl = self._lane_tail
+        held = None
+        if tl is not None:
+            # only lanes with NEW events replay their tail: a quiet lane
+            # cannot produce a new completion, and its old events would pin
+            # the shared i32 bases of every live lane
+            active = np.isin(tl["part"], np.unique(part)) if keyed else True
+            if not np.all(active):
+                held = _select(tl, ~active)
+                tl = _select(tl, active)
+            ts = np.concatenate([tl["ts"], ts])
+            seq = np.concatenate([tl["seq"], seq])
+            scode = np.concatenate([tl["scode"], scode])
+            part = np.concatenate([tl["part"], part])
+            cols = {k: np.concatenate([tl["cols"][k], v])
+                    for k, v in cols.items()}
+        N = len(ts)
+        if keyed:
+            # lane-major; one lane's [tail | new events] is in seq order
+            order = np.lexsort((seq, part))
+            ts, seq, scode, part = (ts[order], seq[order], scode[order],
+                                    part[order])
+            cols = {k: v[order] for k, v in cols.items()}
+        change = np.r_[True, part[1:] != part[:-1]]
+        run_start = np.flatnonzero(change)
+        lane_ids = part[run_start].astype(np.int64)
+        counts = np.diff(np.r_[run_start, N])
+        L, F = len(lane_ids), int(counts.max())
+        run_end = run_start + counts - 1
+        if L == 1:
+            # one lane (every unpartitioned flush): the events are its row,
+            # and its running max needs no per-lane offsets
+            tsmono = np.maximum.accumulate(ts)
+            lane_max = tsmono[-1]
+
+            def grid(a):
+                return a[None]
+        else:
+            # per-lane running-max ts in one pass (offset trick)
+            run_id = np.cumsum(change) - 1
+            off = run_id * (int(ts.max()) - int(ts.min()) + 1)
+            tsmono = np.maximum.accumulate(ts + off) - off
+            lane_max = tsmono[run_end][run_id]
+            flat = np.arange(N) - run_start[run_id] + run_id * F
+
+            def grid(a):
+                g = np.zeros(L * F, dtype=a.dtype)
+                g[flat] = a
+                return g.reshape(L, F)
+        # the tail bound and `within`, widened by the worst out-of-order
+        # regression, keep every still-completable event in the tail
+        W = W0 + int(np.max(tsmono - ts))
+
+        # bases anchor at the flush MAX with i32 headroom: a lane resuming
+        # after a > 2^30 gap saturates ITS stale offsets low (ancient,
+        # expired, already deduped) instead of every live lane's high
+        budget = LOCAL_SPAN - (1 << 16)
+        ts_base = max(int(ts.min()), int(ts.max()) - budget)
+        seq_base = max(int(seq.min()), int(seq.max()) - budget)
+        self._last_seq = max(self._last_seq, int(seq.max()))
+        n_lanes = max(len(self._key_to_part), int(lane_ids[-1]) + 1)
+        if len(self._lane_prev) < n_lanes:
+            grown = np.full(n_lanes, -(2 ** 62), dtype=np.int64)
+            grown[:len(self._lane_prev)] = self._lane_prev
+            self._lane_prev = grown
+
+        ev = {"__flat.__ts__": grid(np.clip(
+                  ts - ts_base, -LOCAL_SPAN, LOCAL_SPAN).astype(_I32)),
+              "__flat.__seq__": grid(np.clip(
+                  seq - seq_base, -LOCAL_SPAN, LOCAL_SPAN).astype(_I32)),
+              "__nev__": counts.astype(_I32),
+              "__prev_seq__": np.clip(self._lane_prev[lane_ids] - seq_base,
+                                      -LOCAL_SPAN, LOCAL_SPAN).astype(_I32)}
+        if len(self.spec.stream_ids) > 1:
+            ev["__flat.__scode__"] = grid(scode)
+        for k, v in cols.items():
+            ev[f"__flat.{k}"] = grid(v)
+
+        # per-lane tail: the last `within` window of each lane's events
+        # replays at that lane's next flush; quiet lanes keep theirs
+        keep = tsmono >= lane_max - W
+        self._lane_tail = _select({"ts": ts, "seq": seq, "scode": scode,
+                                   "part": part, "cols": cols}, keep)
+        if held is not None:
+            self._lane_tail = _concat(self._lane_tail, held)
+        self._lane_prev[lane_ids] = seq[run_end]
+        if self._arm_done is not None:
+            if self._arm_done.all():
+                return []      # the one non-`every` arm is resolved
+            ev["__arm_done__"] = np.zeros(L, _I32)
+        return [self._dispatch_par(ev, ts_base, seq_base)]
+
+    def _dispatch_par(self, ev: dict, ts_base: int, seq_base: int):
+        """Run one `scan` block on the plan's device and unpack it."""
+        kern = self._par_kern
+        dev_ev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                      self.device) for k, v in ev.items()}
+        dev_ev["__base_ts__"] = ts_base
+        dev_ev["__base_seq__"] = seq_base
+        M = max(int(ev["__nev__"].sum()), 1)  # one completion per head
+        out = kern.run_block(dev_ev, M)
+        self.blocks_run += 1
+        return self._materialize_par(out, M, ts_base, seq_base)
+
+    def _materialize_par(self, out: dict, M: int, ts_base: int,
+                         seq_base: int):
+        n = int(out["meta"][0])
+        if n > M:
+            raise RuntimeError(f"pattern {self.name!r}: {n} scan matches "
+                               f"exceed the {M} heads of the block")
+        if self._arm_done is not None:
+            done = out["arm"].cpu().numpy() == ARM_RESOLVED
+            self._arm_done[:len(done)] |= done[:len(self._arm_done)]
+        # bases are per flush: the unpack must see this block's
+        self._ts_base, self._seq_base = ts_base, seq_base
+        return self._unpack(out, n)
 
     def _grid(self, T: int, t_local, pm, ts32, seq32, scode, cols) -> dict:
         """Dense (T, P) block on the plan's device."""
@@ -358,14 +608,43 @@ class DevicePatternPlan(QueryPlan):
     # -- snapshot ------------------------------------------------------------
 
     def state_dict(self) -> dict:
-        return {"state": {k: v.cpu() for k, v in self.state.items()},
-                "key_to_part": dict(self._key_to_part),
-                "ts_base": self._ts_base, "seq_base": self._seq_base,
-                "last_seq": self._last_seq}
+        d = {"state": {k: v.cpu() for k, v in self.state.items()},
+             "key_to_part": dict(self._key_to_part),
+             "ts_base": self._ts_base, "seq_base": self._seq_base,
+             "last_seq": self._last_seq, "family": self.family}
+        if self.family != "seq":
+            # stateless families keep no device state: continuity lives in
+            # the per-lane replayed tails + last emitted completion seqs
+            # and the one-shot arm's flag
+            d["lane_tail"] = self._lane_tail
+            d["lane_prev"] = self._lane_prev.copy()
+            d["arm_done"] = (None if self._arm_done is None
+                             else self._arm_done.copy())
+        return d
 
     def load_state_dict(self, d: dict) -> None:
-        """Restore from `state_dict()`; `d["state"]` may also come from
-        `weights.nfa_state_from_jax` (the JAX plan's slot state)."""
+        """Restore from `state_dict()`.  A `seq` plan's `d["state"]` may
+        also come from `weights.nfa_state_from_jax` (the JAX plan's slot
+        state), a `scan` plan's dict from `weights.stateless_state_from_jax`
+        (its replay tails and dedup seqs)."""
+        if self.family != "seq":
+            if "lane_prev" not in d:
+                raise ValueError(
+                    f"pattern {self.name!r} runs the stateless "
+                    f"{self.family!r} family: a `seq` plan's slot state "
+                    f"cannot continue it")
+            self._lane_tail = d.get("lane_tail")
+            self._lane_prev = np.array(d["lane_prev"], dtype=np.int64)
+            if d.get("arm_done") is not None:
+                self._arm_done = np.array(d["arm_done"], dtype=bool)
+            self._key_to_part = dict(d["key_to_part"])
+            self._ts_base = d.get("ts_base")
+            self._seq_base = d.get("seq_base")
+            self._last_seq = int(d.get("last_seq") or 0)
+            return
+        if "state" not in d:
+            raise ValueError(f"pattern {self.name!r} runs the `seq` family: "
+                             f"a stateless plan's tails cannot continue it")
         st = {k: torch.as_tensor(v).to(self.device)
               for k, v in d["state"].items()}
         a, p = st["occ"].shape
@@ -381,3 +660,15 @@ class DevicePatternPlan(QueryPlan):
         self._seq_base = d.get("seq_base")
         self._last_seq = int(d.get("last_seq") or self._seq_base or 0)
         self._of_slots_seen = int(st["of_slots"].sum())
+
+
+def _select(t: dict, m: np.ndarray) -> dict:
+    """Rows `m` of a replay tail {ts, seq, scode, part, cols}."""
+    return {k: ({c: v[m] for c, v in t[k].items()} if k == "cols"
+                else t[k][m]) for k in t}
+
+
+def _concat(a: dict, b: dict) -> dict:
+    return {k: ({c: np.concatenate([a[k][c], b[k][c]]) for c in a[k]}
+                if k == "cols" else np.concatenate([a[k], b[k]]))
+            for k in a}

@@ -4,10 +4,12 @@ Each wrapper launches its kernel for CUDA tensors and uses the plain
 version only for tensors on the CPU; `LAUNCHES` counts kernel launches
 (one per launch, nowhere else) so a run can show that the main path went
 through the kernels.  K1 is counted per use: the filter/projection step,
-the NFA pre-masks and the pattern selector.
+the NFA pre-masks and the pattern selector.  K3-K5 (`seg_tree`,
+`scan_chase`, `scan_compact`) carry the `scan` plan family.
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
-            "expr_eval:select": 0, "nfa_block": 0}
+            "expr_eval:select": 0, "nfa_block": 0, "seg_tree": 0,
+            "scan_chase": 0, "scan_compact": 0}
 
 
 def reset_launches() -> None:

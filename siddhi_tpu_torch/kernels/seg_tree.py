@@ -1,0 +1,215 @@
+"""K3 `seg_tree`: the segment trees of one `scan` block, and first-hit.
+
+Replaces `_build_heap` (siddhi_tpu/core/nfa_parallel.py:499), called in
+`_block_impl` (:861, :874) for the `within` killer's timestamp max-tree and
+one tree per threshold hop, and `_next_static_scan` (:580) for static hops,
+which here become a first-hit on a tree of the hop's node mask.  Every
+tree is a perfect binary tree in heap layout per lane (1-based: root at 1,
+leaves at [Lt, 2Lt), slot 0 unused), Lt = pow2_at_least(F, lo=2).  Leaves
+whose node mask is off (padding, another stream, a failed pre-conjunct)
+or whose value is NaN hold the sentinel (-inf / INT_MIN for max trees,
++inf / INT_MAX for min trees), so NaN never reaches an ancestor.
+
+Design (csrc/seg_tree.cu): one launch per level group.  The first builds
+the leaves and the lowest 10 levels: one block of 1024 threads per (1024
+leaves, lane, tree), reduced level by level in shared memory, each level
+written to the heap.  A lane's trees at the C4 shapes (512 leaves) finish
+in that launch; the flat C3 tree (2^19 leaves) takes a second launch that
+reduces the 512 block roots the same way.  Bound on the H100: bytes -- the
+leaf columns and masks read once, each heap (2 Lt entries) written once.
+
+`seg_tree()` launches the kernel for CUDA tensors and runs the plain
+version, `seg_tree_plain()` (level-wise torch.maximum / minimum), for CPU
+tensors.  `first_hit_plain()` is the plain version of the descent that K4
+runs (csrc/seg_tree.cuh).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..core.expr import TORCH_OF_VT, VT_OF_TORCH
+from . import LAUNCHES
+from .build import check, load
+from .expr_eval import unpack_mask
+
+MAXT = 9                # csrc/seg_tree.cu ST_MAXT
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [("L", ctypes.c_int), ("F", ctypes.c_int),
+                ("Lt", ctypes.c_int), ("n_trees", ctypes.c_int),
+                ("cnt", ctypes.c_int), ("from_heap", ctypes.c_int),
+                ("nev", ctypes.c_void_p), ("scode", ctypes.c_void_p),
+                ("src", ctypes.c_void_p * MAXT),
+                ("src_vt", ctypes.c_int * MAXT),
+                ("vt", ctypes.c_int * MAXT),
+                ("agg", ctypes.c_int * MAXT),
+                ("pre", ctypes.c_void_p * MAXT),
+                ("node_scode", ctypes.c_int * MAXT),
+                ("heap", ctypes.c_void_p * MAXT)]
+
+
+def sentinel(dt: torch.dtype, agg: str):
+    if dt.is_floating_point:
+        return float("-inf") if agg == "max" else float("inf")
+    info = torch.iinfo(dt)
+    return info.min if agg == "max" else info.max
+
+
+def node_masks(k, ev: dict, pre: list) -> list:
+    """(L, F) bool node mask per chain position: the lane's valid events,
+    of the node's stream, passing its event-only conjuncts."""
+    ts = ev["__flat.__ts__"]
+    L, F = ts.shape
+    valid = torch.arange(F, device=ts.device)[None, :] < \
+        ev["__nev__"].to(torch.int64)[:, None]
+    out = []
+    for pi, words in enumerate(pre):
+        m = valid
+        if k.multi:
+            m = m & (ev["__flat.__scode__"] == k.node_scode[pi])
+        if words is not None:
+            m = m & unpack_mask(words, L * F).view(L, F)
+        out.append(m)
+    return out
+
+
+def build_heap_plain(vals: Optional[torch.Tensor], mask: torch.Tensor,
+                     Lt: int, agg: str, dt: torch.dtype) -> torch.Tensor:
+    """(L, F) leaves -> (L, 2 Lt) heap; `vals` None means the constant 1."""
+    L, F = mask.shape
+    sent = sentinel(dt, agg)
+    if vals is None:
+        vals = torch.ones((L, F), dtype=dt, device=mask.device)
+    v = vals.to(dt)
+    keep = mask
+    if dt.is_floating_point:
+        keep = keep & ~torch.isnan(v)
+    v = torch.where(keep, v, torch.full_like(v, sent))
+    red = torch.maximum if agg == "max" else torch.minimum
+    lvl = torch.full((L, Lt), sent, dtype=dt, device=mask.device)
+    lvl[:, :F] = v
+    levels = [lvl]
+    while lvl.shape[1] > 1:
+        lvl = red(lvl[:, 0::2], lvl[:, 1::2])
+        levels.append(lvl)
+    return torch.cat([torch.full((L, 1), sent, dtype=dt, device=mask.device)]
+                     + levels[::-1], dim=1)
+
+
+def seg_tree_plain(k, ev: dict, masks: list) -> list:
+    F = ev["__flat.__ts__"].shape[1]
+    Lt = k.leaves(F)
+    valid = torch.arange(F, device=masks[0].device)[None, :] < \
+        ev["__nev__"].to(torch.int64)[:, None]
+    out = []
+    for t in k.trees:
+        mask = valid.expand_as(masks[0]) if t.node is None else masks[t.node]
+        out.append(build_heap_plain(None if t.src is None else ev[t.src],
+                                    mask, Lt, t.agg, TORCH_OF_VT[t.vt]))
+    return out
+
+
+def first_hit_plain(heap: torch.Tensor, Lt: int, s: torch.Tensor,
+                    v: torch.Tensor, op: str) -> torch.Tensor:
+    """First leaf index >= s whose value satisfies OP v, Lt when none, per
+    query; heap (L, 2 Lt), s and v (L, Q).  `ge`/`le` become strict
+    compares against the adjacent representable value in the heap type
+    (`_first_hit` of the JAX package), so a sentinel never satisfies
+    them."""
+    dt = heap.dtype
+    va = v.to(dt)
+    if op in ("ge", "le"):
+        if dt.is_floating_point:
+            to = torch.full_like(va, float("-inf") if op == "ge"
+                                 else float("inf"))
+            va = torch.nextafter(va, to)
+        else:
+            va = va - 1 if op == "ge" else va + 1
+        op = "gt" if op == "ge" else "lt"
+
+    def cmp(a):
+        return a > va if op == "gt" else a < va
+    P = max(Lt.bit_length() - 1, 0)
+    l = torch.clamp(s.to(torch.int64), 0, Lt) + Lt
+    found = torch.zeros(l.shape, dtype=torch.bool, device=l.device)
+    fnode = torch.zeros_like(l)
+    for i in range(P + 1):
+        r = (2 * Lt) >> i
+        odd = (l & 1) == 1
+        nv = torch.gather(heap, 1, torch.clamp(l, 0, 2 * Lt - 1))
+        take = odd & (l < r) & cmp(nv) & ~found
+        fnode = torch.where(take, l, fnode)
+        found = found | take
+        l = (l + odd.to(torch.int64)) >> 1
+    for _ in range(P):
+        internal = found & (fnode < Lt)
+        left = 2 * fnode
+        lv = torch.gather(heap, 1, torch.clamp(left, 0, 2 * Lt - 1))
+        fnode = torch.where(internal, torch.where(cmp(lv), left, left + 1),
+                            fnode)
+    return torch.where(found, fnode - Lt,
+                       torch.full_like(fnode, Lt)).to(torch.int32)
+
+
+def seg_tree(k, ev: dict, pre: list) -> list:
+    """Every tree of ParallelChainKernel `k` for block `ev`: one (L, 2 Lt)
+    heap per `k.trees` entry.  `pre` holds the K1 pre-mask words per
+    chain position (or None)."""
+    ts = ev["__flat.__ts__"]
+    dev = ts.device
+    if dev.type == "cpu":
+        return seg_tree_plain(k, ev, node_masks(k, ev, pre))
+    if dev.type != "cuda":
+        raise ValueError(f"seg_tree: unsupported device {dev}")
+    L, F = ts.shape
+    Lt = k.leaves(F)
+    if not k.trees:             # a strict sequence reads events directly
+        return []
+    if len(k.trees) > MAXT:
+        raise ValueError(f"seg_tree: {len(k.trees)} trees exceed {MAXT}")
+    keep = []
+
+    def ptr(t: torch.Tensor, dt=None) -> int:
+        if t.device != dev or not t.is_contiguous() or \
+                (dt is not None and t.dtype != dt):
+            raise ValueError(f"seg_tree: bad tensor {t.dtype} {t.device} "
+                             f"{tuple(t.shape)}")
+        keep.append(t)
+        return t.data_ptr()
+    p = _Params()
+    p.L, p.F, p.Lt, p.n_trees = L, F, Lt, len(k.trees)
+    p.nev = ptr(ev["__nev__"], torch.int32)
+    if k.multi:
+        p.scode = ptr(ev["__flat.__scode__"], torch.int32)
+    heaps = []
+    for i, t in enumerate(k.trees):
+        if t.src is not None:
+            col = ev[t.src]
+            if col.shape != (L, F):
+                raise ValueError(f"seg_tree: {t.src} is not ({L}, {F})")
+            p.src[i] = ptr(col)
+            p.src_vt[i] = VT_OF_TORCH[col.dtype]
+        p.vt[i] = t.vt
+        p.agg[i] = 0 if t.agg == "max" else 1
+        p.node_scode[i] = -1
+        if t.node is not None:
+            if k.multi:
+                p.node_scode[i] = k.node_scode[t.node]
+            if pre[t.node] is not None:
+                p.pre[i] = ptr(pre[t.node], torch.int32)
+        h = torch.empty((L, 2 * Lt), dtype=TORCH_OF_VT[t.vt], device=dev)
+        heaps.append(h)
+        p.heap[i] = ptr(h)
+    lib = load("seg_tree")
+    fn = lib.seg_tree_launch
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(fn(ctypes.byref(p),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+          "seg_tree_launch")
+    LAUNCHES["seg_tree"] += 1
+    return heaps

@@ -1,12 +1,20 @@
 """Carry device pattern state across from the JAX package.
 
-A stream processor's "weights" are its slot state: the stationed partial
-matches and their captures.  `nfa_state_from_jax` turns the `state` entry
-of a `siddhi_tpu` DevicePatternPlan.state_dict() (numpy arrays, family
-`seq`) into this port's state tensors; the rest of that dict (key map,
-ts/seq bases, last seq) loads as it is through
-DevicePatternPlan.load_state_dict.  `nfa_state_to_numpy` is the inverse
-view the tests compare with.
+A stream processor's "weights" are its pattern state.  For the `seq`
+family that is the slot state, the stationed partial matches and their
+captures: `nfa_state_from_jax` turns the `state` entry of a `siddhi_tpu`
+DevicePatternPlan.state_dict() (numpy arrays) into this port's state
+tensors, and the rest of that dict (key map, ts/seq bases, last seq)
+loads as it is through DevicePatternPlan.load_state_dict.
+`nfa_state_to_numpy` is the inverse view the tests compare with.
+
+The stateless families (`scan`) keep no device state: their continuity
+is the replay tail of the last `within` window (per key when
+partitioned), the last emitted completion seq (per key) and a one-shot
+head's resolution flag.  `stateless_state_from_jax` takes those from a
+JAX `scan` plan's state_dict() into the dict the port's plan loads.  The
+string table travels apart (`rt.strings.state()` / `restore`), as for
+`seq`.
 """
 from __future__ import annotations
 
@@ -51,3 +59,44 @@ def nfa_state_from_jax(np_state: dict, device) -> dict:
 def nfa_state_to_numpy(state: dict) -> dict:
     """The port's state tensors as numpy arrays (JAX leaf names)."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def _tail(t, part: bool):
+    """A JAX replay tail {ts, seq, scode[, part], cols} as fresh arrays;
+    an unpartitioned (flat) tail gets lane 0 as its `part`."""
+    if t is None:
+        return None
+    out = {k: np.array(t[k], copy=True) for k in ("ts", "seq", "scode")}
+    out["part"] = (np.array(t["part"], copy=True) if part else
+                   np.zeros(len(out["ts"]), dtype=np.int32))
+    out["cols"] = {}
+    for c, v in t["cols"].items():
+        a = np.array(v, copy=True)
+        if a.dtype == np.float64:
+            raise ValueError(f"tail column {c!r} is float64: an f64-mode "
+                             f"plan is not in this slice")
+        out["cols"][c] = a
+    return out
+
+
+def stateless_state_from_jax(d: dict) -> dict:
+    """A JAX stateless-family (`scan`) plan's state_dict() -> the dict the
+    port's DevicePatternPlan.load_state_dict takes on a `scan` plan.  The
+    port runs an unpartitioned pattern as one lane, so the JAX flat tail
+    (`chunk_tail`, `chunk_prev_last_seq`) becomes lane 0's."""
+    if "chunk_prev_last_seq" not in d:
+        raise ValueError("not a stateless-family plan state (no replay "
+                         "tail); a `seq` plan's slot state loads through "
+                         "nfa_state_from_jax")
+    arm = d.get("arm_done")
+    if d.get("chunk_tail") is not None:
+        tail = _tail(d["chunk_tail"], part=False)
+        lane_prev = np.array([d["chunk_prev_last_seq"]], dtype=np.int64)
+    else:
+        tail = _tail(d.get("lane_tail"), part=True)
+        lane_prev = np.array(d.get("lane_prev", []), dtype=np.int64)
+    return {"key_to_part": dict(d["key_to_part"]),
+            "ts_base": d.get("ts_base"), "seq_base": d.get("seq_base"),
+            "last_seq": d.get("last_seq"),
+            "lane_tail": tail, "lane_prev": lane_prev,
+            "arm_done": None if arm is None else np.array(arm, dtype=bool)}

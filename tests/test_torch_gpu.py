@@ -6,7 +6,9 @@ machine has no JAX, which tests/conftest.py imports); without one every
 test skips (the decision is taken inside the `cuda`
 fixture, never at import).  K1 must match its plain version bit for bit
 (the VM is built with --fmad=false); K2 must leave the same state and
-the same match rows (sorted) as its plain version."""
+the same match rows (sorted) as its plain version; K3-K5 (the `scan`
+family) must give the same heaps, chase results and match table as
+theirs on every block a run hands them."""
 import numpy as np
 import pytest
 import torch
@@ -126,10 +128,11 @@ def test_nfa_block_kernel_matches_plain(cuda, slots):
 
 
 def test_c4_end_to_end_on_the_card(cuda):
-    """A small C4 tape through device='cuda' and device='cpu': equal rows,
-    and both kernels launched."""
+    """A small C4 tape through device='cuda' and device='cpu' on the `seq`
+    family: equal rows, and both kernels launched."""
     from siddhi_tpu_torch.kernels import reset_launches
     app = ("@app:partitionCapacity(64)\n@app:deviceSlots(8)\n"
+           "@app:patternFamily('seq')\n"
            "define stream StockStream (symbol string, price double, "
            "volume int);\npartition with (symbol of StockStream) begin "
            "from every e1=StockStream[price > 100] -> "
@@ -157,4 +160,160 @@ def test_c4_end_to_end_on_the_card(cuda):
     got = run(cuda)
     assert min(LAUNCHES[k] for k in ("nfa_block", "expr_eval:pre_mask",
                                      "expr_eval:select")) > 0
+    assert got == run("cpu") and got
+
+
+# ---------------------------------------------------------------------------
+# the `scan` family: K3 seg_tree, K4 scan_chase, K5 scan_compact
+# ---------------------------------------------------------------------------
+
+C4_SCAN = ("define stream StockStream (symbol string, price double, "
+           "volume int);\npartition with (symbol of StockStream) begin "
+           "from every e1=StockStream[price > 100] -> "
+           "e2=StockStream[price > e1.price] -> "
+           "e3=StockStream[price > e2.price] within 10 sec "
+           "select e1.price as p1, e2.price as p2, e3.price as p3 "
+           "insert into Out; end;")
+C3_SCAN = ("define stream StockStream (symbol string, price double, "
+           "volume int);\nfrom every e1=StockStream[price > 100] -> "
+           "e2=StockStream[price > e1.price] within 1 sec "
+           "select e1.price as p1, e2.price as p2 insert into Out;")
+TWO = ("define stream A (k string, x int);\n"
+       "define stream B (k string, y double);\n"
+       "partition with (k of A, k of B) begin "
+       "from every e1=A[x > 3] -> e2=B[y > e1.x] -> e3=A[x < e2.y] "
+       "within 100 ms select e1.x as a, e2.y as b, e3.x as c "
+       "insert into Out; end;")
+# name -> (app, keys, flushes, events per flush, tape options)
+SCAN_APPS = {
+    "c4": ("@app:partitionCapacity(64)\n" + C4_SCAN, 50, 3, 20000, {}),
+    # NaN prices and 10% of the timestamps moved back or forward
+    "c4_nan_ooo": ("@app:partitionCapacity(64)\n" + C4_SCAN, 50, 3, 20000,
+                   {"nan": True, "ooo": True}),
+    # 2^18 + tail events: a 2^19-leaf flat tree, two K3 passes
+    "c3": (C3_SCAN, 50, 2, 1 << 18, {}),
+    "c3s": (C3_SCAN.replace("price > e1.price", "price < 95"), 50, 2, 30000,
+            {}),
+    "sequence": ("define stream StockStream (symbol string, price double, "
+                 "volume int);\npartition with (symbol of StockStream) "
+                 "begin from every e1=StockStream[price > 120], "
+                 "e2=StockStream[price < e1.price and volume > e1.volume] "
+                 "within 1 sec select e1.price as p1, e2.price as p2 "
+                 "insert into Out; end;", 20, 2, 20000, {}),
+    "one_shot": (C3_SCAN.replace("every ", "").replace(
+        "price > 100", "price > 125"), 50, 3, 3000, {}),
+    "le_long": ("define stream StockStream (symbol string, price long, "
+                "volume int);\nfrom every e1=StockStream[price > 100] -> "
+                "e2=StockStream[price <= e1.volume] within 1 sec "
+                "select e1.price as p1, e2.volume as v insert into Out;",
+                50, 2, 20000, {"long_price": True}),
+    # two streams: node masks test the stream code; an int column against
+    # a double right-hand side compares in a float32 tree
+    "two_stream": (TWO, 30, 3, 20000, {"two": True}),
+}
+
+
+def _feed(rt, keys: int, flushes: int, n: int, long_price=False, nan=False,
+          ooo=False, two=False):
+    rng = np.random.default_rng(7)
+    for f in range(flushes):
+        ts = 1_700_000_000_000 + f * n + np.arange(n)
+        if ooo:
+            hit = rng.random(n) < 0.1
+            ts[hit] += rng.integers(-3000, 3000, int(hit.sum()))
+        ks = np.array([f"K{i}" for i in rng.integers(0, keys, n)])
+        if two:
+            rt.input_handler("A").send_batch(
+                {"k": ks, "x": rng.integers(0, 10, n).astype(np.int32)},
+                2 * ts)
+            rt.input_handler("B").send_batch(
+                {"k": np.array([f"K{i}" for i in rng.integers(0, keys, n)]),
+                 "y": np.round(rng.uniform(0, 12, n) * 4) / 4}, 2 * ts + 1)
+            rt.flush()
+            continue
+        price = np.round(rng.uniform(90, 130, n) * 4) / 4
+        if nan:
+            price[rng.random(n) < 0.05] = np.nan
+        if long_price:
+            price = price.astype(np.int64)
+        rt.input_handler("StockStream").send_batch(
+            {"symbol": ks, "price": price,
+             "volume": rng.integers(90, 130, n).astype(np.int32)}, ts)
+        rt.flush()
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_APPS))
+def test_scan_kernels_match_plain(cuda, name, monkeypatch):
+    """Every block the `scan` plan hands ParallelChainKernel.run_block:
+    K3's heaps, K4's status and indices, K5's match table equal their
+    plain versions (tolerance 0), and the rows equal the CPU run's."""
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
+                                                     scan_chase_plain)
+    from siddhi_tpu_torch.kernels.scan_compact import (scan_compact,
+                                                       scan_compact_plain)
+    from siddhi_tpu_torch.kernels.seg_tree import (node_masks, seg_tree,
+                                                   seg_tree_plain)
+    app, keys, flushes, n, opts = SCAN_APPS[name]
+    blocks = []
+    orig = ParallelChainKernel.run_block
+
+    def rec(self, ev, M):
+        blocks.append((self, ev, M))
+        return orig(self, ev, M)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec)
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
+            app)
+        out = []
+        rt.add_callback("Out", lambda evs: out.extend(
+            (e.timestamp, e.data) for e in evs))
+        _feed(rt, keys, flushes, n, **opts)
+        assert rt.plans()[0].family == "scan"
+        return out
+    got = run(cuda)
+    assert blocks
+    for k, ev, M in blocks:
+        pre = k.pre_masks(ev)
+        masks = node_masks(k, ev, pre)
+        hk, hp = seg_tree(k, ev, pre), seg_tree_plain(k, ev, masks)
+        for a, b in zip(hk, hp):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        sk, ik = scan_chase(k, ev, pre, hp)
+        sp, ip = scan_chase_plain(k, ev, masks, hp)
+        assert torch.equal(sk, sp) and torch.equal(ik, ip)
+        ok = scan_compact(k, ev, sp, ip, M)
+        op = scan_compact_plain(k, ev, sp, ip, M)
+        torch.cuda.synchronize()
+        m = int(op["meta"][0])
+        for key in ("meta", "lane_n", "arm"):
+            assert torch.equal(ok[key], op[key]), key
+        for key in ("out_i", "out_f", "out_l"):
+            assert torch.equal(ok[key][:, :m], op[key][:, :m]), key
+    blocks.clear()
+    assert got == run("cpu")
+    if name != "one_shot":
+        assert len(got) > 20
+
+
+def test_c4_scan_end_to_end_on_the_card(cuda):
+    """C4 at default settings runs `scan` on the card: K3, K4 and K5
+    launched, K2 not; rows equal to the CPU run."""
+    from siddhi_tpu_torch.kernels import reset_launches
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
+            "@app:partitionCapacity(64)\n" + C4_SCAN)
+        out = []
+        rt.add_callback("Out", lambda evs: out.extend(
+            (e.timestamp, e.data) for e in evs))
+        _feed(rt, 50, 3, 5000)
+        return out
+    reset_launches()
+    got = run(cuda)
+    assert min(LAUNCHES[k] for k in ("seg_tree", "scan_chase", "scan_compact",
+                                     "expr_eval:pre_mask",
+                                     "expr_eval:select")) > 0
+    assert LAUNCHES["nfa_block"] == 0
     assert got == run("cpu") and got

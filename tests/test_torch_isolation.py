@@ -56,6 +56,11 @@ def test_import_leaves_jax_unloaded():
             "before = roots()\n"
             "import siddhi_tpu_torch, siddhi_tpu_torch.kernels.nfa_block\n"
             "import siddhi_tpu_torch.kernels.expr_eval\n"
+            "import siddhi_tpu_torch.kernels.seg_tree\n"
+            "import siddhi_tpu_torch.kernels.scan_chase\n"
+            "import siddhi_tpu_torch.kernels.scan_compact\n"
+            "import siddhi_tpu_torch.core.nfa_parallel\n"
+            "import siddhi_tpu_torch.core.autotune\n"
             "import siddhi_tpu_torch.weights\n"
             "bad = sorted(roots() - before)\n"
             "assert not bad, bad\n")
@@ -79,6 +84,22 @@ def test_kernel_wrappers_refuse_other_devices():
     col = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         expr_eval([col], None, [], 4, use="filter")
+
+
+@pytest.mark.parametrize("which", ["seg_tree", "scan_chase", "scan_compact"])
+def test_scan_wrappers_refuse_other_devices(which):
+    """K3-K5 take their plain versions only for CPU tensors: a block on
+    any other device that is not CUDA is refused before anything runs."""
+    from siddhi_tpu_torch.kernels import scan_chase, scan_compact, seg_tree
+    g = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    ev = {"__flat.__ts__": g, "__flat.__seq__": g}
+    with pytest.raises(ValueError, match="unsupported device"):
+        if which == "seg_tree":
+            seg_tree.seg_tree(None, ev, [])
+        elif which == "scan_chase":
+            scan_chase.scan_chase(None, ev, [], [])
+        else:
+            scan_compact.scan_compact(None, ev, g, g, 4)
 
 
 def test_expr_eval_rejects_an_unknown_use():

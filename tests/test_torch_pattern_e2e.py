@@ -1,11 +1,13 @@
 """The port's main path as a whole: pattern and sequence apps through
 siddhi_tpu_torch.SiddhiManager(device="cpu") (the kernels' plain
 versions) against siddhi_tpu on the same seeded tapes, row for row.  Each
-app is compared with the JAX package at its default settings and with its
-sequential `seq` plan family; slot growth and match-buffer retries are
-forced with tiny slot counts; slot state carried over from the JAX
-package continues to the JAX package's result; shapes outside the slice
-raise when the app is created.  The JAX package's rows and the port's are
+app is compared with the JAX package at its default settings (where both
+pick the same plan family: `scan` for the within-bounded chains, `seq`
+otherwise) and with the sequential `seq` family forced in both; slot
+growth and match-buffer retries are forced with tiny slot counts on
+`seq`; slot state carried over from the JAX package continues to the JAX
+package's result; shapes outside the slice raise when the app is
+created.  The JAX package's rows and the port's are
 computed once per app and tape (`jax_rows`, `port_rows`) and shared by
 the tests that compare them."""
 import functools
@@ -126,6 +128,7 @@ def run(pkg, app, sends, **kw):
 
 
 SEQ_JAX = "@app:devicePatterns('prefer')\n@app:patternFamily('seq')\n"
+SEQ = "@app:patternFamily('seq')\n"       # the port's K2 path
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,14 +156,18 @@ def jax_rows(name: str, variant: str):
 
 
 @functools.lru_cache(maxsize=None)
-def port_rows(name: str) -> list:
-    return run(siddhi_tpu_torch, APPS[name], tape(name), device="cpu")[0]
+def port_rows(name: str, variant: str = "default") -> list:
+    """The port's rows for APPS[name], at its default settings or with
+    `seq` forced (K2 then carries every app)."""
+    head = SEQ if variant == "seq" else ""
+    return run(siddhi_tpu_torch, head + APPS[name], tape(name),
+               device="cpu")[0]
 
 
 @pytest.mark.parametrize("variant", ["default", "seq"])
 @pytest.mark.parametrize("name", sorted(APPS))
 def test_pattern_rows_equal_jax(name, variant):
-    got = port_rows(name)
+    got = port_rows(name, variant)
     assert got == jax_rows(name, variant)[0]
     if name != "one_shot":
         assert len(got) > 5, "tape too quiet to test anything"
@@ -193,7 +200,7 @@ def test_slot_growth_and_match_buffer_retries(monkeypatch):
         calls.append((self.A, M, int(out["meta"][0]), int(out["meta"][1])))
         return st, out
     monkeypatch.setattr(NFAKernel, "run_block", spy)
-    got, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
+    got, rt = run(siddhi_tpu_torch, SEQ + app, sends, device="cpu")
     want, _ = run(siddhi_tpu, SEQ_JAX + app, sends)
     assert got == want and got
     plan = rt.plans()[0]
@@ -208,7 +215,7 @@ def test_slot_cap_drops_like_jax():
                              "deviceSlots(2)\n@app:deviceSlotCap(4)")
     sends = tape("c4", flushes=2, n=1500, seed=4)
     with pytest.warns(RuntimeWarning):
-        got, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
+        got, rt = run(siddhi_tpu_torch, SEQ + app, sends, device="cpu")
     with pytest.warns(RuntimeWarning):
         want, jrt = run(siddhi_tpu, SEQ_JAX + app, sends)
     assert got == want
@@ -217,8 +224,8 @@ def test_slot_cap_drops_like_jax():
 
 
 def test_rebase_after_a_long_gap():
-    """A flush 2^31 ms after the last one pushes the i32 offsets past their
-    budget: the plan rebases its ts/seq bases and the slot state (ancient
+    """On `seq`, a flush 2^31 ms after the last one pushes the i32 offsets
+    past their budget: the plan rebases its ts/seq bases and the slot state (ancient
     slots clamp and expire) exactly where the JAX package does."""
     sends = tape("c4", flushes=3, n=400, seed=6)
     sid, cols, ts = sends[2]
@@ -226,7 +233,7 @@ def test_rebase_after_a_long_gap():
     sends.append(("StockStream", tape("c4", 1, 400, seed=7)[0][1],
                   ts[-1] + (1 << 31) + 7 + 7 * np.arange(400)))
     want, _ = run(siddhi_tpu, SEQ_JAX + APPS["c4"], sends)
-    got, rt = run(siddhi_tpu_torch, APPS["c4"], sends, device="cpu")
+    got, rt = run(siddhi_tpu_torch, SEQ + APPS["c4"], sends, device="cpu")
     assert got == want and got
     assert rt.plans()[0]._ts_base > int(sends[0][2][0])
 
@@ -234,14 +241,15 @@ def test_rebase_after_a_long_gap():
 @pytest.mark.parametrize("name", ["c4", "types"])
 def test_state_carried_from_jax(name):
     """First half of the tape on the JAX package (seq family), its plan
-    state carried into the port, second half on the port: equal to the
+    state carried into the port (seq family too), second half on the
+    port: equal to the
     JAX package's rows for the whole tape."""
     sends = tape(name)
     want, (d, strings, seq, n_before) = jax_rows(name, "seq")
     d = dict(d, state=nfa_state_from_jax(d["state"], "cpu"))
 
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    rt = mgr.create_app_runtime(APPS[name])
+    rt = mgr.create_app_runtime(SEQ + APPS[name])
     rt.strings.restore(strings)
     rt._seq = seq
     rt.plans()[0].load_state_dict(d)
@@ -274,7 +282,7 @@ def test_unsupported_shapes_raise_at_create(body, feature):
 
 @pytest.mark.parametrize("head,feature", [
     ("@app:devicePrecision('f64')\n", "f64"),
-    ("@app:patternFamily('scan')\n", "family"),
+    ("@app:patternFamily('dfa')\n", "family"),
 ])
 def test_unsupported_options_raise_at_create(head, feature):
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
