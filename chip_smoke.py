@@ -30,7 +30,16 @@ Phases (any failure exits non-zero; nothing is caught):
      masks and selector columns equal;
   8. config 1 (filter) at 2^20 events, run and checked the same way, and
      K1 on its filter program against the plain version;
-  9. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+  9. config 5 (bench.py's c5_app(1000): 1000 mixed pattern/sequence
+     queries with `not ... for` and `within`, four fused plans of 250
+     lanes, families scan/seq/seq/scan): 4 flushes of 2^13 events 50 ms
+     apart, then set_time 1 s past the last event, counted (K1-K5 all
+     launched) and checked against the CPU run; a second run of the same
+     app on the tape's first events leaves deadlines pending for
+     set_time's timer ticks; K1-K5 against their plain versions on every
+     block both runs recorded (K2 blocks with fired deadlines and tick
+     blocks required); ms per flush, events/s and query-events/s;
+ 10. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -70,6 +79,39 @@ C3 = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
               "select e1.price as p1, e2.price as p2 insert into Out;\n")
 KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
 SEQ_FLUSHES, C3_FLUSHES = 2, 2
+C5_QUERIES, C5_FLUSH, C5_FLUSHES, C5_DT, C5_SYMBOLS = 1000, 1 << 13, 4, 50, 8
+
+
+def c5_app(n_queries=1000):
+    """bench.py:226-266 (BASELINE config 5), copied: 1k concurrent mixed
+    pattern/sequence queries with `not`/`within` over one shared input
+    stream, under @app:playback."""
+    parts = ["@app:playback\n" + STOCK]   # historical tape: event-time
+    for i in range(n_queries):            # deadlines fire in-scan, not via
+        lo = 123 + (i % 6)                # the wall-clock pump
+        shape = i % 4
+        if shape == 0:
+            parts.append(
+                f"@info(name='q{i}') from every e1=StockStream[price > {lo}] -> "
+                f"e2=StockStream[price > e1.price] within 1 sec "
+                f"select e1.price as p1, e2.price as p2 insert into Out{i % 16};")
+        elif shape == 1:
+            parts.append(
+                f"@info(name='q{i}') from e1=StockStream[price > {lo}], "
+                f"e2=StockStream[price > e1.price] "
+                f"select e1.price as p1, e2.price as p2 insert into Out{i % 16};")
+        elif shape == 2:
+            parts.append(
+                f"@info(name='q{i}') from e1=StockStream[price > {lo + 1}] -> "
+                f"not StockStream[price < {lo - 30}] for 500 milliseconds "
+                f"select e1.price as p1 insert into Out{i % 16};")
+        else:
+            parts.append(
+                f"@info(name='q{i}') from every e1=StockStream[price > {lo}] -> "
+                f"e2=StockStream[price > e1.price] -> "
+                f"e3=StockStream[price > e2.price] within 2 sec "
+                f"select e1.price as p1, e3.price as p3 insert into Out{i % 16};")
+    return "\n".join(parts) + "\n"
 K1_SRC = "siddhi_tpu_torch/csrc/expr_eval.cu"
 CSRC = "siddhi_tpu_torch/csrc"
 PAR = "siddhi_tpu/core/nfa_parallel.py"
@@ -79,9 +121,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_tape(np, n_events: int, batch: int, keys: int, seed: int = 0):
+def make_tape(np, n_events: int, batch: int, keys: int, seed: int = 0,
+              dt_ms: int = 1):
     """The benchmark tape shape: uniform keys, prices on the quarter grid
-    (exact in float32), volumes, 1 ms apart, one dict per flush."""
+    (exact in float32), volumes, dt_ms apart, one dict per flush."""
     rng = np.random.default_rng(seed)
     tape = []
     ts0 = 1_700_000_000_000
@@ -91,27 +134,34 @@ def make_tape(np, n_events: int, batch: int, keys: int, seed: int = 0):
             "sym_idx": rng.integers(0, keys, size=n).astype(np.int32),
             "price": np.round(rng.uniform(90.0, 130.0, size=n) * 4) / 4,
             "volume": rng.integers(1, 1000, size=n).astype(np.int32),
-            "ts": ts0 + np.arange(start, start + n, dtype=np.int64)})
+            "ts": ts0 + np.arange(start, start + n, dtype=np.int64) * dt_ms})
     return tape
 
 
-def graph_ms(torch, fn, reps: int = 20) -> tuple:
-    """(device ms, host dispatch ms) per call of `fn`.  The device time
-    replays `reps` calls captured in one CUDA graph, timed with CUDA
-    events, so the wrapper's Python and ctypes work before each launch is
-    not in it.  The host dispatch time is the wall clock of `reps` eager
-    calls with no synchronisation inside."""
-    fn()
+def graph_ms(torch, call, prepare, reps: int = 20) -> tuple:
+    """(device ms, host dispatch ms) per call of the wrapper `call`.  The
+    device time replays `reps` rounds of the launches `prepare()` returns
+    (the wrapper's kernel launches, their parameter tables uploaded
+    beforehand: a graph cannot capture that copy) captured in one CUDA
+    graph and timed with CUDA events, so the wrapper's Python, ctypes and
+    table upload are not in it.  The host dispatch time is the wall clock
+    of `reps` eager calls with no synchronisation inside."""
+    call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        fn()
+        call()
     host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    launches = prepare()
+    for launch in launches:
+        launch()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
-            fn()
+            for launch in launches:
+                launch()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -155,21 +205,29 @@ def bound(nbytes: float, ops: float) -> tuple:
                                                            "operations")
 
 
-def k1_work(torch, cols, mask_prog, out_progs, n: int) -> tuple:
-    """(bytes, operations) K1 needs for rows [0, n): each column a program
-    loads read once, each output and the mask words written once, one
-    operation per row for each VM instruction other than a load or a
-    constant."""
+def k1_work(torch, cols, mask_prog, out_progs, n: int, rows=None) -> tuple:
+    """(bytes, operations) K1 needs for rows [0, n): each column element a
+    program loads read once (a broadcast or shared column once, not once
+    per lane), each lane parameter once, each output and the mask words
+    written once, one operation per row for each VM instruction other
+    than a load, a parameter or a constant."""
     from siddhi_tpu_torch.core.expr import TORCH_OF_VT, decode_word
-    loaded, ops = set(), 0
+    loaded, qparams, ops = set(), False, 0
     for prog in [p for p in (mask_prog, *out_progs) if p is not None]:
         for j in range(0, len(prog.words), 2):
             op = decode_word(prog.words[j])[0]
             if op == "load":
                 loaded.add(prog.words[j + 1])
+            elif op == "qparam":
+                qparams = True
             elif op != "const":
                 ops += n
-    nbytes = sum(n * cols[s].element_size() for s in loaded)
+    elems = n
+    if rows is not None and (rows.col_mod or rows.col_div > 1):
+        elems = rows.col_mod or -(-n // rows.col_div)
+    nbytes = sum(elems * cols[s].element_size() for s in loaded)
+    if qparams and rows is not None and rows.qparams is not None:
+        nbytes += rows.qparams.bits.numel() * 8
     nbytes += sum(n * torch.empty(0, dtype=TORCH_OF_VT[p.vt]).element_size()
                   for p in out_progs)
     if mask_prog is not None:
@@ -321,6 +379,137 @@ def run_scan_path(pkg, np, app: str, tape) -> tuple:
     return rows, per_flush, launches, rt, blocks
 
 
+def run_c5(pkg, np, tape, device: str, record: bool = False):
+    """Config 5 through the facade: the tape flush by flush, then
+    `set_time` 1 s past its last event, launch counts from 0 just before
+    the first flush and read just after `set_time`.  Returns (rows as
+    (stream, ts, row) in arrival order, ms per flush, set_time ms,
+    launches, runtime, recorded `seq` blocks, recorded `scan` blocks); a
+    recorded block is what the plan handed NFAKernel.run_block (kernel,
+    state in, event grid, M, meta) or ParallelChainKernel.run_block
+    (kernel, event grid, M), recording launching nothing."""
+    import torch
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    seq_blocks, scan_blocks = [], []
+    run_seq, run_scan = NFAKernel.run_block, ParallelChainKernel.run_block
+
+    def rec_seq(kern, state, ev, M):
+        new, out = run_seq(kern, state, ev, M)
+        seq_blocks.append((kern, state, ev, M, out["meta"]))
+        return new, out
+
+    def rec_scan(kern, ev, M):
+        scan_blocks.append((kern, ev, M))
+        return run_scan(kern, ev, M)
+    if record:
+        NFAKernel.run_block, ParallelChainKernel.run_block = rec_seq, rec_scan
+    try:
+        rt = pkg.SiddhiManager(device=device).create_app_runtime(
+            c5_app(C5_QUERIES))
+        batches = []
+        for j in range(16):
+            rt.add_batch_callback(f"Out{j}",
+                                  lambda b, j=j: batches.append((j, b)))
+        h = rt.input_handler("StockStream")
+        codes = np.array([rt.strings.encode(f"K{i}")
+                          for i in range(C5_SYMBOLS)], dtype=np.int32)
+
+        def sync():
+            if device == "cuda":
+                torch.cuda.synchronize()
+        kernels.reset_launches()
+        per_flush = []
+        for f in tape:
+            t0 = time.perf_counter()
+            h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
+                          "volume": f["volume"]}, f["ts"])
+            rt.flush()
+            sync()
+            per_flush.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        rt.set_time(int(tape[-1]["ts"][-1]) + 1000)
+        sync()
+        set_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        NFAKernel.run_block, ParallelChainKernel.run_block = run_seq, run_scan
+    rows = [(j, int(t), row) for j, b in batches
+            for t, row in zip(b.timestamps, b.rows(rt.strings))]
+    return rows, per_flush, set_ms, launches, rt, seq_blocks, scan_blocks
+
+
+def check_c5_rows(label: str, dev_out: list, ref_out: list) -> None:
+    """Equal to the CPU run, stream by stream in arrival order, and true
+    to each shape (stream j carries queries of shape j % 4)."""
+    if dev_out != ref_out or not dev_out:
+        raise SystemExit(f"{label} rows differ from the CPU run: "
+                         f"{len(dev_out)} vs {len(ref_out)}")
+    for j, _ts, row in dev_out:
+        ok = row[0] > 124 if j % 4 == 2 else (row[0] > 123 and
+                                             row[1] > row[0])
+        if not ok:
+            raise SystemExit(f"{label} row of Out{j} breaks its pattern: "
+                             f"{row}")
+
+
+def phase_c5(torch, np, pkg) -> dict:
+    """Config 5 at 1000 queries (four fused plans of 250 lanes) on the
+    card and on the CPU, then every kernel against its plain version on
+    the blocks the card run recorded.  The tape resolves every one-shot
+    `not ... for` lane within its first seconds, so the final `set_time`
+    finds no deadline left; the timer-tick blocks come from the same app
+    on the tape's first events up to the first such lane's arming, one
+    flush and a `set_time` (its rows, too, equal the CPU run's)."""
+    tape = make_tape(np, C5_FLUSH * C5_FLUSHES, C5_FLUSH, C5_SYMBOLS,
+                     seed=5, dt_ms=C5_DT)
+    rows, per_flush, set_ms, launches, rt, seq_b, scan_b = run_c5(
+        pkg, np, tape, "cuda", record=True)
+    plans = rt.plans()
+    fams = [getattr(p, "family", None) for p in plans]
+    if [getattr(p, "n_queries", 0) for p in plans] != [250] * 4 or \
+            fams != ["scan", "seq", "seq", "scan"]:
+        raise SystemExit(f"C5 planned {[(p.name, f) for p, f in zip(plans, fams)]}")
+    need_launches("C5", launches, ("expr_eval:pre_mask", "expr_eval:select",
+                                   "nfa_block", "seg_tree", "scan_chase",
+                                   "scan_compact"))
+    ref, cpu_flush, _s, _l, _rt, _b, _c = run_c5(pkg, np, tape, "cpu")
+    check_c5_rows("C5", rows, ref)
+    steady = per_flush[1:]
+    eps = C5_FLUSH / (sum(steady) / len(steady) / 1e3)
+    log(f"[c5] {len(rows)} rows equal to the CPU run; families {fams}; "
+        f"launches {launches}; per flush ms "
+        f"{[round(x, 1) for x in per_flush]}, set_time {set_ms:.1f} ms (cpu "
+        f"{[round(x) for x in cpu_flush]})")
+    log(f"[c5] {eps:.0f} events/s, {eps * C5_QUERIES:.0f} query-events/s "
+        f"over the {len(steady)} steady flushes of {C5_FLUSH} events")
+
+    # the tick run: first lane of shape 2 arms on the first price > 124
+    first = int(np.flatnonzero(tape[0]["price"] > 124)[0]) + 1
+    prefix = [{k: v[:first] for k, v in tape[0].items()}]
+    t_rows, _f, _s, _l, _rt, t_seq, _t = run_c5(pkg, np, prefix, "cuda",
+                                                record=True)
+    t_ref = run_c5(pkg, np, prefix, "cpu")[0]
+    check_c5_rows("C5 tick run", t_rows, t_ref)
+    log(f"[c5 ticks] {first} events, then set_time: {len(t_rows)} rows "
+        f"equal to the CPU run")
+
+    # K2 is timed on the last block: the absent group's widest
+    blocks = sorted(seq_b + t_seq, key=lambda b: (b[0].has_absent,
+                                                  b[2]["__ts__"].shape[0]))
+    k2 = phase_blocks(torch, blocks, "c5 seq")
+    if not k2["fired_blocks"] or not k2["tick_blocks"]:
+        raise SystemExit(f"C5 K2 blocks: {k2['fired_blocks']} with fired "
+                         f"deadlines, {k2['tick_blocks']} ticks")
+    scan = phase_scan_blocks(torch, scan_b, "c5")
+    return {"rows": len(rows), "ms_per_flush": per_flush,
+            "set_time_ms": set_ms, "cpu_ms_per_flush": cpu_flush,
+            "events_per_s": eps, "query_events_per_s": eps * C5_QUERIES,
+            "launches": launches, "k2": k2, "scan": scan,
+            "tick_rows": len(t_rows)}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -337,6 +526,10 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     """Phase 5: K3, K4, K5 and K1 against their plain versions on every
     block a `scan` run recorded, each kernel on the same inputs as its
     plain version; the last block is timed."""
+    from siddhi_tpu_torch.kernels import expr_eval as k1
+    from siddhi_tpu_torch.kernels import scan_chase as k4
+    from siddhi_tpu_torch.kernels import scan_compact as k5
+    from siddhi_tpu_torch.kernels import seg_tree as k3
     from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
     from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
                                                      scan_chase_plain)
@@ -347,13 +540,15 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     err = {"seg_tree": 0.0, "scan_chase": 0.0, "scan_compact": 0.0,
            "pre_mask": 0.0, "select": 0.0}
     for b, (kern, ev, M) in enumerate(blocks):
-        L, F = ev["__flat.__ts__"].shape
+        L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
         params = {"__base_ts__": ev["__base_ts__"]}
         pre = kern.pre_masks(ev)
         cols = kern.pre_mask_cols(ev)
+        rows = kern.pre_mask_rows(ev)
         for w, pr in zip(pre, kern.nfak.pre_progs):
             if pr is not None and not torch.equal(
-                    w, expr_eval_plain(cols, pr, [], L * F, params)[0]):
+                    w, expr_eval_plain(cols, pr, [], L * F, params,
+                                       rows)[0]):
                 raise SystemExit(f"[{label}] K1 pre-mask differs (block {b})")
         masks = node_masks(kern, ev, pre)
         hk, hp = seg_tree(kern, ev, pre), seg_tree_plain(kern, ev, masks)
@@ -383,7 +578,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
         nfak = kern.nfak
         hw, sel = nfak.select(ok, n, ev["__base_ts__"])
         hp_, selp = expr_eval_plain(nfak.select_cols(ok), nfak.having_prog,
-                                    nfak.sel_progs, n, params)
+                                    nfak.sel_progs, n, params,
+                                    nfak.select_rows(ok))
         if (hw is None) != (hp_ is None) or (hw is not None and not
                                              torch.equal(hw, hp_)) or \
                 not all(torch.equal(a, c) for a, c in zip(sel, selp)):
@@ -396,7 +592,7 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
             f"selector equal to their plain versions")
 
     kern, ev, M = blocks[-1]
-    L, F = ev["__flat.__ts__"].shape
+    L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
     Lt = kern.leaves(F)
     params = {"__base_ts__": ev["__base_ts__"]}
     pre = kern.pre_masks(ev)
@@ -415,7 +611,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     k3_bytes = nbytes(ev["__nev__"], *[ev[c] for c in srcs], *pre_used,
                       *heaps)
     k3_ops = len(heaps) * L * Lt
-    ms, host = graph_ms(torch, lambda: seg_tree(kern, ev, pre))
+    ms, host = graph_ms(torch, lambda: seg_tree(kern, ev, pre),
+                        lambda: [k3.prepare(kern, ev, pre)])
     res["seg_tree"] = {"ms": ms, "dispatch_ms": host, "bytes": k3_bytes,
                        "ops": k3_ops, "library_ms": None,
                        "plain_ms": wall_ms(torch, lambda: seg_tree_plain(
@@ -428,7 +625,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
                       *[ev[c] for c in vm_cols], *pre_used, *heaps,
                       status, idx)
     k4_ops = sum(alive) * 4 * max(Lt.bit_length() - 1, 1)
-    ms, host = graph_ms(torch, lambda: scan_chase(kern, ev, pre, heaps))
+    ms, host = graph_ms(torch, lambda: scan_chase(kern, ev, pre, heaps),
+                        lambda: [k4.prepare(kern, ev, pre, heaps)])
     res["scan_chase"] = {"ms": ms, "dispatch_ms": host, "bytes": k4_bytes,
                          "ops": k4_ops, "library_ms": None,
                          "plain_ms": wall_ms(torch, lambda: scan_chase_plain(
@@ -446,7 +644,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     cand = (status & 1).view(-1).bool()
     lib_ms = event_ms(torch, lambda: torch.nonzero(cand))
     ms, host = graph_ms(torch, lambda: scan_compact(kern, ev, status, idx,
-                                                    M))
+                                                    M),
+                        lambda: [k5.prepare(kern, ev, status, idx, M)])
     res["scan_compact"] = {"ms": ms, "dispatch_ms": host, "bytes": k5_bytes,
                            "ops": k5_ops, "library_ms": lib_ms,
                            "plain_ms": wall_ms(torch, lambda:
@@ -456,65 +655,81 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     # K1 on the scan block: pre-masks over the (L*F,) grid, selector
     # over the match table
     cols = kern.pre_mask_cols(ev)
+    rows = kern.pre_mask_rows(ev)
     progs = [p for p in kern.nfak.pre_progs if p is not None]
     nb = ops = 0
     for prog in progs:
-        b_, o_ = k1_work(torch, cols, prog, [], L * F)
+        b_, o_ = k1_work(torch, cols, prog, [], L * F, rows)
         nb, ops = nb + b_, ops + o_
-    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev))
+    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev), lambda: [
+        k1.prepare(cols, p, [], L * F, params, use="pre_mask", rows=rows)
+        for p in progs])
     res["pre_mask"] = {
         "ms": ms / len(progs), "dispatch_ms": host / len(progs),
         "plain_ms": wall_ms(torch, lambda: [
-            expr_eval_plain(cols, p, [], L * F, params)
+            expr_eval_plain(cols, p, [], L * F, params, rows)
             for p in progs]) / len(progs),
         "bytes": nb / len(progs), "ops": ops / len(progs),
         "library_ms": None}
     nfak = kern.nfak
     sel_cols = nfak.select_cols(out)
-    nb, ops = k1_work(torch, sel_cols, nfak.having_prog, nfak.sel_progs, n)
+    sel_rows = nfak.select_rows(out)
+    nb, ops = k1_work(torch, sel_cols, nfak.having_prog, nfak.sel_progs, n,
+                      sel_rows)
     ms, host = graph_ms(torch, lambda: nfak.select(out, n,
-                                                   ev["__base_ts__"]))
+                                                   ev["__base_ts__"]),
+                        lambda: [k1.prepare(sel_cols, nfak.having_prog,
+                                            nfak.sel_progs, n, params,
+                                            use="select", rows=sel_rows)])
     res["select"] = {
         "ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
         "library_ms": None,
         "plain_ms": wall_ms(torch, lambda: expr_eval_plain(
-            sel_cols, nfak.having_prog, nfak.sel_progs, n, params))}
+            sel_cols, nfak.having_prog, nfak.sel_progs, n, params,
+            sel_rows))}
     return res
 
 
 def sorted_rows(torch, kern, out: dict):
+    """The match rows in (completion seq, head seq, lane) order."""
     n = int(out["meta"][0])
     rows = torch.cat([out["out_i"][:, :n].double(),
                       out["out_f"][:, :n].double(),
                       out["out_l"][:, :n].double()])
-    ci = kern.lane_names_i.index("__comp_seq__")
-    hi = kern.lane_names_i.index("__head_seq__")
-    key = rows[ci] * 2.0 ** 32 + rows[hi]
-    return rows[:, torch.argsort(key)]
+    order = torch.arange(n, device=rows.device)
+    for name in ("__qid__", "__head_seq__", "__comp_seq__"):
+        if name in kern.lane_names_i:
+            r = rows[kern.lane_names_i.index(name)]
+            order = order[torch.argsort(r[order], stable=True)]
+    return rows[:, order]
 
 
-def phase_blocks(torch, blocks) -> dict:
-    """Phase 7: K2 and K1 against their plain versions on every block the
-    `seq` run accepted (an M overflow's first try is re-run by the plan
-    with a larger M and is left out); K2 is timed on the last block, whose
-    slot state the earlier flushes built (K1 is timed on the `scan`
-    blocks, phase 5)."""
+def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
+    """K2 and K1 against their plain versions on every block a `seq` run
+    accepted (an M overflow's first try is re-run by the plan with a
+    larger M and is left out), counting the blocks in which absent
+    deadlines fired and the timer ticks; K2 is timed on the last block
+    that is not a tick (K1 is timed on the `scan` blocks)."""
+    from siddhi_tpu_torch.kernels import nfa_block as k2
     from siddhi_tpu_torch.kernels.expr_eval import (expr_eval_plain,
                                                     unpack_mask)
     from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
     accepted = [b[:4] for b in blocks if int(b[4][0]) <= b[3]]
     if not accepted:
-        raise SystemExit("C4 recorded no accepted block")
+        raise SystemExit(f"[{label}] recorded no accepted block")
     err = {"nfa_block": 0.0, "pre_mask": 0.0, "select": 0.0}
+    fired = ticks = 0
     for b, (kern, state, ev, M) in enumerate(accepted):
-        T, P = ev["__ts__"].shape
+        T, P = ev["__ts__"].shape[0], kern.P
         params = {"__base_ts__": ev["__base_ts__"]}
         pre = kern.pre_masks(ev)
         pre_cols = kern.pre_mask_cols(ev)
+        rows = kern.pre_mask_rows(ev)
         for w, pr in zip(pre, kern.pre_progs):
             if pr is not None and not torch.equal(
-                    w, expr_eval_plain(pre_cols, pr, [], T * P, params)[0]):
-                raise SystemExit(f"K1 pre-mask differs (block {b})")
+                    w, expr_eval_plain(pre_cols, pr, [], T * P, params,
+                                       rows)[0]):
+                raise SystemExit(f"[{label}] K1 pre-mask differs (block {b})")
         new_k, out_k = nfa_block(kern, state, ev, pre, M)
         masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
                  for w in pre]
@@ -524,51 +739,65 @@ def phase_blocks(torch, blocks) -> dict:
         plain_ms = (time.perf_counter() - t0) * 1e3
         for key in new_k:
             if not torch.equal(new_k[key], new_p[key]):
-                raise SystemExit(f"K2 state {key!r} differs (block {b})")
+                raise SystemExit(f"[{label}] K2 state {key!r} differs "
+                                 f"(block {b})")
         if not torch.equal(out_k["meta"], out_p["meta"]):
-            raise SystemExit(f"K2 meta differs: {out_k['meta'].tolist()} vs "
+            raise SystemExit(f"[{label}] K2 meta differs: "
+                             f"{out_k['meta'].tolist()} vs "
                              f"{out_p['meta'].tolist()}")
         rk, rp = sorted_rows(torch, kern, out_k), sorted_rows(torch, kern,
                                                               out_p)
         if not torch.equal(rk, rp):
-            raise SystemExit(f"K2 match rows differ (block {b})")
+            raise SystemExit(f"[{label}] K2 match rows differ (block {b})")
         n = int(out_k["meta"][0])
         if n:
             err["nfa_block"] = max(err["nfa_block"],
                                    float((rk - rp).abs().max()))
+        # a chain ending in an absent position completes only when a
+        # deadline fires, so each of its matches is a fired deadline
+        n_fired = n if kern.spec.positions[-1].node.kind == "absent" else 0
+        fired += n_fired > 0
+        tick = "__tick__" in ev
+        ticks += tick
         sel_cols = kern.select_cols(out_k)
         hw, sel = kern.select(out_k, n, ev["__base_ts__"])
         hp, selp = expr_eval_plain(sel_cols, kern.having_prog,
-                                   kern.sel_progs, n, params)
+                                   kern.sel_progs, n, params,
+                                   kern.select_rows(out_k))
         if (hw is None) != (hp is None) or (hw is not None and not
                                             torch.equal(hw, hp)) or \
                 not all(torch.equal(a, c) for a, c in zip(sel, selp)):
-            raise SystemExit(f"K1 selector differs (block {b})")
+            raise SystemExit(f"[{label}] K1 selector differs (block {b})")
         for a, c in zip(sel, selp):
             if n and a.dtype != torch.bool:
                 err["select"] = max(err["select"], float(
                     (a.double() - c.double()).abs().max()))
-        log(f"  block {b}: T={T} P={P} A={kern.A} M={M} matches={n} "
-            f"of_slots={int(out_k['meta'][1])}: K2 state and rows, K1 "
+        log(f"  [{label}] block {b}: T={T} P={P} A={kern.A} M={M} "
+            f"matches={n} of_slots={int(out_k['meta'][1])} deadlines fired="
+            f"{n_fired}{' (tick)' if tick else ''}: K2 state and rows, K1 "
             f"pre-masks and selector equal to their plain versions")
 
-    kern, state, ev, M = accepted[-1]
-    T, P = ev["__ts__"].shape
+    timed = [b for b in accepted if "__tick__" not in b[2]] or accepted
+    kern, state, ev, M = timed[-1]
+    T, P = ev["__ts__"].shape[0], kern.P
     pre = kern.pre_masks(ev)
     out = nfa_block(kern, state, ev, pre, M)[1]
     n = int(out["meta"][0])
     res = {"T": T, "P": P, "A": kern.A, "M": M, "matches": n,
-           "blocks": len(accepted), "err": err}
+           "blocks": len(accepted), "err": err, "fired_blocks": fired,
+           "tick_blocks": ticks}
     # K2: the grids, pre-mask words, state in and out and the match rows,
-    # each moved once; one station test per slot for each live event
+    # each moved once; one station test per slot and lane for each event
     tensors = [v for v in ev.values() if torch.is_tensor(v)]
     k2_bytes = sum(v.numel() * v.element_size() for v in tensors)
     k2_bytes += sum(w.numel() * 4 for w in pre if w is not None)
     k2_bytes += 2 * sum(v.numel() * v.element_size() for v in state.values())
     k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) * 4 +
-                     len(kern.rows_l) * 8) + 8
-    k2_ops = int(ev["__valid__"].sum()) * kern.A
+                     len(kern.rows_l) * 8) + 12
+    lanes = P if ev["__valid__"].shape[1] == 1 else 1
+    k2_ops = int(ev["__valid__"].sum()) * kern.A * lanes
     ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
+                        lambda: [k2.prepare(kern, state, ev, pre, M)],
                         reps=10)
     res["nfa_block"] = {"ms": ms, "dispatch_ms": host, "plain_ms": plain_ms,
                         "bytes": k2_bytes, "ops": k2_ops, "library_ms": None}
@@ -599,7 +828,9 @@ def phase_c1(torch, np, pkg) -> dict:
     if not torch.equal(wk, wp) or not all(torch.equal(a, b)
                                           for a, b in zip(ok, op)):
         raise SystemExit("K1 filter differs from its plain version at C1")
-    k_ms, host = graph_ms(torch, lambda: expr_eval(*args, use="filter"))
+    from siddhi_tpu_torch.kernels import expr_eval as k1
+    k_ms, host = graph_ms(torch, lambda: expr_eval(*args, use="filter"),
+                          lambda: [k1.prepare(*args, use="filter")])
     nbytes, ops = k1_work(torch, cols, plan._mask_prog, plan._out_progs, n)
     log(f"[c1] {len(rows)} rows equal to the CPU run; launches {launches}; "
         f"{ms[0]:.1f} ms for {n} events")
@@ -734,6 +965,14 @@ def main() -> int:
     # 8. C1 filter
     c1 = phase_c1(torch, np, pkg)
 
+    # 9. C5: 1000 fused queries, absent deadlines, timer ticks
+    t0 = time.perf_counter()
+    c5 = phase_c5(torch, np, pkg)
+    log(f"[c5 blocks] {c5['k2']['blocks']} K2 blocks ({c5['k2']['fired_blocks']} "
+        f"with fired deadlines, {c5['k2']['tick_blocks']} ticks) and "
+        f"{c5['scan']['blocks']} scan blocks equal to plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # 9. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     entries = [
@@ -760,7 +999,17 @@ def main() -> int:
         ("scan_compact", f"{CSRC}/scan_compact.cu", f"{PAR}:1056",
          c4_launches["scan_compact"],
          max(c4b["err"]["scan_compact"], c3b["err"]["scan_compact"]),
-         c4b["scan_compact"])]
+         c4b["scan_compact"]),
+        ("expr_eval:pre_mask (lane params)", K1_SRC, f"{PAR}:685",
+         c5["launches"]["expr_eval:pre_mask"],
+         max(c5["scan"]["err"]["pre_mask"], c5["k2"]["err"]["pre_mask"]),
+         c5["scan"]["pre_mask"]),
+        ("nfa_block (absent, broadcast)", f"{CSRC}/nfa_block.cu",
+         f"{nfa_dev}:803", c5["launches"]["nfa_block"],
+         c5["k2"]["err"]["nfa_block"], c5["k2"]["nfa_block"]),
+        ("scan_compact (qid)", f"{CSRC}/scan_compact.cu", f"{PAR}:1146",
+         c5["launches"]["scan_compact"], c5["scan"]["err"]["scan_compact"],
+         c5["scan"]["scan_compact"])]
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -769,14 +1018,21 @@ def main() -> int:
             f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
             f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}, "
             f"{e['launches']} launches")
-    for name in ("seg_tree", "scan_chase", "scan_compact"):
-        m = c3b[name]
-        lib = "" if m["library_ms"] is None else \
-            f", library {m['library_ms']:.4f} ms"
-        log(f"  {name} at the C3 flat block (Lt={c3b['Lt']}): device "
-            f"{m['ms']:.4f} ms, host dispatch {m['dispatch_ms']:.4f} ms, "
-            f"plain {m['plain_ms']:.3f} ms, bound "
-            f"{bound(m['bytes'], m['ops'])[0]:.5f} ms{lib}")
+    for label, blk, names in (
+            (f"the C3 flat block (Lt={c3b['Lt']})", c3b,
+             ("seg_tree", "scan_chase", "scan_compact")),
+            (f"a C5 fused block (L={c5['scan']['L']}, F={c5['scan']['F']})",
+             c5["scan"], ("seg_tree", "scan_chase", "select")),
+            (f"a C5 fused seq block (T={c5['k2']['T']}, P={c5['k2']['P']})",
+             c5["k2"], ())):
+        for name in names:
+            m = blk[name]
+            lib = "" if m["library_ms"] is None else \
+                f", library {m['library_ms']:.4f} ms"
+            log(f"  {name} at {label}: device {m['ms']:.4f} ms, host "
+                f"dispatch {m['dispatch_ms']:.4f} ms, plain "
+                f"{m['plain_ms']:.3f} ms, bound "
+                f"{bound(m['bytes'], m['ops'])[0]:.5f} ms{lib}")
     detail = {"card": smi, "c4": {"events_per_s": eps,
                                   "ms_per_flush": per_flush,
                                   "cpu_ms_per_flush": cpu_flush,
@@ -790,7 +1046,7 @@ def main() -> int:
                          "cpu_ms_per_flush": seq_cpu,
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
-              "c1": c1}
+              "c1": c1, "c5": c5}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

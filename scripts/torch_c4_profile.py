@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where a C4 flush spends its time in the PyTorch/CUDA port.
+"""Where a C4 (or C5) flush spends its time in the PyTorch/CUDA port.
 
-    python3 scripts/torch_c4_profile.py [--out FILE]
+    python3 scripts/torch_c4_profile.py [--config c4|c5] [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
 1000 keys, 2^18-event flushes, the chip_smoke.py tape) through
 siddhi_tpu_torch on the CUDA card at default settings (the `scan`
-family), warms with one flush, then profiles the next FLUSHES (4) with
+family), or with `--config c5` config 5 (chip_smoke.py's c5_app(1000):
+four fused plans of 250 query lanes; 2^13-event flushes 50 ms apart,
+8 symbols), warms with one flush, then profiles the next FLUSHES (4) with
 cProfile (host clock; each flush ends in torch.cuda.synchronize).
 Device waits show up inside the calls that pull results to the host
 (`Tensor.cpu`).  Prints the flush times and the functions with the most
@@ -29,6 +31,7 @@ FLUSHES, TRACED = 4, 2
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=("c4", "c5"), default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
     import numpy as np
@@ -40,13 +43,20 @@ def main() -> int:
     import chip_smoke
     import siddhi_tpu_torch as pkg
 
-    keys, flush = 1000, 1 << 18
+    if args.config == "c4":
+        keys, flush, dt = 1000, 1 << 18, 1
+        app, outs = chip_smoke.C4_HEAD + chip_smoke.C4, ["Out"]
+    else:
+        keys, flush, dt = (chip_smoke.C5_SYMBOLS, chip_smoke.C5_FLUSH,
+                           chip_smoke.C5_DT)
+        app = chip_smoke.c5_app(chip_smoke.C5_QUERIES)
+        outs = [f"Out{j}" for j in range(16)]
     tape = chip_smoke.make_tape(np, flush * (FLUSHES + TRACED + 1), flush,
-                                keys, seed=5)
-    rt = pkg.SiddhiManager().create_app_runtime(chip_smoke.C4_HEAD +
-                                                chip_smoke.C4)
+                                keys, seed=5, dt_ms=dt)
+    rt = pkg.SiddhiManager().create_app_runtime(app)
     got = [0]
-    rt.add_batch_callback("Out", lambda b: got.__setitem__(0, got[0] + b.n))
+    for o in outs:
+        rt.add_batch_callback(o, lambda b: got.__setitem__(0, got[0] + b.n))
     h = rt.input_handler("StockStream")
     codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
                      dtype=np.int32)
@@ -67,8 +77,9 @@ def main() -> int:
         prof.disable()
         ms.append((time.perf_counter() - t0) * 1e3)
     buf = io.StringIO()
-    buf.write(f"card {torch.cuda.get_device_name(0)}; C4 flushes of {flush} "
-              f"events over {keys} keys; ms per flush (profiled) "
+    buf.write(f"card {torch.cuda.get_device_name(0)}; {args.config.upper()} "
+              f"flushes of {flush} events over {keys} keys; ms per flush "
+              f"(profiled) "
               f"{[round(x, 1) for x in ms]}; matches {got[0]}\n")
     st = pstats.Stats(prof, stream=buf)
     st.sort_stats("cumulative").print_stats(30)

@@ -1,9 +1,9 @@
-"""Plan-family annotations of the pattern plans.
+"""Geometry annotations of the pattern plans.
 
-Port of `pattern_family_for` (siddhi_tpu/core/autotune.py:437) for the
-annotation alone: the tuning cache, which the JAX package consults after
-it, is a later slice of the port, and `chunk_lanes_for` comes with the
-`chunk` family, which reads it.
+Port of `pattern_family_for` (siddhi_tpu/core/autotune.py:437) and
+`fused_lane_pack_for` (:462) for the annotations alone: the tuning cache,
+which the JAX package consults after them, is a later slice of the port,
+and `chunk_lanes_for` comes with the `chunk` family, which reads it.
 """
 from __future__ import annotations
 
@@ -36,3 +36,11 @@ def pattern_family_for(rt, q=None) -> Optional[str]:
                 f"(have {PATTERN_FAMILIES} or 'auto')")
         return fam
     return None
+
+
+def fused_lane_pack_for(rt) -> int:
+    """Fused multi-query lane packing: at most this many query instances
+    per fused plan (0 = unbounded, one plan per group), from
+    `@app:fusedLanes(N)`."""
+    an = ast.find_annotation(rt.app.annotations, "app:fusedLanes")
+    return max(0, int(an.element())) if an is not None else 0

@@ -4,10 +4,15 @@ Port of `siddhi_tpu/core/build.py` for this slice: single-stream
 filter/projection queries become FilterProjectPlans, pattern/sequence
 queries DevicePatternPlans (an unpartitioned pattern runs with P = 1, as
 the JAX package does under `@app:devicePatterns('prefer')`), and value
-partitions go to `partition.plan_partition`.  Every other construct
-raises PlanError naming the slice it belongs to.
+partitions go to `partition.plan_partition`.  Before them, the fusion
+pre-pass of the JAX package (build.py:97-150) turns every group of at
+least MIN_GROUP structurally identical pattern queries into fused
+multi-query plans (core/multi_query.py), registered first, as there.
+Every other construct raises PlanError naming the slice it belongs to.
 """
 from __future__ import annotations
+
+import warnings
 
 from ..query import ast
 from .planner import (FilterProjectPlan, PlanError, output_target_of,
@@ -26,7 +31,10 @@ def build_app(rt) -> None:
                         app.aggregation_definitions)):
         if defs:
             raise PlanError(f"{what}: {_LATER}")
+    fused = _fuse_groups(rt)
     for i, elem in enumerate(app.execution_elements):
+        if i in fused:
+            continue
         if isinstance(elem, ast.Query):
             rt._register_plan(plan_query(rt, elem, f"query_{i}"))
         elif isinstance(elem, ast.Partition):
@@ -34,6 +42,52 @@ def build_app(rt) -> None:
             plan_partition(rt, elem, index=i)
         else:
             raise PlanError(f"unknown execution element {type(elem).__name__}")
+
+
+def _fuse_groups(rt) -> set:
+    """Plan every group of >= MIN_GROUP same-shape pattern queries as
+    fused multi-query plans, packed into at most `@app:fusedLanes(N)`
+    lanes each (0: one plan per group; a tail smaller than MIN_GROUP joins
+    the previous pack).  Returns the indices of the fused queries; a group
+    whose fused plan cannot be built plans its queries individually."""
+    from .autotune import fused_lane_pack_for
+    from .multi_query import MIN_GROUP, plan_query_group, query_signature
+    from .nfa_device import DeviceNFAUnsupported
+    app = rt.app
+    dp = ast.find_annotation(app.annotations, "app:devicePatterns")
+    if dp is not None and str(dp.element()).lower() == "never":
+        return set()
+    groups: dict = {}
+    for i, elem in enumerate(app.execution_elements):
+        if isinstance(elem, ast.Query):
+            sig = query_signature(elem)
+            if sig is not None:
+                groups.setdefault(sig, []).append(i)
+    fused: set = set()
+    for sig, idxs in groups.items():
+        if len(idxs) < MIN_GROUP:
+            continue
+        pack = fused_lane_pack_for(rt)
+        if pack and pack >= MIN_GROUP:
+            slices = [idxs[j:j + pack] for j in range(0, len(idxs), pack)]
+            if len(slices) > 1 and len(slices[-1]) < MIN_GROUP:
+                slices[-2].extend(slices.pop())
+        else:
+            slices = [idxs]
+        for sub in slices:
+            qs = [app.execution_elements[i] for i in sub]
+            names = [q.name(f"query_{i}") for q, i in zip(qs, sub)]
+            try:
+                plan = plan_query_group(rt, qs, names)
+            except DeviceNFAUnsupported as e:
+                warnings.warn(f"fused multi-query lanes unavailable for "
+                              f"{names[0]!r} and {len(names) - 1} more "
+                              f"({e}); planned individually", RuntimeWarning,
+                              stacklevel=3)
+                break
+            rt._register_plan(plan)
+            fused.update(sub)
+    return fused
 
 
 def plan_query(rt, q: ast.Query, default_name: str):

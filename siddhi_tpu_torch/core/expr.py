@@ -10,7 +10,14 @@ typed tree (`Node`) once, and two back ends read it:
   (b) `emit_program(...)` lowers the tree to a postfix program for the
       predicate VM (`csrc/expr_vm.cuh`): int32 words (opcode word, operand
       word) plus a constant pool of 64-bit raw values.  The CUDA kernels
-      K1 (`kernels/expr_eval.py`) and K2 (`kernels/nfa_block.py`) run it.
+      K1 (`kernels/expr_eval.py`), K2 (`kernels/nfa_block.py`) and K4
+      (`kernels/scan_chase.py`) run it.
+
+A fused multi-query plan lifts each query's constants into variables
+`__qparam<i>` (core/multi_query.py).  Both back ends read them per lane:
+the VM through the `qparam` operand (params[i, lane] of a `LaneParams`
+table, each kernel stating which lane a row belongs to), the torch back
+end through (P,) vectors in its env.
 
 Type rules follow Java numeric promotion (widest of INT < LONG < FLOAT <
 DOUBLE wins), integer `/` and `%` truncate toward zero (XLA semantics for
@@ -481,7 +488,8 @@ OPCODES = {"load": 1, "const": 2, "cast": 3, "add": 4, "sub": 5, "mul": 6,
            "div": 7, "mod": 8, "lt": 9, "le": 10, "gt": 11, "ge": 12,
            "eq": 13, "ne": 14, "and": 15, "or": 16, "not": 17, "select": 18,
            "min": 19, "max": 20, "abs": 21, "sqrt": 22, "floor": 23,
-           "ceil": 24}
+           "ceil": 24, "qparam": 25}
+QPARAM = "__qparam"                 # lifted per-lane constants: __qparam<i>
 OPNAMES = {v: k for k, v in OPCODES.items()}
 VM_STACK = 16                       # csrc/expr_vm.cuh VM_STACK
 
@@ -568,6 +576,11 @@ def emit_program(node: Node, slots: dict) -> Program:
     def rec(n: Node) -> int:
         if n.op == "param":
             return add_const(f"{n.key}:{vt_of(n.type)}", vt_of(n.type))
+        if n.op == "var" and n.key.startswith(QPARAM) and n.key not in slots:
+            vt = vt_of(n.type)
+            words.extend([encode_word("qparam", vt), int(n.key[len(QPARAM):])])
+            push()
+            return vt
         if n.op == "var":
             if n.key not in slots:
                 raise ExprError(f"VM: no device column for {n.key!r}")
@@ -610,6 +623,40 @@ def emit_program(node: Node, slots: dict) -> Program:
         raise ExprError(f"expression needs a VM stack of {depth[1]} "
                         f"(> {VM_STACK})")
     return Program(words, consts, vt)
+
+
+def qparam_bits(values: np.ndarray) -> np.ndarray:
+    """(P,) parameter values -> their raw 64-bit VM words (the pool
+    encoding of `const_bits`, by the array's dtype)."""
+    a = np.asarray(values)
+    if a.dtype == np.float32:
+        return a.view(np.int32).astype(np.int64)
+    if a.dtype == np.float64:
+        return a.view(np.int64).copy()
+    return a.astype(np.int64)
+
+
+class LaneParams:
+    """Per-lane parameter table of a fused multi-query plan: `values[i]`
+    the (P,) tensor of `__qparam<i>` (its dtype is the program's), `bits`
+    the (n_params, P) int64 raw words the VM's `qparam` operand reads."""
+
+    def __init__(self, params: dict, device):
+        names = sorted(params, key=lambda k: int(k[len(QPARAM):]))
+        if names != [f"{QPARAM}{i}" for i in range(len(names))]:
+            raise ValueError(f"lane parameters must be {QPARAM}0..n-1, got "
+                             f"{names}")
+        arrs = [np.asarray(params[k]) for k in names]
+        self.P = len(arrs[0]) if arrs else 0
+        self.values = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                       for a in arrs]
+        bits = np.stack([qparam_bits(a) for a in arrs]) if arrs else \
+            np.zeros((0, 0), np.int64)
+        self.bits = torch.from_numpy(bits).to(device)
+
+    def env(self) -> dict:
+        """The torch back end's view: name -> (P,) tensor."""
+        return {f"{QPARAM}{i}": v for i, v in enumerate(self.values)}
 
 
 def timestamp_node(offset_key: str) -> Node:

@@ -6,14 +6,24 @@ pattern algebra of this slice:
   * chains of single-stream positions joined by `->` (pattern) or `,`
     (sequence strictness), an `every` head or a one-shot head, a
     query-level or per-position `within`, one or several input streams;
+  * absent positions below the head (`-> not B[...] for T`): entering one
+    arms a deadline, a forbidden arrival kills the partial match, and a
+    deadline at or before an event's (or a timer tick's) timestamp fires
+    before that event is processed, advancing the slot -- a completion
+    then carries the deadline as its timestamp;
+  * fused multi-query lanes (core/multi_query.py): the partition axis
+    holds query instances, events arrive as broadcast (T, 1) grids, lifted
+    constants are per-lane parameters and every match carries its lane's
+    `__qid__`;
   * event-only conjuncts run over the whole (T, P) grid (K1 pre-masks),
     capture-dependent conjuncts per slot and step (inside K2);
   * selectors and `having` over captures run on the compacted match rows
     (K1 again).
 
-Count quantifiers, logical and/or, absent states, `every` below the head,
-`@app:devicePrecision('f64')` and presence tests raise DeviceNFAUnsupported
-naming the feature; they are later slices.
+Count quantifiers, logical and/or, absent heads and init slots, `every`
+around absent states, `every` below the head, selectors over maybe-absent
+refs (presence rows), `@app:devicePrecision('f64')` and presence tests
+raise DeviceNFAUnsupported naming the feature; they are later slices.
 
 State (a dict of tensors, partition axis P minor, as in the JAX package):
   occ (A, P) i32        0 = free, p = stationed at position p-1,
@@ -23,6 +33,8 @@ State (a dict of tensors, partition axis P minor, as in the JAX package):
   caps_f (Kf, A, P) f32, caps_i (Ki, A, P) i32, caps_l (Kl, A, P) i64
                         capture rows (only the columns something reads);
                         caps_i also holds the parked completion's ts/seq
+  dl (Ka, A, P) i32     absent deadlines, one row per absent position
+                        (NO_DEADLINE = disarmed)
   armed0 (P,) bool      entry arm (stays True for `every`)
   of_slots (P,) i32     heads dropped for want of a free slot
 """
@@ -37,7 +49,7 @@ import torch
 
 from ..query import ast
 from .expr import (F32_MODE, VT_BOOL, VT_OF_TORCH, CompiledExpr, ExprError,
-                   MultiStreamContext, Node, compile_expression,
+                   LaneParams, MultiStreamContext, Node, compile_expression,
                    compute_dtypes, emit_program, subst, timestamp_node,
                    torch_dtype)
 from .planner import PlanError
@@ -45,6 +57,7 @@ from .schema import StringTable, dtype_of
 
 LOCAL_SPAN = 1 << 30            # i32 offset budget (rebase before overflow)
 NO_FIRST = LOCAL_SPAN           # first_ts sentinel of init slots
+NO_DEADLINE = 2 ** 31 - 1       # dl sentinel: no deadline armed
 
 
 class DeviceNFAUnsupported(PlanError):
@@ -73,6 +86,8 @@ class PNode:
     ref: str
     stream_id: str
     scode: int
+    kind: str = "stream"                            # "stream" | "absent"
+    waiting_ms: Optional[int] = None                # absent `for T`
     pre_conjs: list = field(default_factory=list)   # event-only -> (T, P)
     step_conjs: list = field(default_factory=list)  # capture-referencing
     step_asts: list = field(default_factory=list)   # raw AST per step conj
@@ -85,6 +100,7 @@ class Position:
     node: PNode
     within_ms: Optional[int] = None
     sticky: bool = False
+    dl_row: Optional[int] = None    # deadline row (absent with `for`)
 
 
 @dataclass
@@ -103,6 +119,12 @@ class ChainSpec:
     def all_nodes(self) -> list:
         return [p.node for p in self.positions]
 
+    def maybe_absent_refs(self) -> set:
+        """Refs that can be NULL in an emitted match: the absent nodes
+        (or-sides and optional counts are later slices)."""
+        return {p.node.ref for p in self.positions
+                if p.node.kind == "absent"}
+
 
 def _conjuncts(e: ast.Expression) -> list:
     if isinstance(e, ast.And):
@@ -111,9 +133,11 @@ def _conjuncts(e: ast.Expression) -> list:
 
 
 def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
-                filters_by_node: list) -> ChainSpec:
+                filters_by_node: list,
+                param_extra: Optional[dict] = None) -> ChainSpec:
     """Validate + lower a StateInputStream into a device position chain
-    (siddhi_tpu/core/nfa_device.py:209 for this slice's algebra)."""
+    (siddhi_tpu/core/nfa_device.py:209 for this slice's algebra).
+    `param_extra` resolves a fused group's `__qparam<i>` variables."""
     from ..interp.nfa import NFACompiler
     from ..query.ast import StateType
 
@@ -123,12 +147,22 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
     is_sequence = state_input.type == StateType.SEQUENCE
     qw = state_input.within.millis if state_input.within else None
     for n in nodes:
+        if n.partner_id is not None and any(
+                m.kind == "absent" for m in (n, nodes[n.partner_id])):
+            raise DeviceNFAUnsupported(
+                "absent states inside logical positions (`not A and B`) "
+                "are a later slice")
         if n.partner_id is not None:
             raise DeviceNFAUnsupported(
                 f"logical `{n.partner_op}` states are a later slice")
-        if n.kind == "absent":
+        if n.kind == "absent" and n.sticky:
             raise DeviceNFAUnsupported(
-                "absent (`not ... for`) states are a later slice")
+                "`every`-wrapped (sticky) absent states (slot forking, "
+                "`_fork_slots`) are a later slice")
+        if n.kind == "absent" and n.id == entries[0].id:
+            raise DeviceNFAUnsupported(
+                "absent heads and init slots (`needs_init_slot`) are a "
+                "later slice")
         if (n.min_count, n.max_count) != (1, 1):
             raise DeviceNFAUnsupported(
                 "count quantifiers (`<m:n>`, `+`) are a later slice")
@@ -160,7 +194,8 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
             raise DeviceNFAUnsupported("`every` below the head is a later "
                                        "slice")
         positions.append(Position(PNode(n0.ref, n0.stream_id,
-                                        scode(n0.stream_id)), w,
+                                        scode(n0.stream_id), n0.kind,
+                                        n0.waiting_ms), w,
                                   bool(n0.sticky)))
         cur = n0.next_id
     if len(seen) != len(nodes):
@@ -177,8 +212,11 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
         for f in elem_filters:
             conjs.extend(_conjuncts(f.expr))
         ctx = PatternFilterContext(spec.schemas, strings, pn.ref)
+        if param_extra:
+            ctx.extra = dict(param_extra)
         own = {f"{pn.ref}.{a.name}" for a in spec.schemas[pn.ref].attributes}
         own.add("__timestamp__")
+        own.update(param_extra or ())
         for c in conjs:
             try:
                 ce = compile_expression(c, ctx)
@@ -226,29 +264,62 @@ class NFAKernel:
     block runner: K1 pre-masks -> K2 block -> (host decides retries) ->
     K1 selector/having over the compacted matches.
 
-    A block reads `ev`: "__ts__", "__seq__" (T, P) i32 offsets,
-    "__valid__" (T, P) bool, "__scode__" (T, P) i32 (several streams),
-    one (T, P) grid per key of `grid_keys` ("<scode>.<attr>"), and the
-    int base "__base_ts__".  It returns the raw match table: `out_i`
-    (rows `lane_names_i`, M) i32, `out_f` (rows_f, M) f32, `out_l`
-    (rows_l, M) i64, and `meta` = [matches found (may exceed M), heads
-    dropped so far]."""
+    A block reads `ev`: "__ts__", "__seq__" (T, G) i32 offsets,
+    "__valid__" (T, G) bool, "__tick__" (T, G) bool (timer ticks, when
+    present), "__scode__" (T, G) i32 (several streams), one (T, G) grid per
+    key of `grid_keys` ("<scode>.<attr>"), and the int base "__base_ts__";
+    G is P, or 1 when the events broadcast to every lane (fused
+    multi-query lanes).  It returns the raw match table: `out_i` (rows
+    `lane_names_i`, M) i32, `out_f` (rows_f, M) f32, `out_l` (rows_l, M)
+    i64, and `meta` = [matches found (may exceed M), heads dropped so far,
+    earliest deadline of a live slot (NO_DEADLINE when none)].
+
+    `params` (a LaneParams) holds a fused group's per-lane constants,
+    `broadcast` marks its lanes (events shared, a `__qid__` row per
+    match), and `playback` lets deadlines fire on events as well as on
+    timer ticks (the JAX package's `dl_fire` rule)."""
 
     def __init__(self, spec: ChainSpec, sel_fns: dict,
-                 having: Optional[CompiledExpr], P: int, A: int):
+                 having: Optional[CompiledExpr], P: int, A: int,
+                 params: Optional[LaneParams] = None,
+                 broadcast: bool = False, playback: bool = False):
         self.spec = spec
         self.sel_fns = sel_fns
         self.having = having
         self.P, self.A = P, A
         self.S = spec.S
         self.E = 1 if spec.S == 1 else min(A, 2)
+        self.params = params
+        self.broadcast = broadcast
+        self.playback = playback
+        ka = 0
+        for pos in spec.positions:
+            pos.dl_row = None
+            if pos.node.kind == "absent" and pos.node.waiting_ms is not None:
+                pos.dl_row = ka
+                ka += 1
+        self.Ka = ka
+        self.has_absent = any(n.kind == "absent" for n in spec.all_nodes)
+        absent = spec.maybe_absent_refs()
+        for name, ce in list(sel_fns.items()) + (
+                [("having", having)] if having else []):
+            hit = {_base_ref(k.split(".", 1)[0])[0] for k in ce.reads
+                   if "." in k and not k.startswith("__")} & absent
+            if hit and broadcast:
+                raise DeviceNFAUnsupported(
+                    "fused selector over maybe-absent refs (null routing)")
+            if hit:
+                raise DeviceNFAUnsupported(
+                    f"selector output {name!r} reads the maybe-absent ref "
+                    f"{sorted(hit)[0]!r} (presence rows and null "
+                    f"reconstruction are a later slice)")
 
         cap_keys: set = set()
         for pos in spec.positions:
             for ce in pos.node.step_conjs:
                 for k in ce.reads:
-                    if k != "__timestamp__" and k.split(".", 1)[0] != \
-                            pos.node.ref:
+                    if k != "__timestamp__" and "." in k and \
+                            k.split(".", 1)[0] != pos.node.ref:
                         cap_keys.add(k)
         for ce in list(sel_fns.values()) + ([having] if having else []):
             for k in ce.reads:
@@ -271,13 +342,15 @@ class NFAKernel:
         self.rows_f = [k for k in sorted(cap_keys) if grp[k] == "f"]
         self.rows_l = [k for k in sorted(cap_keys) if grp[k] == "l"]
         self.rows_i = [k for k in sorted(cap_keys) if grp[k] == "i"]
-        self.parked = spec.S > 1
+        self.parked = spec.S > 1          # an absent head is refused above
         if self.parked:
             self.rows_i += ["__comp_ts__", "__comp_seq__"]
         self._row_of = {k: ("f", i) for i, k in enumerate(self.rows_f)}
         self._row_of.update({k: ("i", i) for i, k in enumerate(self.rows_i)})
         self._row_of.update({k: ("l", i) for i, k in enumerate(self.rows_l)})
         self.lane_names_i = list(self.rows_i) + ["__head_seq__"]
+        if broadcast:
+            self.lane_names_i.append("__qid__")
         # (T, P) grids shipped per block: attrs some predicate or capture
         # row reads (pattern_plan.py _needed_grid_attrs in the JAX package)
         keys: set = set()
@@ -409,7 +482,16 @@ class NFAKernel:
 
     def with_shape(self, P: int, A: int) -> "NFAKernel":
         """The same chain at another partition/slot count."""
-        return NFAKernel(self.spec, self.sel_fns, self.having, P, A)
+        return NFAKernel(self.spec, self.sel_fns, self.having, P, A,
+                         self.params, self.broadcast, self.playback)
+
+    def comp_rows(self) -> tuple:
+        """caps_i rows of the parked completion's ts and seq (-1 when the
+        chain emits its head directly)."""
+        if not self.parked:
+            return -1, -1
+        return (self.rows_i.index("__comp_ts__"),
+                self.rows_i.index("__comp_seq__"))
 
     def init_state(self, device) -> dict:
         P, A = self.P, self.A
@@ -422,25 +504,36 @@ class NFAKernel:
                 "caps_f": z((len(self.rows_f), A, P), torch.float32),
                 "caps_i": z((len(self.rows_i), A, P), torch.int32),
                 "caps_l": z((len(self.rows_l), A, P), torch.int64),
+                "dl": torch.full((self.Ka, A, P), NO_DEADLINE,
+                                 dtype=torch.int32, device=device),
                 "armed0": torch.ones((P,), dtype=torch.bool, device=device),
                 "of_slots": z((P,), torch.int32)}
 
     # -- the block -----------------------------------------------------------
 
+    def pre_mask_rows(self, ev: dict):
+        """K1's row map for the pre-masks: the (T, P) grid; over broadcast
+        (T, 1) events row r reads event r // P of lane r % P."""
+        from ..kernels.expr_eval import RowMap
+        if ev["__ts__"].shape[1] == self.P:
+            return RowMap(qparams=self.params, lane_mod=self.P)
+        return RowMap(col_div=self.P, lane_mod=self.P, qparams=self.params)
+
     def pre_masks(self, ev: dict) -> list:
         """K1 over the flattened (T*P,) grid: one bit-packed mask per chain
         node with event-only conjuncts (None where it has none)."""
         from ..kernels.expr_eval import expr_eval
-        T, P = ev["__ts__"].shape
+        T = ev["__ts__"].shape[0]
         cols = self.pre_mask_cols(ev)
+        rows = self.pre_mask_rows(ev)
         out = []
         for prog in self.pre_progs:
             if prog is None:
                 out.append(None)
                 continue
-            words, _ = expr_eval(cols, prog, [], T * P,
+            words, _ = expr_eval(cols, prog, [], T * self.P,
                                  {"__base_ts__": ev["__base_ts__"]},
-                                 use="pre_mask")
+                                 use="pre_mask", rows=rows)
             out.append(words)
         return out
 
@@ -456,13 +549,22 @@ class NFAKernel:
         from ..kernels.nfa_block import nfa_block
         return nfa_block(self, state, ev, self.pre_masks(ev), M)
 
+    def select_rows(self, out: dict):
+        """K1's row map for the selector: a fused group's match row reads
+        the parameters of its `__qid__` lane."""
+        from ..kernels.expr_eval import RowMap
+        if self.params is None:
+            return None
+        return RowMap(lane_col=out["out_i"][self.lane_names_i.index(
+            "__qid__")], qparams=self.params)
+
     def select(self, out: dict, n: int, base_ts: int):
         """K1 over the first n match rows: selector columns and the
         `having` mask words (None without having)."""
         from ..kernels.expr_eval import expr_eval
         return expr_eval(self.select_cols(out), self.having_prog,
                          self.sel_progs, n, {"__base_ts__": base_ts},
-                         use="select")
+                         use="select", rows=self.select_rows(out))
 
     @staticmethod
     def select_cols(out: dict) -> list:

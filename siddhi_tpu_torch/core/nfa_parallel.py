@@ -23,6 +23,13 @@ events at the next flush and K5 drops completions at or before the
 previous flush's last seq (per lane for partitioned grids).  The count,
 logical and `dfa` machinery of the JAX module waits for later slices:
 `lower_chain` refuses counts and logical positions.
+
+Lanes are partition keys, each with its own row of events, or the query
+instances of a fused multi-query group: those share ONE row of events
+(the JAX package's shared leaves, nfa_parallel.py:646-672) with its
+replay tail and dedup seq, and differ in their `__qparam` constants and
+one-shot flags; K5 tags each match with its lane's `__qid__`.  No kernel bounds the chain: programs,
+trees, loads and row sources travel in device tables.
 """
 from __future__ import annotations
 
@@ -108,7 +115,8 @@ def _own_var(e, node, schemas) -> Optional[str]:
     return None
 
 
-def lower_parallel(spec: ChainSpec, strings) -> ParallelProgram:
+def lower_parallel(spec: ChainSpec, strings,
+                   param_extra: Optional[dict] = None) -> ParallelProgram:
     """Lower a ChainSpec into a state-chase program, or raise
     ParallelUnsupported with the ineligibility reason (the JAX package's
     words, so the two plans report the same `families` entry)."""
@@ -119,6 +127,8 @@ def lower_parallel(spec: ChainSpec, strings) -> ParallelProgram:
     positions: list = []
     ref_of: dict = {}
     for pi, pos in enumerate(spec.positions):
+        if pos.node.kind != "stream":
+            raise ParallelUnsupported("absent (`not ... for`) position")
         if pos.sticky and pi > 0:
             raise ParallelUnsupported("`every` below the head")
         if pos.within_ms is None:
@@ -134,7 +144,7 @@ def lower_parallel(spec: ChainSpec, strings) -> ParallelProgram:
                 # the strict next event is KNOWN (j+1): evaluate the
                 # conjunction directly, no monotonicity needed
                 hop.step_conjs = list(n.step_conjs)
-                _check_step_reads(n.step_conjs, n.ref, ref_of)
+                _check_step_reads(n.step_conjs, n.ref, ref_of, param_extra)
             else:
                 if len(n.step_conjs) > 1:
                     raise ParallelUnsupported(
@@ -142,7 +152,7 @@ def lower_parallel(spec: ChainSpec, strings) -> ParallelProgram:
                         "position (first-match of a conjunction is not "
                         "decomposable)")
                 hop.threshold = _lower_threshold(n, n.step_asts[0], spec,
-                                                 strings, ref_of)
+                                                 strings, ref_of, param_extra)
         pp = PPos("single", [hop], pos.within_ms)
         positions.append(pp)
         ref_of[hop.ref] = (pi, 0)
@@ -151,12 +161,12 @@ def lower_parallel(spec: ChainSpec, strings) -> ParallelProgram:
                            single_arm=single_arm)
 
 
-def _check_step_reads(step_conjs, own_ref, ref_of):
+def _check_step_reads(step_conjs, own_ref, ref_of, param_extra=None):
     """Sequence-mode step conjuncts: reads must be the own event's
-    columns, earlier captures or __timestamp__."""
+    columns, earlier captures, params or __timestamp__."""
     for ce in step_conjs:
         for k in ce.reads:
-            if k == "__timestamp__":
+            if k == "__timestamp__" or (param_extra and k in param_extra):
                 continue
             if "." not in k:
                 raise ParallelUnsupported(
@@ -169,7 +179,8 @@ def _check_step_reads(step_conjs, own_ref, ref_of):
                     f"step filter reads unresolved key {k!r}")
 
 
-def _lower_threshold(node, cond, spec, strings, ref_of) -> HopThreshold:
+def _lower_threshold(node, cond, spec, strings, ref_of,
+                     param_extra=None) -> HopThreshold:
     """`own.attr OP expr(earlier captures)` -> HopThreshold, else raise."""
     if not isinstance(cond, ast.Compare) or cond.op not in _OPN:
         raise ParallelUnsupported(
@@ -188,6 +199,8 @@ def _lower_threshold(node, cond, spec, strings, ref_of) -> HopThreshold:
             f"threshold attribute {attr!r} is not numeric")
     rhs_ast = cond.right if own_l is not None else cond.left
     ctx = PatternFilterContext(spec.schemas, strings, node.ref)
+    if param_extra:
+        ctx.extra = dict(param_extra)
     try:
         rhs = compile_expression(rhs_ast, ctx)
     except ExprError as e:
@@ -198,6 +211,7 @@ def _lower_threshold(node, cond, spec, strings, ref_of) -> HopThreshold:
     for r in ref_of:
         for a in spec.schemas[r].attributes:
             ok_reads.add(f"{r}.{a.name}")
+    ok_reads.update(param_extra or ())
     bad = set(rhs.reads) - ok_reads
     if bad:
         raise ParallelUnsupported(
@@ -206,12 +220,13 @@ def _lower_threshold(node, cond, spec, strings, ref_of) -> HopThreshold:
     return HopThreshold(f"{node.ref}.{attr}", op, rhs, own_t)
 
 
-def classify_parallel(spec: ChainSpec, kernel: NFAKernel, strings) -> dict:
+def classify_parallel(spec: ChainSpec, kernel: NFAKernel, strings,
+                      param_extra: Optional[dict] = None) -> dict:
     """{'scan': True | reason} for one lowered chain.  True means the
     family is sound for this ChainSpec; a string is the ineligibility
     reason (the plan's `families` entry)."""
     try:
-        prog = lower_parallel(spec, strings)
+        prog = lower_parallel(spec, strings, param_extra)
         for ce in (list(kernel.sel_fns.values())
                    + ([kernel.having] if kernel.having else [])):
             for k in ce.reads:
@@ -238,6 +253,14 @@ def grid_dtype(t: ast.AttrType) -> torch.dtype:
     """Torch dtype of an attribute's (L, F) grid (DOUBLE travels as
     float32 on the pattern path)."""
     return torch.from_numpy(np.zeros(0, NFAKernel.np_dtype(t))).dtype
+
+
+def lane_grid(ev: dict, key: str) -> torch.Tensor:
+    """An event grid as (L, F): a fused group's one shared row of events
+    expanded (a view) to every lane."""
+    L = ev["__nev__"].shape[0]
+    g = ev[key]
+    return g if g.shape[0] == L else g.expand(L, g.shape[1])
 
 
 def tree_vt(own: torch.dtype, rhs: torch.dtype) -> int:
@@ -282,12 +305,14 @@ class ParallelChainKernel:
     dedup and compaction into the NFAKernel's match table, whose rows the
     plan's selector pass (K1) and unpack read exactly as for `seq`.
 
-    `ev` holds "__flat.__ts__", "__flat.__seq__" (L, F) i32 offsets from
+    `ev` holds "__flat.__ts__", "__flat.__seq__" (G, F) i32 offsets from
     the flush's bases, "__flat.__scode__" (several streams), one
-    "__flat.<scode>.<attr>" (L, F) grid per key of `nfak.grid_keys`,
+    "__flat.<scode>.<attr>" (G, F) grid per key of `nfak.grid_keys`,
     "__nev__" (L,) i32 events per lane, "__prev_seq__" (L,) i32 (the
     lane's last emitted completion seq), "__arm_done__" (L,) i32 for
-    one-shot heads, and the ints "__base_ts__", "__base_seq__"."""
+    one-shot heads, "__lane_qid__" (L,) i32 for fused lanes, and the ints
+    "__base_ts__", "__base_seq__".  G is L, or 1 when the lanes are a
+    fused group's query instances sharing one row of events."""
 
     def __init__(self, prog: ParallelProgram, nfak: NFAKernel):
         self.prog = prog
@@ -320,8 +345,8 @@ class ParallelChainKernel:
         def capture_slots(reads, own: Optional[str]) -> dict:
             out = {}
             for k in reads:
-                if k == "__timestamp__":
-                    continue
+                if k == "__timestamp__" or "." not in k:
+                    continue        # lane parameters: the VM's qparam
                 refpart, attr = k.split(".", 1)
                 base = _base_ref(refpart)[0]
                 key = col_key(base, attr)
@@ -379,42 +404,17 @@ class ParallelChainKernel:
 
         # K5's match-table rows: per row of out_i / out_f / out_l, its
         # source -- ("col", column key, position) or ("comp_ts",) /
-        # ("comp_seq",) / ("head_seq",)
+        # ("comp_seq",) / ("head_seq",) / ("qid",)
         def row_src(name: str):
-            if name == "__comp_ts__":
-                return ("comp_ts",)
-            if name == "__comp_seq__":
-                return ("comp_seq",)
-            if name == "__head_seq__":
-                return ("head_seq",)
+            if name in ("__comp_ts__", "__comp_seq__", "__head_seq__",
+                        "__qid__"):
+                return (name[2:-2],)
             refpart, attr = name.split(".", 1)
             base = _base_ref(refpart)[0]
             return ("col", col_key(base, attr), prog.ref_of[base][0])
         self.rows = {"i": [row_src(n) for n in nfak.lane_names_i],
                      "f": [row_src(n) for n in nfak.rows_f],
                      "l": [row_src(n) for n in nfak.rows_l]}
-        self._check_limits()
-
-    def _check_limits(self) -> None:
-        """The CUDA kernels' fixed parameter blocks bound the chain: a
-        shape past them is refused here, at build, on every device (the
-        plan then demotes to `seq`), not at its first flush on the card."""
-        from ..kernels import scan_chase, scan_compact, seg_tree
-        from ..kernels.expr_eval import merge_programs
-        progs = [h.prog for h in self.hops if h.prog is not None]
-        words, consts, _o, _l = merge_programs(
-            progs, {"__base_ts__": 0})
-        over = [what for what, n, cap in (
-            ("positions", self.S, scan_chase.MAXS),
-            ("trees", len(self.trees), seg_tree.MAXT),
-            ("capture loads", len(self.loads), scan_chase.MAXLOAD),
-            ("program words", len(words), scan_chase.MAXWORDS),
-            ("constants", len(consts), scan_chase.MAXCONST),
-            ("match-table rows", sum(map(len, self.rows.values())),
-             scan_compact.MAXROWS)) if n > cap]
-        if over:
-            raise ParallelUnsupported(
-                f"chain exceeds the scan kernels' limits ({', '.join(over)})")
 
     @staticmethod
     def leaves(F: int) -> int:
@@ -427,12 +427,22 @@ class ParallelChainKernel:
         return [ev[f"__flat.{k}"].reshape(-1) for k in self.grid_keys] + \
             [ev["__flat.__ts__"].reshape(-1)]
 
+    def pre_mask_rows(self, ev: dict):
+        """K1's row map over the (L*F,) lane grid: row r is event r % F of
+        lane r // F, read from the lane's own row of events or from the
+        one row a fused group shares."""
+        from ..kernels.expr_eval import RowMap
+        G, F = ev["__flat.__ts__"].shape
+        return RowMap(col_mod=F if G == 1 else 0, lane_div=F,
+                      qparams=self.nfak.params)
+
     def pre_masks(self, ev: dict) -> list:
         """One bit-packed word array per position over the (L*F,)
-        flattened grid (None where the node has no event-only conjunct)."""
+        lane grid (None where the node has no event-only conjunct)."""
         from ..kernels.expr_eval import expr_eval
-        L, F = ev["__flat.__ts__"].shape
+        L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
         cols = self.pre_mask_cols(ev)
+        rows = self.pre_mask_rows(ev)
         out = []
         for prog in self.nfak.pre_progs:
             if prog is None:
@@ -440,7 +450,7 @@ class ParallelChainKernel:
                 continue
             words, _ = expr_eval(cols, prog, [], L * F,
                                  {"__base_ts__": ev["__base_ts__"]},
-                                 use="pre_mask")
+                                 use="pre_mask", rows=rows)
             out.append(words)
         return out
 

@@ -4,6 +4,10 @@ Port of `siddhi_tpu/core/pattern_plan.py` (`DevicePatternPlan`, families
 `seq` and `scan`).  Buffers per-stream micro-batches, merges them by
 global arrival seq, runs them through the plan's family, and compacts the
 matches into an output EventBatch sorted by (completion seq, head seq).
+Under a fused multi-query plan (core/multi_query.py) the lanes are query
+instances: events broadcast to every lane, lifted constants are per-lane
+parameters, and `finalize_multi` hands back the raw match table with each
+row's `__qid__` for the outer plan to route.
 
 Family selection follows the JAX package: the `families` dict records
 each family's eligibility (True or the reason), and `_choose_family`
@@ -17,13 +21,20 @@ pre-masks, K2, K1 selector/having) over persistent slot state.
 
 `scan` is stateless: each flush is ONE block, [replayed tail | new
 events], as an (L, F) grid with one lane per key that has new events
-(an unpartitioned pattern is one lane; K1 pre-masks, K3, K4, K5, then
-the same K1 selector pass).  Continuity across flushes is each lane's
-tail of the last `within` window and the dedup of completions at or
-before the lane's previous last seq.  The JAX package's lane and F
-padding (pow2 lanes, sticky F buckets) only spared XLA recompiles: here
-L is the number of active lanes, F the longest lane, and M the number of
-events (a head completes at most once).
+(an unpartitioned pattern is one lane, and a fused group's P query
+lanes all read that one row; K1 pre-masks, K3, K4, K5, then the same K1
+selector pass).  Continuity across flushes is each lane's tail of the
+last `within` window and the dedup of completions at or before the
+lane's previous last seq.  The JAX package's lane and F padding (pow2
+lanes, sticky F buckets) only spared XLA recompiles: here L is the
+number of active lanes, F the longest lane, and M the number of events
+per lane (a head completes at most once).
+
+Absent positions (`-> not B for T`) keep deadlines in the `seq` slot
+state: the plan reports the earliest live one as `next_wakeup()`, and
+`on_timer(now)` runs a one-step tick block that fires the deadlines due
+by then (the runtime's `set_time` drives it; under `@app:playback`
+deadlines also fire on the events themselves).
 
 Timestamps and seqs travel as i32 offsets from per-plan bases; the plan
 rebases the slot state before offsets can overflow.  Partition growth
@@ -43,8 +54,10 @@ import torch
 from ..query import ast
 from .batch import EventBatch
 from .expr import ExprError, MultiStreamContext, compile_expression
-from .nfa_device import (LOCAL_SPAN, ChainSpec, DeviceNFAUnsupported,
-                         NFAKernel, lower_chain, pow2_at_least)
+from .expr import LaneParams
+from .nfa_device import (LOCAL_SPAN, NO_DEADLINE, ChainSpec,
+                         DeviceNFAUnsupported, NFAKernel, lower_chain,
+                         pow2_at_least)
 from .nfa_parallel import (ARM_RESOLVED, ParallelChainKernel,
                            ParallelUnsupported, classify_parallel,
                            lower_parallel)
@@ -69,8 +82,12 @@ class DevicePatternPlan(QueryPlan):
 
     def __init__(self, name: str, rt, q: ast.Query, state_input,
                  target: Optional[str], partitions: int = 1,
-                 part_key_fns: Optional[dict] = None, slots: int = 16):
+                 part_key_fns: Optional[dict] = None, slots: int = 16,
+                 param_extra: Optional[dict] = None,
+                 broadcast_events: bool = False,
+                 params: Optional[dict] = None):
         from ..interp.nfa import collect_filters
+        self.broadcast_events = broadcast_events
         self.name = name
         self.rt = rt
         self.device = rt.device
@@ -99,14 +116,15 @@ class DevicePatternPlan(QueryPlan):
 
         self.spec: ChainSpec = lower_chain(
             state_input, rt.schemas, rt.strings,
-            collect_filters(state_input.state))
+            collect_filters(state_input.state), param_extra=param_extra)
         self.input_streams = tuple(self.spec.stream_ids)
         self.P = partitions
         self.part_key_fns = part_key_fns        # stream_id -> fn(batch)->keys
         self._key_to_part: dict = {}
 
         sel = q.selector
-        sctx = MultiStreamContext(self.spec.schemas, rt.strings)
+        sctx = MultiStreamContext(self.spec.schemas, rt.strings,
+                                  extra=dict(param_extra or {}))
         names, types, fns = [], [], []
         try:
             if sel.select_all:
@@ -135,9 +153,14 @@ class DevicePatternPlan(QueryPlan):
         self._names, self._types = names, types
         self.out_schema = StreamSchema(target or f"#{name}", tuple(
             ast.Attribute(n, t) for n, t in zip(names, types)))
+        self.params = None if not params else LaneParams(params,
+                                                          self.device)
         self.kernel = NFAKernel(self.spec, dict(zip(names, fns)), having,
-                                self.P, slots)
+                                self.P, slots, self.params, broadcast_events,
+                                rt._playback)
         self.state = self.kernel.init_state(self.device)
+        self._next_deadline: Optional[int] = None   # absent-state wakeup
+        self._tick_chunks: list = []                 # fused: timer matches
         self._ts_base: Optional[int] = None
         self._seq_base: Optional[int] = None
         self._m_hint = 16
@@ -160,15 +183,22 @@ class DevicePatternPlan(QueryPlan):
         self._lane_prev = np.zeros(0, dtype=np.int64)
         self._arm_done: Optional[np.ndarray] = None
         self.family = "seq"
-        partitioned = part_key_fns is not None or partitions != 1
+        partitioned = part_key_fns is not None or (
+            partitions != 1 and not broadcast_events)
+        # hard gates (pattern_plan.py:213-224 of the JAX package, whose
+        # first, async ingest workers, has no counterpart here: the port
+        # ingests on the caller's thread)
         hard = None
-        if not all(p.within_ms is not None for p in self.spec.positions):
+        if self.kernel.has_absent:      # (absent heads are refused above)
+            hard = "absent state (timer-driven deadlines need device state)"
+        elif not all(p.within_ms is not None for p in self.spec.positions):
             hard = "position without a `within` bound"
         self.families: dict = {"seq": True}
         if hard is not None:
             self.families.update({"chunk": hard, "scan": hard, "dfa": hard})
         else:
-            par = classify_parallel(self.spec, self.kernel, rt.strings)
+            par = classify_parallel(self.spec, self.kernel, rt.strings,
+                                    param_extra)
             if partitioned and not self.spec.every_head \
                     and par["scan"] is True:
                 par["scan"] = ("non-`every` head with partitioned lanes "
@@ -177,12 +207,17 @@ class DevicePatternPlan(QueryPlan):
             for f in LATER_FAMILIES:
                 self.families[f] = f"the `{f}` family is a later slice " \
                                    f"of the port"
+            if broadcast_events:
+                # fused lanes vmap like the JAX package's: per-lane
+                # `__qparam` constants, events broadcast
+                self.families["chunk"] = "fused multi-query lane kernel"
         if self.families["scan"] is True:
             # build the block now: a lowering surprise demotes here, never
             # at the first flush
             try:
                 self._par_kern = ParallelChainKernel(
-                    lower_parallel(self.spec, rt.strings), self.kernel)
+                    lower_parallel(self.spec, rt.strings, param_extra),
+                    self.kernel)
             except ParallelUnsupported as e:
                 self.families["scan"] = f"build validation failed: {e}"
                 warnings.warn(f"pattern {name!r}: plan family 'scan' failed "
@@ -218,9 +253,11 @@ class DevicePatternPlan(QueryPlan):
         self.family = fam
         self._W = max(p.within_ms for p in self.spec.positions)
         if not self.spec.every_head:
-            # non-`every`: ONE instance ever; the block reports whether
-            # the arm resolved and the plan then stops dispatching
-            self._arm_done = np.zeros(1, dtype=bool)
+            # non-`every`: ONE instance per lane ever (per query of a
+            # fused group); the block reports whether each arm resolved
+            # and the plan stops dispatching once all have
+            self._arm_done = np.zeros(
+                self.P if self.broadcast_events else 1, dtype=bool)
 
     @property
     def dropped(self) -> int:
@@ -270,15 +307,18 @@ class DevicePatternPlan(QueryPlan):
 
     def _rebase(self, min_ts: int, min_seq: int) -> None:
         """Shift the ts/seq bases forward and the slot offsets with them;
-        ancient slots clamp to -LOCAL_SPAN (`within` then expires them)."""
+        ancient slots clamp to -LOCAL_SPAN (`within` then expires them).
+        Disarmed deadlines (NO_DEADLINE) stay disarmed."""
         st = dict(self.state)
         if self._ts_base is not None and min_ts > self._ts_base:
             d = min_ts - self._ts_base
-            ft = st["first_ts"]
-            st["first_ts"] = torch.where(
-                ft == LOCAL_SPAN, ft,
-                torch.clamp(ft.to(torch.int64) - d, min=-LOCAL_SPAN
-                            ).to(torch.int32))
+            for key, keepv in (("first_ts", LOCAL_SPAN),
+                               ("dl", NO_DEADLINE)):
+                v = st[key]
+                st[key] = torch.where(
+                    v == keepv, v,
+                    torch.clamp(v.to(torch.int64) - d, min=-LOCAL_SPAN
+                                ).to(torch.int32))
             self._ts_base = min_ts
         if self._seq_base is not None and min_seq > self._seq_base:
             d = min_seq - self._seq_base
@@ -296,6 +336,8 @@ class DevicePatternPlan(QueryPlan):
         return []
 
     def finalize(self) -> list:
+        if self.broadcast_events:
+            raise RuntimeError("fused multi-query plans use finalize_multi()")
         if self.family == "seq" or not self._buffered:
             return self._rows_to_batches(self._finalize_chunks())
         # stateless families are retryable: blocks carry no device state
@@ -337,13 +379,17 @@ class DevicePatternPlan(QueryPlan):
         cols = {k: v[order] for k, v in cols.items()}
         if self.family != "seq":
             return self._run_lanes_flat(ts, seq, scode, cols, part)
-        by_part = np.lexsort((seq, part))
-        idx_within = np.empty(N, dtype=np.int64)
-        sp = part[by_part]
-        chg = np.r_[True, sp[1:] != sp[:-1]]
-        run_start = np.flatnonzero(chg)
-        run_id = np.cumsum(chg) - 1
-        idx_within[by_part] = np.arange(N) - run_start[run_id]
+        if self.broadcast_events:
+            # every lane sees every event: the grid is (T, 1)
+            idx_within = np.arange(N, dtype=np.int64)
+        else:
+            by_part = np.lexsort((seq, part))
+            idx_within = np.empty(N, dtype=np.int64)
+            sp = part[by_part]
+            chg = np.r_[True, sp[1:] != sp[:-1]]
+            run_start = np.flatnonzero(chg)
+            run_id = np.cumsum(chg) - 1
+            idx_within[by_part] = np.arange(N) - run_start[run_id]
 
         # i32 offset bases chosen from the flush MAX (headroom restored even
         # when a stale event pins the minimum; older events clamp low)
@@ -360,7 +406,8 @@ class DevicePatternPlan(QueryPlan):
                         LOCAL_SPAN).astype(_I32)
         self._last_seq = max(self._last_seq, int(seq.max()))
 
-        T_CAP = min(8192, max(512, (1 << 19) // max(self.P, 1)))
+        T_CAP = 4096 if self.broadcast_events else \
+            min(8192, max(512, (1 << 19) // max(self.P, 1)))
         multi = len(self.spec.stream_ids) > 1
         chunk_evs: list = []
         for c in range(int(idx_within.max()) // T_CAP + 1):
@@ -467,6 +514,12 @@ class DevicePatternPlan(QueryPlan):
               "__nev__": counts.astype(_I32),
               "__prev_seq__": np.clip(self._lane_prev[lane_ids] - seq_base,
                                       -LOCAL_SPAN, LOCAL_SPAN).astype(_I32)}
+        if self.broadcast_events:
+            # fused lanes share the one event row: every query lane reads
+            # it, with its own parameters, dedup seq and one-shot flag
+            ev["__nev__"] = np.repeat(ev["__nev__"], self.P)
+            ev["__prev_seq__"] = np.repeat(ev["__prev_seq__"], self.P)
+            ev["__lane_qid__"] = np.arange(self.P, dtype=_I32)
         if len(self.spec.stream_ids) > 1:
             ev["__flat.__scode__"] = grid(scode)
         for k, v in cols.items():
@@ -482,8 +535,10 @@ class DevicePatternPlan(QueryPlan):
         self._lane_prev[lane_ids] = seq[run_end]
         if self._arm_done is not None:
             if self._arm_done.all():
-                return []      # the one non-`every` arm is resolved
-            ev["__arm_done__"] = np.zeros(L, _I32)
+                return []      # every non-`every` arm is resolved
+            ev["__arm_done__"] = (self._arm_done.astype(_I32)
+                                  if self.broadcast_events
+                                  else np.zeros(L, _I32))
         return [self._dispatch_par(ev, ts_base, seq_base)]
 
     def _dispatch_par(self, ev: dict, ts_base: int, seq_base: int):
@@ -493,7 +548,8 @@ class DevicePatternPlan(QueryPlan):
                       self.device) for k, v in ev.items()}
         dev_ev["__base_ts__"] = ts_base
         dev_ev["__base_seq__"] = seq_base
-        M = max(int(ev["__nev__"].sum()), 1)  # one completion per head
+        # one completion per head and lane
+        M = max(int(ev["__nev__"].sum()), 1)
         out = kern.run_block(dev_ev, M)
         self.blocks_run += 1
         return self._materialize_par(out, M, ts_base, seq_base)
@@ -512,8 +568,9 @@ class DevicePatternPlan(QueryPlan):
         return self._unpack(out, n)
 
     def _grid(self, T: int, t_local, pm, ts32, seq32, scode, cols) -> dict:
-        """Dense (T, P) block on the plan's device."""
-        P = self.P
+        """Dense (T, P) block on the plan's device ((T, 1) when the events
+        broadcast to every lane)."""
+        P = 1 if self.broadcast_events else self.P
 
         def g(vals, dtype, fill=0):
             a = np.full((T, P), fill, dtype=dtype)
@@ -537,15 +594,21 @@ class DevicePatternPlan(QueryPlan):
         i = 0
         while i < len(chunk_evs):
             ev, T = chunk_evs[i]
-            M = max(self._m_hint, _m_bucket(2 * T))
+            if self.broadcast_events:
+                # fused query lanes are matchy: size M generously (the
+                # JAX package's pow2 of 32 T)
+                M = max(self._m_hint, pow2_at_least(32 * T))
+            else:
+                M = max(self._m_hint, _m_bucket(2 * T))
             pre = self.state
             while True:
                 st, out = self.kernel.run_block(pre, ev, M)
                 self.blocks_run += 1
-                n, ofs = (int(v) for v in out["meta"].cpu())
+                n, ofs, dlm = out["meta"].cpu().tolist()
                 if n <= M:
                     break
-                M = _m_bucket(n)
+                M = pow2_at_least(n) if self.broadcast_events \
+                    else _m_bucket(n)
             self._m_hint = max(self._m_hint, M)
             if ofs > self._of_slots_seen and self.kernel.A < self.A_CAP:
                 self._resize(self.P, min(2 * self.kernel.A, self.A_CAP))
@@ -558,12 +621,15 @@ class DevicePatternPlan(QueryPlan):
                     RuntimeWarning, stacklevel=2)
                 self._of_slots_seen = ofs
             self.state = st
+            self._next_deadline = (None if dlm >= NO_DEADLINE
+                                   else self._ts_base + dlm)
             results.append(self._unpack(out, n))
             i += 1
         return results
 
     def _unpack(self, out: dict, n: int):
-        """Columnar match table (tss, seqs, hseqs, data) of one block."""
+        """Columnar match table (tss, seqs, hseqs, data, qids) of one
+        block (qids None outside a fused group)."""
         if n == 0:
             return None
         words, sel = self.kernel.select(out, n, self._ts_base)
@@ -581,7 +647,8 @@ class DevicePatternPlan(QueryPlan):
         hseqs = row["__head_seq__"][valid]
         data = {nm: s.cpu().numpy()[valid].astype(dtype_of(t))
                 for nm, t, s in zip(self._names, self._types, sel)}
-        return tss, seqs, hseqs, data
+        qids = row["__qid__"][valid] if self.broadcast_events else None
+        return tss, seqs, hseqs, data, qids
 
     def _rows_to_batches(self, chunks: list) -> list:
         chunks = [c for c in chunks if c is not None]
@@ -605,12 +672,69 @@ class DevicePatternPlan(QueryPlan):
                            seqs[o])
         return [OutputBatch(self.output_target, batch)]
 
+    def finalize_multi(self):
+        """Fused multi-query mode: drain the buffered events (and the
+        matches of timer ticks since the last call) into the raw columnar
+        match table (tss, seqs, hseqs, data, qids), or None; the outer
+        MultiQueryDevicePatternPlan routes its rows per lane."""
+        chunks, self._tick_chunks = self._tick_chunks, []
+        chunks = [c for c in chunks + self._finalize_chunks()
+                  if c is not None]
+        if not chunks:
+            return None
+        return (np.concatenate([c[0] for c in chunks]),
+                np.concatenate([c[1] for c in chunks]),
+                np.concatenate([c[2] for c in chunks]),
+                {nm: np.concatenate([c[3][nm] for c in chunks])
+                 for nm in self._names},
+                np.concatenate([c[4] for c in chunks]))
+
+    # -- timers (absent-state deadlines, pattern_plan.py:1490-1545) ---------
+
+    def next_wakeup(self) -> Optional[int]:
+        """Earliest pending absent deadline (absolute ms), or None."""
+        return self._next_deadline
+
+    def on_timer(self, now_ms: int) -> list:
+        """Fire the absent deadlines due by `now_ms` through a one-step
+        tick block (an invalid cell with the timer's timestamp, `__tick__`
+        set); a fused group keeps the matches for its next finalize."""
+        if not self.kernel.has_absent or self._ts_base is None \
+                or self._next_deadline is None \
+                or now_ms < self._next_deadline:
+            return []
+        G = 1 if self.broadcast_events else self.P
+
+        def full(v, dt):
+            return torch.full((1, G), v, dtype=dt, device=self.device)
+        ev = {"__ts__": full(int(np.clip(now_ms - self._ts_base,
+                                         -LOCAL_SPAN, LOCAL_SPAN)),
+                             torch.int32),
+              "__seq__": full(int(np.clip(self._last_seq - self._seq_base,
+                                          -LOCAL_SPAN, LOCAL_SPAN)),
+                              torch.int32),
+              "__valid__": full(False, torch.bool),
+              "__tick__": full(True, torch.bool),
+              "__base_ts__": int(self._ts_base)}
+        if len(self.spec.stream_ids) > 1:
+            ev["__scode__"] = full(-1, torch.int32)
+        for si, attr, t in self.kernel.grid_attrs:
+            ev[f"{si}.{attr}"] = torch.zeros(
+                (1, G), dtype=torch.from_numpy(np.zeros(
+                    0, NFAKernel.np_dtype(t))).dtype, device=self.device)
+        chunks = self._run_chunks([(ev, 1)])
+        if self.broadcast_events:
+            self._tick_chunks += [c for c in chunks if c is not None]
+            return []
+        return self._rows_to_batches(chunks)
+
     # -- snapshot ------------------------------------------------------------
 
     def state_dict(self) -> dict:
         d = {"state": {k: v.cpu() for k, v in self.state.items()},
              "key_to_part": dict(self._key_to_part),
              "ts_base": self._ts_base, "seq_base": self._seq_base,
+             "next_deadline": self._next_deadline,
              "last_seq": self._last_seq, "family": self.family}
         if self.family != "seq":
             # stateless families keep no device state: continuity lives in
@@ -660,6 +784,18 @@ class DevicePatternPlan(QueryPlan):
         self._seq_base = d.get("seq_base")
         self._last_seq = int(d.get("last_seq") or self._seq_base or 0)
         self._of_slots_seen = int(st["of_slots"].sum())
+        # pending deadlines survive the restore (else the timer never
+        # wakes to fire them); a dict without the key recomputes the
+        # earliest live one from the restored rows
+        if "next_deadline" in d:
+            self._next_deadline = d["next_deadline"]
+        else:
+            live = (st["occ"] > 0) & (st["occ"] <= self.spec.S)
+            dls = torch.where(live[None], st["dl"], NO_DEADLINE)
+            dlm = int(dls.min()) if dls.numel() else NO_DEADLINE
+            self._next_deadline = (None if dlm >= NO_DEADLINE
+                                   or self._ts_base is None
+                                   else self._ts_base + dlm)
 
 
 def _select(t: dict, m: np.ndarray) -> dict:

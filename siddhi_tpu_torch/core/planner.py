@@ -100,9 +100,12 @@ def compile_selector(selector: ast.Selector, ctx,
 
 @dataclass
 class OutputBatch:
-    """A produced batch plus where it should go."""
+    """A produced batch plus where it should go; `callback_name` names the
+    query whose callbacks see it when that is not the plan's name (the
+    lanes of a fused multi-query plan)."""
     target: Optional[str]          # stream id, or None for `return`
     batch: EventBatch
+    callback_name: Optional[str] = None
 
 
 class QueryPlan:
@@ -118,6 +121,14 @@ class QueryPlan:
 
     def finalize(self) -> list:
         """Called when a drain round settles; buffering plans flush here."""
+        return []
+
+    def next_wakeup(self) -> Optional[int]:
+        """Earliest timer (ms) the plan needs, or None."""
+        return None
+
+    def on_timer(self, now_ms: int) -> list:
+        """Fire the plan's timers due by `now_ms`."""
         return []
 
     def state_dict(self) -> dict:

@@ -7,9 +7,14 @@ micro-batches through the plans, and outputs reach callbacks.  Pattern
 plans buffer what they are sent and run their device blocks when the
 drain round settles, so one `send_batch` is one flush of the NFA.
 
+Time: `set_time(ms)` advances the virtual clock and fires the plans'
+due timers (absent-pattern deadlines) in wakeup order, draining after
+each; under `@app:playback` the clock follows the events' timestamps.
+
 Annotations read: `@app:partitionCapacity`, `@app:deviceSlots`,
-`@app:deviceSlotCap`, `@app:playback`.  No autotuning, write-ahead log,
-replication, telemetry or network serving: those are later slices.
+`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`.  No
+autotuning, write-ahead log, replication, telemetry or network serving:
+those are later slices.
 
 The runtime runs on `device` ("cuda" by default).  Without a CUDA card it
 raises unless the caller asked for the CPU, where every kernel wrapper
@@ -84,6 +89,8 @@ class SiddhiAppRuntime:
         self.schemas: dict = {sid: StreamSchema.of(sd)
                               for sid, sd in app.stream_definitions.items()}
         self._plans: list = []
+        self._known_query_names: set = set()
+        self._query_callbacks: dict = defaultdict(list)
         self._subscribers: dict = defaultdict(list)
         self._stream_callbacks: dict = defaultdict(list)
         self._batch_callbacks: dict = defaultdict(list)
@@ -95,6 +102,8 @@ class SiddhiAppRuntime:
 
     def _register_plan(self, plan: QueryPlan) -> None:
         self._plans.append(plan)
+        self._known_query_names.update(
+            getattr(plan, "query_names", None) or [plan.name])
         for sid in plan.input_streams:
             self._subscribers[sid].append(plan)
         tgt = plan.output_target
@@ -128,6 +137,14 @@ class SiddhiAppRuntime:
         with batch.rows(rt.strings))."""
         self._batch_callbacks[stream_id].append(fn)
 
+    def add_query_callback(self, query_name: str, fn: Callable) -> None:
+        """QueryCallback: fn(timestamp_ms, in_events, removed_events) on
+        every batch the query emits (a fused query's own rows only)."""
+        if query_name not in self._known_query_names:
+            raise KeyError(f"unknown query {query_name!r}; have "
+                           f"{sorted(self._known_query_names)}")
+        self._query_callbacks[query_name].append(fn)
+
     def plans(self) -> list:
         return list(self._plans)
 
@@ -141,6 +158,34 @@ class SiddhiAppRuntime:
         if self._clock_ms is not None:
             return self._clock_ms
         return int(time.time() * 1000)
+
+    def set_time(self, ms: int) -> None:
+        """Advance the virtual clock to `ms`, firing the plans' due timers
+        in wakeup order (siddhi_tpu/core/runtime.py:913)."""
+        self.flush()
+        if self._clock_ms is None:
+            self._clock_ms = ms
+        self._fire_timers(ms)
+        self._clock_ms = ms
+        self._drain()
+
+    def _fire_timers(self, upto_ms: int) -> None:
+        """Fire the earliest due wakeup of every plan, drain, repeat until
+        nothing is due by `upto_ms` (each tick disarms what it fired, so
+        the earliest wakeup only moves forward)."""
+        for _ in range(1_000_000):
+            due = [(w, p) for p in self._plans
+                   for w in [p.next_wakeup()] if w is not None and w <= upto_ms]
+            if not due:
+                return
+            w0 = min(w for w, _ in due)
+            self._clock_ms = w0
+            for w, plan in due:
+                if w <= w0:
+                    for ob in plan.on_timer(w0):
+                        self._emit(plan, ob)
+            self._drain()
+        raise RuntimeError("runaway timer loop")
 
     # -- ingest ----------------------------------------------------------------
 
@@ -251,6 +296,11 @@ class SiddhiAppRuntime:
     def _emit(self, plan: QueryPlan, ob: OutputBatch) -> None:
         if ob.batch.n == 0:
             return
+        cbs = self._query_callbacks.get(ob.callback_name or plan.name, ())
+        if cbs:
+            ts_last = int(ob.batch.timestamps[-1])
+            for cb in cbs:
+                cb(ts_last, self._decode(ob.batch), None)
         if ob.target is not None:
             # derived events arrive "now": stamp global seqs so downstream
             # multi-input plans merge them in true order

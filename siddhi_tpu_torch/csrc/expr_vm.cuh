@@ -5,7 +5,10 @@
 //   opcode word = op | vt << 8 | vt2 << 12
 // with vt the value type of the operation (for compares: of the operands)
 // and vt2 the source type of a cast.  Constants live in a pool of 64-bit
-// raw values.  One thread runs one program over one row: its own column
+// raw values.  A `qparam` operand reads lane parameter i of the row's lane
+// (a fused multi-query plan's lifted constant, raw 64-bit bits like a
+// pool entry): `env.param(i, vt)`, each kernel's environment knowing its
+// lane.  One thread runs one program over one row: its own column
 // values, or for the NFA its own slot's captures.  Semantics match the
 // plain torch back end bit for bit: Java numeric promotion is explicit in
 // the program (casts), integer / and % truncate with the XLA corner cases
@@ -25,7 +28,7 @@ enum VmOp {
   OP_MUL = 6, OP_DIV = 7, OP_MOD = 8, OP_LT = 9, OP_LE = 10, OP_GT = 11,
   OP_GE = 12, OP_EQ = 13, OP_NE = 14, OP_AND = 15, OP_OR = 16, OP_NOT = 17,
   OP_SELECT = 18, OP_MIN = 19, OP_MAX = 20, OP_ABS = 21, OP_SQRT = 22,
-  OP_FLOOR = 23, OP_CEIL = 24
+  OP_FLOOR = 23, OP_CEIL = 24, OP_QPARAM = 25
 };
 
 union VmVal {
@@ -232,7 +235,22 @@ __device__ __forceinline__ VmVal vm_unary(int op, int vt, VmVal a) {
   }
 }
 
-// Run one program; `env.load(slot, vt)` supplies column/capture values.
+// Copy a program set (words, then the constant pool) into shared memory,
+// all threads of the block together; returns the staged pointers.  `sm`
+// is 8-byte aligned and holds 8 * n_consts + 4 * n_words bytes.
+__device__ __forceinline__ void vm_stage(const int* words, int n_words, const long long* consts,
+                                         int n_consts, long long* sm, const int** w_out,
+                                         const long long** c_out) {
+  for (int i = threadIdx.x; i < n_consts; i += blockDim.x) sm[i] = consts[i];
+  int* sw = reinterpret_cast<int*>(sm + n_consts);
+  for (int i = threadIdx.x; i < n_words; i += blockDim.x) sw[i] = words[i];
+  __syncthreads();
+  *w_out = sw;
+  *c_out = sm;
+}
+
+// Run one program; `env.load(slot, vt)` supplies column/capture values,
+// `env.param(i, vt)` the row's lane parameters.
 template <class Env>
 __device__ VmVal vm_run(const int* words, int len, const long long* consts, Env& env) {
   VmVal st[VM_STACK];
@@ -244,6 +262,7 @@ __device__ VmVal vm_run(const int* words, int len, const long long* consts, Env&
     switch (op) {
       case OP_LOAD: st[sp++] = env.load(arg, vt); break;
       case OP_CONST: st[sp++] = vm_const(consts[arg], vt); break;
+      case OP_QPARAM: st[sp++] = env.param(arg, vt); break;
       case OP_CAST: st[sp - 1] = vm_cast(st[sp - 1], vt2, vt); break;
       case OP_ADD: case OP_SUB: case OP_MUL: case OP_DIV: case OP_MOD:
       case OP_MIN: case OP_MAX:

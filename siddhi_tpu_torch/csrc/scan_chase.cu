@@ -19,64 +19,72 @@
 //     bit, its step conjunction through the VM, its own expiry.
 // A head stops at its first failed hop (nothing after a failure changes
 // ok or dead).  Outputs: status bits (1 ok, 2 dead, 4 head mask) and the
-// resolved index per position below the head (0 where not ok).
+// resolved index per position below the head (0 where not ok).  The
+// thread keeps the indices it resolved in its own column of `idx`, where
+// the VM's loads read them, so no chain length is fixed; hop tables, loads,
+// heaps and programs sit in a device table, the programs staged in shared
+// memory.  Event columns are read at lane * ev_stride + i: a fused
+// multi-query group's lanes share one row of events (ev_stride 0), with
+// their own pre-masks, trees and `qparam` values (qparams[i * P + lane]).
 // Python side: kernels/scan_chase.py.
 #include "seg_tree.cuh"
-
-#define SC_MAXS 8
-#define SC_MAXT 9
-#define SC_MAXLOAD 24
-#define SC_MAXWORDS 256
-#define SC_MAXCONST 32
 
 enum HopKind { HOP_STATIC = 0, HOP_THRESHOLD = 1, HOP_STRICT = 2 };
 
 struct ChaseParams {  // layout mirrored by kernels/scan_chase.py _Params
-  int L, F, Lt, S, is_seq, ts_tree, n_loads, pad0;
+  int L, F, Lt, S, is_seq, ts_tree, n_loads, ev_stride, P, n_words, n_consts, stage;
   const int* nev;
   const int* ts;
   const int* scode;
-  const unsigned* pre[SC_MAXS];
-  int node_scode[SC_MAXS];
-  int hop_kind[SC_MAXS];
-  int hop_within[SC_MAXS];
-  int hop_tree[SC_MAXS];
-  int hop_op[SC_MAXS];
-  int prog_off[SC_MAXS];
-  int prog_len[SC_MAXS];
-  int prog_vt[SC_MAXS];
-  const void* heap[SC_MAXT];
-  int heap_vt[SC_MAXT];
-  const void* load_col[SC_MAXLOAD];
-  int load_vt[SC_MAXLOAD];
-  int load_pos[SC_MAXLOAD];
+  const long long* qparams;
+  const unsigned* const* pre;
+  const int* node_scode;
+  const int* hop_kind;
+  const int* hop_within;
+  const int* hop_tree;
+  const int* hop_op;
+  const int* prog_off;
+  const int* prog_len;
+  const int* prog_vt;
+  const void* const* heap;
+  const int* heap_vt;
+  const void* const* load_col;
+  const int* load_vt;
+  const int* load_pos;
   unsigned char* status;
   int* idx;
-  long long consts[SC_MAXCONST];
-  int words[SC_MAXWORDS];
+  const long long* consts;
+  const int* words;
 };
 
 // VM environment of one head: a load reads its column at the index the
-// chase resolved for its position, or at s (position -1).
+// chase resolved for its position (the head j at position 0, else the
+// thread's own entry of idx), or at s (position -1).
 struct ChaseEnv {
   const ChaseParams& p;
-  long long row;
-  const int* at;
+  long long erow;        // lane * ev_stride: the lane's row of events
+  long long cell;        // lane * F + j: the head's cell
+  long long plane;       // L * F
+  int j;
   int s;
+  int lane;
   __device__ VmVal load(int slot, int vt) {
     const int pos = p.load_pos[slot];
-    const int i = pos >= 0 ? at[pos] : s;
+    const int i = pos < 0 ? s : (pos == 0 ? j : p.idx[(pos - 1) * plane + cell]);
     const int have = p.load_vt[slot];
-    return vm_as(vm_read(p.load_col[slot], have, row + i), have, vt);
+    return vm_as(vm_read(p.load_col[slot], have, erow + i), have, vt);
+  }
+  __device__ VmVal param(int i, int vt) {
+    return vm_const(p.qparams[static_cast<long long>(i) * p.P + lane], vt);
   }
 };
 
-__device__ __forceinline__ bool node_bit(const ChaseParams& p, int pi, long long row, int j,
-                                         int nev) {
+__device__ __forceinline__ bool node_bit(const ChaseParams& p, int pi, long long erow,
+                                         long long row, int j, int nev) {
   if (j >= nev) return false;
-  const long long cell = row + j;
-  if (p.node_scode[pi] >= 0 && p.scode[cell] != p.node_scode[pi]) return false;
+  if (p.node_scode[pi] >= 0 && p.scode[erow + j] != p.node_scode[pi]) return false;
   const unsigned* w = p.pre[pi];
+  const long long cell = row + j;
   return w == nullptr || ((w[cell >> 5] >> (cell & 31)) & 1u);
 }
 
@@ -86,31 +94,35 @@ __device__ __forceinline__ const void* lane_heap(const ChaseParams& p, int t, in
 }
 
 __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
+  extern __shared__ long long smem[];
+  const int* words = p.words;
+  const long long* consts = p.consts;
+  if (p.stage) vm_stage(p.words, p.n_words, p.consts, p.n_consts, smem, &words, &consts);
   const int tiles = (p.F + blockDim.x - 1) / blockDim.x;
   const int lane = static_cast<int>(blockIdx.x / tiles);
   const int j = static_cast<int>(blockIdx.x % tiles) * blockDim.x + threadIdx.x;
   if (j >= p.F) return;
   const long long row = static_cast<long long>(lane) * p.F;
+  const long long erow = static_cast<long long>(lane) * p.ev_stride;
+  const long long plane = static_cast<long long>(p.L) * p.F;
   const int nev = p.nev[lane];
-  const bool head = node_bit(p, 0, row, j, nev);
+  const bool head = node_bit(p, 0, erow, row, j, nev);
   bool ok = head, dead = false;
-  int at[SC_MAXS];
-  for (int q = 0; q < SC_MAXS; ++q) at[q] = 0;
-  at[0] = j;
-  const long long hts = static_cast<long long>(p.ts[row + j]);
+  const long long hts = static_cast<long long>(p.ts[erow + j]);
   int cur = j;
-  for (int pi = 1; pi < p.S && ok; ++pi) {
+  int pi = 1;
+  for (; pi < p.S && ok; ++pi) {
     const int s = cur + 1;
     int jn;
     if (p.is_seq) {
       const int sc = s < p.F - 1 ? s : p.F - 1;
-      bool m = node_bit(p, pi, row, sc, nev);
+      bool m = node_bit(p, pi, erow, row, sc, nev);
       if (m && p.prog_len[pi] > 0) {
-        ChaseEnv env{p, row, at, sc};
-        m = vm_run(p.words + p.prog_off[pi], p.prog_len[pi], p.consts, env).i != 0;
+        ChaseEnv env{p, erow, row + j, plane, j, sc, lane};
+        m = vm_run(words + p.prog_off[pi], p.prog_len[pi], consts, env).i != 0;
       }
       const bool expired =
-          static_cast<long long>(p.ts[row + sc]) > hts + static_cast<long long>(p.hop_within[pi]);
+          static_cast<long long>(p.ts[erow + sc]) > hts + static_cast<long long>(p.hop_within[pi]);
       const bool have = s < nev;
       jn = (have && m && !expired) ? s : p.Lt;
       if (have && (expired || !m)) dead = true;
@@ -123,8 +135,8 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
       VmVal v = vm_cast(vm_i(0), VT_I32, hvt);
       int op = TOP_GT;
       if (p.hop_kind[pi] == HOP_THRESHOLD) {
-        ChaseEnv env{p, row, at, s};
-        v = vm_cast(vm_run(p.words + p.prog_off[pi], p.prog_len[pi], p.consts, env),
+        ChaseEnv env{p, erow, row + j, plane, j, s, lane};
+        v = vm_cast(vm_run(words + p.prog_off[pi], p.prog_len[pi], consts, env),
                     p.prog_vt[pi], hvt);
         op = p.hop_op[pi];
       }
@@ -134,17 +146,16 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
       ok = good;
     }
     cur = jn < 0 ? 0 : (jn > p.F - 1 ? p.F - 1 : jn);
-    at[pi] = cur;
+    p.idx[(pi - 1) * plane + row + j] = cur;
   }
   p.status[row + j] = static_cast<unsigned char>((ok ? 1 : 0) | (dead ? 2 : 0) | (head ? 4 : 0));
-  const long long plane = static_cast<long long>(p.L) * p.F;
-  for (int q = 1; q < p.S; ++q)
-    p.idx[(q - 1) * plane + row + j] = ok ? at[q] : 0;
+  // positions never reached, and every position of a failed head, read 0
+  for (int q = ok ? pi : 1; q < p.S; ++q) p.idx[(q - 1) * plane + row + j] = 0;
 }
 
-extern "C" int scan_chase_launch(const ChaseParams* params, cudaStream_t stream) {
+extern "C" int scan_chase_launch(const ChaseParams* params, int smem, cudaStream_t stream) {
   const int threads = 256;
   const long long tiles = (params->F + threads - 1) / threads;
-  scan_chase_kernel<<<static_cast<unsigned>(tiles * params->L), threads, 0, stream>>>(*params);
+  scan_chase_kernel<<<static_cast<unsigned>(tiles * params->L), threads, smem, stream>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,24 +18,28 @@
 //           written at tile offset + rank (rows past M are counted, not
 //           written); the first tile of a lane writes its count and its
 //           single-arm flag.
+// The row sources sit in a device table, so no table width is fixed.
+// Event columns are read at lane * ev_stride + i: a fused multi-query
+// group's lanes share one row of events (ev_stride 0), and a __qid__ row
+// takes the lane's query id (lane_qid[lane], nfa_parallel.py:1146).
 // Python side: kernels/scan_compact.py.
 #include "expr_vm.cuh"
 
-#define CP_MAXROWS 32
 #define CP_THREADS 256
 #define CP_ITEMS 4
 #define CP_TILE (CP_THREADS * CP_ITEMS)
 #define FULL 0xffffffffu
 
-enum RowKind { ROW_COL = 0, ROW_COMP_TS = 1, ROW_COMP_SEQ = 2, ROW_HEAD_SEQ = 3 };
+enum RowKind { ROW_COL = 0, ROW_COMP_TS = 1, ROW_COMP_SEQ = 2, ROW_HEAD_SEQ = 3, ROW_QID = 4 };
 enum { ARM_NONE = 0, ARM_PENDING = 1, ARM_RESOLVED = 2 };
 
 struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
-  int L, F, S, M, single, ntiles, n_rows, pad0;
+  int L, F, S, M, single, ntiles, n_rows, ev_stride;
   const int* seq;
   const int* ts;
   const int* prev;
   const int* arm_done;
+  const int* lane_qid;
   const unsigned char* status;
   const int* idx;
   int* h0;
@@ -46,12 +50,12 @@ struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
   int* out_i;
   float* out_f;
   long long* out_l;
-  const void* row_col[CP_MAXROWS];
-  int row_vt[CP_MAXROWS];
-  int row_kind[CP_MAXROWS];
-  int row_pos[CP_MAXROWS];
-  int row_group[CP_MAXROWS];   // 0 out_i, 1 out_f, 2 out_l
-  int row_index[CP_MAXROWS];   // row inside its group
+  const void* const* row_col;
+  const int* row_vt;
+  const int* row_kind;
+  const int* row_pos;
+  const int* row_group;   // 0 out_i, 1 out_f, 2 out_l
+  const int* row_index;   // row inside its group
 };
 
 __device__ __forceinline__ int comp_of(const CompactParams& p, long long row, int j) {
@@ -63,7 +67,8 @@ __device__ __forceinline__ bool live_at(const CompactParams& p, int lane, int j)
   if (j >= p.F) return false;
   const long long row = static_cast<long long>(lane) * p.F;
   if (!(p.status[row + j] & 1)) return false;
-  if (p.seq[row + comp_of(p, row, j)] <= p.prev[lane]) return false;
+  const long long erow = static_cast<long long>(lane) * p.ev_stride;
+  if (p.seq[erow + comp_of(p, row, j)] <= p.prev[lane]) return false;
   if (p.single) {
     if (j != p.h0[lane]) return false;
     if (p.arm_done != nullptr && p.arm_done[lane] != 0) return false;
@@ -150,6 +155,7 @@ __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
   const int tile = static_cast<int>(blockIdx.x % p.ntiles);
   const int base = tile * CP_TILE;
   const long long row = static_cast<long long>(lane) * p.F;
+  const long long erow = static_cast<long long>(lane) * p.ev_stride;
   bool live[CP_ITEMS];
   int c = 0;
   for (int k = 0; k < CP_ITEMS; ++k) {
@@ -167,13 +173,14 @@ __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
       for (int r = 0; r < p.n_rows; ++r) {
         VmVal v;
         switch (p.row_kind[r]) {
-          case ROW_COMP_TS: v = vm_i(p.ts[row + comp]); break;
-          case ROW_COMP_SEQ: v = vm_i(p.seq[row + comp]); break;
-          case ROW_HEAD_SEQ: v = vm_i(p.seq[row + j]); break;
+          case ROW_COMP_TS: v = vm_i(p.ts[erow + comp]); break;
+          case ROW_COMP_SEQ: v = vm_i(p.seq[erow + comp]); break;
+          case ROW_HEAD_SEQ: v = vm_i(p.seq[erow + j]); break;
+          case ROW_QID: v = vm_i(p.lane_qid[lane]); break;
           default: {
             const int at = p.row_pos[r] == 0 ? j
                            : p.idx[(p.row_pos[r] - 1) * plane + row + j];
-            v = vm_read(p.row_col[r], p.row_vt[r], row + at);
+            v = vm_read(p.row_col[r], p.row_vt[r], erow + at);
           }
         }
         const long long o = static_cast<long long>(p.row_index[r]) * p.M + pos;

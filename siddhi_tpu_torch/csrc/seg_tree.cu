@@ -14,23 +14,26 @@
 // writes them, and reduces them level by level in shared memory, writing
 // every level to the heap up to the block's subtree root.  Later passes (from_heap = 1) treat a level of `cnt`
 // nodes already in the heap as leaves and do the same, until the root.
+// The per-tree arrays (sources, types, pre-masks, heaps) sit in a device
+// table, so no tree count is fixed.  Event columns are read at lane *
+// ev_stride + i: a fused multi-query group's lanes share one row of
+// events (ev_stride 0) and differ in their pre-masks (lane * F + i).
 // Python side: kernels/seg_tree.py.
 #include "seg_tree.cuh"
 
-#define ST_MAXT 9
 #define ST_SUB 1024
 
 struct TreeParams {  // layout mirrored by kernels/seg_tree.py _Params
-  int L, F, Lt, n_trees, cnt, from_heap;
+  int L, F, Lt, n_trees, cnt, from_heap, ev_stride, pad0;
   const int* nev;
   const int* scode;
-  const void* src[ST_MAXT];
-  int src_vt[ST_MAXT];
-  int vt[ST_MAXT];
-  int agg[ST_MAXT];
-  const unsigned* pre[ST_MAXT];
-  int node_scode[ST_MAXT];
-  void* heap[ST_MAXT];
+  const void* const* src;
+  const int* src_vt;
+  const int* vt;
+  const int* agg;
+  const unsigned* const* pre;
+  const int* node_scode;
+  void* const* heap;
 };
 
 __device__ __forceinline__ bool tree_isnan(int vt, VmVal v) {
@@ -59,13 +62,14 @@ __global__ void seg_tree_kernel(const __grid_constant__ TreeParams p) {
     } else {
       const VmVal sent = tree_sentinel(vt, agg_min);
       const long long cell = static_cast<long long>(lane) * p.F + i;
+      const long long ecell = static_cast<long long>(lane) * p.ev_stride + i;
       bool keep = i < p.F && i < p.nev[lane];
-      if (keep && p.node_scode[tr] >= 0) keep = p.scode[cell] == p.node_scode[tr];
+      if (keep && p.node_scode[tr] >= 0) keep = p.scode[ecell] == p.node_scode[tr];
       if (keep && p.pre[tr] != nullptr) keep = (p.pre[tr][cell >> 5] >> (cell & 31)) & 1u;
       if (keep) {
         if (p.src[tr] != nullptr) {
           const int svt = p.src_vt[tr];
-          v = vm_cast(vm_read(p.src[tr], svt, cell), svt, vt);
+          v = vm_cast(vm_read(p.src[tr], svt, ecell), svt, vt);
           if (tree_isnan(vt, v)) keep = false;
         } else {
           v = vm_cast(vm_i(1), VT_I32, vt);

@@ -13,11 +13,15 @@ descents in K3's trees; a strict-sequence hop reads the event at s.
 Design (csrc/scan_chase.cu, descents in csrc/seg_tree.cuh): one thread
 per (lane, head), the hop loop in registers; threshold right-hand sides
 and strict step conjunctions run the predicate VM (csrc/expr_vm.cuh) on
-the captures at the indices resolved so far.  A head stops at its first
-failed hop.  Bound on the H100: bytes -- the timestamp and pre-mask grids
-read once, the status and index grids written once; the descents read
-2 log2(Lt) tree nodes per query, which stay in the 50 MB L2 at the C4 and
-C3 shapes (16 and 12 MB of trees).
+the captures at the indices resolved so far, which the thread keeps in
+its own column of the `idx` output, so no chain length is fixed; a
+fused group's `__qparam` operands read the lane's parameters.  Hop
+tables, loads, heap pointers and programs travel in a device table
+(kernels/table.py), the programs staged in shared memory.  A head stops
+at its first failed hop.  Bound on the H100: bytes -- the timestamp and
+pre-mask grids read once, the status and index grids written once; the
+descents read 2 log2(Lt) tree nodes per query, which stay in the 50 MB
+L2 at the C4 and C3 shapes (16 and 12 MB of trees).
 
 Output: `status` (L, F) uint8 (bit 1 ok, bit 2 dead, bit 4 the head's
 node mask) and `idx` (S-1, L, F) int32, the event index resolved at each
@@ -33,45 +37,32 @@ from typing import Optional
 import torch
 
 from ..core.expr import VT_OF_TORCH, decode_word
-from . import LAUNCHES
-from .build import check, load
-from .expr_eval import merge_programs, vm_run_plain
+from ..core.nfa_parallel import lane_grid
+from .build import load
+from .expr_eval import (merge_programs, program_table, stage_bytes,
+                        vm_run_plain)
 from .seg_tree import first_hit_plain, node_masks
+from .table import DeviceTable, Launch, checked_ptr, stream_of
 
-MAXS, MAXT, MAXLOAD, MAXWORDS, MAXCONST = 8, 9, 24, 256, 32  # scan_chase.cu
 _KIND = {"static": 0, "threshold": 1, "strict": 2}
 _OP = {"gt": 0, "ge": 1, "lt": 2, "le": 3}
 
 
 class _Params(ctypes.Structure):
-    _fields_ = [("L", ctypes.c_int), ("F", ctypes.c_int),
-                ("Lt", ctypes.c_int), ("S", ctypes.c_int),
-                ("is_seq", ctypes.c_int), ("ts_tree", ctypes.c_int),
-                ("n_loads", ctypes.c_int), ("pad0", ctypes.c_int),
-                ("nev", ctypes.c_void_p), ("ts", ctypes.c_void_p),
-                ("scode", ctypes.c_void_p),
-                ("pre", ctypes.c_void_p * MAXS),
-                ("node_scode", ctypes.c_int * MAXS),
-                ("hop_kind", ctypes.c_int * MAXS),
-                ("hop_within", ctypes.c_int * MAXS),
-                ("hop_tree", ctypes.c_int * MAXS),
-                ("hop_op", ctypes.c_int * MAXS),
-                ("prog_off", ctypes.c_int * MAXS),
-                ("prog_len", ctypes.c_int * MAXS),
-                ("prog_vt", ctypes.c_int * MAXS),
-                ("heap", ctypes.c_void_p * MAXT),
-                ("heap_vt", ctypes.c_int * MAXT),
-                ("load_col", ctypes.c_void_p * MAXLOAD),
-                ("load_vt", ctypes.c_int * MAXLOAD),
-                ("load_pos", ctypes.c_int * MAXLOAD),
-                ("status", ctypes.c_void_p), ("idx", ctypes.c_void_p),
-                ("consts", ctypes.c_longlong * MAXCONST),
-                ("words", ctypes.c_int * MAXWORDS)]
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "L", "F", "Lt", "S", "is_seq", "ts_tree", "n_loads", "ev_stride",
+        "P", "n_words", "n_consts", "stage")] + [
+        (n, ctypes.c_void_p) for n in (
+            "nev", "ts", "scode", "qparams", "pre", "node_scode",
+            "hop_kind", "hop_within", "hop_tree", "hop_op", "prog_off",
+            "prog_len", "prog_vt", "heap", "heap_vt", "load_col",
+            "load_vt", "load_pos", "status", "idx", "consts", "words")]
 
 
 def _vm_plain(k, prog, ev: dict, at: list, s: torch.Tensor) -> torch.Tensor:
     """One VM program per head over the (L, F) grid: each load reads its
-    column at its position's resolved index (or at s)."""
+    column at its position's resolved index (or at s), each `qparam` the
+    lane's parameter."""
     L, F = s.shape
     words, consts, _o, _l = merge_programs(
         [prog], {"__base_ts__": ev["__base_ts__"]})
@@ -83,15 +74,19 @@ def _vm_plain(k, prog, ev: dict, at: list, s: torch.Tensor) -> torch.Tensor:
             cols.append(s.reshape(-1))
             continue
         where = at[pos] if pos >= 0 else s
-        cols.append(torch.gather(ev[key], 1, where).reshape(-1))
-    return vm_run_plain(words, consts, cols, L * F).reshape(L, F)
+        cols.append(torch.gather(lane_grid(ev, key), 1, where).reshape(-1))
+    qcols = None
+    if k.nfak.params is not None:
+        qcols = [v[:, None].expand(L, F).reshape(-1)
+                 for v in k.nfak.params.values]
+    return vm_run_plain(words, consts, cols, L * F, qcols).reshape(L, F)
 
 
 def scan_chase_plain(k, ev: dict, masks: list, heaps: list,
                      alive: Optional[list] = None):
     """The chase over the (L, F) grid; `alive`, when given, receives the
     number of heads still ok on entering each hop (the work K4 does)."""
-    ts = ev["__flat.__ts__"]
+    ts = lane_grid(ev, "__flat.__ts__")
     L, F = ts.shape
     Lt = k.leaves(F)
     dev = ts.device
@@ -143,74 +138,79 @@ def scan_chase_plain(k, ev: dict, masks: list, heaps: list,
 def scan_chase(k, ev: dict, pre: list, heaps: list):
     """(status, idx) of ParallelChainKernel `k` for block `ev`, its K1
     pre-mask words `pre` (per position, or None) and K3 `heaps`."""
+    if ev["__flat.__ts__"].device.type == "cpu":
+        return scan_chase_plain(k, ev, node_masks(k, ev, pre), heaps)
+    return prepare(k, ev, pre, heaps)()
+
+
+def prepare(k, ev: dict, pre: list, heaps: list) -> Launch:
+    """Allocate status and indices and upload the parameter table of one
+    K4 launch (see `scan_chase`)."""
     ts = ev["__flat.__ts__"]
     dev = ts.device
-    if dev.type == "cpu":
-        return scan_chase_plain(k, ev, node_masks(k, ev, pre), heaps)
     if dev.type != "cuda":
         raise ValueError(f"scan_chase: unsupported device {dev}")
-    L, F = ts.shape
-    if k.S > MAXS or len(heaps) > MAXT or len(k.loads) > MAXLOAD:
-        raise ValueError(f"scan_chase: S={k.S} (<= {MAXS}), {len(heaps)} "
-                         f"trees (<= {MAXT}), {len(k.loads)} loads "
-                         f"(<= {MAXLOAD}) exceed the kernel's limits")
-    keep = []
-
-    def ptr(t: torch.Tensor, dt=None) -> int:
-        if t.device != dev or not t.is_contiguous() or \
-                (dt is not None and t.dtype != dt):
-            raise ValueError(f"scan_chase: bad tensor {t.dtype} {t.device} "
-                             f"{tuple(t.shape)}")
-        keep.append(t)
-        return t.data_ptr()
+    G, F = ts.shape
+    L = ev["__nev__"].shape[0]
+    keep: list = []
+    ptr = checked_ptr(keep, dev, "scan_chase")
     p = _Params()
     p.L, p.F, p.Lt, p.S = L, F, k.leaves(F), k.S
     p.is_seq, p.ts_tree, p.n_loads = int(k.prog.sequence), k.ts_tree, \
         len(k.loads)
+    p.ev_stride = F if G == L else 0
     p.nev = ptr(ev["__nev__"], torch.int32)
     p.ts = ptr(ts, torch.int32)
     if k.multi:
         p.scode = ptr(ev["__flat.__scode__"], torch.int32)
-    for pi in range(k.S):
-        p.pre[pi] = 0 if pre[pi] is None else ptr(pre[pi], torch.int32)
-        p.node_scode[pi] = k.node_scode[pi] if k.multi else -1
+    if k.nfak.params is not None:
+        p.qparams = ptr(k.nfak.params.bits, torch.int64)
+        p.P = k.nfak.params.P
+    S = k.S
+    kind, within, tree, op, vt = [0] * S, [0] * S, [0] * S, [0] * S, [0] * S
     progs, pidx = [], []
     for pi, hop in enumerate(k.hops, start=1):
-        p.hop_kind[pi] = _KIND[hop.kind]
-        p.hop_within[pi] = hop.within
-        p.hop_tree[pi] = max(hop.tree, 0)
-        p.hop_op[pi] = _OP[hop.op]
+        kind[pi], within[pi] = _KIND[hop.kind], hop.within
+        tree[pi], op[pi] = max(hop.tree, 0), _OP[hop.op]
         if hop.prog is not None:
             pidx.append(pi)
             progs.append(hop.prog)
-            p.prog_vt[pi] = hop.prog.vt
+            vt[pi] = hop.prog.vt
     words, consts, offs, lens = merge_programs(
         progs, {"__base_ts__": ev["__base_ts__"]})
-    if len(words) > MAXWORDS or len(consts) > MAXCONST:
-        raise ValueError("scan_chase: hop programs exceed the VM budget")
-    for pi, o, ln in zip(pidx, offs, lens):
-        p.prog_off[pi], p.prog_len[pi] = o, ln
-    for i, c in enumerate(consts):
-        p.consts[i] = c
-    for i, w in enumerate(words):
-        p.words[i] = w
-    for i, h in enumerate(heaps):
-        p.heap[i] = ptr(h)
-        p.heap_vt[i] = VT_OF_TORCH[h.dtype]
-    for i, (key, pos) in enumerate(k.loads):
-        col = ev[key]
-        p.load_col[i] = ptr(col)
-        p.load_vt[i] = VT_OF_TORCH[col.dtype]
-        p.load_pos[i] = pos
+    off, ln = [0] * S, [0] * S
+    for pi, o, n in zip(pidx, offs, lens):
+        off[pi], ln[pi] = o, n
+    tab = DeviceTable()
+    tab.field(p, "pre", [0 if w is None else ptr(w, torch.int32)
+                         for w in pre], "u8")
+    tab.field(p, "node_scode", [k.node_scode[pi] if k.multi else -1
+                                for pi in range(S)], "i4")
+    tab.field(p, "hop_kind", kind, "i4")
+    tab.field(p, "hop_within", within, "i4")
+    tab.field(p, "hop_tree", tree, "i4")
+    tab.field(p, "hop_op", op, "i4")
+    tab.field(p, "prog_off", off, "i4")
+    tab.field(p, "prog_len", ln, "i4")
+    tab.field(p, "prog_vt", vt, "i4")
+    tab.field(p, "heap", [ptr(h) for h in heaps] or [0], "u8")
+    tab.field(p, "heap_vt", [VT_OF_TORCH[h.dtype] for h in heaps] or [0],
+              "i4")
+    cols = [ev[key] for key, _pos in k.loads]
+    tab.field(p, "load_col", [ptr(c) for c in cols] or [0], "u8")
+    tab.field(p, "load_vt", [VT_OF_TORCH[c.dtype] for c in cols] or [0],
+              "i4")
+    tab.field(p, "load_pos", [pos for _key, pos in k.loads] or [0], "i4")
+    program_table(tab, p, words, consts)
     status = torch.empty((L, F), dtype=torch.uint8, device=dev)
-    idx = torch.empty((k.S - 1, L, F), dtype=torch.int32, device=dev)
+    idx = torch.empty((max(S - 1, 1), L, F), dtype=torch.int32, device=dev)
     p.status, p.idx = ptr(status), ptr(idx)
+    keep.append(tab.upload(dev))
+    smem = stage_bytes(words, consts) if p.stage else 0
     lib = load("scan_chase")
     fn = lib.scan_chase_launch
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check(fn(ctypes.byref(p),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
-          "scan_chase_launch")
-    LAUNCHES["scan_chase"] += 1
-    return status, idx
+    return Launch(lambda: fn(ctypes.byref(p), smem, stream_of(dev)),
+                  "scan_chase_launch", "scan_chase", keep,
+                  (status, idx[:S - 1]))

@@ -15,7 +15,11 @@ ts and seq offsets, the head's seq offset.  The selector pass (K1) and
 the plan's unpack then read it as they read the sequential kernel's.
 Passes: per-lane first head (one-shot heads only), live counts per
 1024-candidate tile, one block's exclusive scan of the tile counts, and
-the block-scan scatter.  Bound on the H100: bytes -- status, comp index
+the block-scan scatter.  The row sources travel in a device table
+(kernels/table.py), so no table width is fixed.  A fused multi-query
+group's lanes share one row of events (stride 0) and each match row
+carries its lane's `__qid__` (`__lane_qid__[lane]`, the JAX package's
+nfa_parallel.py:1146).  Bound on the H100: bytes -- status, comp index
 and seq read once per candidate, each match row written once.
 
 Outputs: `out_i` (len(lane_names_i), M) int32, `out_f` (len(rows_f), M)
@@ -32,34 +36,25 @@ import ctypes
 import torch
 
 from ..core.expr import VT_OF_TORCH
-from . import LAUNCHES
-from .build import check, load
+from ..core.nfa_parallel import lane_grid
+from .build import load
+from .table import DeviceTable, Launch, checked_ptr, stream_of
 
-MAXROWS, TILE = 32, 1024            # csrc/scan_compact.cu
+TILE = 1024                         # csrc/scan_compact.cu CP_TILE
 ARM_NONE, ARM_PENDING, ARM_RESOLVED = 0, 1, 2
-_KIND = {"col": 0, "comp_ts": 1, "comp_seq": 2, "head_seq": 3}
+_KIND = {"col": 0, "comp_ts": 1, "comp_seq": 2, "head_seq": 3, "qid": 4}
 _GROUP = {"i": (0, torch.int32), "f": (1, torch.float32),
           "l": (2, torch.int64)}
 
 
 class _Params(ctypes.Structure):
-    _fields_ = [("L", ctypes.c_int), ("F", ctypes.c_int),
-                ("S", ctypes.c_int), ("M", ctypes.c_int),
-                ("single", ctypes.c_int), ("ntiles", ctypes.c_int),
-                ("n_rows", ctypes.c_int), ("pad0", ctypes.c_int),
-                ("seq", ctypes.c_void_p), ("ts", ctypes.c_void_p),
-                ("prev", ctypes.c_void_p), ("arm_done", ctypes.c_void_p),
-                ("status", ctypes.c_void_p), ("idx", ctypes.c_void_p),
-                ("h0", ctypes.c_void_p), ("tile_off", ctypes.c_void_p),
-                ("lane_cnt", ctypes.c_void_p), ("arm", ctypes.c_void_p),
-                ("meta", ctypes.c_void_p), ("out_i", ctypes.c_void_p),
-                ("out_f", ctypes.c_void_p), ("out_l", ctypes.c_void_p),
-                ("row_col", ctypes.c_void_p * MAXROWS),
-                ("row_vt", ctypes.c_int * MAXROWS),
-                ("row_kind", ctypes.c_int * MAXROWS),
-                ("row_pos", ctypes.c_int * MAXROWS),
-                ("row_group", ctypes.c_int * MAXROWS),
-                ("row_index", ctypes.c_int * MAXROWS)]
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "L", "F", "S", "M", "single", "ntiles", "n_rows", "ev_stride")] + [
+        (n, ctypes.c_void_p) for n in (
+            "seq", "ts", "prev", "arm_done", "lane_qid", "status", "idx",
+            "h0", "tile_off", "lane_cnt", "arm", "meta", "out_i", "out_f",
+            "out_l", "row_col", "row_vt", "row_kind", "row_pos",
+            "row_group", "row_index")]
 
 
 def _alloc(k, M: int, L: int, dev, rows=torch.zeros) -> dict:
@@ -77,7 +72,7 @@ def _alloc(k, M: int, L: int, dev, rows=torch.zeros) -> dict:
 
 def scan_compact_plain(k, ev: dict, status: torch.Tensor,
                        idx: torch.Tensor, M: int) -> dict:
-    seq, ts = ev["__flat.__seq__"], ev["__flat.__ts__"]
+    seq, ts = lane_grid(ev, "__flat.__seq__"), lane_grid(ev, "__flat.__ts__")
     L, F = seq.shape
     dev = seq.device
     j0 = torch.arange(F, device=dev).expand(L, F)
@@ -120,8 +115,10 @@ def scan_compact_plain(k, ev: dict, status: torch.Tensor,
                 v = seq[lanes, cidx]
             elif src[0] == "head_seq":
                 v = seq[lanes, heads]
+            elif src[0] == "qid":
+                v = ev["__lane_qid__"][lanes]
             else:
-                v = ev[src[1]][lanes, at(src[2])]
+                v = lane_grid(ev, src[1])[lanes, at(src[2])]
             dst[r, :len(sel)] = v.to(dst.dtype)
     return out
 
@@ -130,34 +127,39 @@ def scan_compact(k, ev: dict, status: torch.Tensor, idx: torch.Tensor,
                  M: int) -> dict:
     """Match table of ParallelChainKernel `k` for block `ev` from K4's
     `status` and `idx`, with room for M rows (see the module docstring)."""
+    if ev["__flat.__seq__"].device.type == "cpu":
+        return scan_compact_plain(k, ev, status, idx, M)
+    return prepare(k, ev, status, idx, M)()
+
+
+def prepare(k, ev: dict, status: torch.Tensor, idx: torch.Tensor,
+            M: int) -> Launch:
+    """Allocate the match table and upload the parameter table of one K5
+    launch (see `scan_compact`)."""
     seq = ev["__flat.__seq__"]
     dev = seq.device
-    if dev.type == "cpu":
-        return scan_compact_plain(k, ev, status, idx, M)
     if dev.type != "cuda":
         raise ValueError(f"scan_compact: unsupported device {dev}")
-    L, F = seq.shape
-    keep = []
-
-    def ptr(t: torch.Tensor, dt=None) -> int:
-        if t.device != dev or not t.is_contiguous() or \
-                (dt is not None and t.dtype != dt):
-            raise ValueError(f"scan_compact: bad tensor {t.dtype} "
-                             f"{t.device} {tuple(t.shape)}")
-        keep.append(t)
-        return t.data_ptr()
+    G, F = seq.shape
+    L = ev["__nev__"].shape[0]
+    keep: list = []
+    ptr = checked_ptr(keep, dev, "scan_compact")
     ntiles = -(-F // TILE)
     p = _Params()
     p.L, p.F, p.S, p.M = L, F, k.S, M
     p.single, p.ntiles = int(k.prog.single_arm), ntiles
+    p.ev_stride = F if G == L else 0
     p.seq = ptr(seq, torch.int32)
     p.ts = ptr(ev["__flat.__ts__"], torch.int32)
     p.prev = ptr(ev["__prev_seq__"], torch.int32)
     if k.prog.single_arm and ev.get("__arm_done__") is not None:
         p.arm_done = ptr(ev["__arm_done__"], torch.int32)
+    if "__lane_qid__" in ev:
+        p.lane_qid = ptr(ev["__lane_qid__"], torch.int32)
     p.status = ptr(status, torch.uint8)
     p.idx = ptr(idx, torch.int32)
     h0 = torch.full((L,), F, dtype=torch.int32, device=dev)
+    h0_init = h0.clone()
     tile_off = torch.empty(L * ntiles + 1, dtype=torch.int32, device=dev)
     out = _alloc(k, M, L, dev, torch.empty)
     p.h0, p.tile_off = ptr(h0), ptr(tile_off)
@@ -165,31 +167,39 @@ def scan_compact(k, ev: dict, status: torch.Tensor, idx: torch.Tensor,
                                  ptr(out["meta"]))
     p.out_i, p.out_f, p.out_l = (ptr(out["out_i"]), ptr(out["out_f"]),
                                  ptr(out["out_l"]))
-    r = 0
+    rows = {"col": [], "vt": [], "kind": [], "pos": [], "group": [],
+            "index": []}
     for g, srcs in k.rows.items():
         gi, want = _GROUP[g]
         for ri, src in enumerate(srcs):
-            if r >= MAXROWS:
-                raise ValueError(f"scan_compact: more than {MAXROWS} rows")
-            p.row_kind[r], p.row_group[r], p.row_index[r] = \
-                _KIND[src[0]], gi, ri
+            col_p, vt, pos = 0, 0, 0
             if src[0] == "col":
                 col = ev[src[1]]
                 if col.dtype != want and not (g == "i" and col.dtype ==
                                               torch.bool):
                     raise ValueError(f"scan_compact: {src[1]} is "
                                      f"{col.dtype}, row group {g!r}")
-                p.row_col[r] = ptr(col)
-                p.row_vt[r] = VT_OF_TORCH[col.dtype]
-                p.row_pos[r] = src[2]
-            r += 1
-    p.n_rows = r
+                col_p, vt, pos = ptr(col), VT_OF_TORCH[col.dtype], src[2]
+            elif src[0] == "qid" and not p.lane_qid:
+                raise ValueError("scan_compact: a __qid__ row without "
+                                 "__lane_qid__")
+            for key, v in (("col", col_p), ("vt", vt),
+                           ("kind", _KIND[src[0]]), ("pos", pos),
+                           ("group", gi), ("index", ri)):
+                rows[key].append(v)
+    p.n_rows = len(rows["kind"])
+    tab = DeviceTable()
+    for key in rows:
+        tab.field(p, f"row_{key}", rows[key] or [0],
+                  "u8" if key == "col" else "i4")
+    keep.append(tab.upload(dev))
     lib = load("scan_compact")
     fn = lib.scan_compact_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check(fn(ctypes.byref(p),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
-          "scan_compact_launch")
-    LAUNCHES["scan_compact"] += 1
-    return out
+
+    def run():
+        h0.copy_(h0_init)
+        return fn(ctypes.byref(p), stream_of(dev))
+    return Launch(run, "scan_compact_launch", "scan_compact",
+                  keep + [h0_init], out)

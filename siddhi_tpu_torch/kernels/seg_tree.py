@@ -15,8 +15,12 @@ the leaves and the lowest 10 levels: one block of 1024 threads per (1024
 leaves, lane, tree), reduced level by level in shared memory, each level
 written to the heap.  A lane's trees at the C4 shapes (512 leaves) finish
 in that launch; the flat C3 tree (2^19 leaves) takes a second launch that
-reduces the 512 block roots the same way.  Bound on the H100: bytes -- the
-leaf columns and masks read once, each heap (2 Lt entries) written once.
+reduces the 512 block roots the same way.  The trees' sources, types,
+node masks and heap pointers travel in a device table (kernels/table.py),
+so no tree count is fixed.  A fused multi-query group's lanes share one
+row of events (stride 0) and keep a tree each, gated by their own
+pre-masks.  Bound on the H100: bytes -- the leaf columns and masks read
+once, each heap (2 Lt entries) written once.
 
 `seg_tree()` launches the kernel for CUDA tensors and runs the plain
 version, `seg_tree_plain()` (level-wise torch.maximum / minimum), for CPU
@@ -31,25 +35,22 @@ from typing import Optional
 import torch
 
 from ..core.expr import TORCH_OF_VT, VT_OF_TORCH
-from . import LAUNCHES
-from .build import check, load
+from ..core.nfa_parallel import lane_grid
+from .build import load
 from .expr_eval import unpack_mask
-
-MAXT = 9                # csrc/seg_tree.cu ST_MAXT
+from .table import DeviceTable, Launch, checked_ptr, stream_of
 
 
 class _Params(ctypes.Structure):
     _fields_ = [("L", ctypes.c_int), ("F", ctypes.c_int),
                 ("Lt", ctypes.c_int), ("n_trees", ctypes.c_int),
                 ("cnt", ctypes.c_int), ("from_heap", ctypes.c_int),
+                ("ev_stride", ctypes.c_int), ("pad0", ctypes.c_int),
                 ("nev", ctypes.c_void_p), ("scode", ctypes.c_void_p),
-                ("src", ctypes.c_void_p * MAXT),
-                ("src_vt", ctypes.c_int * MAXT),
-                ("vt", ctypes.c_int * MAXT),
-                ("agg", ctypes.c_int * MAXT),
-                ("pre", ctypes.c_void_p * MAXT),
-                ("node_scode", ctypes.c_int * MAXT),
-                ("heap", ctypes.c_void_p * MAXT)]
+                ("src", ctypes.c_void_p), ("src_vt", ctypes.c_void_p),
+                ("vt", ctypes.c_void_p), ("agg", ctypes.c_void_p),
+                ("pre", ctypes.c_void_p), ("node_scode", ctypes.c_void_p),
+                ("heap", ctypes.c_void_p)]
 
 
 def sentinel(dt: torch.dtype, agg: str):
@@ -62,7 +63,7 @@ def sentinel(dt: torch.dtype, agg: str):
 def node_masks(k, ev: dict, pre: list) -> list:
     """(L, F) bool node mask per chain position: the lane's valid events,
     of the node's stream, passing its event-only conjuncts."""
-    ts = ev["__flat.__ts__"]
+    ts = lane_grid(ev, "__flat.__ts__")
     L, F = ts.shape
     valid = torch.arange(F, device=ts.device)[None, :] < \
         ev["__nev__"].to(torch.int64)[:, None]
@@ -70,7 +71,7 @@ def node_masks(k, ev: dict, pre: list) -> list:
     for pi, words in enumerate(pre):
         m = valid
         if k.multi:
-            m = m & (ev["__flat.__scode__"] == k.node_scode[pi])
+            m = m & (lane_grid(ev, "__flat.__scode__") == k.node_scode[pi])
         if words is not None:
             m = m & unpack_mask(words, L * F).view(L, F)
         out.append(m)
@@ -108,8 +109,9 @@ def seg_tree_plain(k, ev: dict, masks: list) -> list:
     out = []
     for t in k.trees:
         mask = valid.expand_as(masks[0]) if t.node is None else masks[t.node]
-        out.append(build_heap_plain(None if t.src is None else ev[t.src],
-                                    mask, Lt, t.agg, TORCH_OF_VT[t.vt]))
+        out.append(build_heap_plain(
+            None if t.src is None else lane_grid(ev, t.src), mask, Lt,
+            t.agg, TORCH_OF_VT[t.vt]))
     return out
 
 
@@ -159,57 +161,63 @@ def seg_tree(k, ev: dict, pre: list) -> list:
     """Every tree of ParallelChainKernel `k` for block `ev`: one (L, 2 Lt)
     heap per `k.trees` entry.  `pre` holds the K1 pre-mask words per
     chain position (or None)."""
-    ts = ev["__flat.__ts__"]
-    dev = ts.device
+    dev = ev["__flat.__ts__"].device
     if dev.type == "cpu":
         return seg_tree_plain(k, ev, node_masks(k, ev, pre))
     if dev.type != "cuda":
         raise ValueError(f"seg_tree: unsupported device {dev}")
-    L, F = ts.shape
-    Lt = k.leaves(F)
     if not k.trees:             # a strict sequence reads events directly
         return []
-    if len(k.trees) > MAXT:
-        raise ValueError(f"seg_tree: {len(k.trees)} trees exceed {MAXT}")
-    keep = []
+    return prepare(k, ev, pre)()
 
-    def ptr(t: torch.Tensor, dt=None) -> int:
-        if t.device != dev or not t.is_contiguous() or \
-                (dt is not None and t.dtype != dt):
-            raise ValueError(f"seg_tree: bad tensor {t.dtype} {t.device} "
-                             f"{tuple(t.shape)}")
-        keep.append(t)
-        return t.data_ptr()
+
+def prepare(k, ev: dict, pre: list) -> Launch:
+    """Allocate the heaps and upload the parameter table of one K3
+    launch (see `seg_tree`)."""
+    ts = ev["__flat.__ts__"]
+    dev = ts.device
+    if dev.type != "cuda":
+        raise ValueError(f"seg_tree: unsupported device {dev}")
+    G, F = ts.shape
+    L = ev["__nev__"].shape[0]
+    Lt = k.leaves(F)
+    keep: list = []
+    ptr = checked_ptr(keep, dev, "seg_tree")
     p = _Params()
     p.L, p.F, p.Lt, p.n_trees = L, F, Lt, len(k.trees)
+    p.ev_stride = F if G == L else 0
     p.nev = ptr(ev["__nev__"], torch.int32)
     if k.multi:
         p.scode = ptr(ev["__flat.__scode__"], torch.int32)
-    heaps = []
-    for i, t in enumerate(k.trees):
+    heaps, src, src_vt, pre_p, node_sc = [], [], [], [], []
+    for t in k.trees:
         if t.src is not None:
             col = ev[t.src]
-            if col.shape != (L, F):
-                raise ValueError(f"seg_tree: {t.src} is not ({L}, {F})")
-            p.src[i] = ptr(col)
-            p.src_vt[i] = VT_OF_TORCH[col.dtype]
-        p.vt[i] = t.vt
-        p.agg[i] = 0 if t.agg == "max" else 1
-        p.node_scode[i] = -1
-        if t.node is not None:
-            if k.multi:
-                p.node_scode[i] = k.node_scode[t.node]
-            if pre[t.node] is not None:
-                p.pre[i] = ptr(pre[t.node], torch.int32)
-        h = torch.empty((L, 2 * Lt), dtype=TORCH_OF_VT[t.vt], device=dev)
-        heaps.append(h)
-        p.heap[i] = ptr(h)
+            if col.shape != (G, F):
+                raise ValueError(f"seg_tree: {t.src} is not ({G}, {F})")
+            src.append(ptr(col))
+            src_vt.append(VT_OF_TORCH[col.dtype])
+        else:
+            src.append(0)
+            src_vt.append(0)
+        node_sc.append(k.node_scode[t.node] if t.node is not None
+                       and k.multi else -1)
+        pre_p.append(ptr(pre[t.node], torch.int32) if t.node is not None
+                     and pre[t.node] is not None else 0)
+        heaps.append(torch.empty((L, 2 * Lt), dtype=TORCH_OF_VT[t.vt],
+                                 device=dev))
+    tab = DeviceTable()
+    tab.field(p, "src", src, "u8")
+    tab.field(p, "src_vt", src_vt, "i4")
+    tab.field(p, "vt", [t.vt for t in k.trees], "i4")
+    tab.field(p, "agg", [0 if t.agg == "max" else 1 for t in k.trees], "i4")
+    tab.field(p, "pre", pre_p, "u8")
+    tab.field(p, "node_scode", node_sc, "i4")
+    tab.field(p, "heap", [ptr(h) for h in heaps], "u8")
+    keep.append(tab.upload(dev))
     lib = load("seg_tree")
     fn = lib.seg_tree_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check(fn(ctypes.byref(p),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
-          "seg_tree_launch")
-    LAUNCHES["seg_tree"] += 1
-    return heaps
+    return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
+                  "seg_tree_launch", "seg_tree", keep, heaps)

@@ -1,11 +1,14 @@
 """Carry device pattern state across from the JAX package.
 
 A stream processor's "weights" are its pattern state.  For the `seq`
-family that is the slot state, the stationed partial matches and their
-captures: `nfa_state_from_jax` turns the `state` entry of a `siddhi_tpu`
-DevicePatternPlan.state_dict() (numpy arrays) into this port's state
-tensors, and the rest of that dict (key map, ts/seq bases, last seq)
-loads as it is through DevicePatternPlan.load_state_dict.
+family that is the slot state, the stationed partial matches, their
+captures and their absent-state deadlines (`dl`): `nfa_state_from_jax`
+turns the `state` entry of a `siddhi_tpu` DevicePatternPlan.state_dict()
+(numpy arrays) into this port's state tensors, and the rest of that dict
+(key map, ts/seq bases, last seq, the next deadline) loads as it is
+through DevicePatternPlan.load_state_dict.  A fused multi-query plan's
+state_dict() is its inner plan's, lanes being query instances, and
+carries over the same way.
 `nfa_state_to_numpy` is the inverse view the tests compare with.
 
 The stateless families (`scan`) keep no device state: their continuity
@@ -21,14 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# leaves of the JAX state that this slice's algebra never fills: count,
-# logical and absent rows, init flags, and the direct-emit lane overflow
-_UNUSED = ("cnt", "cnt_on", "narm", "fl", "dl", "init", "of_lanes")
-_KEYS = ("occ", "first_ts", "head_seq", "caps_f", "caps_i", "caps_l",
+# leaves of the JAX state that this slice's algebra never fills: count
+# and logical rows, init flags, and the direct-emit lane overflow
+_UNUSED = ("cnt", "cnt_on", "narm", "fl", "init", "of_lanes")
+_KEYS = ("occ", "first_ts", "head_seq", "caps_f", "caps_i", "caps_l", "dl",
          "armed0", "of_slots")
 _DTYPES = {"occ": np.int32, "first_ts": np.int32, "head_seq": np.int32,
            "caps_f": np.float32, "caps_i": np.int32, "caps_l": np.int64,
-           "armed0": np.bool_, "of_slots": np.int32}
+           "dl": np.int32, "armed0": np.bool_, "of_slots": np.int32}
 
 
 def nfa_state_from_jax(np_state: dict, device) -> dict:
@@ -36,7 +39,7 @@ def nfa_state_from_jax(np_state: dict, device) -> dict:
     for k in _UNUSED:
         v = np_state.get(k)
         if v is not None and np.asarray(v).size and k != "init" \
-                and np.any(np.asarray(v) != (0 if k != "dl" else 2**31 - 1)):
+                and np.any(np.asarray(v) != 0):
             raise ValueError(f"JAX state leaf {k!r} is in use: its pattern "
                              f"algebra is not in this slice")
         if k == "init" and v is not None:
@@ -83,7 +86,10 @@ def stateless_state_from_jax(d: dict) -> dict:
     """A JAX stateless-family (`scan`) plan's state_dict() -> the dict the
     port's DevicePatternPlan.load_state_dict takes on a `scan` plan.  The
     port runs an unpartitioned pattern as one lane, so the JAX flat tail
-    (`chunk_tail`, `chunk_prev_last_seq`) becomes lane 0's."""
+    (`chunk_tail`, `chunk_prev_last_seq`) becomes lane 0's; a fused
+    group's query lanes share that one tail and keep their own one-shot
+    flags (`arm_done`).  Every array is copied: the JAX dict aliases the
+    live plan's state."""
     if "chunk_prev_last_seq" not in d:
         raise ValueError("not a stateless-family plan state (no replay "
                          "tail); a `seq` plan's slot state loads through "

@@ -317,3 +317,243 @@ def test_c4_scan_end_to_end_on_the_card(cuda):
                                      "expr_eval:select")) > 0
     assert LAUNCHES["nfa_block"] == 0
     assert got == run("cpu") and got
+
+
+# ---------------------------------------------------------------------------
+# fused multi-query lanes: lane parameters, broadcast events, deadlines,
+# timer ticks, the __qid__ row
+# ---------------------------------------------------------------------------
+
+LANE_EXPRS = ["price > __qparam0 and volume < __qparam1 or big == __qparam2",
+              "price * __qparam3 - volume / __qparam1"]
+
+
+@pytest.mark.parametrize("grid", ["T,P", "L,F", "select"])
+@pytest.mark.parametrize("text", LANE_EXPRS)
+def test_expr_eval_lane_params_match_plain(cuda, text, grid):
+    """K1 with per-lane parameters: on a (T, P) grid over broadcast (T,)
+    columns (lane = column), on an (L, F) grid over shared (F,) columns
+    (lane = row), and over match rows whose lane is a `__qid__` column."""
+    from siddhi_tpu_torch.core.expr import LaneParams
+    from siddhi_tpu_torch.kernels.expr_eval import (RowMap, expr_eval,
+                                                    expr_eval_plain)
+    from siddhi_tpu_torch.query.ast import AttrType
+    schema = StreamSchema.of(parse(
+        "define stream S (price double, volume int, big long);"
+    ).stream_definitions["S"])
+    rng = np.random.default_rng(2)
+    P, E = 37, 5003
+    host = {"big": rng.integers(-5, 5, E),
+            "price": np.round(rng.uniform(90, 130, E) * 4) / 4,
+            "volume": rng.integers(-9, 1000, E).astype(np.int32)}
+    params = LaneParams({
+        "__qparam0": rng.integers(95, 125, P).astype(np.int32),
+        "__qparam1": rng.integers(-3, 500, P).astype(np.int32),
+        "__qparam2": rng.integers(-5, 5, P).astype(np.int64),
+        "__qparam3": (np.round(rng.uniform(0, 3, P) * 4) / 4
+                      ).astype(np.float32)}, cuda)
+    types = [AttrType.INT, AttrType.INT, AttrType.LONG, AttrType.DOUBLE]
+    keys = sorted(host)
+    cols = [torch.from_numpy(host[k]).to(cuda) for k in keys]
+    ctx = SingleStreamContext(schema, StringTable(), extra={
+        f"__qparam{i}": (f"__qparam{i}", t) for i, t in enumerate(types)})
+    ce = compile_expression(parse_expression(text), ctx)
+    with compute_dtypes(F32_MODE):
+        prog = emit_program(ce.node, {k: (i, VT_OF_TORCH[c.dtype]) for i, (k, c)
+                                      in enumerate(zip(keys, cols))})
+    if grid == "T,P":
+        n, rows = E * P, RowMap(col_div=P, lane_mod=P, qparams=params)
+    elif grid == "L,F":
+        n, rows = E * P, RowMap(col_mod=E, lane_div=E, qparams=params)
+    else:
+        n = E
+        rows = RowMap(lane_col=torch.from_numpy(rng.integers(
+            0, P, E).astype(np.int32)).to(cuda), qparams=params)
+    args = (cols, prog, []) if prog.vt == 0 else (cols, None, [prog])
+    wk, ok = expr_eval(*args, n, use="pre_mask", rows=rows)
+    wp, op = expr_eval_plain(*args, n, None, rows)
+    torch.cuda.synchronize()
+    if prog.vt == 0:
+        assert torch.equal(wk, wp)
+    else:
+        assert ok[0].dtype == op[0].dtype and torch.equal(ok[0], op[0])
+
+
+def _c5_head_tape(n_events, seed=5):
+    rng = np.random.default_rng(seed)
+    return {"symbol": np.array([f"K{i}" for i in rng.integers(0, 8, n_events)]),
+            "price": np.round(rng.uniform(90.0, 130.0, n_events) * 4) / 4,
+            "volume": rng.integers(1, 1000, n_events).astype(np.int32),
+            "ts": 1_700_000_000_000 + 50 * np.arange(n_events,
+                                                     dtype=np.int64)}
+
+
+# fused groups with lifted constants in a threshold hop's right-hand side
+# (K4), a sequence step (K2) and the selector (K1 by `__qid__`)
+PARAM_APP = "@app:playback\n" + "\n".join(
+    ["define stream S (sym string, price double, v int);"] +
+    [f"@info(name='q{i}') from every e1=S[price > {100 + i}.0] -> "
+     f"e2=S[price > e1.price + {i % 3}.5] within 1 sec "
+     f"select e1.price * {i + 1}.0 as a, e2.v + {i} as b "
+     f"insert into Out{i % 2};" for i in range(10)] +
+    [f"@info(name='q{i}') from every e1=S[price > {100 + i % 7}.0], "
+     f"e2=S[price > e1.price - {i % 4}.25 and v != {i}] "
+     f"select e1.v * {i} as a insert into Out{2 + i % 2};"
+     for i in range(10, 20)])
+
+
+def _feed_param_app(rt, n=2048, seed=3):
+    rng = np.random.default_rng(seed)
+    price = np.round(rng.uniform(88, 115, n) * 4) / 4
+    h = rt.input_handler("S")
+    for lo in range(0, n, 512):
+        h.send_batch({"sym": np.array(["A"] * len(price[lo:lo + 512])),
+                      "price": price[lo:lo + 512],
+                      "v": (np.arange(lo, lo + len(price[lo:lo + 512]))
+                            % 50).astype(np.int32)},
+                     1000 + 37 * np.arange(lo, lo + len(price[lo:lo + 512])))
+        rt.flush()
+
+
+MID_ABSENT = ("@app:playback\n"
+              "define stream StockStream (symbol string, price double, "
+              "volume int);\n" + "\n".join(
+                  f"@info(name='q{i}') from every e1=StockStream[price > "
+                  f"{110 + i}] -> not StockStream[price < {95 + i}] for 300 "
+                  f"milliseconds -> e3=StockStream[price > e1.price] "
+                  f"select e1.price as p1, e3.price as p3 insert into "
+                  f"Out{i % 4};" for i in range(8)))
+
+
+@pytest.mark.parametrize("case", ["c5_prefix", "mid_absent", "params"])
+def test_nfa_block_broadcast_absent_and_ticks_match_plain(cuda, case,
+                                                          monkeypatch):
+    """K2 on fused lanes (broadcast (T, 1) events, per-lane parameters in
+    pre-masks and step programs, `__qid__` rows) with absent deadlines
+    firing on events and on timer ticks: every block the plans ran
+    equals the plain version, and the rows equal the CPU run's."""
+    import chip_smoke
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.kernels.expr_eval import unpack_mask
+    from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
+    app = chip_smoke.c5_app(32) if case == "c5_prefix" else MID_ABSENT
+    tape = _c5_head_tape(600)
+    if case == "c5_prefix":     # up to the first arming of a `not` lane
+        cut = int(np.flatnonzero(tape["price"] > 124)[0]) + 1
+        tape = {k: v[:cut] for k, v in tape.items()}
+    blocks = []
+    orig = NFAKernel.run_block
+
+    def rec(self, state, ev, M):
+        blocks.append((self, state, ev, M))
+        return orig(self, state, ev, M)
+    monkeypatch.setattr(NFAKernel, "run_block", rec)
+
+    if case == "params":
+        app = PARAM_APP
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
+            app)
+        out = []
+        for j in range(16 if case == "c5_prefix" else 4):
+            rt.add_callback(f"Out{j}", lambda evs, j=j: out.extend(
+                (j, e.timestamp, e.data) for e in evs))
+        if case == "params":
+            _feed_param_app(rt)
+            return out
+        h = rt.input_handler("StockStream")
+        for lo in range(0, len(tape["ts"]), 200):
+            h.send_batch({k: tape[k][lo:lo + 200]
+                          for k in ("symbol", "price", "volume")},
+                         tape["ts"][lo:lo + 200])
+            rt.flush()
+        rt.set_time(int(tape["ts"][-1]) + 2000)
+        return out
+    got = run(cuda)
+    assert (case == "params") != any("__tick__" in ev
+                                     for _k, _s, ev, _m in blocks)
+    for kern, state, ev, M in blocks:
+        T, P = ev["__ts__"].shape[0], kern.P
+        assert ev["__ts__"].shape[1] == 1 and kern.broadcast
+        pre = kern.pre_masks(ev)
+        sk, ok = nfa_block(kern, state, ev, pre, M)
+        masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
+                 for w in pre]
+        sp, op = nfa_block_plain(kern, state, ev, masks, M)
+        torch.cuda.synchronize()
+        for k in sk:
+            assert torch.equal(sk[k], sp[k]), k
+        assert torch.equal(ok["meta"], op["meta"])
+        n = min(int(ok["meta"][0]), M)
+        assert torch.equal(chip_smoke.sorted_rows(torch, kern, ok),
+                           chip_smoke.sorted_rows(torch, kern, op))
+        assert n == 0 or "__qid__" in kern.lane_names_i
+    blocks.clear()
+    assert got == run("cpu") and got
+
+
+@pytest.mark.parametrize("case", ["c5", "params"])
+def test_scan_compact_qid_matches_plain(cuda, case, monkeypatch):
+    """K3-K5 on fused `scan` lanes (one shared row of events, per-lane
+    pre-masks and trees, lane parameters in K4's threshold programs, the
+    `__qid__` row): every block equals the plain versions, and the rows
+    equal the CPU run's."""
+    import chip_smoke
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
+                                                     scan_chase_plain)
+    from siddhi_tpu_torch.kernels.scan_compact import (scan_compact,
+                                                       scan_compact_plain)
+    from siddhi_tpu_torch.kernels.seg_tree import (node_masks, seg_tree,
+                                                   seg_tree_plain)
+    blocks = []
+    orig = ParallelChainKernel.run_block
+
+    def rec(self, ev, M):
+        blocks.append((self, ev, M))
+        return orig(self, ev, M)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec)
+    tape = _c5_head_tape(2048)
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
+            chip_smoke.c5_app(64) if case == "c5" else PARAM_APP)
+        out = []
+        for j in range(16 if case == "c5" else 4):
+            rt.add_callback(f"Out{j}", lambda evs, j=j: out.extend(
+                (j, e.timestamp, e.data) for e in evs))
+        if case == "params":
+            _feed_param_app(rt)
+            return out
+        h = rt.input_handler("StockStream")
+        for lo in range(0, 2048, 1024):
+            h.send_batch({k: tape[k][lo:lo + 1024]
+                          for k in ("symbol", "price", "volume")},
+                         tape["ts"][lo:lo + 1024])
+            rt.flush()
+        return out
+    got = run(cuda)
+    assert blocks
+    for k, ev, M in blocks:
+        assert ev["__flat.__ts__"].shape[0] == 1 and "__qid__" in \
+            k.nfak.lane_names_i
+        pre = k.pre_masks(ev)
+        masks = node_masks(k, ev, pre)
+        hk, hp = seg_tree(k, ev, pre), seg_tree_plain(k, ev, masks)
+        for a, b in zip(hk, hp):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        sk, ik = scan_chase(k, ev, pre, hp)
+        sp, ip = scan_chase_plain(k, ev, masks, hp)
+        assert torch.equal(sk, sp) and torch.equal(ik, ip)
+        ok = scan_compact(k, ev, sp, ip, M)
+        op = scan_compact_plain(k, ev, sp, ip, M)
+        torch.cuda.synchronize()
+        m = int(op["meta"][0])
+        assert m > 0
+        for key in ("meta", "lane_n", "arm"):
+            assert torch.equal(ok[key], op[key]), key
+        for key in ("out_i", "out_f", "out_l"):
+            assert torch.equal(ok[key][:, :m], op[key][:, :m]), key
+    blocks.clear()
+    assert got == run("cpu") and got

@@ -61,6 +61,8 @@ def test_import_leaves_jax_unloaded():
             "import siddhi_tpu_torch.kernels.scan_compact\n"
             "import siddhi_tpu_torch.core.nfa_parallel\n"
             "import siddhi_tpu_torch.core.autotune\n"
+            "import siddhi_tpu_torch.core.multi_query\n"
+            "import siddhi_tpu_torch.kernels.table\n"
             "import siddhi_tpu_torch.weights\n"
             "bad = sorted(roots() - before)\n"
             "assert not bad, bad\n")

@@ -267,8 +267,9 @@ def test_state_carried_from_jax(name):
     ("from every e1=StockStream[price > 100]<2:5> -> "
      "e2=StockStream[price > 120] select e2.price as p insert into Out;",
      "count"),
-    ("from every e1=StockStream[price > 100] -> not StockStream[price > 120] "
-     "for 1 sec select e1.price as p insert into Out;", "absent"),
+    ("from not StockStream[price > 120] for 1 sec -> "
+     "e2=StockStream[price > 100] select e2.price as p insert into Out;",
+     "absent"),
     ("from every e1=StockStream[price > 100] and e2=StockStream[price < 95] "
      "select e1.price as p insert into Out;", "logical"),
     ("from e1=StockStream[price > 100] -> every e2=StockStream[price > 110] "

@@ -449,18 +449,28 @@ def test_scan_state_carried_from_jax(app):
         plan.load_state_dict({"state": {}, "key_to_part": {}})
 
 
-def test_scan_over_the_kernel_limits_demotes_at_build(monkeypatch):
-    """A chain past the CUDA kernels' fixed limits is refused when the
-    plan is built, on any device: `scan` reports why, the plan runs
-    `seq`, and the rows stay the JAX package's."""
-    from siddhi_tpu_torch.kernels import scan_compact
-    monkeypatch.setattr(scan_compact, "MAXROWS", 4)
-    with pytest.warns(RuntimeWarning, match="build validation"):
-        got, rt = run(siddhi_tpu_torch, APPS["c4"], tape("c4"),
-                      device="cpu")
+LONG_CHAIN = STOCK + part(
+    "from every e1=StockStream[price > 120] -> " + " -> ".join(
+        f"e{i}=StockStream[price > e{i - 1}.price - {i}.0]"
+        for i in range(2, 11)) +
+    " within 10 sec select " + ", ".join(
+        f"e{i}.price as p{i}, e{i}.volume as v{i}, e{i}.symbol as s{i}"
+        for i in range(1, 11)) +
+    " insert into Out;")
+
+
+def test_scan_past_the_old_kernel_limits_runs_scan():
+    """A chain past the fixed parameter blocks the scan kernels had (8
+    positions, 9 trees, 32 match-table rows) runs the `scan` family in
+    both packages -- the kernels take their programs, trees, loads and
+    row sources from device tables now -- with equal rows."""
+    sends = tape("c4", flushes=2, n=300, seed=7)
+    jax_out, jrt = run(siddhi_tpu, PREFER + LONG_CHAIN, sends)
+    got, rt = run(siddhi_tpu_torch, LONG_CHAIN, sends, device="cpu")
     plan = rt.plans()[0]
-    assert plan.family == "seq"
-    assert plan.families["scan"].startswith(
-        "build validation failed: chain exceeds the scan kernels' limits "
-        "(match-table rows)")
-    assert got == jax_rows("tape", "c4")[0]
+    jplan = next(p for p in jrt._plans if isinstance(p, JPlan))
+    assert plan.family == jplan.family == "scan"
+    kern = plan._par_kern
+    assert kern.S == 10 and len(kern.trees) == 10
+    assert sum(map(len, kern.rows.values())) == 33
+    assert got == jax_out and len(got) > 5
