@@ -39,7 +39,20 @@ Phases (any failure exits non-zero; nothing is caught):
      set_time's timer ticks; K1-K5 against their plain versions on every
      block both runs recorded (K2 blocks with fired deadlines and tick
      blocks required); ms per flush, events/s and query-events/s;
- 10. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 10. config 2 (bench.py's C2: `#window.length(1000) select avg(price)`),
+     2 flushes of 2^17 events over 8 symbols, counted (K1 `window_args`
+     and `window_select`, K6 win_scan, K7 win_range, K8 win_compact) and
+     recorded (every kernel call of the window plan, through its `record`
+     hook), rows equal to the CPU run and `ap` equal to the exact f64
+     sliding mean rounded to f32; every recorded call of K1, K6-K8 equal
+     to its plain version; then a timing run, not recorded, of 8 flushes:
+     the median ms of its 7 steady flushes and events/s from it;
+ 11. the grouped, filtered `time(10 sec)` window with min/max/avg/count
+     and `having` (its carry grows from 1024 slots through the overflow
+     retry), checked the same way;
+ 12. C2B (bench.py: `externalTimeBatch(et, 64)` grouped, et = arrival
+     time), the tumbling path (K6 segmented, no K7), checked the same way;
+ 13. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -77,6 +90,18 @@ C4_SEQ = "@app:patternFamily('seq')\n"
 C3 = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
               "e2=StockStream[price > e1.price] within 1 sec "
               "select e1.price as p1, e2.price as p2 insert into Out;\n")
+C2 = STOCK + ("@info(name='q') from StockStream#window.length(1000) "
+              "select avg(price) as ap insert into Out;\n")
+C2_GROUPED = STOCK + (
+    "@info(name='q') from StockStream[volume > 100]#window.time(10 sec) "
+    "select symbol, min(price) as lo, max(price) as hi, avg(price) as ap, "
+    "count() as n group by symbol having n > 10 insert into Out;\n")
+C2B = ("define stream StockStream (symbol string, price double, volume int, "
+       "et long);\n@info(name='q') from StockStream"
+       "#window.externalTimeBatch(et, 64) select symbol, sum(price) as sp, "
+       "count() as c group by symbol insert into Out;\n")
+C2_FLUSH, C2_FLUSHES, C2_SYMBOLS = 1 << 17, 2, 8
+C2_TIMED = 8            # flushes of the timing run (the first is not steady)
 KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
 SEQ_FLUSHES, C3_FLUSHES = 2, 2
 C5_QUERIES, C5_FLUSH, C5_FLUSHES, C5_DT, C5_SYMBOLS = 1000, 1 << 13, 4, 50, 8
@@ -515,6 +540,18 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
+def distinct(*tensors) -> list:
+    """The tensors without repeats (by address): a column that reaches a
+    kernel through two arguments is read once."""
+    seen: set = set()
+    out = []
+    for t in tensors:
+        if t is not None and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            out.append(t)
+    return out
+
+
 def max_err(torch, a, b) -> float:
     """Largest |a - b| over the entries finite in both (0 when none)."""
     a, b = a.double(), b.double()
@@ -841,6 +878,214 @@ def phase_c1(torch, np, pkg) -> dict:
                        "bytes": nbytes, "ops": ops, "library_ms": None}}
 
 
+def _same(torch, a, b) -> bool:
+    """Equal dtype, shape and values, NaN equal to NaN."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return torch.equal(torch.isnan(a), torch.isnan(b)) and \
+            torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    return torch.equal(a, b)
+
+
+def _flat(res) -> list:
+    """A window kernel's result as a flat list of tensors (or None)."""
+    if res is None or hasattr(res, "dtype"):
+        return [res]
+    return [t for r in res for t in _flat(r)]
+
+
+def check_window_calls(torch, calls, label: str) -> dict:
+    """K1 (window uses), K6, K7 and K8 against their plain versions on
+    every call a window run recorded, tolerance 0 (NaN equal to NaN);
+    returns the largest |kernel - plain| per kernel name or K1 use."""
+    from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
+    from siddhi_tpu_torch.kernels.win_compact import win_compact_plain
+    from siddhi_tpu_torch.kernels.win_range import win_range_plain
+    from siddhi_tpu_torch.kernels.win_scan import win_scan_plain
+    from siddhi_tpu_torch.core.window_device import KERNELS
+    plain = {"win_scan": win_scan_plain, "win_range": win_range_plain,
+             "win_compact": win_compact_plain}
+    err: dict = {}
+    for j, (name, a, kw) in enumerate(calls):
+        got = KERNELS[name](*a, **kw)
+        if name == "expr_eval":
+            key = f"expr_eval:{kw['use']}"
+            want = expr_eval_plain(*a)
+        else:
+            key = name
+            want = plain[name](*a, **kw)
+        torch.cuda.synchronize()
+        g, w = _flat(got), _flat(want)
+        if len(g) != len(w) or not all(_same(torch, x, y)
+                                       for x, y in zip(g, w)):
+            raise SystemExit(f"[{label}] {key} differs from its plain "
+                             f"version (call {j})")
+        e = max([max_err(torch, x, y) for x, y in zip(g, w)
+                 if x is not None and x.numel()] or [0.0])
+        err[key] = max(err.get(key, 0.0), e)
+    log(f"  [{label}] {len(calls)} kernel calls equal to their plain "
+        f"versions: {sorted(err)}")
+    return err
+
+
+def window_work(name: str, a: tuple, kw: dict, out) -> tuple:
+    """(bytes, operations) of one K6, K7 or K8 call and its result: each
+    distinct input read once, each output written once."""
+    if name == "win_scan":
+        cols, n = a[0], a[1]
+        valid, flags = (list(a[2:]) + [kw.get("valid"),
+                                       kw.get("flags")])[:2]
+        # one combine per column and entry
+        nb = nbytes(*distinct(*[v[:n] for _o, v, _m in cols
+                                if v is not None], valid, flags), *out)
+        return nb, n * len(cols)
+    if name == "win_range":
+        sites = a[0]
+        n, m = kw["n"], kw["m"]
+        groups = kw["groups"] or ()
+        n_mm = sum(s[0] in ("min", "max") for s in sites)
+        # `valid` is read only by the min/max tables' build
+        ins = [kw["vcnt"] if kw["kind"] == "length" else kw["clock"],
+               *groups, kw["valid"] if n_mm else None]
+        for _op, pfx, cnt, vals, _dt in sites:
+            ins += [pfx, cnt, vals]
+        outs, start_k = out
+        # plus the two table rows of each min/max site, read at random as
+        # 32-byte sectors
+        nb = nbytes(*distinct(*[t[:n] for t in ins if t is not None]),
+                    *outs, start_k) + m * n_mm * 2 * 32
+        log2n = max(n - 1, 1).bit_length()
+        return nb, m * (log2n * (2 if groups else 1) + 2 * len(sites))
+    cols, _fills, n = a[:3]
+    mask = a[4] if len(a) > 4 else kw.get("mask")
+    outs, k = out
+    return nbytes(*distinct(*[c[:n] for c in cols], mask), *outs, k), n
+
+
+def window_kernel_metrics(torch, calls) -> dict:
+    """Device, dispatch, plain and library time, bytes and operations of
+    each window kernel (and K1 use) on its largest recorded call."""
+    from siddhi_tpu_torch.kernels import expr_eval as k1
+    from siddhi_tpu_torch.kernels import win_compact as k8
+    from siddhi_tpu_torch.kernels import win_range as k7
+    from siddhi_tpu_torch.kernels import win_scan as k6
+    from siddhi_tpu_torch.kernels.expr_eval import (expr_eval_plain,
+                                                    unpack_mask)
+    from siddhi_tpu_torch.core.window_device import KERNELS
+    mods = {"win_scan": k6, "win_range": k7, "win_compact": k8}
+    size = {"win_scan": lambda a, kw: a[1],
+            "win_range": lambda a, kw: kw["n"],
+            "win_compact": lambda a, kw: a[3],
+            "expr_eval": lambda a, kw: a[3]}
+    best: dict = {}
+    for name, a, kw in calls:
+        key = f"expr_eval:{kw['use']}" if name == "expr_eval" else name
+        if key not in best or size[name](a, kw) >= size[name](*best[key][1:]):
+            best[key] = (name, a, kw)
+    res = {}
+    for key, (name, a, kw) in best.items():
+        fn = KERNELS[name]
+        if name == "expr_eval":
+            cols, mask_p, out_p, n = a
+            ms, host = graph_ms(torch, lambda: fn(*a, **kw), lambda: [
+                k1.prepare(*a, **kw)])
+            nb, ops = k1_work(torch, cols, mask_p, out_p, n)
+            res[key] = {"ms": ms, "dispatch_ms": host, "bytes": nb,
+                        "ops": ops, "library_ms": None, "n": n,
+                        "plain_ms": wall_ms(torch, lambda: expr_eval_plain(
+                            *a))}
+            continue
+        plain = getattr(mods[name], f"{name}_plain")
+        ms, host = graph_ms(torch, lambda: fn(*a, **kw), lambda: [
+            mods[name].prepare(*a, **kw)])
+        out = fn(*a, **kw)
+        nb, ops = window_work(name, a, kw, out)
+        lib = None
+        if name == "win_scan":
+            f64 = torch.zeros(a[1], dtype=torch.float64, device="cuda")
+            lib = event_ms(torch, lambda: torch.cumsum(f64, 0))
+        elif name == "win_compact":
+            cols, _fills, n = a[:3]
+            mask = a[4] if len(a) > 4 else kw.get("mask")
+            keep = torch.ones(n, dtype=torch.bool, device="cuda") \
+                if mask is None else unpack_mask(mask, n)
+            lib = event_ms(torch, lambda: [c.index_select(
+                0, torch.nonzero(keep).flatten()) for c in cols])
+        res[key] = {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
+                    "library_ms": lib, "n": size[name](a, kw),
+                    "plain_ms": wall_ms(torch, lambda: plain(*a, **kw))}
+    return res
+
+
+def phase_window(torch, np, label: str, app: str, seed: int,
+                 want_kernels, plan_check=None) -> dict:
+    """One window config on the card (launch counts from 0 just before its
+    first flush, read just after its last; every kernel call recorded) and
+    on the CPU: equal rows (tolerance 0), every kernel of the path
+    launched, every recorded call equal to the plain version.  Then a
+    timing run on the card, nothing recorded (the recording keeps every
+    intermediate tensor alive, so the allocator cannot reuse them): ms per
+    flush, the median of its steady flushes and events/s from that median;
+    the kernels' times."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import run_window
+    tape = make_tape(np, C2_FLUSH * C2_TIMED, C2_FLUSH, C2_SYMBOLS,
+                     seed=seed)
+    main = tape[:C2_FLUSHES]
+    calls: list = []
+    kernels.reset_launches()
+    rows, per_flush, rt = run_window(app, main, "cuda", calls)
+    launches = dict(kernels.LAUNCHES)
+    ref, cpu_flush, _rt = run_window(app, main, "cpu")
+    if rows != ref or not rows:
+        raise SystemExit(f"{label} rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    need_launches(label, launches, want_kernels)
+    plan = rt.plans()[0]
+    if plan_check is not None:
+        plan_check(plan, rows, main)
+    _none, timed, _rt = run_window(app, tape, "cuda", rows=False)
+    steady = sorted(timed[1:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else \
+        (steady[len(steady) // 2 - 1] + steady[len(steady) // 2]) / 2
+    eps = C2_FLUSH / (med / 1e3)
+    log(f"[{label}] {len(rows)} rows equal to the CPU run; C={plan.C}; "
+        f"launches {launches}; recorded run ms per flush "
+        f"{[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); timing run ms per flush "
+        f"{[round(x, 2) for x in timed]}: median of {len(steady)} steady "
+        f"{med:.2f} ms, {eps:.0f} events/s")
+    err = check_window_calls(torch, calls, label)
+    metrics = window_kernel_metrics(torch, calls)
+    return {"rows": len(rows), "recorded_ms_per_flush": per_flush,
+            "ms_per_flush": timed, "median_steady_ms": med, "C": plan.C,
+            "cpu_ms_per_flush": cpu_flush, "events_per_s": eps,
+            "launches": launches, "err": err, "kernels": metrics,
+            "calls": len(calls)}
+
+
+def check_c2_mean(np):
+    """Config 2's `ap` against the exact f64 sliding mean of the last 1000
+    prices, rounded to f32 (quarter-grid prices: the f64 prefixes are
+    exact, and f32 division of exact operands rounds once)."""
+    def check(plan, rows, tape):
+        p = np.concatenate([f["price"] for f in tape])
+        c = np.concatenate([[0.0], np.cumsum(p)])
+        i = np.arange(1, len(p) + 1)
+        lo = np.maximum(i - 1000, 0)
+        mean = (c[i] - c[lo]) / (i - lo)
+        ap = np.array([r[0] for _t, r in rows])
+        if len(ap) != len(p) or not np.array_equal(
+                mean.astype(np.float32), ap.astype(np.float32)):
+            raise SystemExit("C2 ap differs from the exact sliding mean")
+        log(f"  [c2] {len(ap)} ap values equal to the exact f64 sliding "
+            f"mean rounded to f32")
+    return check
+
+
 def kernel_entry(name, source, replaces, launches, err, m) -> dict:
     bound_ms, by = bound(m["bytes"], m["ops"])
     return {"name": name, "route": "cuda", "source": source,
@@ -973,8 +1218,29 @@ def main() -> int:
         f"{c5['scan']['blocks']} scan blocks equal to plain "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 9. results
+    # 10-12. the window configs: C2 (the main path of this slice), the
+    #        grouped filtered time window (carry growth), C2B (tumbling)
+    win_k = ("expr_eval:window_args", "expr_eval:window_select", "win_scan",
+             "win_compact")
+    t0 = time.perf_counter()
+    c2 = phase_window(torch, np, "c2", C2, 20, win_k + ("win_range",),
+                      check_c2_mean(np))
+
+    def grown(plan, _rows, _tape):
+        if plan.C <= DeviceWindowAggPlan.C_START:
+            raise SystemExit(f"C2 grouped: the carry did not grow ({plan.C})")
+    from siddhi_tpu_torch.core.window_device import DeviceWindowAggPlan
+    c2g = phase_window(torch, np, "c2 grouped", C2_GROUPED, 21,
+                       win_k + ("win_range",), grown)
+    c2b = phase_window(torch, np, "c2b", C2B, 22, win_k)
+    log(f"[windows] {time.perf_counter() - t0:.1f} s")
+
+    # 13. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
+    win = "siddhi_tpu/core/window_device.py"
+
+    def werr(key):
+        return max(ph["err"].get(key, 0.0) for ph in (c2, c2g, c2b))
     entries = [
         ("expr_eval:filter", K1_SRC, "siddhi_tpu/core/planner.py:301",
          c1["launches"]["expr_eval:filter"], k1_err, c1["filter"]),
@@ -1009,7 +1275,30 @@ def main() -> int:
          c5["k2"]["err"]["nfa_block"], c5["k2"]["nfa_block"]),
         ("scan_compact (qid)", f"{CSRC}/scan_compact.cu", f"{PAR}:1146",
          c5["launches"]["scan_compact"], c5["scan"]["err"]["scan_compact"],
-         c5["scan"]["scan_compact"])]
+         c5["scan"]["scan_compact"]),
+        ("expr_eval:window_args", K1_SRC, f"{win}:827",
+         c2["launches"]["expr_eval:window_args"],
+         werr("expr_eval:window_args"),
+         c2["kernels"]["expr_eval:window_args"]),
+        ("expr_eval:window_select", K1_SRC, f"{win}:594",
+         c2["launches"]["expr_eval:window_select"],
+         werr("expr_eval:window_select"),
+         c2["kernels"]["expr_eval:window_select"]),
+        ("win_scan", f"{CSRC}/win_scan.cu", f"{win}:109",
+         c2["launches"]["win_scan"], werr("win_scan"),
+         c2["kernels"]["win_scan"]),
+        ("win_range", f"{CSRC}/win_range.cu", f"{win}:99",
+         c2["launches"]["win_range"], werr("win_range"),
+         c2["kernels"]["win_range"]),
+        ("win_compact", f"{CSRC}/win_compact.cu", f"{win}:803",
+         c2["launches"]["win_compact"], werr("win_compact"),
+         c2["kernels"]["win_compact"]),
+        ("win_range (grouped)", f"{CSRC}/win_range.cu", f"{win}:148",
+         c2g["launches"]["win_range"], werr("win_range"),
+         c2g["kernels"]["win_range"]),
+        ("win_scan (segmented)", f"{CSRC}/win_scan.cu", f"{win}:163",
+         c2b["launches"]["win_scan"], werr("win_scan"),
+         c2b["kernels"]["win_scan"])]
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -1033,6 +1322,15 @@ def main() -> int:
                 f"dispatch {m['dispatch_ms']:.4f} ms, plain "
                 f"{m['plain_ms']:.3f} ms, bound "
                 f"{bound(m['bytes'], m['ops'])[0]:.5f} ms{lib}")
+    for label, ph in (("C2 grouped", c2g), ("C2B", c2b)):
+        for name, m in sorted(ph["kernels"].items()):
+            lib = "" if m["library_ms"] is None else \
+                f", library {m['library_ms']:.4f} ms"
+            log(f"  {name} at {label} (n={m['n']}): device {m['ms']:.4f} ms, "
+                f"host dispatch {m['dispatch_ms']:.4f} ms, plain "
+                f"{m['plain_ms']:.3f} ms, bound "
+                f"{bound(m['bytes'], m['ops'])[0]:.5f} ms{lib}, "
+                f"{ph['launches'].get(name, 0)} launches")
     detail = {"card": smi, "c4": {"events_per_s": eps,
                                   "ms_per_flush": per_flush,
                                   "cpu_ms_per_flush": cpu_flush,
@@ -1046,7 +1344,7 @@ def main() -> int:
                          "cpu_ms_per_flush": seq_cpu,
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
-              "c1": c1, "c5": c5}
+              "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

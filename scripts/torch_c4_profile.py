@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where a C4 (or C5) flush spends its time in the PyTorch/CUDA port.
+"""Where a C4 (C5, C2) flush spends its time in the PyTorch/CUDA port.
 
-    python3 scripts/torch_c4_profile.py [--config c4|c5] [--out FILE]
+    python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b]
+                                        [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
 1000 keys, 2^18-event flushes, the chip_smoke.py tape) through
 siddhi_tpu_torch on the CUDA card at default settings (the `scan`
 family), or with `--config c5` config 5 (chip_smoke.py's c5_app(1000):
 four fused plans of 250 query lanes; 2^13-event flushes 50 ms apart,
-8 symbols), warms with one flush, then profiles the next FLUSHES (4) with
+8 symbols), or a window config of chip_smoke.py (`c2`: BASELINE config
+2, `length(1000) select avg(price)`; `c2g`: the grouped, filtered
+`time(10 sec)` window; `c2b`: `externalTimeBatch(et, 64)` grouped; 2^17-
+event flushes over 8 symbols), warms with one flush, then profiles the
+next FLUSHES (4) with
 cProfile (host clock; each flush ends in torch.cuda.synchronize).
 Device waits show up inside the calls that pull results to the host
 (`Tensor.cpu`).  Prints the flush times and the functions with the most
@@ -31,7 +36,8 @@ FLUSHES, TRACED = 4, 2
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("c4", "c5"), default="c4")
+    ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b"),
+                    default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
     import numpy as np
@@ -46,6 +52,11 @@ def main() -> int:
     if args.config == "c4":
         keys, flush, dt = 1000, 1 << 18, 1
         app, outs = chip_smoke.C4_HEAD + chip_smoke.C4, ["Out"]
+    elif args.config.startswith("c2"):
+        keys, flush, dt = chip_smoke.C2_SYMBOLS, chip_smoke.C2_FLUSH, 1
+        app = {"c2": chip_smoke.C2, "c2g": chip_smoke.C2_GROUPED,
+               "c2b": chip_smoke.C2B}[args.config]
+        outs = ["Out"]
     else:
         keys, flush, dt = (chip_smoke.C5_SYMBOLS, chip_smoke.C5_FLUSH,
                            chip_smoke.C5_DT)
@@ -62,12 +73,15 @@ def main() -> int:
                      dtype=np.int32)
 
     def feed(f):
-        h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
-                      "volume": f["volume"]}, f["ts"])
+        cols = {"symbol": codes[f["sym_idx"]], "price": f["price"],
+                "volume": f["volume"]}
+        if args.config == "c2b":
+            cols["et"] = f["ts"]                # event time = arrival
+        h.send_batch(cols, f["ts"])
         rt.flush()
         torch.cuda.synchronize()
 
-    feed(tape[0])                                   # warm: build + first M
+    feed(tape[0])           # warm: build, first M, a window's carry growth
     prof = cProfile.Profile()
     ms = []
     for f in tape[1:FLUSHES + 1]:

@@ -3,7 +3,8 @@
 Port of `siddhi_tpu/core/build.py` for this slice: single-stream
 filter/projection queries become FilterProjectPlans, pattern/sequence
 queries DevicePatternPlans (an unpartitioned pattern runs with P = 1, as
-the JAX package does under `@app:devicePatterns('prefer')`), and value
+the JAX package does under `@app:devicePatterns('prefer')`), window +
+aggregation queries DeviceWindowAggPlans (core/window_device.py), and value
 partitions go to `partition.plan_partition`.  Before them, the fusion
 pre-pass of the JAX package (build.py:97-150) turns every group of at
 least MIN_GROUP structurally identical pattern queries into fused
@@ -100,9 +101,11 @@ def plan_query(rt, q: ast.Query, default_name: str):
         if inp.stream_id not in rt.schemas:
             raise PlanError(f"query {name!r}: unknown input stream "
                             f"{inp.stream_id!r}")
+        has_agg = selector_has_aggregators(q.selector) or \
+            bool(q.selector.group_by)
         if inp.window is not None:
-            raise PlanError(f"query {name!r}: windows {_LATER}")
-        if selector_has_aggregators(q.selector) or q.selector.group_by:
+            return _plan_window(rt, q, inp, name, target, has_agg)
+        if has_agg:
             raise PlanError(f"query {name!r}: aggregation {_LATER}")
         if q.rate is not None:
             raise PlanError(f"query {name!r}: output rate limiting {_LATER}")
@@ -120,3 +123,20 @@ def plan_query(rt, q: ast.Query, default_name: str):
     if isinstance(inp, ast.JoinInputStream):
         raise PlanError(f"query {name!r}: joins {_LATER}")
     raise PlanError(f"query {name!r}: input {type(inp).__name__} {_LATER}")
+
+
+def _plan_window(rt, q: ast.Query, inp: ast.SingleInputStream, name: str,
+                 target, has_agg: bool):
+    """Window + aggregates on the device (siddhi_tpu/core/build.py:262-276).
+    `@app:deviceWindows('never')`, a window without aggregates or a shape
+    the device plan refuses raise PlanError: the JAX package runs those
+    on its host interpreter, which is a later slice here."""
+    dw = ast.find_annotation(rt.app.annotations, "app:deviceWindows")
+    if dw is not None and str(dw.element()).lower() == "never":
+        raise PlanError(f"query {name!r}: deviceWindows('never') needs the "
+                        f"host interpreter, which {_LATER}")
+    if not has_agg:
+        raise PlanError(f"query {name!r}: a window without aggregation "
+                        f"needs the host interpreter, which {_LATER}")
+    from .window_device import DeviceWindowAggPlan
+    return DeviceWindowAggPlan(name, rt, q, inp, target)

@@ -12,7 +12,9 @@ due timers (absent-pattern deadlines) in wakeup order, draining after
 each; under `@app:playback` the clock follows the events' timestamps.
 
 Annotations read: `@app:partitionCapacity`, `@app:deviceSlots`,
-`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`.  No
+`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`, and by the
+window plans `@app:deviceWindows` ('never' raises: no host interpreter
+yet) and `@app:devicePrecision('f64')`.  No
 autotuning, write-ahead log, replication, telemetry or network serving:
 those are later slices.
 

@@ -4,12 +4,16 @@ Each wrapper launches its kernel for CUDA tensors and uses the plain
 version only for tensors on the CPU; `LAUNCHES` counts kernel launches
 (one per launch, nowhere else) so a run can show that the main path went
 through the kernels.  K1 is counted per use: the filter/projection step,
-the NFA pre-masks and the pattern selector.  K3-K5 (`seg_tree`,
-`scan_chase`, `scan_compact`) carry the `scan` plan family.
+the NFA pre-masks, the pattern selector, and the window step's arguments
+and selector.  K3-K5 (`seg_tree`, `scan_chase`, `scan_compact`) carry
+the `scan` plan family, K6-K8 (`win_scan`, `win_range`, `win_compact`)
+the window plans.
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
-            "expr_eval:select": 0, "nfa_block": 0, "seg_tree": 0,
-            "scan_chase": 0, "scan_compact": 0}
+            "expr_eval:select": 0, "expr_eval:window_args": 0,
+            "expr_eval:window_select": 0, "nfa_block": 0, "seg_tree": 0,
+            "scan_chase": 0, "scan_compact": 0, "win_scan": 0,
+            "win_range": 0, "win_compact": 0}
 
 
 def reset_launches() -> None:

@@ -1,13 +1,17 @@
 """K1 `expr_eval`: the predicate/projection VM over typed columns.
 
-Replaces three jitted device programs of the JAX package:
+Replaces four jitted device programs of the JAX package:
   * `FilterProjectPlan._make_step` (siddhi_tpu/core/planner.py:306): filter
     mask & having mask, computed selector columns, the mask bit-packed into
     32-bit words (bit j of word w = row 32w+j, planner.py:324-330);
   * `NFAKernel._pre_masks` (siddhi_tpu/core/nfa_device.py:1489): the
     event-only conjuncts over the whole (T, P) event grid;
   * the pattern selector and `having` over the compacted match rows
-    (nfa_device.py:1619-1640, inside the block program there).
+    (nfa_device.py:1619-1640, inside the block program there);
+  * inside the window step (siddhi_tpu/core/window_device.py:545): the
+    filter mask and the aggregates' argument values over the batch rows
+    (:827-838, :562-569; use `window_args`), the selector and `having`
+    over the aggregates (`finish`, :594-606; use `window_select`).
 
 Design (csrc/expr_eval.cu, VM in csrc/expr_vm.cuh): one thread per row
 interprets one mask program (optional) and K output programs over C typed
@@ -263,7 +267,8 @@ def expr_eval(cols: list, mask_prog: Optional[Program], out_progs: list,
     """Run the mask program and the output programs over rows [0, n) of
     `cols` (1-d tensors; a program's load of slot i reads cols[i] at the
     row's element of `rows`, by default the row itself).  `use`
-    ("filter", "pre_mask" or "select") names the launch counter.
+    ("filter", "pre_mask", "select", "window_args" or "window_select")
+    names the launch counter.
     Returns (mask words int32 (ceil(n/32),) or None, [output tensors])."""
     if f"expr_eval:{use}" not in LAUNCHES:
         raise ValueError(f"expr_eval: unknown use {use!r}")

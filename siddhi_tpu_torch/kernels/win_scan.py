@@ -1,0 +1,176 @@
+"""K6 `win_scan`: multi-column inclusive segmented scans for the window step.
+
+Replaces the scans of the JAX package's window step
+(siddhi_tpu/core/window_device.py): the sliding prefix sums (`jnp.cumsum`
+:630, `_segmented_prefix` :109 over the group-sorted order), the valid
+count (:617), the monotone clock (the cummax at :611), the tumbling
+running aggregates with resets at bucket and group boundaries
+(`_mono_running_*` :189/:199, `_seg_running_*` :163/:168), and the dense
+group ids of `group_seg` (the cumsum of the boundary flags, :588).
+
+A column is `(op, values, masked)`: op "sum", "min" or "max" (min and
+max over floats, max also over i64 for the clock); values a 1-d tensor
+of N entries, or None for a count (the value 1); masked: an entry whose
+`valid` flag is off adds the identity (0, +inf, -inf, or the i64
+minimum).  Sums of floats accumulate in f64 and of integers and
+bools in i64, whatever the compute precision (the JAX package sums f32
+in f32 mode; see PERF.md and tests/test_torch_window.py for the bound
+that difference obeys); min/max keep the input dtype and propagate NaN
+as `jnp.minimum`/`jnp.maximum` do.  `flags` (bool, N) starts a new
+segment at every set entry, for every column.
+
+Design (csrc/win_scan.cu, combine in csrc/win_scan.cuh): the segmented
+pair (flag, value) combine; a three-phase block scan over 1024-entry
+tiles -- per-block totals, one block per column scanning the totals,
+per-block rescan.  Bound on the H100: bytes (each input read once, each
+output written once).  On data whose f64 prefixes are exact every fold
+order gives the same bits, so the kernel equals `win_scan_plain` (a
+log-step Hillis-Steele scan in torch) there with tolerance 0.
+
+`win_scan()` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..core.expr import VT_OF_TORCH
+from .build import load
+from .table import DeviceTable, Launch, checked_ptr, stream_of
+
+TILE = 1024                     # csrc/win_scan.cuh WS_TILE
+SUM_F, SUM_I, MIN_F, MAX_F, MAX_I = range(5)
+I64_MIN = -2 ** 63
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_longlong), ("n_cols", ctypes.c_int),
+                ("nblocks", ctypes.c_int)] + [
+        (f, ctypes.c_void_p) for f in (
+            "valid", "flags", "in_", "out", "in_vt", "out_vt", "op",
+            "masked", "agg", "carry", "blk_flag")]
+
+
+def column_kind(op: str, values: Optional[torch.Tensor]) -> tuple:
+    """(kernel op, output dtype) of a column."""
+    isf = values is not None and values.dtype.is_floating_point
+    if op == "sum":
+        return (SUM_F, torch.float64) if isf else (SUM_I, torch.int64)
+    if values is None or op not in ("min", "max"):
+        raise ValueError(f"win_scan: bad column ({op!r}, {values})")
+    if isf:
+        return (MIN_F if op == "min" else MAX_F), values.dtype
+    if op == "max":
+        return MAX_I, torch.int64
+    raise ValueError("win_scan: min over integers is not a window column")
+
+
+def _device(cols: list, valid, flags) -> torch.device:
+    for t in [v for _o, v, _m in cols] + [valid, flags]:
+        if t is not None:
+            return t.device
+    raise ValueError("win_scan: a count needs `valid` or `flags`")
+
+
+def _identity(kop: int):
+    return {SUM_F: 0.0, SUM_I: 0, MIN_F: float("inf"), MAX_F: float("-inf"),
+            MAX_I: I64_MIN}[kop]
+
+
+def combine(kop: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """op(left, right), the kernel's (csrc/win_scan.cuh)."""
+    if kop in (SUM_F, SUM_I):
+        return a + b
+    if kop == MIN_F:
+        return torch.where((a < b) | torch.isnan(a), a, b)
+    if kop == MAX_F:
+        return torch.where((a > b) | torch.isnan(a), a, b)
+    return torch.maximum(a, b)
+
+
+def win_scan_plain(cols: list, n: int, valid: Optional[torch.Tensor] = None,
+                   flags: Optional[torch.Tensor] = None) -> list:
+    outs = []
+    for op, values, masked in cols:
+        kop, odt = column_kind(op, values)
+        dev = _device(cols, valid, flags)
+        acc = torch.float64 if kop in (SUM_F, MIN_F, MAX_F) else torch.int64
+        x = torch.ones(n, dtype=acc, device=dev) if values is None \
+            else values[:n].to(acc)
+        if masked and valid is not None:
+            x = torch.where(valid[:n], x, torch.full_like(x, _identity(kop)))
+        f = flags[:n].clone() if flags is not None else \
+            torch.zeros(n, dtype=torch.bool, device=dev)
+        d = 1
+        while d < n:            # segmented Hillis-Steele: (f, v) pairs
+            left, lf = x[:-d], f[:-d]
+            x = torch.cat([x[:d], torch.where(f[d:], x[d:],
+                                              combine(kop, left, x[d:]))])
+            f = torch.cat([f[:d], f[d:] | lf])
+            d *= 2
+        outs.append(x.to(odt))
+    return outs
+
+
+def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
+            flags: Optional[torch.Tensor] = None) -> Launch:
+    """Allocate the outputs and scratch and upload the parameter table of
+    one K6 launch (see `win_scan`)."""
+    dev = _device(cols, valid, flags)
+    if dev.type != "cuda":
+        raise ValueError(f"win_scan: unsupported device {dev}")
+    keep: list = []
+    ptr = checked_ptr(keep, dev, "win_scan")
+    p = _Params()
+    p.n, p.n_cols = n, len(cols)
+    p.nblocks = max(1, -(-n // TILE))
+    if valid is not None:
+        p.valid = ptr(valid, torch.bool)
+    if flags is not None:
+        p.flags = ptr(flags, torch.bool)
+    rows = {"in": [], "out": [], "in_vt": [], "out_vt": [], "op": [],
+            "masked": []}
+    outs = []
+    for op, values, masked in cols:
+        kop, odt = column_kind(op, values)
+        if values is not None and (values.dim() != 1 or values.shape[0] < n
+                                   or values.dtype not in VT_OF_TORCH):
+            raise ValueError(f"win_scan: column {values.dtype} "
+                             f"{tuple(values.shape)} for n={n}")
+        o = torch.empty(n, dtype=odt, device=dev)
+        outs.append(o)
+        for key, v in (("in", ptr(values) if values is not None else 0),
+                       ("out", ptr(o)),
+                       ("in_vt", VT_OF_TORCH[values.dtype]
+                        if values is not None else 0),
+                       ("out_vt", VT_OF_TORCH[odt]), ("op", kop),
+                       ("masked", int(masked))):
+            rows[key].append(v)
+    agg = torch.empty(len(cols) * p.nblocks, dtype=torch.int64, device=dev)
+    carry = torch.empty_like(agg)
+    blk_flag = torch.empty(p.nblocks, dtype=torch.uint8, device=dev)
+    p.agg, p.carry, p.blk_flag = ptr(agg), ptr(carry), ptr(blk_flag)
+    tab = DeviceTable()
+    for key, dt in (("in", "u8"), ("out", "u8"), ("in_vt", "i4"),
+                    ("out_vt", "i4"), ("op", "i4"), ("masked", "i4")):
+        tab.field(p, "in_" if key == "in" else key, rows[key] or [0], dt)
+    keep.append(tab.upload(dev))
+    lib = load("win_scan")
+    fn = lib.win_scan_launch
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
+                  "win_scan_launch", "win_scan", keep, outs)
+
+
+def win_scan(cols: list, n: int, valid: Optional[torch.Tensor] = None,
+             flags: Optional[torch.Tensor] = None) -> list:
+    """Inclusive segmented scans of the first n entries of each column
+    (see the module docstring); returns one output tensor per column."""
+    if _device(cols, valid, flags).type == "cpu":
+        return win_scan_plain(cols, n, valid, flags)
+    return prepare(cols, n, valid, flags)()
+

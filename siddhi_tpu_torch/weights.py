@@ -11,6 +11,12 @@ state_dict() is its inner plan's, lanes being query instances, and
 carries over the same way.
 `nfa_state_to_numpy` is the inverse view the tests compare with.
 
+A window plan's state is its carry (`ts`, `valid`, `seen`, `start` and
+the carried columns `c.<col>`): `window_state_from_jax` turns a JAX
+DeviceWindowAggPlan.state_dict() into tensors that the port's plan
+loads, deriving there the aggregates' argument values it carries beside
+the columns.
+
 The stateless families (`scan`) keep no device state: their continuity
 is the replay tail of the last `within` window (per key when
 partitioned), the last emitted completion seq (per key) and a one-shot
@@ -106,3 +112,12 @@ def stateless_state_from_jax(d: dict) -> dict:
             "last_seq": d.get("last_seq"),
             "lane_tail": tail, "lane_prev": lane_prev,
             "arm_done": None if arm is None else np.array(arm, dtype=bool)}
+
+
+def window_state_from_jax(d: dict, device) -> dict:
+    """A JAX DeviceWindowAggPlan.state_dict() (numpy) -> the dict the
+    port's DeviceWindowAggPlan.load_state_dict takes (same keys, tensors
+    on `device`)."""
+    return {"C": int(d["C"]),
+            "state": {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+                      for k, v in d["state"].items()}}

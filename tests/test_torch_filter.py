@@ -93,7 +93,7 @@ def test_chained_queries_and_autoflush():
 
 
 @pytest.mark.parametrize("query", [
-    "from StockStream#window.length(5) select sum(price) as s insert into Out;",
+    "from StockStream#window.length(5) select symbol, price insert into Out;",
     "from StockStream select count() as c group by symbol insert into Out;",
     "from StockStream[math:log(price) > 4] select * insert into Out;",
 ])

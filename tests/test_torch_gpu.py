@@ -8,7 +8,10 @@ fixture, never at import).  K1 must match its plain version bit for bit
 (the VM is built with --fmad=false); K2 must leave the same state and
 the same match rows (sorted) as its plain version; K3-K5 (the `scan`
 family) must give the same heaps, chase results and match table as
-theirs on every block a run hands them."""
+theirs on every block a run hands them; K6-K8 (the window kernels) the
+same scans, range reductions and compacted columns as theirs on data
+whose f64 prefixes are exact, and the window configs the CPU run's
+rows."""
 import numpy as np
 import pytest
 import torch
@@ -557,3 +560,131 @@ def test_scan_compact_qid_matches_plain(cuda, case, monkeypatch):
             assert torch.equal(ok[key][:, :m], op[key][:, :m]), key
     blocks.clear()
     assert got == run("cpu") and got
+
+
+# -- the window kernels (K6-K8) and the window plans --------------------------
+
+def _win_inputs(cuda, n, seed):
+    rng = np.random.default_rng(seed)
+    f = np.round(rng.uniform(-100, 100, n) * 4) / 4     # exact f64 prefixes
+    f[rng.choice(n, min(n, 3), replace=False)] = np.nan
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    return {"valid": t(rng.random(n) < 0.9), "flags": t(rng.random(n) < 0.002),
+            "f64": t(np.where(np.isnan(f), 1.0, f)), "f32n": t(f.astype(
+                np.float32)), "i64": t(rng.integers(-2**40, 2**40, n)),
+            "i32": t(rng.integers(-1000, 1000, n).astype(np.int32)),
+            "clock": t(np.cumsum(rng.integers(0, 3, n))),
+            "rng": rng, "t": t}
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1025, 132_096])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_win_scan_kernel_matches_plain(cuda, n, segmented):
+    from siddhi_tpu_torch.kernels.win_scan import win_scan, win_scan_plain
+    x = _win_inputs(cuda, n, 3)
+    cols = [("sum", x["f64"], True), ("sum", x["i64"], True),
+            ("sum", None, True), ("sum", x["valid"], False),
+            ("min", x["f32n"], True), ("max", x["f32n"], True),
+            ("max", x["clock"], False), ("max", x["i32"], True)]
+    flags = x["flags"] if segmented else None
+    before = LAUNCHES["win_scan"]
+    got = win_scan(cols, n, x["valid"], flags)
+    want = win_scan_plain(cols, n, x["valid"], flags)
+    torch.cuda.synchronize()
+    assert LAUNCHES["win_scan"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(b))
+        assert torch.equal(torch.isnan(a.double()), torch.isnan(b.double()))
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("kind", ["length", "time"])
+def test_win_range_kernel_matches_plain(cuda, kind, grouped):
+    from siddhi_tpu_torch.kernels.win_range import win_range, win_range_plain
+    from siddhi_tpu_torch.kernels.win_scan import win_scan_plain
+    N, C = 132_096, 1024
+    x = _win_inputs(cuda, N, 4)
+    valid, t = x["valid"], x["t"]
+    seg = torch.where(valid, t(x["rng"].integers(0, 8, N)),
+                      torch.full((N,), N, device=cuda))
+    key = seg * N + torch.arange(N, device=cuda)
+    ks, order = torch.sort(key)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(N, device=cuda)
+    sv = valid[order] if grouped else valid
+    sp = x["f64"][order] if grouped else x["f64"]
+    sf = x["f32n"][order] if grouped else x["f32n"]
+    vcnt, clock = win_scan_plain([("sum", None, True),
+                                  ("max", x["clock"], False)], N, valid)
+    pfx, ipfx, cnt = win_scan_plain([("sum", sp, True),
+                                     ("sum", x["i64"], True),
+                                     ("sum", None, True)], N, sv)
+    sites = [("sum", pfx, None, None, torch.float32),
+             ("avg", pfx, cnt, None, torch.float32),
+             ("avg", ipfx, cnt, None, torch.float64),
+             ("sum", ipfx, None, None, torch.int64),
+             ("sum", cnt, None, None, torch.int64),
+             ("min", None, None, sf, torch.float32),
+             ("max", None, None, sp, torch.float64)]
+    kw = dict(n=N, first=C, m=N - C - 77, kind=kind,
+              span=1000 if kind == "length" else 700, last=N - 78,
+              vcnt=vcnt, clock=clock,
+              groups=(ks, seg, rank) if grouped else None, valid=sv)
+    before = LAUNCHES["win_range"]
+    got, sk = win_range(sites, **kw)
+    want, sp_ = win_range_plain(sites, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["win_range"] == before + 1
+    assert torch.equal(sk, sp_)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("n,T", [(5, 8), (1000, 1024), (131_072, 131_072),
+                                 (100_000, 131_072)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_win_compact_kernel_matches_plain(cuda, n, T, masked):
+    from siddhi_tpu_torch.kernels.expr_eval import pack_mask
+    from siddhi_tpu_torch.kernels.win_compact import (win_compact,
+                                                      win_compact_plain)
+    x = _win_inputs(cuda, n, 5)
+    mask = pack_mask(torch.from_numpy(x["rng"].random(n) < 0.4).to(cuda)) \
+        if masked else None
+    cols = [x["clock"], x["f32n"], x["i32"], x["valid"]]
+    fills = [2 ** 62, 0, 0, 0]
+    before = LAUNCHES["win_compact"]
+    (got, k), (want, kp) = (win_compact(cols, fills, n, T, mask),
+                            win_compact_plain(cols, fills, n, T, mask))
+    torch.cuda.synchronize()
+    assert LAUNCHES["win_compact"] == before + 1
+    assert torch.equal(k, kp)
+    for a, b in zip(got, want):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("which", ["c2", "c2_grouped", "c2b"])
+def test_window_configs_match_the_cpu_run(cuda, which):
+    """BASELINE config 2, the grouped filtered time window and C2B on a
+    shortened tape: the card's rows equal the CPU run's, K6-K8 and both K1
+    window uses launched, and every kernel call the plan recorded equal to
+    its plain version."""
+    import chip_smoke
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import run_window
+    app = {"c2": chip_smoke.C2, "c2_grouped": chip_smoke.C2_GROUPED,
+           "c2b": chip_smoke.C2B}[which]
+    tape = chip_smoke.make_tape(np, 3 * 8192, 8192, 8, seed=11)
+    calls: list = []
+    kernels.reset_launches()
+    got, _ms, rt = run_window(app, tape, "cuda", calls)
+    launches = dict(kernels.LAUNCHES)
+    want, _ms, _rt = run_window(app, tape, "cpu")
+    assert got == want and got
+    err = chip_smoke.check_window_calls(torch, calls, which)
+    assert err and max(err.values()) == 0.0
+    used = ["expr_eval:window_args", "expr_eval:window_select",
+            "win_scan", "win_compact"] + (["win_range"] if which != "c2b"
+                                          else [])
+    assert all(launches[k] > 0 for k in used), launches

@@ -59,6 +59,11 @@ def test_import_leaves_jax_unloaded():
             "import siddhi_tpu_torch.kernels.seg_tree\n"
             "import siddhi_tpu_torch.kernels.scan_chase\n"
             "import siddhi_tpu_torch.kernels.scan_compact\n"
+            "import siddhi_tpu_torch.kernels.win_scan\n"
+            "import siddhi_tpu_torch.kernels.win_range\n"
+            "import siddhi_tpu_torch.kernels.win_compact\n"
+            "import siddhi_tpu_torch.core.window_device\n"
+            "import siddhi_tpu_torch.interp.aggregators\n"
             "import siddhi_tpu_torch.core.nfa_parallel\n"
             "import siddhi_tpu_torch.core.autotune\n"
             "import siddhi_tpu_torch.core.multi_query\n"
@@ -102,6 +107,23 @@ def test_scan_wrappers_refuse_other_devices(which):
             scan_chase.scan_chase(None, ev, [], [])
         else:
             scan_compact.scan_compact(None, ev, g, g, 4)
+
+
+@pytest.mark.parametrize("which", ["win_scan", "win_range", "win_compact"])
+def test_window_wrappers_refuse_other_devices(which):
+    """K6-K8 take their plain versions only for CPU tensors: inputs on any
+    other device that is not CUDA are refused before anything runs."""
+    from siddhi_tpu_torch.kernels import win_compact, win_range, win_scan
+    v = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if which == "win_scan":
+            win_scan.win_scan([("sum", v, True)], 4)
+        elif which == "win_range":
+            win_range.win_range([("sum", v, None, None, torch.int64)], n=4,
+                                first=0, m=4, kind="length", span=2, last=3,
+                                vcnt=v)
+        else:
+            win_compact.win_compact([v], [0], 4, 4)
 
 
 def test_expr_eval_rejects_an_unknown_use():
