@@ -52,7 +52,22 @@ Phases (any failure exits non-zero; nothing is caught):
      retry), checked the same way;
  12. C2B (bench.py: `externalTimeBatch(et, 64)` grouped, et = arrival
      time), the tumbling path (K6 segmented, no K7), checked the same way;
- 13. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 13. C4N (`every e1=S[price > 110]<1:3> -> e2=S[price < 95] within 1
+     sec`, selecting e1[0], e1[last], e2), 4 flushes on its default
+     `scan` family: K1, K3 (event trees and `rank` trees), K6 `rank`
+     (occurrence ranks on the lane grid), K4 (rank/select), K5 (count
+     captures) launched, K2 not;
+ 14. C4Ns (`e2=S[price > e1.price]<2:4>`, selecting e2[0] and e2[last]),
+     2 flushes on `seq` (the JAX package's family for it): K1 and K2's
+     count path;
+ 15. C4A (`e2=S[price < 95] and e3=S[volume > 990]`), 2 flushes on
+     `scan`: K6 `prev` (prev-match pointers) besides K1, K3-K5;
+ 16. C4O (the same with `or`), 2 flushes with @app:patternFamily('seq'):
+     K2's logical path, rows with NULL in e3.volume; phases 13-16 at C4's
+     shape (1000 keys, 2^18 events a flush), each counted, recorded and
+     checked like phase 4 (rows equal to the CPU run with NULLs in place,
+     every recorded block's kernels equal to their plain versions);
+ 17. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -60,7 +75,9 @@ Phases (any failure exits non-zero; nothing is caught):
      time; the card's name and power limit; then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Every comparison has tolerance 0: the kernels are built with --fmad=false
-and compute what the plain versions compute.
+and compute what the plain versions compute.  App texts, the tape and the
+kernel-against-plain checks come from siddhi_tpu_torch/replay.py, shared
+with the card tests.
 Exits non-zero without a CUDA card, or when the package is not beside it.
 """
 import argparse
@@ -70,73 +87,32 @@ import subprocess
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
+    C1, C2, C2_GROUPED, C2B, C3, C4, C4_HEAD, C4_SEQ, C4A, C4N, C4NS, C4O,
+    c5_app, check_scan_block, check_seq_block, check_window_calls,
+    make_tape, max_err, scan_inputs, sorted_rows)
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
-STOCK = "define stream StockStream (symbol string, price double, volume int);\n"
-C1 = STOCK + ("@info(name='q') from StockStream[price > 100] "
-              "select * insert into Out;\n")
-C4 = STOCK + """
-partition with (symbol of StockStream)
-begin
-  @info(name='q')
-  from every e1=StockStream[price > 100] -> e2=StockStream[price > e1.price]
-    -> e3=StockStream[price > e2.price] within 10 sec
-  select e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;
-end;
-"""
-C4_HEAD = "@app:partitionCapacity(1000)\n@app:deviceSlots(32)\n"
-C4_SEQ = "@app:patternFamily('seq')\n"
-C3 = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
-              "e2=StockStream[price > e1.price] within 1 sec "
-              "select e1.price as p1, e2.price as p2 insert into Out;\n")
-C2 = STOCK + ("@info(name='q') from StockStream#window.length(1000) "
-              "select avg(price) as ap insert into Out;\n")
-C2_GROUPED = STOCK + (
-    "@info(name='q') from StockStream[volume > 100]#window.time(10 sec) "
-    "select symbol, min(price) as lo, max(price) as hi, avg(price) as ap, "
-    "count() as n group by symbol having n > 10 insert into Out;\n")
-C2B = ("define stream StockStream (symbol string, price double, volume int, "
-       "et long);\n@info(name='q') from StockStream"
-       "#window.externalTimeBatch(et, 64) select symbol, sum(price) as sp, "
-       "count() as c group by symbol insert into Out;\n")
 C2_FLUSH, C2_FLUSHES, C2_SYMBOLS = 1 << 17, 2, 8
 C2_TIMED = 8            # flushes of the timing run (the first is not steady)
 KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
 SEQ_FLUSHES, C3_FLUSHES = 2, 2
 C5_QUERIES, C5_FLUSH, C5_FLUSHES, C5_DT, C5_SYMBOLS = 1000, 1 << 13, 4, 50, 8
-
-
-def c5_app(n_queries=1000):
-    """bench.py:226-266 (BASELINE config 5), copied: 1k concurrent mixed
-    pattern/sequence queries with `not`/`within` over one shared input
-    stream, under @app:playback."""
-    parts = ["@app:playback\n" + STOCK]   # historical tape: event-time
-    for i in range(n_queries):            # deadlines fire in-scan, not via
-        lo = 123 + (i % 6)                # the wall-clock pump
-        shape = i % 4
-        if shape == 0:
-            parts.append(
-                f"@info(name='q{i}') from every e1=StockStream[price > {lo}] -> "
-                f"e2=StockStream[price > e1.price] within 1 sec "
-                f"select e1.price as p1, e2.price as p2 insert into Out{i % 16};")
-        elif shape == 1:
-            parts.append(
-                f"@info(name='q{i}') from e1=StockStream[price > {lo}], "
-                f"e2=StockStream[price > e1.price] "
-                f"select e1.price as p1, e2.price as p2 insert into Out{i % 16};")
-        elif shape == 2:
-            parts.append(
-                f"@info(name='q{i}') from e1=StockStream[price > {lo + 1}] -> "
-                f"not StockStream[price < {lo - 30}] for 500 milliseconds "
-                f"select e1.price as p1 insert into Out{i % 16};")
-        else:
-            parts.append(
-                f"@info(name='q{i}') from every e1=StockStream[price > {lo}] -> "
-                f"e2=StockStream[price > e1.price] -> "
-                f"e3=StockStream[price > e2.price] within 2 sec "
-                f"select e1.price as p1, e3.price as p3 insert into Out{i % 16};")
-    return "\n".join(parts) + "\n"
+# the pattern-algebra phases: (label, app, flushes, family, seed)
+# (label, app, flushes, family, seed, kernel uses it must launch beyond
+# its family's, the output column that must hold NULLs or None)
+ALGEBRA = (("c4n", C4_HEAD + C4N, 4, "scan", 31,
+            ("win_scan:rank", "seg_tree:rank"), None),
+           ("c4ns", C4_HEAD + C4NS, 2, "seq", 32, (), None),
+           ("c4a", C4_HEAD + C4A, 2, "scan", 33, ("win_scan:prev",), None),
+           ("c4o", C4_SEQ + C4_HEAD + C4O, 2, "seq", 34, (), 2))
+SCAN_K = ("seg_tree", "scan_chase", "scan_compact", "expr_eval:pre_mask",
+          "expr_eval:select")
+SEQ_K = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
 K1_SRC = "siddhi_tpu_torch/csrc/expr_eval.cu"
 CSRC = "siddhi_tpu_torch/csrc"
 PAR = "siddhi_tpu/core/nfa_parallel.py"
@@ -144,23 +120,6 @@ PAR = "siddhi_tpu/core/nfa_parallel.py"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def make_tape(np, n_events: int, batch: int, keys: int, seed: int = 0,
-              dt_ms: int = 1):
-    """The benchmark tape shape: uniform keys, prices on the quarter grid
-    (exact in float32), volumes, dt_ms apart, one dict per flush."""
-    rng = np.random.default_rng(seed)
-    tape = []
-    ts0 = 1_700_000_000_000
-    for start in range(0, n_events, batch):
-        n = min(batch, n_events - start)
-        tape.append({
-            "sym_idx": rng.integers(0, keys, size=n).astype(np.int32),
-            "price": np.round(rng.uniform(90.0, 130.0, size=n) * 4) / 4,
-            "volume": rng.integers(1, 1000, size=n).astype(np.int32),
-            "ts": ts0 + np.arange(start, start + n, dtype=np.int64) * dt_ms})
-    return tape
 
 
 def graph_ms(torch, call, prepare, reps: int = 20) -> tuple:
@@ -355,55 +314,6 @@ def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
     return out, per_flush, rt
 
 
-def run_seq_path(pkg, np, tape) -> tuple:
-    """Phase 7: C4 on the `seq` family through the facade on the card,
-    launch counts from 0; returns (rows, ms per flush, launches, runtime,
-    recorded blocks).  A recorded block is (kernel, state in, event grid,
-    M, meta) exactly as the plan called `NFAKernel.run_block`; recording
-    launches nothing."""
-    from siddhi_tpu_torch import kernels
-    from siddhi_tpu_torch.core.nfa_device import NFAKernel
-    blocks = []
-    run_block = NFAKernel.run_block
-
-    def recording(kern, state, ev, M):
-        new, out = run_block(kern, state, ev, M)
-        blocks.append((kern, state, ev, M, out["meta"]))
-        return new, out
-    NFAKernel.run_block = recording
-    kernels.reset_launches()
-    rows, per_flush, rt = run_app(pkg, np, C4_SEQ + C4_HEAD + C4, tape,
-                                  KEYS, "cuda")
-    launches = dict(kernels.LAUNCHES)
-    NFAKernel.run_block = run_block
-    return rows, per_flush, launches, rt, blocks
-
-
-def run_scan_path(pkg, np, app: str, tape) -> tuple:
-    """Phases 4 and 6: an app on its default (`scan`) family through the
-    facade on the card, launch counts from 0; returns (rows, ms per
-    flush, launches, runtime, recorded blocks).  A recorded block is
-    (kernel, event grid, M) exactly as the plan called
-    `ParallelChainKernel.run_block`; recording launches nothing."""
-    from siddhi_tpu_torch import kernels
-    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
-    blocks = []
-    run_block = ParallelChainKernel.run_block
-
-    def recording(kern, ev, M):
-        blocks.append((kern, ev, M))
-        return run_block(kern, ev, M)
-    ParallelChainKernel.run_block = recording
-    kernels.reset_launches()
-    rows, per_flush, rt = run_app(pkg, np, app, tape, KEYS, "cuda")
-    launches = dict(kernels.LAUNCHES)
-    ParallelChainKernel.run_block = run_block
-    if rt.plans()[0].family != "scan":
-        raise SystemExit(f"expected the scan family, got "
-                         f"{rt.plans()[0].family}")
-    return rows, per_flush, launches, rt, blocks
-
-
 def run_c5(pkg, np, tape, device: str, record: bool = False):
     """Config 5 through the facade: the tape flush by flush, then
     `set_time` 1 s past its last event, launch counts from 0 just before
@@ -487,7 +397,7 @@ def phase_c5(torch, np, pkg) -> dict:
     finds no deadline left; the timer-tick blocks come from the same app
     on the tape's first events up to the first such lane's arming, one
     flush and a `set_time` (its rows, too, equal the CPU run's)."""
-    tape = make_tape(np, C5_FLUSH * C5_FLUSHES, C5_FLUSH, C5_SYMBOLS,
+    tape = make_tape(C5_FLUSH * C5_FLUSHES, C5_FLUSH, C5_SYMBOLS,
                      seed=5, dt_ms=C5_DT)
     rows, per_flush, set_ms, launches, rt, seq_b, scan_b = run_c5(
         pkg, np, tape, "cuda", record=True)
@@ -552,143 +462,169 @@ def distinct(*tensors) -> list:
     return out
 
 
-def max_err(torch, a, b) -> float:
-    """Largest |a - b| over the entries finite in both (0 when none)."""
-    a, b = a.double(), b.double()
-    fin = torch.isfinite(a) & torch.isfinite(b)
-    return float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+def merge_err(total: dict, err: dict) -> None:
+    for key, v in err.items():
+        if key not in ("matches", "lost"):
+            total[key] = max(total.get(key, 0.0), v)
+
+
+_DESCENTS = {"static": 2, "threshold": 2, "count": 2, "logical": 3,
+             "strict": 0}
 
 
 def phase_scan_blocks(torch, blocks, label: str) -> dict:
-    """Phase 5: K3, K4, K5 and K1 against their plain versions on every
-    block a `scan` run recorded, each kernel on the same inputs as its
-    plain version; the last block is timed."""
+    """Phase 5: K1, K3, K6, K3's rank trees, K4 and K5 against their plain
+    versions on every block a `scan` run recorded (replay.check_scan_block,
+    each kernel on the same inputs as its plain version); the last block
+    is timed, every kernel use it runs."""
     from siddhi_tpu_torch.kernels import expr_eval as k1
     from siddhi_tpu_torch.kernels import scan_chase as k4
     from siddhi_tpu_torch.kernels import scan_compact as k5
     from siddhi_tpu_torch.kernels import seg_tree as k3
+    from siddhi_tpu_torch.kernels import win_scan as k6
     from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
     from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
                                                      scan_chase_plain)
     from siddhi_tpu_torch.kernels.scan_compact import (scan_compact,
                                                        scan_compact_plain)
-    from siddhi_tpu_torch.kernels.seg_tree import (node_masks, seg_tree,
-                                                   seg_tree_plain)
-    err = {"seg_tree": 0.0, "scan_chase": 0.0, "scan_compact": 0.0,
-           "pre_mask": 0.0, "select": 0.0}
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree, seg_tree_plain
+    from siddhi_tpu_torch.kernels.win_scan import win_scan, win_scan_plain
+    err: dict = {}
     for b, (kern, ev, M) in enumerate(blocks):
         L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
-        params = {"__base_ts__": ev["__base_ts__"]}
-        pre = kern.pre_masks(ev)
-        cols = kern.pre_mask_cols(ev)
-        rows = kern.pre_mask_rows(ev)
-        for w, pr in zip(pre, kern.nfak.pre_progs):
-            if pr is not None and not torch.equal(
-                    w, expr_eval_plain(cols, pr, [], L * F, params,
-                                       rows)[0]):
-                raise SystemExit(f"[{label}] K1 pre-mask differs (block {b})")
-        masks = node_masks(kern, ev, pre)
-        hk, hp = seg_tree(kern, ev, pre), seg_tree_plain(kern, ev, masks)
-        for a, c in zip(hk, hp):
-            if a.dtype != c.dtype or not torch.equal(a, c):
-                raise SystemExit(f"[{label}] K3 heap differs (block {b})")
-            err["seg_tree"] = max(err["seg_tree"], max_err(torch, a, c))
-        sk, ik = scan_chase(kern, ev, pre, hp)
-        sp, ip = scan_chase_plain(kern, ev, masks, hp)
-        if not (torch.equal(sk, sp) and torch.equal(ik, ip)):
-            raise SystemExit(f"[{label}] K4 status/indices differ (block "
-                             f"{b})")
-        err["scan_chase"] = max(err["scan_chase"], max_err(torch, ik, ip))
-        ok = scan_compact(kern, ev, sp, ip, M)
-        op = scan_compact_plain(kern, ev, sp, ip, M)
-        torch.cuda.synchronize()
-        n = int(op["meta"][0])
-        for key in ("meta", "lane_n", "arm"):
-            if not torch.equal(ok[key], op[key]):
-                raise SystemExit(f"[{label}] K5 {key} differs (block {b})")
-        for key in ("out_i", "out_f", "out_l"):
-            if not torch.equal(ok[key][:, :n], op[key][:, :n]):
-                raise SystemExit(f"[{label}] K5 {key} differs (block {b})")
-            if n and ok[key].shape[0]:
-                err["scan_compact"] = max(err["scan_compact"], max_err(
-                    torch, ok[key][:, :n], op[key][:, :n]))
-        nfak = kern.nfak
-        hw, sel = nfak.select(ok, n, ev["__base_ts__"])
-        hp_, selp = expr_eval_plain(nfak.select_cols(ok), nfak.having_prog,
-                                    nfak.sel_progs, n, params,
-                                    nfak.select_rows(ok))
-        if (hw is None) != (hp_ is None) or (hw is not None and not
-                                             torch.equal(hw, hp_)) or \
-                not all(torch.equal(a, c) for a, c in zip(sel, selp)):
-            raise SystemExit(f"[{label}] K1 selector differs (block {b})")
-        for a, c in zip(sel, selp):
-            if n and a.dtype != torch.bool:
-                err["select"] = max(err["select"], max_err(torch, a, c))
-        log(f"  [{label}] block {b}: L={L} F={F} trees={len(hk)} "
-            f"matches={n}: K3 heaps, K4 chase, K5 table, K1 pre-masks and "
-            f"selector equal to their plain versions")
+        e = check_scan_block(kern, ev, M)
+        merge_err(err, e)
+        log(f"  [{label}] block {b}: L={L} F={F} trees={len(kern.trees)} "
+            f"rank trees={len(kern.rank_trees)} prev columns="
+            f"{len(kern.prev_nodes)} matches={e['matches']}: "
+            f"{sorted(k for k in e if k != 'matches')} equal to their plain "
+            f"versions")
 
     kern, ev, M = blocks[-1]
     L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
     Lt = kern.leaves(F)
     params = {"__base_ts__": ev["__base_ts__"]}
     pre = kern.pre_masks(ev)
-    masks = node_masks(kern, ev, pre)
+    masks, ranks, prevs, rcols = scan_inputs(kern, ev, pre)
     heaps = seg_tree(kern, ev, pre)
+    rheaps = seg_tree_plain(kern, ev, masks, kern.rank_trees, rcols)
     alive: list = []
-    status, idx = scan_chase_plain(kern, ev, masks, heaps, alive)
-    out = scan_compact(kern, ev, status, idx, M)
+    chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps, prevs,
+                             alive)
+    status, idx, cand, pres = chase
+    out = scan_compact(kern, ev, chase, ranks, rheaps, M)
     n = int(out["meta"][0])
     res = {"L": L, "F": F, "Lt": Lt, "M": M, "matches": n,
            "blocks": len(blocks), "err": err, "alive": alive}
     pre_used = [w for w in pre if w is not None]
+    log2 = max(Lt.bit_length() - 1, 1)
     # K3: leaf columns, masks and lane counts read once, every heap
     # written once; one compare per internal node
     srcs = {t.src for t in kern.trees if t.src is not None}
     k3_bytes = nbytes(ev["__nev__"], *[ev[c] for c in srcs], *pre_used,
                       *heaps)
-    k3_ops = len(heaps) * L * Lt
     ms, host = graph_ms(torch, lambda: seg_tree(kern, ev, pre),
                         lambda: [k3.prepare(kern, ev, pre)])
     res["seg_tree"] = {"ms": ms, "dispatch_ms": host, "bytes": k3_bytes,
-                       "ops": k3_ops, "library_ms": None,
+                       "ops": len(heaps) * L * Lt, "library_ms": None,
                        "plain_ms": wall_ms(torch, lambda: seg_tree_plain(
                            kern, ev, masks))}
-    # K4: grids, masks, VM columns and the heaps read once, status and
-    # indices written once; per head still alive at a hop, two descents
-    # (the killer's and the hop's) of 2 log2(Lt) compares each
+    if ranks:
+        # K6 ranks: each count's node mask read once and an i32 rank
+        # column written once (JAX's cumsum is i32; the kernel writes i64),
+        # one add per entry; lane starts come from the period, not memory.
+        # The library yardstick is torch.cumsum of the (L, F) mask along
+        # the lane
+        cols = kern.rank_cols(masks)
+        stacked = torch.stack([c[1].view(L, F) for c in cols])
+        ms, host = graph_ms(torch, lambda: win_scan(
+            cols, L * F, use="rank", period=F), lambda: [
+            k6.prepare(cols, L * F, use="rank", period=F)])
+        res["win_scan:rank"] = {
+            "ms": ms, "dispatch_ms": host,
+            "bytes": nbytes(*[c[1] for c in cols]) + 4 * L * F * len(cols),
+            "ops": L * F * len(cols),
+            "library_ms": event_ms(torch, lambda: torch.cumsum(stacked,
+                                                               dim=2)),
+            "plain_ms": wall_ms(torch, lambda: win_scan_plain(
+                cols, L * F, period=F))}
+        # K3 rank trees: the rank columns and lane counts read once, every
+        # i64 heap written once
+        ms, host = graph_ms(torch, lambda: seg_tree(
+            kern, ev, pre, kern.rank_trees, rcols), lambda: [
+            k3.prepare(kern, ev, pre, kern.rank_trees, rcols)])
+        res["seg_tree:rank"] = {
+            "ms": ms, "dispatch_ms": host,
+            "bytes": nbytes(ev["__nev__"], *ranks, *rheaps),
+            "ops": len(rheaps) * L * Lt, "library_ms": None,
+            "plain_ms": wall_ms(torch, lambda: seg_tree_plain(
+                kern, ev, masks, kern.rank_trees, rcols))}
+    if prevs:
+        # K6 prev pointers: each side's node mask read once and an i32
+        # pointer column written once (JAX's `mask ? i : -1` max-scan is
+        # i32; the kernel writes i64), one max per entry; the index and
+        # the lane starts come from the period, not memory.  The library
+        # yardstick is torch.cummax of the masked index along the lane
+        # (the masking outside the timed call)
+        cols = kern.prev_cols(masks)
+        j = torch.arange(F, device=masks[0].device)
+        masked = torch.stack([torch.where(c[3].view(L, F), j, -1)
+                              for c in cols])
+        ms, host = graph_ms(torch, lambda: win_scan(
+            cols, L * F, use="prev", period=F), lambda: [
+            k6.prepare(cols, L * F, use="prev", period=F)])
+        res["win_scan:prev"] = {
+            "ms": ms, "dispatch_ms": host,
+            "bytes": nbytes(*[c[3] for c in cols]) + 4 * L * F * len(cols),
+            "ops": L * F * len(cols),
+            "library_ms": event_ms(torch, lambda: torch.cummax(masked,
+                                                               dim=2)),
+            "plain_ms": wall_ms(torch, lambda: win_scan_plain(
+                cols, L * F, period=F))}
+    # K4: grids, masks, VM columns, trees, ranks and prev pointers read
+    # once, its outputs written once; per head still alive at a hop, the
+    # hop's descents (killer, hop tree, both sides of a logical, a final
+    # count's C selects) of 2 log2(Lt) compares each
     vm_cols = {key for key, _pos in kern.loads}
     k4_bytes = nbytes(ev["__flat.__ts__"], ev["__nev__"],
-                      *[ev[c] for c in vm_cols], *pre_used, *heaps,
-                      status, idx)
-    k4_ops = sum(alive) * 4 * max(Lt.bit_length() - 1, 1)
-    ms, host = graph_ms(torch, lambda: scan_chase(kern, ev, pre, heaps),
-                        lambda: [k4.prepare(kern, ev, pre, heaps)])
+                      *[ev[c] for c in vm_cols], *pre_used, *heaps, *ranks,
+                      *rheaps, *prevs, status, idx, cand, pres)
+    desc = [1 + kern.C if h.kind == "final" else _DESCENTS[h.kind]
+            for h in kern.hops]
+    k4_ops = sum(a * d for a, d in zip(alive, desc)) * 2 * log2
+    if kern.head is not None:
+        k4_ops += int(((status & 4) != 0).sum()) * 2 * 2 * log2
+    ms, host = graph_ms(torch, lambda: scan_chase(kern, ev, pre, heaps, ranks,
+                                                  rheaps, prevs),
+                        lambda: [k4.prepare(kern, ev, pre, heaps, ranks,
+                                            rheaps, prevs)])
     res["scan_chase"] = {"ms": ms, "dispatch_ms": host, "bytes": k4_bytes,
                          "ops": k4_ops, "library_ms": None,
                          "plain_ms": wall_ms(torch, lambda: scan_chase_plain(
-                             kern, ev, masks, heaps))}
-    # K5: status, indices, seq/ts grids, the captured columns and the
-    # lanes' dedup seqs read once, the n match rows written once; the
-    # library yardstick is torch.nonzero of the candidate mask
+                             kern, ev, masks, heaps, ranks, rheaps, prevs))}
+    # K5: status, candidates, presence, indices, seq/ts grids, ranks and
+    # rank trees, the captured columns and the lanes' dedup seqs read once,
+    # the n match rows written once; the library yardstick is
+    # torch.nonzero of the candidate mask
     row_cols = {src[1] for srcs_ in kern.rows.values() for src in srcs_
-                if src[0] == "col"}
-    k5_bytes = nbytes(status, idx, ev["__flat.__seq__"], ev["__flat.__ts__"],
-                      ev["__prev_seq__"], *[ev[c] for c in row_cols])
+                if src[0] in ("col", "cnt")}
+    k5_bytes = nbytes(status, idx, cand, pres, ev["__flat.__seq__"],
+                      ev["__flat.__ts__"], ev["__prev_seq__"], *ranks,
+                      *rheaps, *[ev[c] for c in row_cols])
     k5_bytes += n * (4 * out["out_i"].shape[0] + 4 * out["out_f"].shape[0] +
                      8 * out["out_l"].shape[0]) + 8 + 8 * L
-    k5_ops = L * F
-    cand = (status & 1).view(-1).bool()
-    lib_ms = event_ms(torch, lambda: torch.nonzero(cand))
-    ms, host = graph_ms(torch, lambda: scan_compact(kern, ev, status, idx,
-                                                    M),
-                        lambda: [k5.prepare(kern, ev, status, idx, M)])
+    candm = cand.view(-1) != 0
+    lib_ms = event_ms(torch, lambda: torch.nonzero(candm))
+    ms, host = graph_ms(torch, lambda: scan_compact(kern, ev, chase, ranks,
+                                                    rheaps, M),
+                        lambda: [k5.prepare(kern, ev, chase, ranks, rheaps,
+                                            M)])
     res["scan_compact"] = {"ms": ms, "dispatch_ms": host, "bytes": k5_bytes,
-                           "ops": k5_ops, "library_ms": lib_ms,
+                           "ops": L * F * kern.C, "library_ms": lib_ms,
                            "plain_ms": wall_ms(torch, lambda:
                                                scan_compact_plain(
-                                                   kern, ev, status, idx,
-                                                   M))}
+                                                   kern, ev, chase, ranks,
+                                                   rheaps, M))}
     # K1 on the scan block: pre-masks over the (L*F,) grid, selector
     # over the match table
     cols = kern.pre_mask_cols(ev)
@@ -727,90 +663,35 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     return res
 
 
-def sorted_rows(torch, kern, out: dict):
-    """The match rows in (completion seq, head seq, lane) order."""
-    n = int(out["meta"][0])
-    rows = torch.cat([out["out_i"][:, :n].double(),
-                      out["out_f"][:, :n].double(),
-                      out["out_l"][:, :n].double()])
-    order = torch.arange(n, device=rows.device)
-    for name in ("__qid__", "__head_seq__", "__comp_seq__"):
-        if name in kern.lane_names_i:
-            r = rows[kern.lane_names_i.index(name)]
-            order = order[torch.argsort(r[order], stable=True)]
-    return rows[:, order]
-
-
 def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
     """K2 and K1 against their plain versions on every block a `seq` run
     accepted (an M overflow's first try is re-run by the plan with a
-    larger M and is left out), counting the blocks in which absent
-    deadlines fired and the timer ticks; K2 is timed on the last block
-    that is not a tick (K1 is timed on the `scan` blocks)."""
+    larger M and is left out; replay.check_seq_block), counting the blocks
+    in which absent deadlines fired, the timer ticks and the blocks whose
+    final count's emissions outran the E lanes; K2 is timed on the last
+    block that is not a tick (K1 is timed on the `scan` blocks)."""
     from siddhi_tpu_torch.kernels import nfa_block as k2
-    from siddhi_tpu_torch.kernels.expr_eval import (expr_eval_plain,
-                                                    unpack_mask)
+    from siddhi_tpu_torch.kernels.expr_eval import unpack_mask
     from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
     accepted = [b[:4] for b in blocks if int(b[4][0]) <= b[3]]
     if not accepted:
         raise SystemExit(f"[{label}] recorded no accepted block")
-    err = {"nfa_block": 0.0, "pre_mask": 0.0, "select": 0.0}
-    fired = ticks = 0
+    err: dict = {}
+    fired = ticks = lane_retries = 0
     for b, (kern, state, ev, M) in enumerate(accepted):
         T, P = ev["__ts__"].shape[0], kern.P
-        params = {"__base_ts__": ev["__base_ts__"]}
-        pre = kern.pre_masks(ev)
-        pre_cols = kern.pre_mask_cols(ev)
-        rows = kern.pre_mask_rows(ev)
-        for w, pr in zip(pre, kern.pre_progs):
-            if pr is not None and not torch.equal(
-                    w, expr_eval_plain(pre_cols, pr, [], T * P, params,
-                                       rows)[0]):
-                raise SystemExit(f"[{label}] K1 pre-mask differs (block {b})")
-        new_k, out_k = nfa_block(kern, state, ev, pre, M)
-        masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
-                 for w in pre]
-        t0 = time.perf_counter()
-        new_p, out_p = nfa_block_plain(kern, state, ev, masks, M)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        for key in new_k:
-            if not torch.equal(new_k[key], new_p[key]):
-                raise SystemExit(f"[{label}] K2 state {key!r} differs "
-                                 f"(block {b})")
-        if not torch.equal(out_k["meta"], out_p["meta"]):
-            raise SystemExit(f"[{label}] K2 meta differs: "
-                             f"{out_k['meta'].tolist()} vs "
-                             f"{out_p['meta'].tolist()}")
-        rk, rp = sorted_rows(torch, kern, out_k), sorted_rows(torch, kern,
-                                                              out_p)
-        if not torch.equal(rk, rp):
-            raise SystemExit(f"[{label}] K2 match rows differ (block {b})")
-        n = int(out_k["meta"][0])
-        if n:
-            err["nfa_block"] = max(err["nfa_block"],
-                                   float((rk - rp).abs().max()))
+        e = check_seq_block(kern, state, ev, M)
+        merge_err(err, e)
+        n = e["matches"]
+        lane_retries += e["lost"] > 0
         # a chain ending in an absent position completes only when a
         # deadline fires, so each of its matches is a fired deadline
         n_fired = n if kern.spec.positions[-1].node.kind == "absent" else 0
         fired += n_fired > 0
         tick = "__tick__" in ev
         ticks += tick
-        sel_cols = kern.select_cols(out_k)
-        hw, sel = kern.select(out_k, n, ev["__base_ts__"])
-        hp, selp = expr_eval_plain(sel_cols, kern.having_prog,
-                                   kern.sel_progs, n, params,
-                                   kern.select_rows(out_k))
-        if (hw is None) != (hp is None) or (hw is not None and not
-                                            torch.equal(hw, hp)) or \
-                not all(torch.equal(a, c) for a, c in zip(sel, selp)):
-            raise SystemExit(f"[{label}] K1 selector differs (block {b})")
-        for a, c in zip(sel, selp):
-            if n and a.dtype != torch.bool:
-                err["select"] = max(err["select"], float(
-                    (a.double() - c.double()).abs().max()))
-        log(f"  [{label}] block {b}: T={T} P={P} A={kern.A} M={M} "
-            f"matches={n} of_slots={int(out_k['meta'][1])} deadlines fired="
+        log(f"  [{label}] block {b}: T={T} P={P} A={kern.A} E={kern.E} M={M} "
+            f"matches={n} lost lanes={e['lost']} deadlines fired="
             f"{n_fired}{' (tick)' if tick else ''}: K2 state and rows, K1 "
             f"pre-masks and selector equal to their plain versions")
 
@@ -820,9 +701,13 @@ def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
     pre = kern.pre_masks(ev)
     out = nfa_block(kern, state, ev, pre, M)[1]
     n = int(out["meta"][0])
-    res = {"T": T, "P": P, "A": kern.A, "M": M, "matches": n,
+    masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
+             for w in pre]
+    plain_ms = wall_ms(torch, lambda: nfa_block_plain(kern, state, ev,
+                                                      masks, M))
+    res = {"T": T, "P": P, "A": kern.A, "E": kern.E, "M": M, "matches": n,
            "blocks": len(accepted), "err": err, "fired_blocks": fired,
-           "tick_blocks": ticks}
+           "tick_blocks": ticks, "lane_retry_blocks": lane_retries}
     # K2: the grids, pre-mask words, state in and out and the match rows,
     # each moved once; one station test per slot and lane for each event
     tensors = [v for v in ev.values() if torch.is_tensor(v)]
@@ -830,7 +715,7 @@ def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
     k2_bytes += sum(w.numel() * 4 for w in pre if w is not None)
     k2_bytes += 2 * sum(v.numel() * v.element_size() for v in state.values())
     k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) * 4 +
-                     len(kern.rows_l) * 8) + 12
+                     len(kern.rows_l) * 8) + 16
     lanes = P if ev["__valid__"].shape[1] == 1 else 1
     k2_ops = int(ev["__valid__"].sum()) * kern.A * lanes
     ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
@@ -841,13 +726,88 @@ def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
     return res
 
 
+def run_recorded(pkg, np, app: str, tape) -> tuple:
+    """An app through the facade on the card, launch counts from 0 just
+    before its first flush and read just after its last, recording every
+    block its plan hands ParallelChainKernel.run_block (kernel, event
+    grid, M) or NFAKernel.run_block (kernel, state in, event grid, M,
+    meta); recording launches nothing.  Returns (rows, ms per flush,
+    launches, runtime, scan blocks, seq blocks)."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    scan_b, seq_b = [], []
+    run_scan, run_seq = ParallelChainKernel.run_block, NFAKernel.run_block
+
+    def rec_scan(kern, ev, M):
+        scan_b.append((kern, ev, M))
+        return run_scan(kern, ev, M)
+
+    def rec_seq(kern, state, ev, M):
+        new, out = run_seq(kern, state, ev, M)
+        seq_b.append((kern, state, ev, M, out["meta"]))
+        return new, out
+    ParallelChainKernel.run_block, NFAKernel.run_block = rec_scan, rec_seq
+    try:
+        kernels.reset_launches()
+        rows, per_flush, rt = run_app(pkg, np, app, tape, KEYS, "cuda")
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        ParallelChainKernel.run_block, NFAKernel.run_block = run_scan, run_seq
+    return rows, per_flush, launches, rt, scan_b, seq_b
+
+
+def phase_algebra(torch, np, pkg, label: str, app: str, flushes: int,
+                  family: str, seed: int, extra, null_col) -> dict:
+    """Phases 13-16: a count or logical pattern of C4's shape (1000 keys,
+    2^18 events a flush) on the card: the plan's family as the JAX
+    package picks it, the family's kernels (and `extra` uses) launched,
+    the rows equal to the CPU run's with NULLs in place (and present in
+    column `null_col` when given); every recorded block's kernels equal to
+    their plain versions; ms per flush and events/s."""
+    tape = make_tape(FLUSH * flushes, FLUSH, KEYS, seed=seed)
+    rows, per_flush, launches, rt, scan_b, seq_b = run_recorded(
+        pkg, np, app, tape)
+    plan = rt.plans()[0]
+    if plan.family != family:
+        raise SystemExit(f"[{label}] planned {plan.family!r}, expected "
+                         f"{family!r} ({plan.families})")
+    ref, cpu_flush, _rt = run_app(pkg, np, app, tape, KEYS, "cpu")
+    if rows != ref or not rows:
+        raise SystemExit(f"[{label}] rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    nulls = sum(1 for _t, r in rows if None in r)
+    if null_col is not None and not any(r[null_col] is None
+                                        for _t, r in rows):
+        raise SystemExit(f"[{label}] no NULL in output column {null_col}")
+    if family == "scan":
+        need_launches(label, launches, SCAN_K + tuple(extra),
+                      ("nfa_block",))
+        blk = phase_scan_blocks(torch, scan_b, label)
+    else:
+        need_launches(label, launches, SEQ_K + tuple(extra),
+                      ("seg_tree", "scan_chase", "scan_compact"))
+        blk = phase_blocks(torch, seq_b, label)
+    steady = per_flush[1:]
+    eps = FLUSH / (sum(steady) / len(steady) / 1e3)
+    log(f"[{label}] {len(rows)} rows ({nulls} with NULLs) equal to the CPU "
+        f"run; family {plan.family}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; per flush ms "
+        f"{[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); {eps:.0f} events/s; "
+        f"{blk['blocks']} blocks equal to plain")
+    return {"rows": len(rows), "null_rows": nulls, "family": plan.family,
+            "ms_per_flush": per_flush, "cpu_ms_per_flush": cpu_flush,
+            "events_per_s": eps, "launches": launches, "blocks": blk}
+
+
 def phase_c1(torch, np, pkg) -> dict:
     """Phase 8: config 1 through the facade on the card (launch counts
     from 0) and on the CPU, then K1 on the plan's filter program over the
     batch's columns against its plain version."""
     from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.kernels.expr_eval import expr_eval, expr_eval_plain
-    tape = make_tape(np, C1_EVENTS, C1_EVENTS, KEYS, seed=2)
+    tape = make_tape(C1_EVENTS, C1_EVENTS, KEYS, seed=2)
     kernels.reset_launches()
     rows, ms, rt = run_app(pkg, np, C1, tape, KEYS, "cuda")
     launches = dict(kernels.LAUNCHES)
@@ -876,59 +836,6 @@ def phase_c1(torch, np, pkg) -> dict:
                        "plain_ms": wall_ms(torch,
                                            lambda: expr_eval_plain(*args)),
                        "bytes": nbytes, "ops": ops, "library_ms": None}}
-
-
-def _same(torch, a, b) -> bool:
-    """Equal dtype, shape and values, NaN equal to NaN."""
-    if a is None or b is None:
-        return a is None and b is None
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    if a.dtype.is_floating_point:
-        return torch.equal(torch.isnan(a), torch.isnan(b)) and \
-            torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
-    return torch.equal(a, b)
-
-
-def _flat(res) -> list:
-    """A window kernel's result as a flat list of tensors (or None)."""
-    if res is None or hasattr(res, "dtype"):
-        return [res]
-    return [t for r in res for t in _flat(r)]
-
-
-def check_window_calls(torch, calls, label: str) -> dict:
-    """K1 (window uses), K6, K7 and K8 against their plain versions on
-    every call a window run recorded, tolerance 0 (NaN equal to NaN);
-    returns the largest |kernel - plain| per kernel name or K1 use."""
-    from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
-    from siddhi_tpu_torch.kernels.win_compact import win_compact_plain
-    from siddhi_tpu_torch.kernels.win_range import win_range_plain
-    from siddhi_tpu_torch.kernels.win_scan import win_scan_plain
-    from siddhi_tpu_torch.core.window_device import KERNELS
-    plain = {"win_scan": win_scan_plain, "win_range": win_range_plain,
-             "win_compact": win_compact_plain}
-    err: dict = {}
-    for j, (name, a, kw) in enumerate(calls):
-        got = KERNELS[name](*a, **kw)
-        if name == "expr_eval":
-            key = f"expr_eval:{kw['use']}"
-            want = expr_eval_plain(*a)
-        else:
-            key = name
-            want = plain[name](*a, **kw)
-        torch.cuda.synchronize()
-        g, w = _flat(got), _flat(want)
-        if len(g) != len(w) or not all(_same(torch, x, y)
-                                       for x, y in zip(g, w)):
-            raise SystemExit(f"[{label}] {key} differs from its plain "
-                             f"version (call {j})")
-        e = max([max_err(torch, x, y) for x, y in zip(g, w)
-                 if x is not None and x.numel()] or [0.0])
-        err[key] = max(err.get(key, 0.0), e)
-    log(f"  [{label}] {len(calls)} kernel calls equal to their plain "
-        f"versions: {sorted(err)}")
-    return err
 
 
 def window_work(name: str, a: tuple, kw: dict, out) -> tuple:
@@ -1032,7 +939,7 @@ def phase_window(torch, np, label: str, app: str, seed: int,
     the kernels' times."""
     from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.replay import run_window
-    tape = make_tape(np, C2_FLUSH * C2_TIMED, C2_FLUSH, C2_SYMBOLS,
+    tape = make_tape(C2_FLUSH * C2_TIMED, C2_FLUSH, C2_SYMBOLS,
                      seed=seed)
     main = tape[:C2_FLUSHES]
     calls: list = []
@@ -1058,7 +965,9 @@ def phase_window(torch, np, label: str, app: str, seed: int,
         f"{[round(x) for x in cpu_flush]}); timing run ms per flush "
         f"{[round(x, 2) for x in timed]}: median of {len(steady)} steady "
         f"{med:.2f} ms, {eps:.0f} events/s")
-    err = check_window_calls(torch, calls, label)
+    err = check_window_calls(calls)
+    log(f"  [{label}] {len(calls)} kernel calls equal to their plain "
+        f"versions: {sorted(err)}")
     metrics = window_kernel_metrics(torch, calls)
     return {"rows": len(rows), "recorded_ms_per_flush": per_flush,
             "ms_per_flush": timed, "median_steady_ms": med, "C": plan.C,
@@ -1121,8 +1030,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
     import siddhi_tpu_torch as pkg
     from siddhi_tpu_torch.kernels import build
 
@@ -1151,10 +1058,12 @@ def main() -> int:
     #    the same tape on the CPU
     scan_k = ("seg_tree", "scan_chase", "scan_compact",
               "expr_eval:pre_mask", "expr_eval:select")
-    tape = make_tape(np, FLUSH * N_FLUSH, FLUSH, KEYS)
-    dev_out, per_flush, c4_launches, rt, blocks = run_scan_path(
+    tape = make_tape(FLUSH * N_FLUSH, FLUSH, KEYS)
+    dev_out, per_flush, c4_launches, rt, blocks, _ = run_recorded(
         pkg, np, C4_HEAD + C4, tape)
     plan = rt.plans()[0]
+    if plan.family != "scan":
+        raise SystemExit(f"C4 planned {plan.family!r}, expected 'scan'")
     ref_out, cpu_flush, _ = run_app(pkg, np, C4_HEAD + C4, tape, KEYS, "cpu")
     check_rows("C4", dev_out, ref_out)
     need_launches("C4", c4_launches, scan_k, ("nfa_block",))
@@ -1174,9 +1083,11 @@ def main() -> int:
     del blocks
 
     # 6. C3 unpartitioned: the flat block
-    c3_tape = make_tape(np, FLUSH * C3_FLUSHES, FLUSH, KEYS, seed=3)
-    c3_out, c3_flush, c3_launches, _rt, c3_blocks = run_scan_path(
+    c3_tape = make_tape(FLUSH * C3_FLUSHES, FLUSH, KEYS, seed=3)
+    c3_out, c3_flush, c3_launches, c3_rt, c3_blocks, _ = run_recorded(
         pkg, np, C3, c3_tape)
+    if c3_rt.plans()[0].family != "scan":
+        raise SystemExit("C3 did not plan the `scan` family")
     c3_ref, c3_cpu, _ = run_app(pkg, np, C3, c3_tape, KEYS, "cpu")
     check_rows("C3", c3_out, c3_ref)
     need_launches("C3", c3_launches, scan_k, ("nfa_block",))
@@ -1188,8 +1099,8 @@ def main() -> int:
 
     # 7. C4 on the `seq` family: the K2 path
     seq_tape = tape[:SEQ_FLUSHES]
-    seq_out, seq_flush, seq_launches, seq_rt, seq_blocks = run_seq_path(
-        pkg, np, seq_tape)
+    seq_out, seq_flush, seq_launches, seq_rt, _, seq_blocks = run_recorded(
+        pkg, np, C4_SEQ + C4_HEAD + C4, seq_tape)
     seq_ref, seq_cpu, _ = run_app(pkg, np, C4_SEQ + C4_HEAD + C4, seq_tape,
                                   KEYS, "cpu")
     check_rows("C4 seq", seq_out, seq_ref)
@@ -1235,47 +1146,89 @@ def main() -> int:
     c2b = phase_window(torch, np, "c2b", C2B, 22, win_k)
     log(f"[windows] {time.perf_counter() - t0:.1f} s")
 
-    # 13. results
+    # 13-16. the pattern algebra: counts (C4N `scan`, C4Ns `seq`), `and`
+    #        (C4A `scan`), `or` with NULLs (C4O `seq`)
+    alg = {}
+    for label, app, flushes, family, seed, extra, null_col in ALGEBRA:
+        t0 = time.perf_counter()
+        alg[label] = phase_algebra(torch, np, pkg, label, app, flushes,
+                                   family, seed, extra, null_col)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
+
+    # 17. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     win = "siddhi_tpu/core/window_device.py"
 
     def werr(key):
         return max(ph["err"].get(key, 0.0) for ph in (c2, c2g, c2b))
+
+    def er(*blks, key):
+        """Largest kernel - plain difference of one kernel use over the
+        given block phases."""
+        return max(b["err"].get(key, 0.0) for b in blks)
+    n4, ns, na, no = (alg[x]["blocks"] for x in ("c4n", "c4ns", "c4a",
+                                                  "c4o"))
+
+    def launched(label, key):
+        return alg[label]["launches"][key]
     entries = [
         ("expr_eval:filter", K1_SRC, "siddhi_tpu/core/planner.py:301",
          c1["launches"]["expr_eval:filter"], k1_err, c1["filter"]),
         ("expr_eval:pre_mask", K1_SRC, f"{nfa_dev}:1489",
          c4_launches["expr_eval:pre_mask"],
-         max(c4b["err"]["pre_mask"], c3b["err"]["pre_mask"]),
-         c4b["pre_mask"]),
+         er(c4b, c3b, key="expr_eval:pre_mask"), c4b["pre_mask"]),
         ("expr_eval:select", K1_SRC, f"{nfa_dev}:1619",
          c4_launches["expr_eval:select"],
-         max(c4b["err"]["select"], c3b["err"]["select"]), c4b["select"]),
-        ("nfa_block", f"{CSRC}/nfa_block.cu", f"{nfa_dev}:1486",
-         seq_launches["nfa_block"], blk["err"]["nfa_block"],
+         er(c4b, c3b, key="expr_eval:select"), c4b["select"]),
+        ("nfa_block", f"{CSRC}/nfa_block.cuh", f"{nfa_dev}:1486",
+         seq_launches["nfa_block"], er(blk, key="nfa_block"),
          blk["nfa_block"]),
         ("seg_tree", f"{CSRC}/seg_tree.cu", f"{PAR}:499",
-         c4_launches["seg_tree"],
-         max(c4b["err"]["seg_tree"], c3b["err"]["seg_tree"]),
+         c4_launches["seg_tree"], er(c4b, c3b, key="seg_tree"),
          c4b["seg_tree"]),
         ("scan_chase", f"{CSRC}/scan_chase.cu", f"{PAR}:796",
-         c4_launches["scan_chase"],
-         max(c4b["err"]["scan_chase"], c3b["err"]["scan_chase"]),
+         c4_launches["scan_chase"], er(c4b, c3b, key="scan_chase"),
          c4b["scan_chase"]),
         ("scan_compact", f"{CSRC}/scan_compact.cu", f"{PAR}:1056",
-         c4_launches["scan_compact"],
-         max(c4b["err"]["scan_compact"], c3b["err"]["scan_compact"]),
+         c4_launches["scan_compact"], er(c4b, c3b, key="scan_compact"),
          c4b["scan_compact"]),
         ("expr_eval:pre_mask (lane params)", K1_SRC, f"{PAR}:685",
          c5["launches"]["expr_eval:pre_mask"],
-         max(c5["scan"]["err"]["pre_mask"], c5["k2"]["err"]["pre_mask"]),
+         er(c5["scan"], c5["k2"], key="expr_eval:pre_mask"),
          c5["scan"]["pre_mask"]),
-        ("nfa_block (absent, broadcast)", f"{CSRC}/nfa_block.cu",
+        ("nfa_block (absent, broadcast)", f"{CSRC}/nfa_block.cuh",
          f"{nfa_dev}:803", c5["launches"]["nfa_block"],
-         c5["k2"]["err"]["nfa_block"], c5["k2"]["nfa_block"]),
+         er(c5["k2"], key="nfa_block"), c5["k2"]["nfa_block"]),
         ("scan_compact (qid)", f"{CSRC}/scan_compact.cu", f"{PAR}:1146",
-         c5["launches"]["scan_compact"], c5["scan"]["err"]["scan_compact"],
+         c5["launches"]["scan_compact"], er(c5["scan"], key="scan_compact"),
          c5["scan"]["scan_compact"]),
+        ("win_scan:rank", f"{CSRC}/win_scan.cu", f"{PAR}:843",
+         launched("c4n", "win_scan:rank"), er(n4, key="win_scan:rank"),
+         n4["win_scan:rank"]),
+        ("seg_tree:rank", f"{CSRC}/seg_tree.cu", f"{PAR}:845",
+         launched("c4n", "seg_tree:rank"), er(n4, key="seg_tree:rank"),
+         n4["seg_tree:rank"]),
+        ("scan_chase (count)", f"{CSRC}/scan_chase.cu", f"{PAR}:898",
+         launched("c4n", "scan_chase"), er(n4, key="scan_chase"),
+         n4["scan_chase"]),
+        ("scan_compact (count)", f"{CSRC}/scan_compact.cu", f"{PAR}:1097",
+         launched("c4n", "scan_compact"), er(n4, key="scan_compact"),
+         n4["scan_compact"]),
+        ("win_scan:prev", f"{CSRC}/win_scan.cu", f"{PAR}:589",
+         launched("c4a", "win_scan:prev"), er(na, key="win_scan:prev"),
+         na["win_scan:prev"]),
+        ("scan_chase (and)", f"{CSRC}/scan_chase.cu", f"{PAR}:967",
+         launched("c4a", "scan_chase"), er(na, key="scan_chase"),
+         na["scan_chase"]),
+        ("scan_compact (and)", f"{CSRC}/scan_compact.cu", f"{PAR}:1078",
+         launched("c4a", "scan_compact"), er(na, key="scan_compact"),
+         na["scan_compact"]),
+        ("nfa_block (count)", f"{CSRC}/nfa_block.cuh", f"{nfa_dev}:886",
+         launched("c4ns", "nfa_block"), er(ns, key="nfa_block"),
+         ns["nfa_block"]),
+        ("nfa_block (or)", f"{CSRC}/nfa_block.cuh", f"{nfa_dev}:1259",
+         launched("c4o", "nfa_block"), er(no, key="nfa_block"),
+         no["nfa_block"]),
         ("expr_eval:window_args", K1_SRC, f"{win}:827",
          c2["launches"]["expr_eval:window_args"],
          werr("expr_eval:window_args"),
@@ -1307,7 +1260,7 @@ def main() -> int:
             f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
             f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}, "
             f"{e['launches']} launches")
-    for label, blk, names in (
+    for label, ph, names in (
             (f"the C3 flat block (Lt={c3b['Lt']})", c3b,
              ("seg_tree", "scan_chase", "scan_compact")),
             (f"a C5 fused block (L={c5['scan']['L']}, F={c5['scan']['F']})",
@@ -1315,7 +1268,7 @@ def main() -> int:
             (f"a C5 fused seq block (T={c5['k2']['T']}, P={c5['k2']['P']})",
              c5["k2"], ())):
         for name in names:
-            m = blk[name]
+            m = ph[name]
             lib = "" if m["library_ms"] is None else \
                 f", library {m['library_ms']:.4f} ms"
             log(f"  {name} at {label}: device {m['ms']:.4f} ms, host "
@@ -1344,7 +1297,8 @@ def main() -> int:
                          "cpu_ms_per_flush": seq_cpu,
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
-              "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b}
+              "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
+              **alg}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

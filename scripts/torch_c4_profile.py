@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a C4 (C5, C2) flush spends its time in the PyTorch/CUDA port.
 
-    python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b]
-                                        [--out FILE]
+    python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b|
+                                         c4n|c4ns|c4a|c4o] [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
 1000 keys, 2^18-event flushes, the chip_smoke.py tape) through
@@ -12,7 +12,10 @@ four fused plans of 250 query lanes; 2^13-event flushes 50 ms apart,
 8 symbols), or a window config of chip_smoke.py (`c2`: BASELINE config
 2, `length(1000) select avg(price)`; `c2g`: the grouped, filtered
 `time(10 sec)` window; `c2b`: `externalTimeBatch(et, 64)` grouped; 2^17-
-event flushes over 8 symbols), warms with one flush, then profiles the
+event flushes over 8 symbols), or one of its pattern-algebra apps at
+C4's shape (`c4n`: a count head on `scan`; `c4ns`: a count with a
+capture filter on `seq`; `c4a`: `and` on `scan`; `c4o`: `or` with NULLs
+on `seq`), warms with one flush, then profiles the
 next FLUSHES (4) with
 cProfile (host clock; each flush ends in torch.cuda.synchronize).
 Device waits show up inside the calls that pull results to the host
@@ -36,7 +39,8 @@ FLUSHES, TRACED = 4, 2
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b"),
+    ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b",
+                                         "c4n", "c4ns", "c4a", "c4o"),
                     default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
@@ -49,9 +53,13 @@ def main() -> int:
     import chip_smoke
     import siddhi_tpu_torch as pkg
 
+    algebra = {a[0]: a[1] for a in chip_smoke.ALGEBRA}
     if args.config == "c4":
         keys, flush, dt = 1000, 1 << 18, 1
         app, outs = chip_smoke.C4_HEAD + chip_smoke.C4, ["Out"]
+    elif args.config in algebra:
+        keys, flush, dt = 1000, 1 << 18, 1
+        app, outs = algebra[args.config], ["Out"]
     elif args.config.startswith("c2"):
         keys, flush, dt = chip_smoke.C2_SYMBOLS, chip_smoke.C2_FLUSH, 1
         app = {"c2": chip_smoke.C2, "c2g": chip_smoke.C2_GROUPED,
@@ -62,7 +70,7 @@ def main() -> int:
                            chip_smoke.C5_DT)
         app = chip_smoke.c5_app(chip_smoke.C5_QUERIES)
         outs = [f"Out{j}" for j in range(16)]
-    tape = chip_smoke.make_tape(np, flush * (FLUSHES + TRACED + 1), flush,
+    tape = chip_smoke.make_tape(flush * (FLUSHES + TRACED + 1), flush,
                                 keys, seed=5, dt_ms=dt)
     rt = pkg.SiddhiManager().create_app_runtime(app)
     got = [0]

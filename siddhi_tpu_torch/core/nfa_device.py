@@ -3,9 +3,21 @@
 Port of `siddhi_tpu/core/nfa_device.py` for the `seq` family and the
 pattern algebra of this slice:
 
-  * chains of single-stream positions joined by `->` (pattern) or `,`
-    (sequence strictness), an `every` head or a one-shot head, a
-    query-level or per-position `within`, one or several input streams;
+  * chains of positions joined by `->` (pattern) or `,` (sequence
+    strictness), an `every` head or a one-shot head, a query-level or
+    per-position `within`, one or several input streams;
+  * count quantifiers `<m:n>`, `<m:>`, `+` anywhere in the chain (min 0
+    only below the head: the epsilon cascade of `_landing_from`), adjacent
+    counts, a count in the final position (every collection at or past
+    min emits; emissions of a still-collecting slot leave through the E
+    direct-emit lanes, and a burst wider than E raises `of_lanes`, which
+    the plan answers by doubling E and re-running the block);
+  * logical `and`/`or` positions of two stream states, at the head, below
+    it or in a sequence; an `or` leaves the loser NULL;
+  * indexed captures `e[i]`, `e[last]`, `e[last-1]`, with per-index
+    presence rows for indices a match may leave unfilled, and presence
+    rows for every maybe-absent ref a selector reads (the host turns a
+    zero presence into a NULL column value);
   * absent positions below the head (`-> not B[...] for T`): entering one
     arms a deadline, a forbidden arrival kills the partial match, and a
     deadline at or before an event's (or a timer tick's) timestamp fires
@@ -20,23 +32,31 @@ pattern algebra of this slice:
   * selectors and `having` over captures run on the compacted match rows
     (K1 again).
 
-Count quantifiers, logical and/or, absent heads and init slots, `every`
-around absent states, `every` below the head, selectors over maybe-absent
-refs (presence rows), `@app:devicePrecision('f64')` and presence tests
-raise DeviceNFAUnsupported naming the feature; they are later slices.
+Absent heads and init slots (a min-0 count head included), absent sides
+of a logical, `every` around absent states, `every` below the head,
+presence tests (`e1 is null`), `e[last-2]` and beyond, selectors deriving
+a value from a maybe-absent ref, and `@app:devicePrecision('f64')` raise
+DeviceNFAUnsupported naming the feature; they are later slices.
 
 State (a dict of tensors, partition axis P minor, as in the JAX package):
   occ (A, P) i32        0 = free, p = stationed at position p-1,
                         S+1 = parked completion awaiting a drain lane
   first_ts (A, P) i32   head timestamp offset (the `within` anchor)
   head_seq (A, P) i32   head seq offset (emission tie order)
-  caps_f (Kf, A, P) f32, caps_i (Ki, A, P) i32, caps_l (Kl, A, P) i64
+  cnt (Kc, A, P) i32    occurrence counters (count positions)
+  cnt_on (Kc, A, P) bool still collecting
+  narm (Kc, A, P) bool  successor armed (set at the exact min crossing,
+                        consumed by the successor's match)
+  fl (Kl, A, P) i32     logical fill bits (1 = left side, 2 = right)
+  caps_f (Kf, A, P) f32, caps_i (Ki, A, P) i32, caps_l (Kl', A, P) i64
                         capture rows (only the columns something reads);
-                        caps_i also holds the parked completion's ts/seq
+                        caps_i also holds presence rows and the parked
+                        completion's ts/seq
   dl (Ka, A, P) i32     absent deadlines, one row per absent position
                         (NO_DEADLINE = disarmed)
   armed0 (P,) bool      entry arm (stays True for `every`)
   of_slots (P,) i32     heads dropped for want of a free slot
+  of_lanes (P,) i32     direct emissions that found no lane (E too narrow)
 """
 from __future__ import annotations
 
@@ -58,6 +78,15 @@ from .schema import StringTable, dtype_of
 LOCAL_SPAN = 1 << 30            # i32 offset budget (rebase before overflow)
 NO_FIRST = LOCAL_SPAN           # first_ts sentinel of init slots
 NO_DEADLINE = 2 ** 31 - 1       # dl sentinel: no deadline armed
+UNBOUNDED = 10 ** 9             # NFACompiler's normalization of <m:> counts
+MAX_NODES = 32                  # nodes of one chain (K2's match bit words)
+MAX_COUNTS = 32                 # count positions (K2's per-slot bit words)
+MAX_LOGICALS = 16               # logical positions (2 fill bits each)
+
+# kinds of a position in K2's tables
+K_STREAM, K_ABSENT, K_COUNT, K_LOGICAL = range(4)
+# capture-write modes: the value written into a row when a node captures
+W_SRC, W_ONE, W_PREV, W_IDX, W_PRES_GE = range(5)
 
 
 class DeviceNFAUnsupported(PlanError):
@@ -97,10 +126,29 @@ class PNode:
 
 @dataclass
 class Position:
-    node: PNode
+    """One chain position: a single state, a count, or a logical pair."""
+    nodes: list                     # [PNode] (2 for logical)
+    op: Optional[str] = None        # None | "and" | "or"
+    min_count: int = 1
+    max_count: int = 1
     within_ms: Optional[int] = None
-    sticky: bool = False
+    sticky: bool = False            # `every` head arm
+    # state-row assignments (set by the kernel)
+    cnt_row: Optional[int] = None   # counter row (count positions)
+    log_row: Optional[int] = None   # fill-bit row (logical positions)
     dl_row: Optional[int] = None    # deadline row (absent with `for`)
+
+    @property
+    def node(self) -> PNode:
+        return self.nodes[0]
+
+    @property
+    def is_count(self) -> bool:
+        return (self.min_count, self.max_count) != (1, 1)
+
+    @property
+    def refs(self) -> list:
+        return [n.ref for n in self.nodes]
 
 
 @dataclass
@@ -117,13 +165,29 @@ class ChainSpec:
 
     @property
     def all_nodes(self) -> list:
-        return [p.node for p in self.positions]
+        return [n for p in self.positions for n in p.nodes]
 
     def maybe_absent_refs(self) -> set:
-        """Refs that can be NULL in an emitted match: the absent nodes
-        (or-sides and optional counts are later slices)."""
-        return {p.node.ref for p in self.positions
-                if p.node.kind == "absent"}
+        """Refs that can be NULL in an emitted match: or-sides, absent
+        nodes and min-0 counts."""
+        out = set()
+        for p in self.positions:
+            if p.op is not None:
+                out.update(p.refs)
+            if p.is_count and p.min_count == 0:
+                out.update(p.refs)
+            for n in p.nodes:
+                if n.kind == "absent":
+                    out.add(n.ref)
+        return out
+
+    @property
+    def needs_init_slot(self) -> bool:
+        """An absent head or a min-0 count head pre-registers a partial
+        match before any event (the JAX package's init slot)."""
+        head = self.positions[0]
+        return (any(n.kind == "absent" for n in head.nodes)
+                or (head.is_count and head.min_count == 0))
 
 
 def _conjuncts(e: ast.Expression) -> list:
@@ -136,8 +200,9 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
                 filters_by_node: list,
                 param_extra: Optional[dict] = None) -> ChainSpec:
     """Validate + lower a StateInputStream into a device position chain
-    (siddhi_tpu/core/nfa_device.py:209 for this slice's algebra).
-    `param_extra` resolves a fused group's `__qparam<i>` variables."""
+    (siddhi_tpu/core/nfa_device.py:209), logical partners grouped into
+    one position.  `param_extra` resolves a fused group's `__qparam<i>`
+    variables."""
     from ..interp.nfa import NFACompiler
     from ..query.ast import StateType
 
@@ -152,21 +217,15 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
             raise DeviceNFAUnsupported(
                 "absent states inside logical positions (`not A and B`) "
                 "are a later slice")
-        if n.partner_id is not None:
-            raise DeviceNFAUnsupported(
-                f"logical `{n.partner_op}` states are a later slice")
         if n.kind == "absent" and n.sticky:
             raise DeviceNFAUnsupported(
                 "`every`-wrapped (sticky) absent states (slot forking, "
                 "`_fork_slots`) are a later slice")
-        if n.kind == "absent" and n.id == entries[0].id:
-            raise DeviceNFAUnsupported(
-                "absent heads and init slots (`needs_init_slot`) are a "
-                "later slice")
-        if (n.min_count, n.max_count) != (1, 1):
-            raise DeviceNFAUnsupported(
-                "count quantifiers (`<m:n>`, `+`) are a later slice")
-    if len(entries) != 1:
+    if len(entries) == 1:
+        head_ids = [entries[0].id]
+    elif len(entries) == 2 and entries[0].partner_id == entries[1].id:
+        head_ids = [entries[0].id, entries[1].id]
+    else:
         raise DeviceNFAUnsupported("unsupported entry structure")
 
     stream_ids, scode_of = [], {}
@@ -181,31 +240,63 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
 
     positions: list = []
     seen: set = set()
-    cur = entries[0].id
-    while cur is not None:
-        n0 = nodes[cur]
-        if n0.id in seen:
-            raise DeviceNFAUnsupported("cyclic state graph")
-        seen.add(n0.id)
+    cur = head_ids
+    while cur:
+        n0 = nodes[cur[0]]
+        group = [n0] + ([nodes[n0.partner_id]] if n0.partner_id is not None
+                        else [])
+        for g in group:
+            if g.id in seen:
+                raise DeviceNFAUnsupported("cyclic state graph")
+            seen.add(g.id)
+        pos = Position([PNode(g.ref, g.stream_id, scode(g.stream_id), g.kind,
+                              g.waiting_ms) for g in group])
+        if n0.partner_id is not None:
+            pos.op = n0.partner_op
+        pos.min_count, pos.max_count = n0.min_count, n0.max_count
         w = n0.within_ms if n0.within_ms is not None else qw
         if w is not None and w >= LOCAL_SPAN:
             raise DeviceNFAUnsupported("within > ~12 days (i32 ms offsets)")
-        if n0.sticky and positions:
-            raise DeviceNFAUnsupported("`every` below the head is a later "
-                                       "slice")
-        positions.append(Position(PNode(n0.ref, n0.stream_id,
-                                        scode(n0.stream_id), n0.kind,
-                                        n0.waiting_ms), w,
-                                  bool(n0.sticky)))
-        cur = n0.next_id
+        pos.within_ms = w
+        pos.sticky = bool(n0.sticky)
+        positions.append(pos)
+        cur = [n0.next_id] if n0.next_id is not None else []
     if len(seen) != len(nodes):
         raise DeviceNFAUnsupported("non-linear state graph")
 
-    schemas = {p.node.ref: schemas_by_stream[p.node.stream_id]
-               for p in positions}
-    spec = ChainSpec(positions, stream_ids, schemas, is_sequence,
-                     positions[0].sticky)
-    by_ref = {p.node.ref: p.node for p in positions}
+    S = len(positions)
+    for i, pos in enumerate(positions):
+        if pos.sticky and i > 0:
+            raise DeviceNFAUnsupported("`every` below the head is a later "
+                                       "slice")
+        if pos.min_count == 0 and i > 0 and positions[i - 1].is_count \
+                and positions[i - 1].min_count >= 1:
+            # an optional-count run after a counting state keeps the
+            # station at the counting state with a chained arm; the chain
+            # must land on a plain (1,1) stream position
+            k = i
+            while k < S and positions[k].is_count \
+                    and positions[k].min_count == 0:
+                k += 1
+            if (k >= S or positions[k].is_count
+                    or positions[k].op is not None
+                    or positions[k].nodes[0].kind == "absent"
+                    or positions[k].sticky):
+                raise DeviceNFAUnsupported(
+                    "optional count run after a counting state landing on "
+                    "a non-stream state")
+    spec = ChainSpec(positions, stream_ids,
+                     {n.ref: schemas_by_stream[n.stream_id]
+                      for p in positions for n in p.nodes},
+                     is_sequence, positions[0].sticky)
+    if spec.needs_init_slot:
+        raise DeviceNFAUnsupported(
+            "absent heads and init slots (`needs_init_slot`, a min-0 count "
+            "head included) are a later slice")
+    if len(spec.all_nodes) > MAX_NODES:
+        raise DeviceNFAUnsupported(f"more than {MAX_NODES} pattern states")
+
+    by_ref = {n.ref: n for n in spec.all_nodes}
     for host_n, elem_filters in zip(nodes, filters_by_node):
         pn = by_ref[host_n.ref]
         conjs: list = []
@@ -227,7 +318,7 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
                 raise DeviceNFAUnsupported("non-boolean filter")
             if set(ce.reads) <= own:
                 pn.pre_conjs.append(ce)
-            elif host_n.id == entries[0].id:
+            elif host_n.id in head_ids:
                 raise DeviceNFAUnsupported(
                     "head filter references later captures")
             else:
@@ -242,6 +333,12 @@ def _base_ref(refpart: str):
         base, idx = refpart[:-1].split("[", 1)
         return base, idx
     return refpart, None
+
+
+def _index_want(cidx: str) -> int:
+    """Occurrences a count must have collected for index `cidx` to be
+    filled: [last] 1, [last-1] 2, [i] i + 1."""
+    return 1 if cidx == "last" else 2 if cidx == "last-1" else int(cidx) + 1
 
 
 def pow2_at_least(n: int, lo: int = 8) -> int:
@@ -272,82 +369,168 @@ class NFAKernel:
     multi-query lanes).  It returns the raw match table: `out_i` (rows
     `lane_names_i`, M) i32, `out_f` (rows_f, M) f32, `out_l` (rows_l, M)
     i64, and `meta` = [matches found (may exceed M), heads dropped so far,
-    earliest deadline of a live slot (NO_DEADLINE when none)].
+    earliest deadline of a live slot (NO_DEADLINE when none), direct
+    emissions that found no lane].
 
     `params` (a LaneParams) holds a fused group's per-lane constants,
     `broadcast` marks its lanes (events shared, a `__qid__` row per
-    match), and `playback` lets deadlines fire on events as well as on
-    timer ticks (the JAX package's `dl_fire` rule)."""
+    match), `playback` lets deadlines fire on events as well as on timer
+    ticks (the JAX package's `dl_fire` rule), and `E` is the number of
+    emission lanes per step."""
 
     def __init__(self, spec: ChainSpec, sel_fns: dict,
                  having: Optional[CompiledExpr], P: int, A: int,
                  params: Optional[LaneParams] = None,
-                 broadcast: bool = False, playback: bool = False):
+                 broadcast: bool = False, playback: bool = False,
+                 E: Optional[int] = None):
         self.spec = spec
         self.sel_fns = sel_fns
         self.having = having
         self.P, self.A = P, A
         self.S = spec.S
-        self.E = 1 if spec.S == 1 else min(A, 2)
+        self.E = E if E is not None else (1 if spec.S == 1 else min(A, 2))
         self.params = params
         self.broadcast = broadcast
         self.playback = playback
-        ka = 0
+        kc = kl = ka = 0
         for pos in spec.positions:
-            pos.dl_row = None
+            pos.cnt_row = pos.log_row = pos.dl_row = None
+            if pos.is_count:
+                pos.cnt_row = kc
+                kc += 1
+            if pos.op is not None:
+                pos.log_row = kl
+                kl += 1
             if pos.node.kind == "absent" and pos.node.waiting_ms is not None:
                 pos.dl_row = ka
                 ka += 1
-        self.Ka = ka
+        if kc > MAX_COUNTS or kl > MAX_LOGICALS:
+            raise DeviceNFAUnsupported(
+                f"more than {MAX_COUNTS} count or {MAX_LOGICALS} logical "
+                f"positions")
+        self.Kc, self.Kl, self.Ka = kc, kl, ka
         self.has_absent = any(n.kind == "absent" for n in spec.all_nodes)
-        absent = spec.maybe_absent_refs()
-        for name, ce in list(sel_fns.items()) + (
-                [("having", having)] if having else []):
-            hit = {_base_ref(k.split(".", 1)[0])[0] for k in ce.reads
-                   if "." in k and not k.startswith("__")} & absent
-            if hit and broadcast:
-                raise DeviceNFAUnsupported(
-                    "fused selector over maybe-absent refs (null routing)")
-            if hit:
-                raise DeviceNFAUnsupported(
-                    f"selector output {name!r} reads the maybe-absent ref "
-                    f"{sorted(hit)[0]!r} (presence rows and null "
-                    f"reconstruction are a later slice)")
+        self._maybe_absent = spec.maybe_absent_refs()
 
+        # ---- capture rows: only the columns something downstream reads
+        #      (nfa_device.py:446-534 of the JAX package) -----------------
         cap_keys: set = set()
         for pos in spec.positions:
-            for ce in pos.node.step_conjs:
-                for k in ce.reads:
-                    if k != "__timestamp__" and "." in k and \
-                            k.split(".", 1)[0] != pos.node.ref:
-                        cap_keys.add(k)
+            for n in pos.nodes:
+                for ce in n.step_conjs:
+                    for k in ce.reads:
+                        if k != "__timestamp__" and "." in k and \
+                                k.split(".", 1)[0] != n.ref:
+                            cap_keys.add(k)
+        sel_rparts: set = set()
         for ce in list(sel_fns.values()) + ([having] if having else []):
             for k in ce.reads:
+                if k.startswith("__present__."):
+                    raise DeviceNFAUnsupported(
+                        f"presence tests ({k!r}, `is null` over a pattern "
+                        f"ref) are a later slice")
                 if "." in k and not k.startswith("__"):
                     cap_keys.add(k)
-        self._key_type: dict = {}
-        for k in sorted(cap_keys):
-            refpart, attr = k.split(".", 1)
+        for ce in sel_fns.values():
+            for k in ce.reads:
+                if "." in k and not k.startswith("__"):
+                    sel_rparts.add(k.split(".", 1)[0])
+        sel_refs = {_base_ref(rp)[0] for rp in sel_rparts}
+        for r in self._maybe_absent & sel_refs:
+            cap_keys.add(f"__present__.{r}")
+        for k in cap_keys:
+            if k.startswith("__present__."):
+                continue
+            refpart, _attr = k.split(".", 1)
             base, cidx = _base_ref(refpart)
             if base not in spec.schemas:
                 raise DeviceNFAUnsupported(f"unresolvable capture key {k!r}")
-            if cidx is not None and cidx != "last":
+            if cidx is not None and cidx not in ("last", "last-1") \
+                    and not cidx.isdigit():
                 raise DeviceNFAUnsupported(
-                    f"indexed capture {k!r} (count positions are a later "
-                    f"slice)")
-            self._key_type[k] = spec.schemas[base].type_of(attr)
+                    f"indexed capture {k!r} ({cidx!r} beyond [last-1] is a "
+                    f"later slice)")
+        # indexed captures a match may leave UNFILLED (fewer occurrences
+        # than the index needs) are NULL at the host: a presence row per
+        # such index read by the selector; a predicate or `having` cannot
+        # read one (no NULL on the device)
+        minc_of = {p.nodes[0].ref: p.min_count
+                   for p in spec.positions if p.is_count}
+        maybe_unfilled = set()
+        for k in cap_keys:
+            if k.startswith("__present__."):
+                continue
+            refpart = k.split(".", 1)[0]
+            base, cidx = _base_ref(refpart)
+            if cidx is not None and base in minc_of \
+                    and _index_want(cidx) > minc_of[base]:
+                maybe_unfilled.add(refpart)
+        if maybe_unfilled:
+            conjs = [c for n_ in spec.all_nodes for c in n_.step_conjs]
+            if having is not None:
+                conjs.append(having)
+            for ce in conjs:
+                for k in ce.reads:
+                    if "." in k and k.split(".", 1)[0] in maybe_unfilled:
+                        raise DeviceNFAUnsupported(
+                            f"predicate reads maybe-unfilled indexed "
+                            f"capture {k!r}")
+        self._maybe_unfilled = maybe_unfilled
+        self._unfilled_sel = sorted(maybe_unfilled & sel_rparts)
+        for rp in self._unfilled_sel:
+            cap_keys.add(f"__present__.{rp}")
+
+        self._key_type: dict = {}
+        for k in sorted(cap_keys):
+            if k.startswith("__present__."):
+                self._key_type[k] = ast.AttrType.BOOL
+                continue
+            refpart, attr = k.split(".", 1)
+            self._key_type[k] = spec.schemas[_base_ref(refpart)[0]].type_of(
+                attr)
         with compute_dtypes(F32_MODE):
-            grp = {k: self._group_of(torch_dtype(t))
+            grp = {k: "i" if k.startswith("__present__.") else
+                   self._group_of(torch_dtype(t))
                    for k, t in self._key_type.items()}
         self.rows_f = [k for k in sorted(cap_keys) if grp[k] == "f"]
         self.rows_l = [k for k in sorted(cap_keys) if grp[k] == "l"]
         self.rows_i = [k for k in sorted(cap_keys) if grp[k] == "i"]
-        self.parked = spec.S > 1          # an absent head is refused above
+        head = spec.positions[0]
+        self.parked = spec.S > 1 or self.has_absent or head.op is not None \
+            or head.is_count
         if self.parked:
             self.rows_i += ["__comp_ts__", "__comp_seq__"]
         self._row_of = {k: ("f", i) for i, k in enumerate(self.rows_f)}
         self._row_of.update({k: ("i", i) for i, k in enumerate(self.rows_i)})
         self._row_of.update({k: ("l", i) for i, k in enumerate(self.rows_l)})
+
+        # selector outputs that may come back NULL: bare variables over a
+        # maybe-absent ref or a maybe-unfilled index (anything derived
+        # from one would have to evaluate the NULL on the device)
+        self.null_outputs: dict = {}     # out name -> ref or indexed refpart
+        for name, ce in sel_fns.items():
+            rparts = {k.split(".", 1)[0] for k in ce.reads
+                      if "." in k and not k.startswith("__")}
+            hit = set()
+            for rp in rparts:
+                base, cidx = _base_ref(rp)
+                if cidx is not None:
+                    if rp in maybe_unfilled:
+                        hit.add(rp)
+                elif base in self._maybe_absent:
+                    hit.add(base)
+            if not hit:
+                continue
+            if broadcast:
+                raise DeviceNFAUnsupported(
+                    "fused selector over maybe-absent refs (null routing)")
+            if ce.is_var and len(hit) == 1:
+                self.null_outputs[name] = next(iter(hit))
+            else:
+                raise DeviceNFAUnsupported(
+                    f"selector output {name!r} derives from a maybe-absent "
+                    f"ref (only bare variables null-reconstruct)")
+
         self.lane_names_i = list(self.rows_i) + ["__head_seq__"]
         if broadcast:
             self.lane_names_i.append("__qid__")
@@ -370,26 +553,7 @@ class NFAKernel:
         self.grid_keys = [f"{s}.{a}" for s, a, _t in self.grid_attrs]
         if not self.parked:
             self.lane_names_i += ["__comp_ts__", "__comp_seq__"]
-
-        # ---- capture writes per position: (group, row, src) with src a
-        #      grid column index, -1 = event ts, -2 = event seq ----------
-        self.cap_writes: list = []
-        for pi, pos in enumerate(spec.positions):
-            n = pos.node
-            cw = []
-            for a in spec.schemas[n.ref].attributes:
-                gk = f"{n.scode}.{a.name}"
-                if gk not in self.grid_keys:
-                    continue
-                for k in (f"{n.ref}.{a.name}", f"{n.ref}[last].{a.name}"):
-                    if k in self._row_of:
-                        g, r = self._row_of[k]
-                        cw.append((g, r, self.grid_keys.index(gk)))
-            if pi > 0:
-                for k, src in (("__comp_ts__", -1), ("__comp_seq__", -2)):
-                    g, r = self._row_of[k]
-                    cw.append((g, r, src))
-            self.cap_writes.append(cw)
+        self._build_tables()
 
         # ---- VM programs ---------------------------------------------------
         C = len(self.grid_keys)
@@ -467,6 +631,119 @@ class NFAKernel:
         except ExprError as e:
             raise DeviceNFAUnsupported(f"not in the device VM: {e}") from None
 
+    # -- capture writes (shared by K2 and its plain version) ---------------
+
+    def capture_values(self, n: PNode) -> list:
+        """Rows written when stream node n captures its event
+        (`_capture_values`): (key, mode, src, arg) with src a grid column
+        index; the plain and [last] columns take the event's value, the
+        ref's presence row 1."""
+        out = []
+        for a in self.spec.schemas[n.ref].attributes:
+            gk = f"{n.scode}.{a.name}"
+            if gk not in self.grid_keys:
+                continue
+            for k in (f"{n.ref}.{a.name}", f"{n.ref}[last].{a.name}"):
+                if k in self._row_of:
+                    out.append((k, W_SRC, self.grid_keys.index(gk), 0))
+        pk = f"__present__.{n.ref}"
+        if pk in self._row_of:
+            out.append((pk, W_ONE, 0, 0))
+        return out
+
+    def count_capture_values(self, n: PNode) -> list:
+        """Rows written when count node n collects an occurrence
+        (`_count_capture_values`): [last-1] takes the old [last] (listed
+        first: read before any write), the plain and [last] columns the
+        event's value, [i] the event's value when this is occurrence i+1,
+        presence 1, and a per-index presence row 1 once the count reaches
+        its index."""
+        prev, rest = [], []
+        for a in self.spec.schemas[n.ref].attributes:
+            gk = f"{n.scode}.{a.name}"
+            if gk not in self.grid_keys:
+                continue
+            src = self.grid_keys.index(gk)
+            lk, pk = f"{n.ref}[last].{a.name}", f"{n.ref}[last-1].{a.name}"
+            if pk in self._row_of and lk in self._row_of:
+                prev.append((pk, W_PREV, 0, self._row_of[lk][1]))
+            for k in (f"{n.ref}.{a.name}", lk):
+                if k in self._row_of:
+                    rest.append((k, W_SRC, src, 0))
+        pk = f"__present__.{n.ref}"
+        if pk in self._row_of:
+            rest.append((pk, W_ONE, 0, 0))
+        for k in self._row_of:
+            if k.startswith("__"):
+                continue
+            refpart, attr = k.split(".", 1)
+            base, cidx = _base_ref(refpart)
+            gk = f"{n.scode}.{attr}"
+            if base == n.ref and cidx is not None and cidx.isdigit() \
+                    and gk in self.grid_keys:
+                rest.append((k, W_IDX, self.grid_keys.index(gk),
+                             int(cidx) + 1))
+        for rp in self._unfilled_sel:
+            base, cidx = _base_ref(rp)
+            if base == n.ref:
+                rest.append((f"__present__.{rp}", W_PRES_GE, 0,
+                             _index_want(cidx)))
+        return prev + rest
+
+    def presence_rows(self, refs: Optional[set] = None) -> list:
+        """caps_i rows of the presence keys (base and per-index) of `refs`
+        (every presence row when None): what `_present_zero` clears when a
+        slot enters a position or is reused."""
+        return [i for i, k in enumerate(self.rows_i)
+                if k.startswith("__present__.") and
+                (refs is None or _base_ref(k[len("__present__."):])[0]
+                 in refs)]
+
+    def landing(self, pi: int) -> int:
+        """Station after position pi, skipping mid-chain min-0 counts
+        (`_landing_from`): the positions between pi and it are armed on
+        the way (never past S-1)."""
+        t = pi + 1
+        while (t < self.S - 1 and self.spec.positions[t].is_count
+               and self.spec.positions[t].min_count == 0):
+            t += 1
+        return t
+
+    def _build_tables(self) -> None:
+        """K2's per-position, per-node and capture-write tables."""
+        spec = self.spec
+        nodes = spec.all_nodes
+        self.node_pos, self.pos_node = [], []
+        for pi, pos in enumerate(spec.positions):
+            self.pos_node.append(len(self.node_pos))
+            self.node_pos.extend([pi] * len(pos.nodes))
+        writes: list = []
+
+        def add(entries) -> tuple:
+            off = len(writes)
+            for key, mode, src, arg in entries:
+                g, r = self._row_of[key]
+                writes.append(("fil".index(g), r, mode, src, arg))
+            return off, len(entries)
+        self.node_cw = [add(self.capture_values(n)) for n in nodes]
+        self.node_cc = [add(self.count_capture_values(n)) if
+                        spec.positions[self.node_pos[gi]].is_count
+                        else (0, 0) for gi, n in enumerate(nodes)]
+        self.writes = writes
+        self.node_pres_row = [
+            self._row_of[f"__present__.{n.ref}"][1]
+            if f"__present__.{n.ref}" in self._row_of else -1
+            for n in nodes]
+        pz: list = []
+        self.pos_pz = []
+        for pos in spec.positions:
+            rows = self.presence_rows(set(pos.refs))
+            self.pos_pz.append((len(pz), len(rows)))
+            pz.extend(rows)
+        self.all_pz = (len(pz), len(self.presence_rows()))
+        pz.extend(self.presence_rows())
+        self.pz_rows = pz
+
     @staticmethod
     def _group_of(dt) -> str:
         if dt in (torch.float32, torch.float64):
@@ -480,10 +757,12 @@ class NFAKernel:
         """Grid dtype: DOUBLE travels as float32 on the pattern path."""
         return np.float32 if t == ast.AttrType.DOUBLE else dtype_of(t)
 
-    def with_shape(self, P: int, A: int) -> "NFAKernel":
-        """The same chain at another partition/slot count."""
+    def with_shape(self, P: int, A: int, E: Optional[int] = None
+                   ) -> "NFAKernel":
+        """The same chain at another partition/slot count (or E)."""
         return NFAKernel(self.spec, self.sel_fns, self.having, P, A,
-                         self.params, self.broadcast, self.playback)
+                         self.params, self.broadcast, self.playback,
+                         self.E if E is None else E)
 
     def comp_rows(self) -> tuple:
         """caps_i rows of the parked completion's ts and seq (-1 when the
@@ -501,13 +780,18 @@ class NFAKernel:
         return {"occ": z((A, P), torch.int32),
                 "first_ts": z((A, P), torch.int32),
                 "head_seq": z((A, P), torch.int32),
+                "cnt": z((self.Kc, A, P), torch.int32),
+                "cnt_on": z((self.Kc, A, P), torch.bool),
+                "narm": z((self.Kc, A, P), torch.bool),
+                "fl": z((self.Kl, A, P), torch.int32),
                 "caps_f": z((len(self.rows_f), A, P), torch.float32),
                 "caps_i": z((len(self.rows_i), A, P), torch.int32),
                 "caps_l": z((len(self.rows_l), A, P), torch.int64),
                 "dl": torch.full((self.Ka, A, P), NO_DEADLINE,
                                  dtype=torch.int32, device=device),
                 "armed0": torch.ones((P,), dtype=torch.bool, device=device),
-                "of_slots": z((P,), torch.int32)}
+                "of_slots": z((P,), torch.int32),
+                "of_lanes": z((P,), torch.int32)}
 
     # -- the block -----------------------------------------------------------
 

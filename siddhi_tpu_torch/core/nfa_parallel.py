@@ -43,11 +43,16 @@ from ..query import ast
 from .expr import (F32_MODE, VT_OF_TORCH, ExprError, Program,
                    compile_expression, compute_dtypes, emit_program, subst,
                    torch_dtype)
-from .nfa_device import (TS_SUBST, ChainSpec, NFAKernel, PatternFilterContext,
-                         _and_all, _base_ref, pow2_at_least)
+from .nfa_device import (TS_SUBST, UNBOUNDED, ChainSpec, NFAKernel,
+                         PatternFilterContext, _and_all, _base_ref,
+                         _index_want, pow2_at_least)
 
 NUMERIC = (ast.AttrType.INT, ast.AttrType.LONG,
            ast.AttrType.FLOAT, ast.AttrType.DOUBLE)
+# how K5 resolves a count capture's index: the emitting occurrence (a
+# final count's plain/[last] read), select of occurrence q + arg ([last]
+# arg 0, [last-1] arg -1), or of the fixed occurrence arg ([i]: i + 1)
+CNT_COMP, CNT_Q, CNT_FIXED = range(3)
 # single-arm (non-`every`) resolution flag per lane
 ARM_NONE, ARM_PENDING, ARM_RESOLVED = 0, 1, 2
 
@@ -78,9 +83,12 @@ class HopNode:
 @dataclass
 class PPos:
     """One chain position lowered for the state chase."""
-    kind: str                     # "single" (counts/logicals: later slices)
-    nodes: list                   # [HopNode]
+    kind: str                     # "single" | "count" | "logical"
+    nodes: list                   # [HopNode]; 2 for logical
     within_ms: int = 0
+    op: Optional[str] = None      # "and" | "or" (logical)
+    min_count: int = 1
+    max_count: int = 1
 
 
 @dataclass
@@ -95,6 +103,10 @@ class ParallelProgram:
     @property
     def S(self) -> int:
         return len(self.positions)
+
+    @property
+    def count_refs(self) -> set:
+        return {p.nodes[0].ref for p in self.positions if p.kind == "count"}
 
 
 _FLIP = {"gt": "lt", "ge": "le", "lt": "gt", "le": "ge"}
@@ -119,51 +131,101 @@ def lower_parallel(spec: ChainSpec, strings,
                    param_extra: Optional[dict] = None) -> ParallelProgram:
     """Lower a ChainSpec into a state-chase program, or raise
     ParallelUnsupported with the ineligibility reason (the JAX package's
-    words, so the two plans report the same `families` entry)."""
+    words and refusals, nfa_parallel.py:177-270, so the two plans report
+    the same `families` entry)."""
     if spec.S < 2:
         raise ParallelUnsupported("single-position chain (no scan depth)")
     sequence = bool(spec.is_sequence)
     single_arm = not spec.every_head
     positions: list = []
     ref_of: dict = {}
+    count_refs: set = set()
+    or_refs: set = set()
+    S = spec.S
     for pi, pos in enumerate(spec.positions):
-        if pos.node.kind != "stream":
-            raise ParallelUnsupported("absent (`not ... for`) position")
+        for n in pos.nodes:
+            if n.kind != "stream":
+                raise ParallelUnsupported("absent (`not ... for`) position")
         if pos.sticky and pi > 0:
             raise ParallelUnsupported("`every` below the head")
         if pos.within_ms is None:
             raise ParallelUnsupported(
                 "position without a `within` bound (stateless tail replay "
                 "needs a finite horizon)")
-        n = pos.node
-        hop = HopNode(n.ref, n.scode, list(n.pre_conjs))
-        if n.step_conjs:
+        if pos.op is not None:
             if pi == 0:
-                raise ParallelUnsupported("head filter reads captures")
+                raise ParallelUnsupported("logical and/or head")
             if sequence:
-                # the strict next event is KNOWN (j+1): evaluate the
-                # conjunction directly, no monotonicity needed
-                hop.step_conjs = list(n.step_conjs)
-                _check_step_reads(n.step_conjs, n.ref, ref_of, param_extra)
-            else:
-                if len(n.step_conjs) > 1:
+                raise ParallelUnsupported(
+                    "logical and/or position in a strict sequence")
+            if spec.positions[pi - 1].is_count:
+                raise ParallelUnsupported("logical position after a count "
+                                          "(no station to consume the arm)")
+            nodes = []
+            for n in pos.nodes:
+                if n.step_conjs:
                     raise ParallelUnsupported(
-                        "multiple capture-dependent conjuncts on one "
-                        "position (first-match of a conjunction is not "
-                        "decomposable)")
-                hop.threshold = _lower_threshold(n, n.step_asts[0], spec,
-                                                 strings, ref_of, param_extra)
-        pp = PPos("single", [hop], pos.within_ms)
+                        "capture-dependent filter on a logical position")
+                nodes.append(HopNode(n.ref, n.scode, list(n.pre_conjs)))
+            pp = PPos("logical", nodes, pos.within_ms, op=pos.op)
+            if pos.op == "or":
+                or_refs.update(n.ref for n in pos.nodes)
+        elif pos.is_count:
+            if sequence:
+                raise ParallelUnsupported(
+                    "count quantifier in a strict sequence")
+            if pos.min_count < 1:
+                raise ParallelUnsupported(
+                    "optional count quantifier (min 0 arms on entry)")
+            if pi > 0 and spec.positions[pi - 1].is_count:
+                raise ParallelUnsupported("adjacent count positions")
+            if pi == S - 1 and (pos.max_count >= UNBOUNDED
+                                or pos.max_count - pos.min_count + 1 > 8):
+                raise ParallelUnsupported(
+                    "unbounded or wide count in the final position "
+                    "(one emission lane per allowed occurrence)")
+            n = pos.nodes[0]
+            if n.step_conjs:
+                raise ParallelUnsupported(
+                    "capture-dependent filter on a count position")
+            pp = PPos("count", [HopNode(n.ref, n.scode, list(n.pre_conjs))],
+                      pos.within_ms, min_count=pos.min_count,
+                      max_count=pos.max_count)
+            count_refs.add(n.ref)
+        else:
+            n = pos.nodes[0]
+            hop = HopNode(n.ref, n.scode, list(n.pre_conjs))
+            if n.step_conjs:
+                if pi == 0:
+                    raise ParallelUnsupported("head filter reads captures")
+                if sequence:
+                    # the strict next event is KNOWN (j+1): evaluate the
+                    # conjunction directly, no monotonicity needed
+                    hop.step_conjs = list(n.step_conjs)
+                    _check_step_reads(n.step_conjs, n.ref, ref_of,
+                                      count_refs, param_extra)
+                else:
+                    if len(n.step_conjs) > 1:
+                        raise ParallelUnsupported(
+                            "multiple capture-dependent conjuncts on one "
+                            "position (first-match of a conjunction is not "
+                            "decomposable)")
+                    hop.threshold = _lower_threshold(
+                        n, n.step_asts[0], spec, strings, ref_of,
+                        param_extra, count_refs, or_refs)
+            pp = PPos("single", [hop], pos.within_ms)
         positions.append(pp)
-        ref_of[hop.ref] = (pi, 0)
+        for ni, hn in enumerate(pp.nodes):
+            ref_of[hn.ref] = (pi, ni)
     return ParallelProgram(positions, list(spec.stream_ids),
                            dict(spec.schemas), ref_of, sequence=sequence,
                            single_arm=single_arm)
 
 
-def _check_step_reads(step_conjs, own_ref, ref_of, param_extra=None):
+def _check_step_reads(step_conjs, own_ref, ref_of, count_refs=(),
+                      param_extra=None):
     """Sequence-mode step conjuncts: reads must be the own event's
-    columns, earlier captures, params or __timestamp__."""
+    columns, earlier frozen captures, params or __timestamp__."""
     for ce in step_conjs:
         for k in ce.reads:
             if k == "__timestamp__" or (param_extra and k in param_extra):
@@ -174,13 +236,17 @@ def _check_step_reads(step_conjs, own_ref, ref_of, param_extra=None):
             base = _base_ref(k.split(".", 1)[0])[0]
             if base == own_ref:
                 continue
+            if base in count_refs:
+                raise ParallelUnsupported(
+                    "step filter reads a still-collecting count capture")
             if base not in ref_of:
                 raise ParallelUnsupported(
                     f"step filter reads unresolved key {k!r}")
 
 
 def _lower_threshold(node, cond, spec, strings, ref_of,
-                     param_extra=None) -> HopThreshold:
+                     param_extra=None, count_refs=(),
+                     or_refs=()) -> HopThreshold:
     """`own.attr OP expr(earlier captures)` -> HopThreshold, else raise."""
     if not isinstance(cond, ast.Compare) or cond.op not in _OPN:
         raise ParallelUnsupported(
@@ -217,6 +283,16 @@ def _lower_threshold(node, cond, spec, strings, ref_of,
         raise ParallelUnsupported(
             f"threshold rhs reads non-capture keys {sorted(bad)!r} "
             f"(own event / timestamp / later positions)")
+    for k in rhs.reads:
+        if "." not in k:
+            continue
+        base = _base_ref(k.split(".", 1)[0])[0]
+        if base in count_refs:
+            raise ParallelUnsupported(
+                "threshold rhs reads a still-collecting count capture")
+        if base in or_refs:
+            raise ParallelUnsupported(
+                "threshold rhs reads a maybe-absent `or` capture")
     return HopThreshold(f"{node.ref}.{attr}", op, rhs, own_t)
 
 
@@ -224,20 +300,34 @@ def classify_parallel(spec: ChainSpec, kernel: NFAKernel, strings,
                       param_extra: Optional[dict] = None) -> dict:
     """{'scan': True | reason} for one lowered chain.  True means the
     family is sound for this ChainSpec; a string is the ineligibility
-    reason (the plan's `families` entry)."""
+    reason (the plan's `families` entry), as classify_parallel of the JAX
+    package (nfa_parallel.py:345-383) gives it."""
     try:
         prog = lower_parallel(spec, strings, param_extra)
+        count_refs = prog.count_refs
+        logical_refs = {n.ref for p in prog.positions
+                        if p.kind == "logical" for n in p.nodes}
         for ce in (list(kernel.sel_fns.values())
                    + ([kernel.having] if kernel.having else [])):
+            is_having = kernel.having is not None and ce is kernel.having
             for k in ce.reads:
                 if "." not in k or k.startswith("__"):
                     continue
                 base, cidx = _base_ref(k.split(".", 1)[0])
-                if cidx is not None and not (cidx == "last"
-                                             and base in prog.ref_of):
+                if cidx is not None:
+                    if base in count_refs and (
+                            cidx in ("last", "last-1") or cidx.isdigit()):
+                        pass            # rank/select-resolvable
+                    elif cidx == "last" and base in prog.ref_of:
+                        pass            # [last] over a (1,1) ref == plain
+                    else:
+                        raise ParallelUnsupported(
+                            f"indexed capture read {k!r} outside a count "
+                            f"position")
+                if is_having and base in logical_refs:
                     raise ParallelUnsupported(
-                        f"indexed capture read {k!r} outside a count "
-                        f"position")
+                        "having reads a capture of a logical (maybe-"
+                        "absent) position")
     except ParallelUnsupported as e:
         return {"scan": str(e)}
     return _classify_prog(prog)
@@ -280,30 +370,42 @@ def tree_vt(own: torch.dtype, rhs: torch.dtype) -> int:
 @dataclass
 class TreeSpec:
     """One segment tree K3 builds per lane: heap type, max or min, the
-    leaf column (None: the constant 1 of a static hop's mask tree) and
-    the chain position whose node mask gates the leaves (None: validity
-    only, the timestamp tree)."""
+    leaf column (None: the constant 1 of a static hop's mask tree), the
+    flat chain node whose node mask gates the leaves (None: validity
+    only), and whether the column is a per-lane (L, F) tensor (a rank
+    column) rather than an event grid."""
     vt: int
     agg: str
     src: Optional[str]
     node: Optional[int]
+    lane: bool = False
 
 
 @dataclass
 class HopSpec:
     """What K4 does at one position below the head."""
-    kind: str                     # "static" | "threshold" | "strict"
+    kind: str       # "static" | "threshold" | "strict" | "logical" |
+    #                 "count" | "final" (a count in the final position)
     within: int
-    tree: int = -1                # TreeSpec index (static/threshold)
+    tree: int = -1                # TreeSpec index (static/threshold/left)
     op: str = "gt"                # threshold compare (static: gt 0)
     prog: Optional[Program] = None    # rhs, or the strict step conjunction
+    tree2: int = -1               # logical: the right side's tree
+    is_or: bool = False           # logical: `or` (else `and`)
+    prev: tuple = (-1, -1)        # logical `and`: prev columns per side
+    sides: tuple = (-1, -1)       # logical: idx rows of the sides
+    bits: tuple = (-1, -1)        # logical `or`: presence bits per side
+    rank: int = -1                # count: its rank column / tree
+    min_count: int = 1
+    max_count: int = 1
 
 
 class ParallelChainKernel:
     """Stateless block of the `scan` family over an (L, F) lane grid (the
-    flat block is L = 1): K1 pre-masks -> K3 trees -> K4 chase -> K5
-    dedup and compaction into the NFAKernel's match table, whose rows the
-    plan's selector pass (K1) and unpack read exactly as for `seq`.
+    flat block is L = 1): K1 pre-masks -> K3 trees -> K6 ranks and prev
+    pointers -> K3 rank trees -> K4 chase -> K5 dedup and compaction into
+    the NFAKernel's match table, whose rows the plan's selector pass (K1)
+    and unpack read exactly as for `seq`.
 
     `ev` holds "__flat.__ts__", "__flat.__seq__" (G, F) i32 offsets from
     the flush's bases, "__flat.__scode__" (several streams), one
@@ -312,31 +414,77 @@ class ParallelChainKernel:
     lane's last emitted completion seq), "__arm_done__" (L,) i32 for
     one-shot heads, "__lane_qid__" (L,) i32 for fused lanes, and the ints
     "__base_ts__", "__base_seq__".  G is L, or 1 when the lanes are a
-    fused group's query instances sharing one row of events."""
+    fused group's query instances sharing one row of events.
+
+    K4's `idx` rows: row pi-1 holds the event index resolved at position
+    pi >= 1 (a count's: its min-th occurrence; a final count's: its
+    entry), then two rows per logical position (each side's capture
+    index), then, for a final count, one row per candidate occurrence c
+    (its completion index).  K4 and K5 address them as `loc` = row + 1,
+    0 meaning the head and -1 the hop's start s."""
 
     def __init__(self, prog: ParallelProgram, nfak: NFAKernel):
         self.prog = prog
         self.nfak = nfak
-        self.S = prog.S
+        self.S = S = prog.S
         self.multi = len(prog.stream_ids) > 1
         self.grid_keys = list(nfak.grid_keys)
-        scode_of = {p.nodes[0].ref: p.nodes[0].scode for p in prog.positions}
+        self.pos_node = list(nfak.pos_node)
+        nodes = nfak.spec.all_nodes
+        self.node_scode = [n.scode for n in nodes]
+        scode_of = {n.ref: n.scode for n in nodes}
 
         def col_key(ref: str, attr: str) -> str:
             key = f"{scode_of[ref]}.{attr}"
             if key not in self.grid_keys:
                 raise ParallelUnsupported(f"no grid column for {ref}.{attr}")
             return f"__flat.{key}"
-        self.node_scode = [p.nodes[0].scode for p in prog.positions]
 
-        # VM loads of K4's programs: (column key, position) -- the column
-        # at the position's resolved index, or at s (position -1)
+        # ---- K4's index rows -------------------------------------------
+        self.pos_row = {pi: pi - 1 for pi in range(1, S)}
+        self.side_row: dict = {}          # logical side ref -> idx row
+        self.pres_bit: dict = {}          # `or` side ref -> presence bit
+        r = S - 1
+        for li, pos in enumerate(p for p in prog.positions
+                                 if p.kind == "logical"):
+            for ni, hn in enumerate(pos.nodes):
+                self.side_row[hn.ref] = r
+                r += 1
+                if pos.op == "or":
+                    self.pres_bit[hn.ref] = 2 * li + ni
+        last = prog.positions[-1]
+        self.final_count = last.kind == "count"
+        self.C = last.max_count - last.min_count + 1 \
+            if self.final_count else 1
+        if self.final_count:
+            self.comp_rows = list(range(r, r + self.C))
+            r += self.C
+        else:
+            self.comp_rows = [S - 2]
+        self.n_idx = r
+        self.counts = [pi for pi, p in enumerate(prog.positions)
+                       if p.kind == "count"]
+        self.rank_of = {pi: ci for ci, pi in enumerate(self.counts)}
+        self.rank_trees = [TreeSpec(VT_OF_TORCH[torch.int64], "max",
+                                    f"__rank.{ci}", None, lane=True)
+                           for ci in range(len(self.counts))]
+        self.prev_nodes: list = []        # flat node of each prev column
+
+        def loc_of(base: str) -> int:
+            pi, _ni = prog.ref_of[base]
+            if pi == 0:
+                return 0
+            if base in self.side_row:
+                return self.side_row[base] + 1
+            return self.pos_row[pi] + 1
+
+        # VM loads of K4's programs: (column key, loc)
         self.loads: list = []
 
-        def slot(key: str, pos: int) -> int:
-            if (key, pos) not in self.loads:
-                self.loads.append((key, pos))
-            return self.loads.index((key, pos))
+        def slot(key: str, loc: int) -> int:
+            if (key, loc) not in self.loads:
+                self.loads.append((key, loc))
+            return self.loads.index((key, loc))
 
         key_vt = {f"__flat.{si}.{a}": VT_OF_TORCH[grid_dtype(t)]
                   for si, a, t in nfak.grid_attrs}
@@ -350,9 +498,14 @@ class ParallelChainKernel:
                 refpart, attr = k.split(".", 1)
                 base = _base_ref(refpart)[0]
                 key = col_key(base, attr)
-                pos = -1 if base == own else prog.ref_of[base][0]
-                out[k] = (slot(key, pos), key_vt[key])
+                out[k] = (slot(key, -1 if base == own else loc_of(base)),
+                          key_vt[key])
             return out
+
+        def mask_tree(gi: int) -> int:
+            self.trees.append(TreeSpec(VT_OF_TORCH[torch.int32], "max",
+                                       None, gi))
+            return len(self.trees) - 1
 
         self.trees: list = []
         self.hops: list = []
@@ -363,10 +516,31 @@ class ParallelChainKernel:
                                        "__flat.__ts__", None))
         try:
             with compute_dtypes(F32_MODE):
-                for pi in range(1, self.S):
+                for pi in range(1, S):
                     pos = prog.positions[pi]
+                    gi = self.pos_node[pi]
                     hop = pos.nodes[0]
-                    if prog.sequence:
+                    if pos.kind == "logical":
+                        prev = [-1, -1]
+                        if pos.op == "and":
+                            for ni in range(2):
+                                prev[ni] = len(self.prev_nodes)
+                                self.prev_nodes.append(gi + ni)
+                        self.hops.append(HopSpec(
+                            "logical", pos.within_ms, mask_tree(gi),
+                            tree2=mask_tree(gi + 1), is_or=pos.op == "or",
+                            prev=tuple(prev),
+                            sides=tuple(self.side_row[n.ref]
+                                        for n in pos.nodes),
+                            bits=tuple(self.pres_bit.get(n.ref, -1)
+                                       for n in pos.nodes)))
+                    elif pos.kind == "count":
+                        self.hops.append(HopSpec(
+                            "final" if pi == S - 1 else "count",
+                            pos.within_ms, rank=self.rank_of[pi],
+                            min_count=pos.min_count,
+                            max_count=pos.max_count))
+                    elif prog.sequence:
                         prog_ = None
                         if hop.step_conjs:
                             # the arriving event's columns and timestamp
@@ -390,28 +564,52 @@ class ParallelChainKernel:
                                            capture_slots(th.rhs.reads, None))
                         self.trees.append(TreeSpec(
                             vt, "max" if th.op in ("gt", "ge") else "min",
-                            own_key, pi))
+                            own_key, gi))
                         self.hops.append(HopSpec(
                             "threshold", pos.within_ms, len(self.trees) - 1,
                             th.op, rhs))
                     else:
-                        self.trees.append(TreeSpec(VT_OF_TORCH[torch.int32],
-                                                   "max", None, pi))
                         self.hops.append(HopSpec("static", pos.within_ms,
-                                                 len(self.trees) - 1))
+                                                 mask_tree(gi)))
         except ExprError as e:
             raise ParallelUnsupported(f"not in the device VM: {e}") from None
+        head = prog.positions[0]
+        self.head = HopSpec("count", head.within_ms,
+                            rank=self.rank_of[0], min_count=head.min_count,
+                            max_count=head.max_count) \
+            if head.kind == "count" else None
 
         # K5's match-table rows: per row of out_i / out_f / out_l, its
-        # source -- ("col", column key, position) or ("comp_ts",) /
-        # ("comp_seq",) / ("head_seq",) / ("qid",)
+        # source -- ("col", column key, loc), ("cnt", column key, count
+        # position, mode, arg), ("pres_bit", bit), ("pres_cnt", count
+        # position, want), ("one",), or ("comp_ts",) / ("comp_seq",) /
+        # ("head_seq",) / ("qid",)
         def row_src(name: str):
             if name in ("__comp_ts__", "__comp_seq__", "__head_seq__",
                         "__qid__"):
                 return (name[2:-2],)
+            if name.startswith("__present__."):
+                base, cidx = _base_ref(name[len("__present__."):])
+                pi = prog.ref_of[base][0]
+                if prog.positions[pi].kind == "count":
+                    return ("pres_cnt", pi,
+                            1 if cidx is None else _index_want(cidx))
+                if base in self.pres_bit:
+                    return ("pres_bit", self.pres_bit[base])
+                return ("one",)
             refpart, attr = name.split(".", 1)
-            base = _base_ref(refpart)[0]
-            return ("col", col_key(base, attr), prog.ref_of[base][0])
+            base, cidx = _base_ref(refpart)
+            pi = prog.ref_of[base][0]
+            key = col_key(base, attr)
+            if prog.positions[pi].kind != "count":
+                return ("col", key, loc_of(base))
+            if cidx is None or cidx == "last":
+                mode, arg = (CNT_COMP, 0) if pi == S - 1 else (CNT_Q, 0)
+            elif cidx == "last-1":
+                mode, arg = CNT_Q, -1
+            else:
+                mode, arg = CNT_FIXED, int(cidx) + 1
+            return ("cnt", key, pi, mode, arg)
         self.rows = {"i": [row_src(n) for n in nfak.lane_names_i],
                      "f": [row_src(n) for n in nfak.rows_f],
                      "l": [row_src(n) for n in nfak.rows_l]}
@@ -437,7 +635,7 @@ class ParallelChainKernel:
                       qparams=self.nfak.params)
 
     def pre_masks(self, ev: dict) -> list:
-        """One bit-packed word array per position over the (L*F,)
+        """One bit-packed word array per chain node over the (L*F,)
         lane grid (None where the node has no event-only conjunct)."""
         from ..kernels.expr_eval import expr_eval
         L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
@@ -454,13 +652,48 @@ class ParallelChainKernel:
             out.append(words)
         return out
 
+    def rank_cols(self, masks: list) -> list:
+        """K6 columns of the `rank` use: each count position's node mask
+        over the flattened (L*F,) lane grid."""
+        return [("sum", masks[self.pos_node[pi]].reshape(-1), False)
+                for pi in self.counts]
+
+    def prev_cols(self, masks: list) -> list:
+        """K6 columns of the `prev` use: the lane-local event index (no
+        values: K6 derives it from `period`), masked by each `and`
+        side's node mask."""
+        return [("max", None, True, masks[gi].reshape(-1))
+                for gi in self.prev_nodes]
+
+    def lane_scans(self, ev: dict, masks: list) -> tuple:
+        """K6 over the flattened (L*F,) lane grid, one segment per lane:
+        the inclusive occurrence rank of each count position's node mask
+        (`use="rank"`) and the prev-match pointer of each `and` side
+        (`use="prev"`, the i64 minimum before the lane's first match);
+        each an (L, F) int64 tensor."""
+        from ..kernels.win_scan import win_scan
+        L, F = masks[0].shape
+        out = []
+        for use, cols in (("rank", self.rank_cols(masks)),
+                          ("prev", self.prev_cols(masks))):
+            out.append([r.view(L, F) for r in win_scan(
+                cols, L * F, use=use, period=F)] if cols else [])
+        return tuple(out)
+
     def run_block(self, ev: dict, M: int) -> dict:
-        """K1 pre-masks -> K3 -> K4 -> K5: the match table of one (L, F)
-        block (see scan_compact for its layout)."""
+        """K1 pre-masks -> K3 -> K6 -> K3 rank trees -> K4 -> K5: the
+        match table of one (L, F) block (see scan_compact for its
+        layout)."""
         from ..kernels.scan_chase import scan_chase
         from ..kernels.scan_compact import scan_compact
-        from ..kernels.seg_tree import seg_tree
+        from ..kernels.seg_tree import node_masks, seg_tree
         pre = self.pre_masks(ev)
         heaps = seg_tree(self, ev, pre)
-        status, idx = scan_chase(self, ev, pre, heaps)
-        return scan_compact(self, ev, status, idx, M)
+        ranks, prevs, rheaps = [], [], []
+        if self.counts or self.prev_nodes:
+            ranks, prevs = self.lane_scans(ev, node_masks(self, ev, pre))
+            rheaps = seg_tree(self, ev, pre, self.rank_trees,
+                              {f"__rank.{ci}": r
+                               for ci, r in enumerate(ranks)})
+        chase = scan_chase(self, ev, pre, heaps, ranks, rheaps, prevs)
+        return scan_compact(self, ev, chase, ranks, rheaps, M)

@@ -548,8 +548,8 @@ class DevicePatternPlan(QueryPlan):
                       self.device) for k, v in ev.items()}
         dev_ev["__base_ts__"] = ts_base
         dev_ev["__base_seq__"] = seq_base
-        # one completion per head and lane
-        M = max(int(ev["__nev__"].sum()), 1)
+        # one completion per head and lane (C per head for a final count)
+        M = max(int(ev["__nev__"].sum()) * kern.C, 1)
         out = kern.run_block(dev_ev, M)
         self.blocks_run += 1
         return self._materialize_par(out, M, ts_base, seq_base)
@@ -604,7 +604,7 @@ class DevicePatternPlan(QueryPlan):
             while True:
                 st, out = self.kernel.run_block(pre, ev, M)
                 self.blocks_run += 1
-                n, ofs, dlm = out["meta"].cpu().tolist()
+                n, ofs, dlm, ofl = out["meta"].cpu().tolist()
                 if n <= M:
                     break
                 M = pow2_at_least(n) if self.broadcast_events \
@@ -613,6 +613,12 @@ class DevicePatternPlan(QueryPlan):
             if ofs > self._of_slots_seen and self.kernel.A < self.A_CAP:
                 self._resize(self.P, min(2 * self.kernel.A, self.A_CAP))
                 continue            # re-run this block from `pre`, wider
+            if ofl > 0:
+                # a final count's emission burst outran the E lanes:
+                # double E and re-run this block from `pre`
+                self.kernel = self.kernel.with_shape(self.P, self.kernel.A,
+                                                     2 * self.kernel.E)
+                continue
             if ofs > self._of_slots_seen:
                 warnings.warn(
                     f"pattern {self.name!r}: pending-match slots hit the "
@@ -628,8 +634,9 @@ class DevicePatternPlan(QueryPlan):
         return results
 
     def _unpack(self, out: dict, n: int):
-        """Columnar match table (tss, seqs, hseqs, data, qids) of one
-        block (qids None outside a fused group)."""
+        """Columnar match table (tss, seqs, hseqs, data, qids, nulls) of
+        one block (qids None outside a fused group; nulls maps an output
+        to its NULL rows)."""
         if n == 0:
             return None
         words, sel = self.kernel.select(out, n, self._ts_base)
@@ -648,7 +655,14 @@ class DevicePatternPlan(QueryPlan):
         data = {nm: s.cpu().numpy()[valid].astype(dtype_of(t))
                 for nm, t, s in zip(self._names, self._types, sel)}
         qids = row["__qid__"][valid] if self.broadcast_events else None
-        return tss, seqs, hseqs, data, qids
+        # a zero presence row makes the output NULL (an `or` loser, an
+        # unfilled index; pattern_plan.py:1412-1418 of the JAX package)
+        nulls = {}
+        for nm, ref in k.null_outputs.items():
+            mask = row[f"__present__.{ref}"][valid] == 0
+            if mask.any():
+                nulls[nm] = mask
+        return tss, seqs, hseqs, data, qids, nulls
 
     def _rows_to_batches(self, chunks: list) -> list:
         chunks = [c for c in chunks if c is not None]
@@ -659,6 +673,11 @@ class DevicePatternPlan(QueryPlan):
         hseqs = np.concatenate([c[2] for c in chunks])
         data = {nm: np.concatenate([c[3][nm] for c in chunks])
                 for nm in self._names}
+        nulls = {}
+        for nm in {nm for c in chunks for nm in c[5]}:
+            nulls[nm] = np.concatenate([c[5].get(nm, np.zeros(len(c[0]),
+                                                               bool))
+                                        for c in chunks])
         # emit in completion order; same-event ties by head arrival
         o = np.lexsort((hseqs, seqs))
         if self.offset:
@@ -669,7 +688,8 @@ class DevicePatternPlan(QueryPlan):
             return []
         batch = EventBatch(self.out_schema, tss[o].astype(TIMESTAMP_DTYPE),
                            {nm: data[nm][o] for nm in self._names}, len(o),
-                           seqs[o])
+                           seqs[o], {nm: m[o] for nm, m in nulls.items()}
+                           or None)
         return [OutputBatch(self.output_target, batch)]
 
     def finalize_multi(self):

@@ -2,16 +2,24 @@
 // into the NFAKernel's match table.
 //
 // Replaces the emission tail of siddhi_tpu/core/nfa_parallel.py
-// _block_impl: the dedup of replayed completions (:1031, seq[comp] >
+// _block_impl: the candidates of each head (one, or C for a final count,
+// :1009-1027), the dedup of replayed completions (:1031, seq[comp] >
 // prev_seq per lane), the single-arm filter and flag (:1034-1053), the
 // exclusive prefix count and scatter into M rows (:1056-1072) and the
-// gathers of the captured columns (:1079-1137, single positions), vmapped
-// there over the lane axis.  Here the lanes are compacted into ONE table,
-// lane-major, each lane's rows in head order (the order of the JAX
-// cumsum), so the plan reads it exactly like the sequential kernel's.
+// gathers of the captured columns and presence rows (:1079-1154): single
+// positions and logical sides at the indices K4 resolved, count captures
+// by rank/select at the match (a `ge` first-hit on the count's rank tree:
+// [last] at occurrence q, [last-1] at q - 1, [i] at i + 1, each present
+// when q reaches it, q = min + c for a final count, else the rank at the
+// completion less the base, capped at max), vmapped there over the lane
+// axis.  Here the lanes are compacted into ONE table, lane-major, each
+// lane's rows c-major and in head order (the order of the JAX cumsum
+// over its (C, F) candidates), so the plan reads it exactly like the
+// sequential kernel's.
 //   pass 0 (one-shot heads only): h0[lane] = first head-mask index
 //           (block min, one atomicMin per block);
-//   pass 1: one block per (1024 candidates, lane): live count per tile;
+//   pass 1: one block per (1024 of a lane's C * F candidates, lane): live
+//           count per tile;
 //   pass 2: one block: exclusive scan of the tile counts (the match
 //           total lands in meta[0]);
 //   pass 3: one block per tile again: block scan of the live bits, rows
@@ -22,19 +30,26 @@
 // Event columns are read at lane * ev_stride + i: a fused multi-query
 // group's lanes share one row of events (ev_stride 0), and a __qid__ row
 // takes the lane's query id (lane_qid[lane], nfa_parallel.py:1146).
+// A chain with no count or logical position (alg 0) runs passes 1 and 3
+// without candidates (C = 1) and without the count and presence rows.
 // Python side: kernels/scan_compact.py.
-#include "expr_vm.cuh"
+#include "seg_tree.cuh"
 
 #define CP_THREADS 256
 #define CP_ITEMS 4
 #define CP_TILE (CP_THREADS * CP_ITEMS)
 #define FULL 0xffffffffu
+#define UNBOUNDED 1000000000
 
-enum RowKind { ROW_COL = 0, ROW_COMP_TS = 1, ROW_COMP_SEQ = 2, ROW_HEAD_SEQ = 3, ROW_QID = 4 };
+enum RowKind {
+  ROW_COL = 0, ROW_COMP_TS = 1, ROW_COMP_SEQ = 2, ROW_HEAD_SEQ = 3, ROW_QID = 4, ROW_CNT = 5,
+  ROW_PRES_BIT = 6, ROW_PRES_CNT = 7, ROW_ONE = 8
+};
+enum CntMode { CNT_COMP = 0, CNT_Q = 1, CNT_FIXED = 2 };
 enum { ARM_NONE = 0, ARM_PENDING = 1, ARM_RESOLVED = 2 };
 
 struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
-  int L, F, S, M, single, ntiles, n_rows, ev_stride;
+  int L, F, S, M, single, ntiles, n_rows, ev_stride, C, Lt, alg;
   const int* seq;
   const int* ts;
   const int* prev;
@@ -42,6 +57,15 @@ struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
   const int* lane_qid;
   const unsigned char* status;
   const int* idx;
+  const unsigned char* cand;
+  const int* pres;
+  const int* comp_row;
+  const long long* const* rank;       // (L, F) per count position
+  const long long* const* rank_heap;  // (L, 2 Lt) per count position
+  const int* cnt_rank;    // per position: its rank column, -1 none
+  const int* cnt_min;
+  const int* cnt_max;
+  const int* cnt_entry;   // loc of the entry event, -1 for a count head
   int* h0;
   int* tile_off;
   int* lane_cnt;
@@ -53,27 +77,62 @@ struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
   const void* const* row_col;
   const int* row_vt;
   const int* row_kind;
-  const int* row_pos;
+  const int* row_pos;     // ROW_COL: loc (0 head, r + 1 idx row r)
   const int* row_group;   // 0 out_i, 1 out_f, 2 out_l
   const int* row_index;   // row inside its group
+  const int* row_cnt;     // ROW_CNT / ROW_PRES_CNT: the count position
+  const int* row_mode;    // ROW_CNT: CntMode
+  const int* row_arg;     // CNT_Q offset, CNT_FIXED occurrence, bit, want
 };
 
-__device__ __forceinline__ int comp_of(const CompactParams& p, long long row, int j) {
-  const long long plane = static_cast<long long>(p.L) * p.F;
-  return p.idx[(p.S - 2) * plane + row + j];
+__device__ __forceinline__ long long plane_of(const CompactParams& p) {
+  return static_cast<long long>(p.L) * p.F;
 }
 
-__device__ __forceinline__ bool live_at(const CompactParams& p, int lane, int j) {
-  if (j >= p.F) return false;
+// Completion index of candidate c of head j.
+__device__ __forceinline__ int comp_of(const CompactParams& p, long long row, int j, int c) {
+  return p.idx[p.comp_row[c] * plane_of(p) + row + j];
+}
+
+// Candidate q of a lane (c-major: c = q / F, head j = q % F): live when its
+// chain completed, its completion is new to this flush, and, for a
+// one-shot head, it is the lane's first head and the arm is not resolved.
+template <bool ALG>
+__device__ __forceinline__ bool live_at(const CompactParams& p, int lane, int q) {
+  if (q >= (ALG ? p.C * p.F : p.F)) return false;
+  const int c = ALG ? q / p.F : 0, j = ALG ? q % p.F : q;
   const long long row = static_cast<long long>(lane) * p.F;
-  if (!(p.status[row + j] & 1)) return false;
+  if (!((p.cand[row + j] >> c) & 1)) return false;
   const long long erow = static_cast<long long>(lane) * p.ev_stride;
-  if (p.seq[erow + comp_of(p, row, j)] <= p.prev[lane]) return false;
+  if (p.seq[erow + comp_of(p, row, j, c)] <= p.prev[lane]) return false;
   if (p.single) {
     if (j != p.h0[lane]) return false;
     if (p.arm_done != nullptr && p.arm_done[lane] != 0) return false;
   }
   return true;
+}
+
+// The count at position pi for one match: its start s, rank base ra and
+// the occurrences q the match collected (min + c for a final count, the
+// rank at the completion less ra, capped at max, elsewhere).
+__device__ void count_ctx(const CompactParams& p, int pi, long long row, int j, int c, int comp,
+                          int& s, long long& ra, long long& q) {
+  const long long* rk = p.rank[p.cnt_rank[pi]] + row;
+  const int e = p.cnt_entry[pi];
+  if (e < 0) {
+    s = j;
+    ra = rk[j] - 1;
+  } else {
+    const int ent = e == 0 ? j : p.idx[(e - 1) * plane_of(p) + row + j];
+    s = ent + 1;
+    ra = rk[ent];
+  }
+  if (pi == p.S - 1) {
+    q = p.cnt_min[pi] + c;
+  } else {
+    q = rk[comp] - ra;
+    if (p.cnt_max[pi] < UNBOUNDED && q > p.cnt_max[pi]) q = p.cnt_max[pi];
+  }
 }
 
 // Exclusive block scan of one int per thread; *total gets the block sum.
@@ -120,12 +179,13 @@ __global__ void h0_kernel(const __grid_constant__ CompactParams p) {
   if (threadIdx.x == 0 && best < p.F) atomicMin(&p.h0[lane], best);
 }
 
+template <bool ALG>
 __global__ void count_kernel(const __grid_constant__ CompactParams p) {
   const int lane = static_cast<int>(blockIdx.x / p.ntiles);
   const int base = static_cast<int>(blockIdx.x % p.ntiles) * CP_TILE;
   int c = 0;
   for (int k = 0; k < CP_ITEMS; ++k)
-    c += live_at(p, lane, base + threadIdx.x * CP_ITEMS + k) ? 1 : 0;
+    c += live_at<ALG>(p, lane, base + threadIdx.x * CP_ITEMS + k) ? 1 : 0;
   int total;
   block_scan(c, &total);
   if (threadIdx.x == 0) p.tile_off[blockIdx.x] = total;
@@ -150,6 +210,38 @@ __global__ void offsets_kernel(const __grid_constant__ CompactParams p) {
   }
 }
 
+// A count or presence row of one match (ROW_PRES_BIT, ROW_PRES_CNT,
+// ROW_CNT): an `or` side's presence bit, a per-index presence, or a count
+// capture at its occurrence by rank/select.
+__device__ VmVal count_row(const CompactParams& p, int r, int lane, long long row,
+                           long long erow, int j, int c, int comp) {
+  switch (p.row_kind[r]) {
+    case ROW_PRES_BIT: return vm_i((p.pres[row + j] >> p.row_arg[r]) & 1);
+    case ROW_PRES_CNT: {
+      int s;
+      long long ra, qn;
+      count_ctx(p, p.row_cnt[r], row, j, c, comp, s, ra, qn);
+      return vm_i(qn >= p.row_arg[r] ? 1 : 0);
+    }
+    default: {
+      int at = comp;
+      if (p.row_mode[r] != CNT_COMP) {
+        const int pi = p.row_cnt[r];
+        int s;
+        long long ra, qn;
+        count_ctx(p, pi, row, j, c, comp, s, ra, qn);
+        const long long want = p.row_mode[r] == CNT_Q ? qn + p.row_arg[r] : p.row_arg[r];
+        const long long* heap = p.rank_heap[p.cnt_rank[pi]] +
+                                static_cast<long long>(lane) * 2 * p.Lt;
+        at = first_hit(heap, VT_I64, p.Lt, s, vm_l(ra + want), TOP_GE);
+        at = at < 0 ? 0 : (at > p.F - 1 ? p.F - 1 : at);
+      }
+      return vm_read(p.row_col[r], p.row_vt[r], erow + at);
+    }
+  }
+}
+
+template <bool ALG>
 __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
   const int lane = static_cast<int>(blockIdx.x / p.ntiles);
   const int tile = static_cast<int>(blockIdx.x % p.ntiles);
@@ -157,19 +249,20 @@ __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
   const long long row = static_cast<long long>(lane) * p.F;
   const long long erow = static_cast<long long>(lane) * p.ev_stride;
   bool live[CP_ITEMS];
-  int c = 0;
+  int cnt = 0;
   for (int k = 0; k < CP_ITEMS; ++k) {
-    live[k] = live_at(p, lane, base + threadIdx.x * CP_ITEMS + k);
-    c += live[k] ? 1 : 0;
+    live[k] = live_at<ALG>(p, lane, base + threadIdx.x * CP_ITEMS + k);
+    cnt += live[k] ? 1 : 0;
   }
   int total;
-  int pos = p.tile_off[blockIdx.x] + block_scan(c, &total);
-  const long long plane = static_cast<long long>(p.L) * p.F;
+  int pos = p.tile_off[blockIdx.x] + block_scan(cnt, &total);
+  const long long plane = plane_of(p);
   for (int k = 0; k < CP_ITEMS; ++k) {
     if (!live[k]) continue;
-    const int j = base + threadIdx.x * CP_ITEMS + k;
+    const int q = base + threadIdx.x * CP_ITEMS + k;
+    const int c = ALG ? q / p.F : 0, j = ALG ? q % p.F : q;
     if (pos < p.M) {
-      const int comp = comp_of(p, row, j);
+      const int comp = comp_of(p, row, j, c);
       for (int r = 0; r < p.n_rows; ++r) {
         VmVal v;
         switch (p.row_kind[r]) {
@@ -177,6 +270,12 @@ __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
           case ROW_COMP_SEQ: v = vm_i(p.seq[erow + comp]); break;
           case ROW_HEAD_SEQ: v = vm_i(p.seq[erow + j]); break;
           case ROW_QID: v = vm_i(p.lane_qid[lane]); break;
+          case ROW_ONE: v = vm_i(1); break;
+          case ROW_PRES_BIT:
+          case ROW_PRES_CNT:
+          case ROW_CNT:
+            v = ALG ? count_row(p, r, lane, row, erow, j, c, comp) : vm_i(0);
+            break;
           default: {
             const int at = p.row_pos[r] == 0 ? j
                            : p.idx[(p.row_pos[r] - 1) * plane + row + j];
@@ -212,10 +311,16 @@ extern "C" int scan_compact_launch(const CompactParams* params, cudaStream_t str
     h0_kernel<<<blocks, CP_THREADS, 0, stream>>>(*params);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  count_kernel<<<blocks, CP_THREADS, 0, stream>>>(*params);
+  if (params->alg)
+    count_kernel<true><<<blocks, CP_THREADS, 0, stream>>>(*params);
+  else
+    count_kernel<false><<<blocks, CP_THREADS, 0, stream>>>(*params);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   offsets_kernel<<<1, CP_THREADS, 0, stream>>>(*params);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scatter_kernel<<<blocks, CP_THREADS, 0, stream>>>(*params);
+  if (params->alg)
+    scatter_kernel<true><<<blocks, CP_THREADS, 0, stream>>>(*params);
+  else
+    scatter_kernel<false><<<blocks, CP_THREADS, 0, stream>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }

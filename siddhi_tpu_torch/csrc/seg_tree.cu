@@ -18,6 +18,10 @@
 // table, so no tree count is fixed.  Event columns are read at lane *
 // ev_stride + i: a fused multi-query group's lanes share one row of
 // events (ev_stride 0) and differ in their pre-masks (lane * F + i).
+// The `rank` use builds one i64 max-tree per count position over its
+// occurrence rank column, an (L, F) tensor read at lane * F + i
+// (src_stride), gated by the lane's valid events only
+// (nfa_parallel.py:845).
 // Python side: kernels/seg_tree.py.
 #include "seg_tree.cuh"
 
@@ -34,6 +38,8 @@ struct TreeParams {  // layout mirrored by kernels/seg_tree.py _Params
   const unsigned* const* pre;
   const int* node_scode;
   void* const* heap;
+  const int* src_stride;  // per tree: ev_stride for an event column, F
+                          // for a per-lane column (a rank column)
 };
 
 __device__ __forceinline__ bool tree_isnan(int vt, VmVal v) {
@@ -69,7 +75,8 @@ __global__ void seg_tree_kernel(const __grid_constant__ TreeParams p) {
       if (keep) {
         if (p.src[tr] != nullptr) {
           const int svt = p.src_vt[tr];
-          v = vm_cast(vm_read(p.src[tr], svt, ecell), svt, vt);
+          const long long scell = static_cast<long long>(lane) * p.src_stride[tr] + i;
+          v = vm_cast(vm_read(p.src[tr], svt, scell), svt, vt);
           if (tree_isnan(vt, v)) keep = false;
         } else {
           v = vm_cast(vm_i(1), VT_I32, vt);

@@ -14,6 +14,15 @@
 // masked by the valid flags (an invalid entry adds the identity), and a
 // column without input counts ones.
 //
+// The `scan` pattern family runs it on its (L, F) lane grid, a segment
+// per lane: occurrence ranks (a count of each count position's node mask,
+// the jnp.cumsum of siddhi_tpu/core/nfa_parallel.py:843) and the prev-match
+// pointers of `and` sides (_prev_static_scan :589, a max of the event
+// index masked by the side's node mask: each column's own valid flags).
+// There `period` = F: a segment starts at every multiple of F, and a max
+// column without input reads the entry's index within its segment, so
+// neither the flags nor the index column is materialized.
+//
 // Three phases, 1024 entries per block (256 threads x 4 entries):
 //   reduce: each block's segmented total per column;
 //   carry:  one block per column scans the block totals in rounds of 256;
@@ -29,14 +38,17 @@ enum ScanOp { SC_SUM_F = 0, SC_SUM_I = 1, SC_MIN_F = 2, SC_MAX_F = 3, SC_MAX_I =
 struct ScanParams {  // layout mirrored by kernels/win_scan.py _Params
   long long n;
   int n_cols, nblocks;
+  long long period;            // > 0: segments of `period` entries, no flags
   const unsigned char* valid;  // null: every entry is valid
   const unsigned char* flags;  // null: one segment
-  const void* const* in;       // per column; null: the value 1 (a count)
+  const void* const* in;       // per column; null: the value 1 (a count),
+                               // or for a max the index within the period
   void* const* out;
   const int* in_vt;
   const int* out_vt;
   const int* op;
   const int* masked;
+  const unsigned char* const* col_valid;  // per column; null: `valid`
   long long* agg;              // n_cols x nblocks block totals (raw 64 bits)
   long long* carry;            // n_cols x nblocks exclusive block prefixes
   unsigned char* blk_flag;     // nblocks: a segment starts in the block
@@ -81,12 +93,17 @@ __device__ __forceinline__ long long load_as<SumI>(const VmVal v, int vt) { retu
 template <>
 __device__ __forceinline__ long long load_as<MaxI>(const VmVal v, int vt) { return as_long(v, vt); }
 
-template <class Op>
+// PER: the segments come from `period` (an instantiation of its own, so
+// the window scans keep their code).
+template <class Op, bool PER>
 __device__ __forceinline__ Seg<Op> item(const ScanParams& p, int c, long long i) {
   if (i >= p.n) return seg_id<Op>();
-  const bool f = p.flags != nullptr && p.flags[i] != 0;
-  if (p.masked[c] && p.valid != nullptr && !p.valid[i]) return Seg<Op>{f, Op::id()};
-  if (p.in[c] == nullptr) return Seg<Op>{f, static_cast<typename Op::T>(1)};
+  const long long k = PER ? i % p.period : -1;
+  const bool f = PER ? k == 0 : (p.flags != nullptr && p.flags[i] != 0);
+  const unsigned char* v = p.col_valid[c] != nullptr ? p.col_valid[c] : p.valid;
+  if (p.masked[c] && v != nullptr && !v[i]) return Seg<Op>{f, Op::id()};
+  if (p.in[c] == nullptr)
+    return Seg<Op>{f, static_cast<typename Op::T>(p.op[c] == SC_MAX_I ? k : 1)};
   return Seg<Op>{f, load_as<Op>(vm_read(p.in[c], p.in_vt[c], i), p.in_vt[c])};
 }
 
@@ -102,11 +119,11 @@ __device__ __forceinline__ void store(const ScanParams& p, int c, long long i, l
   static_cast<long long*>(p.out[c])[i] = v;
 }
 
-template <class Op>
+template <class Op, bool PER>
 __device__ void reduce_col(const ScanParams& p, int c) {
   const long long base = static_cast<long long>(blockIdx.x) * WS_TILE + threadIdx.x * WS_ITEMS;
   Seg<Op> x = seg_id<Op>();
-  for (int k = 0; k < WS_ITEMS; ++k) x = seg_combine<Op>(x, item<Op>(p, c, base + k));
+  for (int k = 0; k < WS_ITEMS; ++k) x = seg_combine<Op>(x, item<Op, PER>(p, c, base + k));
   Seg<Op> total;
   block_seg_scan<Op>(x, &total);
   if (threadIdx.x == 0) {
@@ -115,7 +132,7 @@ __device__ void reduce_col(const ScanParams& p, int c) {
   }
 }
 
-template <class Op>
+template <class Op, bool PER>  // PER unused: the carry reads block totals
 __device__ void carry_col(const ScanParams& p, int c) {
   Seg<Op> run = seg_id<Op>();
   const long long row = static_cast<long long>(c) * p.nblocks;
@@ -131,13 +148,13 @@ __device__ void carry_col(const ScanParams& p, int c) {
   }
 }
 
-template <class Op>
+template <class Op, bool PER>
 __device__ void rescan_col(const ScanParams& p, int c) {
   const long long base = static_cast<long long>(blockIdx.x) * WS_TILE + threadIdx.x * WS_ITEMS;
   Seg<Op> items[WS_ITEMS];
   Seg<Op> x = seg_id<Op>();
   for (int k = 0; k < WS_ITEMS; ++k) {
-    items[k] = item<Op>(p, c, base + k);
+    items[k] = item<Op, PER>(p, c, base + k);
     x = seg_combine<Op>(x, items[k]);
   }
   Seg<Op> total;
@@ -155,26 +172,28 @@ __device__ void rescan_col(const ScanParams& p, int c) {
   }
 }
 
-#define WS_DISPATCH(FN)                          \
+#define WS_DISPATCH(FN, PER)                     \
   switch (p.op[c]) {                             \
-    case SC_SUM_F: FN<SumF>(p, c); break;        \
-    case SC_SUM_I: FN<SumI>(p, c); break;        \
-    case SC_MIN_F: FN<MinF>(p, c); break;        \
-    case SC_MAX_F: FN<MaxF>(p, c); break;        \
-    default: FN<MaxI>(p, c); break;              \
+    case SC_SUM_F: FN<SumF, PER>(p, c); break;   \
+    case SC_SUM_I: FN<SumI, PER>(p, c); break;   \
+    case SC_MIN_F: FN<MinF, PER>(p, c); break;   \
+    case SC_MAX_F: FN<MaxF, PER>(p, c); break;   \
+    default: FN<MaxI, PER>(p, c); break;         \
   }
 
+template <bool PER>
 __global__ void reduce_kernel(const __grid_constant__ ScanParams p) {
-  for (int c = 0; c < p.n_cols; ++c) WS_DISPATCH(reduce_col)
+  for (int c = 0; c < p.n_cols; ++c) WS_DISPATCH(reduce_col, PER)
 }
 
 __global__ void carry_kernel(const __grid_constant__ ScanParams p) {
   const int c = blockIdx.x;
-  WS_DISPATCH(carry_col)
+  WS_DISPATCH(carry_col, false)
 }
 
+template <bool PER>
 __global__ void rescan_kernel(const __grid_constant__ ScanParams p) {
-  for (int c = 0; c < p.n_cols; ++c) WS_DISPATCH(rescan_col)
+  for (int c = 0; c < p.n_cols; ++c) WS_DISPATCH(rescan_col, PER)
 }
 
 extern "C" int win_scan_launch(const ScanParams* params, cudaStream_t stream) {
@@ -183,11 +202,17 @@ extern "C" int win_scan_launch(const ScanParams* params, cudaStream_t stream) {
   cudaError_t err;
   const unsigned blocks = static_cast<unsigned>(p.nblocks);
   if (blocks > 1) {
-    reduce_kernel<<<blocks, WS_THREADS, 0, stream>>>(p);
+    if (p.period > 0)
+      reduce_kernel<true><<<blocks, WS_THREADS, 0, stream>>>(p);
+    else
+      reduce_kernel<false><<<blocks, WS_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     carry_kernel<<<static_cast<unsigned>(p.n_cols), WS_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  rescan_kernel<<<blocks, WS_THREADS, 0, stream>>>(p);
+  if (p.period > 0)
+    rescan_kernel<true><<<blocks, WS_THREADS, 0, stream>>>(p);
+  else
+    rescan_kernel<false><<<blocks, WS_THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,12 +7,16 @@ through the kernels.  K1 is counted per use: the filter/projection step,
 the NFA pre-masks, the pattern selector, and the window step's arguments
 and selector.  K3-K5 (`seg_tree`, `scan_chase`, `scan_compact`) carry
 the `scan` plan family, K6-K8 (`win_scan`, `win_range`, `win_compact`)
-the window plans.
+the window plans.  The `scan` family's count and logical positions add
+two uses of K6 on its lane grid (`win_scan:rank` occurrence ranks,
+`win_scan:prev` prev-match pointers) and one of K3 (`seg_tree:rank`,
+the max-trees over the ranks).
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "expr_eval:select": 0, "expr_eval:window_args": 0,
             "expr_eval:window_select": 0, "nfa_block": 0, "seg_tree": 0,
-            "scan_chase": 0, "scan_compact": 0, "win_scan": 0,
+            "seg_tree:rank": 0, "scan_chase": 0, "scan_compact": 0,
+            "win_scan": 0, "win_scan:rank": 0, "win_scan:prev": 0,
             "win_range": 0, "win_compact": 0}
 
 

@@ -5,33 +5,45 @@ Replaces the jitted `_block_impl` of the JAX package
 (:726) with `_alloc_head` (:1328) and the E-lane `_drain_done` (:1428),
 ceil(A/E) drain rounds after the scan (:1581-1592), the cumsum + scatter
 compaction of emissions into a flat (M,) buffer, and the earliest live
-deadline (:1649-1656).
+deadline (:1649-1656).  The pattern algebra is the JAX kernel's minus
+init slots, slot forking and absent logical sides: absent deadlines,
+count collection (station-independent, `:886-945`), the epsilon
+cascade of min-0 counts (`_landing_from` :1157), adjacent counts, the
+logical station (`_logical_step` :1259), indexed captures and presence
+rows (`_count_capture_values` :1212, `_present_zero` :1169), a final
+count's direct emissions through the E lanes (`of_lanes`, :1034-1080).
 
-Design (csrc/nfa_block.cu): one warp per partition lane, one thread per
-slot (a thread loops over A/32 slots when slot growth took A past 32).
-The T loop runs inside the kernel with slot stations in registers and
-capture and deadline rows in shared memory; the two-phase commit of
-`_step` holds because every slot reads only its own captures and the
-pre-event station.  Per event and slot, in the reference order: absent
-deadlines at or before the event's timestamp fire first (`dl_fire`: on
-timer ticks, and on events under `@app:playback`), advancing the slot or
-completing it with the deadline as its timestamp; lazy `within` expiry
-(on events and ticks); the station test (stream, pre-mask bit,
-capture-dependent conjuncts through the VM of csrc/expr_vm.cuh), where a
-forbidden arrival kills an absent station; capture writes; entering an
-absent position arms its deadline.  Head allocation takes the lowest
-free slot (`__ballot_sync` + `__ffs`, the `cumsum == 1` rule at
+Design (csrc/nfa_block.cuh, launched from csrc/nfa_block.cu for up to 4
+slots a thread and csrc/nfa_block_wide.cu for 8 or 16): one warp per
+partition lane, one thread per slot (a thread loops over A/32 slots when
+slot growth took A past 32).
+The T loop runs inside the kernel with slot stations, count and logical
+flags in registers and capture, counter and deadline rows in shared
+memory.  Every step of `_step` is per slot but for the head allocation
+and the drain, so each thread runs the JAX step's statements in their
+order on its own slots: first every node match (the capture-dependent
+conjuncts through the VM of csrc/expr_vm.cuh, on the captures as they
+were before the event), then the deadline pre-pass, expiry, count
+collection, the stations, the deaths, captures, completions and entries.
+A capture write that JAX defers to the end of the step is applied at
+once unless the slot dies in that step; the only write whose value
+another write of the same step would read -- a count's collection and
+its adjacent-count entry in one event -- is left to the entry, which
+overwrites every row the collection writes.  Head allocation takes the
+lowest free slot (`__ballot_sync` + `__ffs`, the `cumsum == 1` rule at
 nfa_device.py:1097) after advances and drains; the drain ranks parked
-slots with a ballot and `__popc` and emits the first E.  Matches append
-to the (M,) rows through one atomicAdd per warp; the host sorts by (seq,
-head_seq), so their order inside the buffer does not matter.  The kernel
-reads `state_in` and writes a fresh `state_out`: an M overflow or slot
-exhaustion is retried by the plan from the old state, as the functional
-JAX state allows.  Fused multi-query lanes read broadcast (T, 1) event
-grids (the lane's pre-masks stay (T, P)), their `__qparam` operands at
-the warp's lane, and emit the lane as `__qid__`.  Per-position tables,
-column pointers and the programs travel in a device table
-(kernels/table.py); each block stages the programs in shared memory.
+slots and still-collecting completions with a ballot and `__popc` and
+emits the first E, counting the completions that found no lane.
+Matches append to the (M,) rows through one atomicAdd per warp; the host
+sorts by (seq, head_seq), so their order inside the buffer does not
+matter.  The kernel reads `state_in` and writes a fresh `state_out`: an
+M overflow, slot exhaustion or lane overflow is retried by the plan from
+the old state, as the functional JAX state allows.  Fused multi-query
+lanes read broadcast (T, 1) event grids (the lane's pre-masks stay (T,
+P)), their `__qparam` operands at the warp's lane, and emit the lane as
+`__qid__`.  Per-position, per-node and capture-write tables, column
+pointers and the programs travel in a device table (kernels/table.py);
+each block stages the programs in shared memory.
 
 Bound on the H100: bytes -- the grids, the state in and out and the match
 rows, each moved once, over 3.35 TB/s.  Its real limit is the T-long
@@ -40,7 +52,9 @@ before one warp has walked T events.
 
 `nfa_block()` launches the kernel for CUDA tensors and runs the plain
 version, `nfa_block_plain()` (a Python loop over T of vector ops on
-(A, P) tensors, mirroring `_step`), for CPU tensors.
+(A, P) tensors, mirroring `_step`), for CPU tensors.  Both read the
+capture-write tables of NFAKernel (`capture_values`,
+`count_capture_values`, `presence_rows`).
 """
 from __future__ import annotations
 
@@ -49,29 +63,35 @@ import ctypes
 import torch
 
 from ..core.expr import VT_OF_TORCH, Node
-from ..core.nfa_device import NO_DEADLINE, NO_FIRST
+from ..core.nfa_device import (K_ABSENT, K_COUNT, K_LOGICAL, K_STREAM,
+                               NO_DEADLINE, NO_FIRST, W_IDX, W_ONE,
+                               W_PRES_GE, W_PREV, W_SRC)
 from ..query.ast import AttrType
 from .build import load
 from .expr_eval import merge_programs, program_table, stage_bytes, \
     unpack_mask
 from .table import DeviceTable, Launch, checked_ptr, stream_of
 
-MAX_A = 512                         # nfa_block.cu: A/32 slots per thread
-_GROUP = {"f": 0, "i": 1, "l": 2}
-_STATE = ("occ", "first_ts", "head_seq", "caps_f", "caps_i", "caps_l",
-          "dl", "armed0", "of_slots")
+MAX_A = 512                         # nfa_block.cuh: A/32 slots a thread
+_STATE = ("occ", "first_ts", "head_seq", "cnt", "cnt_on", "narm", "fl",
+          "caps_f", "caps_i", "caps_l", "dl", "armed0", "of_slots",
+          "of_lanes")
 
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "T", "P", "A", "S", "E", "is_seq", "every_head", "multi", "Kf",
-        "Ki", "Kl", "Ka", "C", "M", "ts_slot", "wpb", "bcast", "playback",
-        "emit_qid", "comp_ts_row", "comp_seq_row", "n_words", "n_consts",
-        "stage", "prog_bytes", "pad0")] + [(n, ctypes.c_void_p) for n in (
+        "Ki", "Kl", "Ka", "Kc", "Klog", "C", "M", "ts_slot", "wpb", "bcast",
+        "playback", "emit_qid", "comp_ts_row", "comp_seq_row", "n_words",
+        "n_consts", "stage", "prog_bytes", "parked", "all_pz_off",
+        "all_pz_len")] + [(n, ctypes.c_void_p) for n in (
         "ts", "seq", "valid", "tick", "scode", "qparams", "ev", "ev_vt",
-        "pos_scode", "pos_within", "pos_kind", "pos_dl_row",
-        "pos_waiting", "pre", "prog_off", "prog_len", "cw_off", "cw_len",
-        "cw_group", "cw_row", "cw_src",
+        "pos_kind", "pos_node", "pos_within", "pos_dl_row", "pos_waiting",
+        "pos_min", "pos_max", "pos_cnt", "pos_log", "pos_or", "pos_land",
+        "pos_pz_off", "pos_pz_len", "node_scode", "node_pre",
+        "node_prog_off", "node_prog_len", "node_cw_off", "node_cw_len",
+        "node_cc_off", "node_cc_len", "node_pres", "w_group", "w_row",
+        "w_mode", "w_src", "w_arg", "pz_rows",
         *[f"{k}_in" for k in _STATE], *[f"{k}_out" for k in _STATE],
         "out_i", "out_f", "out_l", "meta", "consts", "words")]
 
@@ -79,13 +99,13 @@ class _Params(ctypes.Structure):
 def _alloc_out(k, M: int, dev, rows=torch.zeros) -> dict:
     """Match rows, allocated by `rows` (the kernel writes only the first
     meta[0] columns and takes torch.empty), and the meta counts [matches,
-    dropped heads, earliest live deadline]."""
+    dropped heads, earliest live deadline, lost direct emissions]."""
     return {"out_i": rows((len(k.lane_names_i), M), dtype=torch.int32,
                           device=dev),
             "out_f": rows((len(k.rows_f), M), dtype=torch.float32,
                           device=dev),
             "out_l": rows((len(k.rows_l), M), dtype=torch.int64, device=dev),
-            "meta": torch.tensor([0, 0, NO_DEADLINE], dtype=torch.int32,
+            "meta": torch.tensor([0, 0, NO_DEADLINE, 0], dtype=torch.int32,
                                  device=dev)}
 
 
@@ -99,6 +119,14 @@ def nfa_block(k, state: dict, ev: dict, pre: list, M: int):
                  for w in pre]
         return nfa_block_plain(k, state, ev, masks, M)
     return prepare(k, state, ev, pre, M)()
+
+
+def pos_kind(pos) -> int:
+    if pos.op is not None:
+        return K_LOGICAL
+    if pos.is_count:
+        return K_COUNT
+    return K_ABSENT if pos.node.kind == "absent" else K_STREAM
 
 
 def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
@@ -119,10 +147,13 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     p.multi = int(len(spec.stream_ids) > 1)
     p.Kf, p.Ki, p.Kl, p.Ka = (len(k.rows_f), len(k.rows_i), len(k.rows_l),
                               k.Ka)
+    p.Kc, p.Klog = k.Kc, k.Kl
     p.C, p.M, p.ts_slot = len(k.grid_keys), M, k.ts_slot
     p.bcast = int(G == 1 and k.P > 1)
     p.playback, p.emit_qid = int(k.playback), int(k.broadcast)
     p.comp_ts_row, p.comp_seq_row = k.comp_rows()
+    p.parked = int(k.parked)
+    p.all_pz_off, p.all_pz_len = k.all_pz
     keep: list = []
     ptr = checked_ptr(keep, dev, "nfa_block")
     p.ts = ptr(ev["__ts__"], torch.int32)
@@ -139,40 +170,54 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     tab.field(p, "ev_vt", [VT_OF_TORCH[ev[key].dtype]
                            for key in k.grid_keys] or [0], "i4")
     pos = spec.positions
-    tab.field(p, "pos_scode", [q.node.scode for q in pos], "i4")
-    tab.field(p, "pos_within", [-1 if q.within_ms is None else q.within_ms
-                                for q in pos], "i4")
-    tab.field(p, "pos_kind", [int(q.node.kind == "absent") for q in pos],
-              "i4")
-    tab.field(p, "pos_dl_row", [-1 if q.dl_row is None else q.dl_row
-                                for q in pos], "i4")
-    tab.field(p, "pos_waiting", [q.node.waiting_ms or 0 for q in pos], "i4")
-    tab.field(p, "pre", [0 if w is None else ptr(w, torch.int32)
-                         for w in pre], "u8")
-    progs, pidx = [], []
-    for pi in range(spec.S):
-        if k.step_progs[pi] is not None:
-            pidx.append(pi)
-            progs.append(k.step_progs[pi])
+    for name, vals in (
+            ("pos_kind", [pos_kind(q) for q in pos]),
+            ("pos_node", k.pos_node),
+            ("pos_within", [-1 if q.within_ms is None else q.within_ms
+                            for q in pos]),
+            ("pos_dl_row", [-1 if q.dl_row is None else q.dl_row
+                            for q in pos]),
+            ("pos_waiting", [q.node.waiting_ms or 0 for q in pos]),
+            ("pos_min", [q.min_count for q in pos]),
+            ("pos_max", [q.max_count for q in pos]),
+            ("pos_cnt", [-1 if q.cnt_row is None else q.cnt_row
+                         for q in pos]),
+            ("pos_log", [-1 if q.log_row is None else q.log_row
+                         for q in pos]),
+            ("pos_or", [int(q.op == "or") for q in pos]),
+            ("pos_land", [k.landing(pi) if pi < spec.S - 1 else -1
+                          for pi in range(spec.S)]),
+            ("pos_pz_off", [o for o, _n in k.pos_pz]),
+            ("pos_pz_len", [n for _o, n in k.pos_pz])):
+        tab.field(p, name, vals, "i4")
+    nodes = spec.all_nodes
+    tab.field(p, "node_scode", [n.scode for n in nodes], "i4")
+    tab.field(p, "node_pre", [0 if w is None else ptr(w, torch.int32)
+                              for w in pre], "u8")
+    progs, gidx = [], []
+    for gi, prog in enumerate(k.step_progs):
+        if prog is not None:
+            gidx.append(gi)
+            progs.append(prog)
     words, consts, offs, lens = merge_programs(
         progs, {"__base_ts__": ev["__base_ts__"]})
-    off, ln = [0] * spec.S, [0] * spec.S
-    for pi, o, n in zip(pidx, offs, lens):
-        off[pi], ln[pi] = o, n
-    tab.field(p, "prog_off", off, "i4")
-    tab.field(p, "prog_len", ln, "i4")
+    off, ln = [0] * len(nodes), [0] * len(nodes)
+    for gi, o, n in zip(gidx, offs, lens):
+        off[gi], ln[gi] = o, n
+    tab.field(p, "node_prog_off", off, "i4")
+    tab.field(p, "node_prog_len", ln, "i4")
     program_table(tab, p, words, consts)
     p.prog_bytes = stage_bytes(words, consts) if p.stage else 0
-    cw_off, cw_len, cw = [], [], []
-    for writes in k.cap_writes:
-        cw_off.append(len(cw))
-        cw_len.append(len(writes))
-        cw.extend(writes)
-    tab.field(p, "cw_off", cw_off, "i4")
-    tab.field(p, "cw_len", cw_len, "i4")
-    tab.field(p, "cw_group", [_GROUP[g] for g, _r, _s in cw] or [0], "i4")
-    tab.field(p, "cw_row", [r for _g, r, _s in cw] or [0], "i4")
-    tab.field(p, "cw_src", [s for _g, _r, s in cw] or [0], "i4")
+    for name, vals in (("node_cw_off", [o for o, _n in k.node_cw]),
+                       ("node_cw_len", [n for _o, n in k.node_cw]),
+                       ("node_cc_off", [o for o, _n in k.node_cc]),
+                       ("node_cc_len", [n for _o, n in k.node_cc]),
+                       ("node_pres", k.node_pres_row)):
+        tab.field(p, name, vals, "i4")
+    for i, name in enumerate(("w_group", "w_row", "w_mode", "w_src",
+                              "w_arg")):
+        tab.field(p, name, [w[i] for w in k.writes] or [0], "i4")
+    tab.field(p, "pz_rows", k.pz_rows or [0], "i4")
     new = {key: torch.empty_like(state[key]) for key in _STATE}
     for key in _STATE:
         setattr(p, f"{key}_in", ptr(state[key]))
@@ -184,8 +229,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
                                          ptr(out["out_l"]),
                                          ptr(out["meta"]))
     keep.append(tab.upload(dev))
-    lib = load("nfa_block")
-    fn = lib.nfa_block_launch
+    wide = k.A > 128                # csrc/nfa_block_wide.cu: 8-16 a thread
+    lib = load("nfa_block_wide" if wide else "nfa_block")
+    fn = lib.nfa_block_wide_launch if wide else lib.nfa_block_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -213,14 +259,15 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     spec, A, P, S, E = k.spec, k.A, k.P, k.S, k.E
     PARK = S + 1
     dev = state["occ"].device
-    occ = state["occ"].clone()
-    first_ts = state["first_ts"].clone()
-    head_seq = state["head_seq"].clone()
-    caps = {"f": state["caps_f"].clone(), "i": state["caps_i"].clone(),
-            "l": state["caps_l"].clone()}
-    dl = state["dl"].clone()
-    armed0 = state["armed0"].clone()
-    of_slots = state["of_slots"].clone()
+    st = {key: state[key].clone() for key in _STATE}
+    occ, first_ts, head_seq = st["occ"], st["first_ts"], st["head_seq"]
+    cnt, cnt_on, narm, fl, dl = (st["cnt"], st["cnt_on"], st["narm"],
+                                 st["fl"], st["dl"])
+    caps = {"f": st["caps_f"], "i": st["caps_i"], "l": st["caps_l"]}
+    groups = "fil"
+    armed0, of_slots, of_lanes = st["armed0"], st["of_slots"], \
+        st["of_lanes"]
+    nodes = spec.all_nodes
     multi = len(spec.stream_ids) > 1
     base = torch.tensor(ev["__base_ts__"], dtype=torch.int64)
     T = ev["__ts__"].shape[0]
@@ -235,8 +282,8 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     lanes_all = torch.arange(P, dtype=torch.int32, device=dev)
     comp_ts_row, comp_seq_row = k.comp_rows()
     emitted: list = []          # (i rows, f rows, l rows) per emission
-    cap_rows = {"f": k.rows_f, "i": k.rows_i, "l": k.rows_l}
     no_dl = torch.full_like(dl, NO_DEADLINE)
+    zeros_ap = torch.zeros((A, P), dtype=torch.bool, device=dev)
 
     def caps_env() -> dict:
         env = dict(qenv)
@@ -255,48 +302,93 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
                 env[f"{n.ref}.{a.name}"] = grids[k.grid_keys.index(gk)][t]
         return env
 
-    def src_val(src: int, t: int):
-        if src == -1:
-            return ts_g[t]
-        if src == -2:
-            return seq_g[t]
-        return grids[src][t]
-
-    def write(mask, pi: int, t: int):
-        for g, r, src in k.cap_writes[pi]:
-            v = src_val(src, t).to(caps[g].dtype)
-            caps[g][r] = torch.where(mask, v, caps[g][r])
-
-    def enter(tpi: int, mask, at):
-        """Arm the deadline of absent position tpi for slots `mask`
-        entering it, one waiting period after `at` (_enter_position)."""
-        r = spec.positions[tpi].dl_row
-        if r is not None:
-            w = spec.positions[tpi].node.waiting_ms
-            dl[r] = torch.where(mask, at + w, dl[r])
-
-    def node_match(pi: int, t: int, env):
-        n = spec.positions[pi].node
+    def base_match(gi: int, t: int):
+        """(P,) stream, validity and pre-mask of node gi at step t."""
         m = valid_g[t].clone()
         if multi:
-            m &= sc_g[t] == n.scode
-        if masks[pi] is not None:
-            m &= masks[pi][t]
-        m = m[None, :].expand(A, P)
-        if k.step_trees[pi] is not None:
-            e2 = dict(env)
-            e2.update(own_env(n, t))
-            e2["__ts__"] = ts_g[t]
-            e2["__base_ts__"] = base
-            m = m & _eval(k.step_trees[pi], e2).expand(A, P)
+            m &= sc_g[t] == nodes[gi].scode
+        if masks[gi] is not None:
+            m &= masks[gi][t]
         return m
 
-    def drain():
-        nonlocal occ
+    def node_match(gi: int, t: int, env):
+        m = base_match(gi, t)[None, :].expand(A, P)
+        if k.step_trees[gi] is not None:
+            e2 = dict(env)
+            e2.update(own_env(nodes[gi], t))
+            e2["__ts__"] = ts_g[t]
+            e2["__base_ts__"] = base
+            m = m & _eval(k.step_trees[gi], e2).expand(A, P)
+        return m
+
+    def write(mask, span: tuple, t: int, newc=None, comp=None):
+        """Capture writes of one table span for the slots in `mask`; every
+        value is computed before any row is written (a [last-1] reads the
+        old [last]); `comp` = (ts, seq) of the completion, when any."""
+        off, n = span
+        vals = []
+        for g_i, r, mode, src, arg in k.writes[off:off + n]:
+            g = groups[g_i]
+            cur = caps[g][r]
+            if mode == W_SRC:
+                v = grids[src][t].to(cur.dtype)[None, :].expand(A, P)
+            elif mode == W_ONE:
+                v = torch.ones_like(cur)
+            elif mode == W_PREV:
+                v = caps[g][arg]
+            elif mode == W_IDX:
+                v = torch.where(newc == arg,
+                                grids[src][t].to(cur.dtype)[None, :], cur)
+            else:
+                assert mode == W_PRES_GE
+                v = torch.where(newc >= arg, torch.ones_like(cur), cur)
+            vals.append((g, r, v))
+        if comp is not None:
+            vals.append(("i", comp_ts_row, comp[0]))
+            vals.append(("i", comp_seq_row, comp[1]))
+        for g, r, v in vals:
+            caps[g][r] = torch.where(mask, v.to(caps[g].dtype)
+                                     .expand(A, P), caps[g][r])
+
+    def zero_rows(mask, rows):
+        for r in rows:
+            caps["i"][r] = torch.where(mask, torch.zeros_like(caps["i"][r]),
+                                       caps["i"][r])
+
+    def pz(span):
+        off, n = span
+        return k.pz_rows[off:off + n]
+
+    def enter(tpi: int, mask, at):
+        """State rows of slots `mask` entering position tpi
+        (`_enter_position`): a count starts collecting (a min-0 count
+        below the final position arms its successor at once), a logical
+        pair clears its fill bits, an absent position arms its deadline
+        one waiting period after `at`."""
+        nonlocal cnt, cnt_on, narm
+        tpos = spec.positions[tpi]
+        if tpos.is_count:
+            c = tpos.cnt_row
+            cnt[c] = torch.where(mask, torch.zeros_like(cnt[c]), cnt[c])
+            cnt_on[c] = cnt_on[c] | mask
+            eps = tpos.min_count == 0 and tpi < S - 1
+            narm[c] = torch.where(mask, torch.full_like(narm[c], eps),
+                                  narm[c])
+        if tpos.log_row is not None:
+            r = tpos.log_row
+            fl[r] = torch.where(mask, torch.zeros_like(fl[r]), fl[r])
+        if tpos.dl_row is not None:
+            r = tpos.dl_row
+            dl[r] = torch.where(mask, at + tpos.node.waiting_ms, dl[r])
+
+    def drain(emit_now=None):
+        nonlocal occ, of_lanes
         parked = occ == PARK
-        rank = torch.cumsum(parked.to(torch.int32), 0) - parked.to(torch.int32)
+        done = parked if emit_now is None else (parked | emit_now)
+        di = done.to(torch.int32)
+        rank = torch.cumsum(di, 0) - di
         for e in range(E):
-            sel = parked & (rank == e)
+            sel = done & (rank == e)
             lanes = torch.nonzero(sel.any(0)).flatten()
             if not len(lanes):
                 continue
@@ -306,38 +398,60 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
                 irows.append(lanes_all[lanes][None])
             emitted.append((torch.cat(irows), caps["f"][:, slot, lanes],
                             caps["l"][:, slot, lanes]))
-        occ = torch.where(parked & (rank < E), torch.zeros_like(occ), occ)
+        sent = done & (rank < E)
+        occ = torch.where(parked & sent, torch.zeros_like(occ), occ)
+        if emit_now is not None:
+            lost = emit_now & ~parked & ~sent
+            of_lanes = of_lanes + lost.sum(0, dtype=torch.int32)
 
     for t in range(T):
         ts, seq, valid = ts_g[t], seq_g[t], valid_g[t]
+        ts_ap, seq_ap = ts[None, :].expand(A, P), seq[None, :].expand(A, P)
         tick = tick_g[t] if tick_g is not None else None
         timey = valid if tick is None else (valid | tick)
         dl_fire = timey if k.playback else (
             tick if tick is not None else torch.zeros_like(valid))
-        sc = sc_g[t] if multi else None
-        occ0 = occ
+        occ0 = occ.clone()
+        env = caps_env()
         age = ts[None, :] - first_ts
+        narm0 = narm.clone()
+        complete = zeros_ap.clone()
+        kill = zeros_ap.clone()
+        trans = zeros_ap.clone()
+        writes: list = []           # deferred capture writes (mask, fn)
+        enters: list = []           # (target position, mask)
+        nm = [node_match(gi, t, env) for gi in range(len(nodes))]
+
         # absent deadlines at or before this timestamp fire BEFORE the
-        # event: the slot advances (or completes with the deadline as
-        # its timestamp) and can consume this very event downstream
-        complete = torch.zeros((A, P), dtype=torch.bool, device=dev)
-        pre_done = []
+        # event: the slot advances (or completes with the deadline as its
+        # timestamp) and can consume this very event downstream
         for pi, pos in enumerate(spec.positions):
-            if pos.node.kind != "absent" or pos.dl_row is None:
+            if pos.op is not None or pos.dl_row is None \
+                    or pos.node.kind != "absent":
                 continue
             r = pos.dl_row
             due = (occ0 == pi + 1) & (dl[r] <= ts[None, :]) & \
                 dl_fire[None, :]
             dl_at = dl[r].clone()
+            pres = k.node_pres_row[k.pos_node[pi]]
             if pi == S - 1:
                 complete |= due
-                pre_done.append((due, dl_at))
+                writes.append((due, (0, 0), None, (dl_at, seq_ap),
+                               [pres] if pres >= 0 else []))
             else:
-                occ0 = torch.where(due, torch.full_like(occ0, pi + 2), occ0)
-                enter(pi + 1, due, dl_at)
+                land = k.landing(pi)
+                occ0 = torch.where(due, torch.full_like(occ0, land + 1), occ0)
+                for tp in range(pi + 1, land + 1):
+                    enter(tp, due, dl_at)
+                rows = [r_ for tp in range(pi + 1, land + 1)
+                        for r_ in pz(k.pos_pz[tp])]
+                zero_rows(due, rows + ([pres] if pres >= 0 else []))
             dl[r] = torch.where(due, torch.full_like(dl_at, NO_DEADLINE),
                                 dl[r])
-        expired = torch.zeros((A, P), dtype=torch.bool, device=dev)
+        occ = occ0.clone()
+
+        # lazy, strict `within` expiry per station
+        expired = zeros_ap.clone()
         at_pos = []
         for pi, pos in enumerate(spec.positions):
             at = occ0 == pi + 1
@@ -346,60 +460,164 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
                 expired |= exp
                 at = at & ~exp
             at_pos.append(at)
-        env = caps_env()
-        occ = occ0.clone()
-        trans = torch.zeros((A, P), dtype=torch.bool, device=dev)
-        kill = torch.zeros((A, P), dtype=torch.bool, device=dev)
-        writes, enters = [], []
-        for pi in range(1, S):
-            m = at_pos[pi] & node_match(pi, t, env)
-            if spec.positions[pi].node.kind == "absent":
-                kill |= m               # a forbidden arrival
+
+        def advance(pi_from: int, mask):
+            nonlocal occ, complete
+            if pi_from == S - 1:
+                complete = complete | mask
+                return
+            land = k.landing(pi_from)
+            for tp in range(pi_from + 1, land + 1):
+                enters.append((tp, mask))
+            occ = torch.where(mask, torch.full_like(occ, land + 1), occ)
+
+        # count collection: station-independent -- a partial match keeps
+        # absorbing occurrences while it waits further down the chain
+        for pi, pos in enumerate(spec.positions):
+            if not pos.is_count:
                 continue
-            trans |= m
-            writes.append((m, pi))
+            c, gi = pos.cnt_row, k.pos_node[pi]
+            collect = cnt_on[c] & nm[gi]
+            newc = cnt[c] + collect.to(torch.int32)
+            writes.append((collect, k.node_cc[gi], newc.clone(),
+                           (ts_ap, seq_ap) if pi == S - 1 else None, None))
+            cnt[c] = newc
+            cnt_on[c] = cnt_on[c] & (newc < pos.max_count)
+            if pi < S - 1:
+                cross = collect & (newc == pos.min_count)
+                narm[c] = narm[c] | cross
+                # optional counts after this one arm their collection
+                for tp in range(pi + 1, k.landing(pi)):
+                    enters.append((tp, cross))
+            trans |= collect
             if pi == S - 1:
-                complete |= m
-            else:
-                occ = torch.where(m, torch.full_like(occ, pi + 2), occ)
-                enters.append((pi + 1, m))
+                complete = complete | (collect & (newc >= pos.min_count))
+            prevp = spec.positions[pi - 1] if pi else None
+            if prevp is not None and prevp.is_count:
+                # adjacent counts: the previous count's armed successor IS
+                # this count -- entry consumes the arm and counts the
+                # entering event as occurrence #1
+                pc = prevp.cnt_row
+                ent = at_pos[pi - 1] & narm0[pc] & nm[gi]
+                narm[pc] = narm[pc] & ~ent
+                occ = torch.where(ent, torch.full_like(occ, pi + 1), occ)
+                trans |= ent
+                cnt[c] = torch.where(ent, torch.ones_like(cnt[c]), cnt[c])
+                cnt_on[c] = torch.where(ent, torch.full_like(
+                    cnt_on[c], pos.max_count > 1), cnt_on[c])
+                zero_rows(ent, pz(k.pos_pz[pi]))
+                # the entry overwrites every row the collection writes:
+                # its values are computed on the captures before it
+                writes[-1] = (collect & ~ent,) + writes[-1][1:]
+                writes.append((ent, k.node_cc[gi], torch.where(
+                    ent, torch.ones_like(newc), torch.zeros_like(newc)),
+                    (ts_ap, seq_ap) if pi == S - 1 else None, None))
+                if pi == S - 1:
+                    complete = complete | (ent & (pos.min_count <= 1))
+                else:
+                    narm[c] = narm[c] | (ent & (pos.min_count <= 1))
+
+        # per-position station logic
+        for pi, pos in enumerate(spec.positions):
+            at = at_pos[pi]
+            gi = k.pos_node[pi]
+            if pos.is_count or (pi == 0 and pos.op is None):
+                continue              # counts above; the head: alloc below
+            if pos.op is not None:
+                r = pos.log_row
+                newbits = fl[r].clone()
+                for ni in range(2):
+                    m = at & nm[gi + ni]
+                    newbits = torch.where(m, newbits | (1 << ni), newbits)
+                    trans |= m
+                    writes.append((m, k.node_cw[gi + ni], None,
+                                   (ts_ap, seq_ap), None))
+                done = at & ((newbits != 0) if pos.op == "or"
+                             else (newbits == 3))
+                advance(pi, done)
+                trans |= done
+                fl[r] = torch.where(done, torch.zeros_like(newbits), newbits)
+                continue
+            if pos.node.kind == "absent":
+                kill |= at & nm[gi]   # a forbidden arrival
+                continue
+            # (1,1) stream position: eligible when stationed here, or via
+            # an armed predecessor count (consumed here), walking back
+            # across a run of optional counts
+            elig = at
+            chain = []
+            j = pi - 1
+            while j >= 0 and spec.positions[j].is_count:
+                chain.append(j)
+                elig = elig | (at_pos[j] & narm0[spec.positions[j].cnt_row])
+                if spec.positions[j].min_count != 0:
+                    break
+                j -= 1
+            m = elig & nm[gi]
+            for j in chain:
+                cr = spec.positions[j].cnt_row
+                narm[cr] = narm[cr] & ~m
+            trans |= m
+            writes.append((m, k.node_cw[gi], None, (ts_ap, seq_ap), None))
+            advance(pi, m)
+
         dead = expired | kill
         occ = torch.where(dead, torch.zeros_like(occ), occ)
+        cnt_on &= ~dead[None]
+        narm &= ~dead[None]
         dl = torch.where(dead[None], no_dl, dl)
         complete &= ~dead
-        for m, dl_at in pre_done:
-            m = m & ~dead
-            caps["i"][comp_ts_row] = torch.where(m, dl_at,
-                                                 caps["i"][comp_ts_row])
-            caps["i"][comp_seq_row] = torch.where(
-                m, seq[None, :].expand(A, P), caps["i"][comp_seq_row])
-        for m, pi in writes:
-            write(m & ~dead, pi, t)
-        occ = torch.where(complete, torch.full_like(occ, PARK), occ)
-        for tpi, m in enters:
-            enter(tpi, m & ~dead, ts[None, :])
+        for mask, span, newc, comp, zrows in writes:
+            mask = mask & ~dead
+            if zrows is not None:           # a final absent's completion
+                zero_rows(mask, zrows)
+            write(mask, span, t, newc, comp)
+
+        # completion: park (freed at drain) or, while a final count still
+        # collects, emit directly keeping the slot
+        survivor = zeros_ap
+        if spec.positions[S - 1].is_count:
+            survivor = cnt_on[spec.positions[S - 1].cnt_row].clone()
+        park = complete & ~survivor
+        emit_now = complete & survivor
+        occ = torch.where(park, torch.full_like(occ, PARK), occ)
+        cnt_on &= ~park[None]
+        narm &= ~park[None]
+
+        for tpi, mask in enters:
+            mask = mask & ~dead
+            enter(tpi, mask, ts[None, :])
+            zero_rows(mask, pz(k.pos_pz[tpi]))
+
         if spec.is_sequence:
             started = (occ > 0) & (occ < PARK) & (first_ts != NO_FIRST)
             kills = started & ~trans & valid[None, :]
             occ = torch.where(kills, torch.zeros_like(occ), occ)
+            cnt_on &= ~kills[None]
+            narm &= ~kills[None]
+
         if k.parked:
-            drain()
-        n0 = spec.positions[0].node
-        ok0 = armed0 & valid
-        if multi:
-            ok0 &= sc == n0.scode
-        if masks[0] is not None:
-            ok0 &= masks[0][t]
+            drain(emit_now)
+
+        # head: slot alloc (or direct single-position emission)
+        head = spec.positions[0]
+        ok0 = zeros_ap[0].clone()
+        for gi in range(len(head.nodes)):
+            ok0 |= base_match(gi, t)
+        ok0 &= armed0
         if not spec.every_head:
             armed0 = armed0 & ~ok0
         if not k.parked:
             lanes = torch.nonzero(ok0).flatten()
             if len(lanes):
-                rows = {g: torch.zeros((len(cap_rows[g]), len(lanes)),
+                rows = {g: torch.zeros((caps[g].shape[0], len(lanes)),
                                        dtype=caps[g].dtype, device=dev)
                         for g in caps}
-                for g, r, src in k.cap_writes[0]:
-                    rows[g][r] = src_val(src, t)[lanes].to(caps[g].dtype)
+                off, n = k.node_cw[0]
+                for g_i, r, mode, src, _arg in k.writes[off:off + n]:
+                    g = groups[g_i]
+                    rows[g][r] = (grids[src][t][lanes].to(caps[g].dtype)
+                                  if mode == W_SRC else 1)
                 irows = [rows["i"], seq[lanes][None]]
                 if k.broadcast:
                     irows.append(lanes_all[lanes][None])
@@ -412,12 +630,44 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
         do = ok0 & has_free
         of_slots = of_slots + (ok0 & ~has_free).to(torch.int32)
         hot = free & (torch.cumsum(free.to(torch.int32), 0) == 1) & do[None]
-        first_ts = torch.where(hot, ts[None, :], first_ts)
-        head_seq = torch.where(hot, seq[None, :], head_seq)
-        occ = torch.where(hot, torch.full_like(occ, 2), occ)
+        first_ts = torch.where(hot, ts_ap, first_ts)
+        head_seq = torch.where(hot, seq_ap, head_seq)
+        zero_rows(hot, pz(k.all_pz))
         dl = torch.where(hot[None], no_dl, dl)
-        write(hot, 0, t)
-        enter(1, hot, ts[None, :])
+        land = k.landing(0) if S > 1 else 0
+        if head.op is not None:
+            r = head.log_row
+            bits = torch.zeros_like(occ)
+            for ni in range(2):
+                mm = hot & base_match(ni, t)[None, :]
+                bits = torch.where(mm, bits | (1 << ni), bits)
+                write(mm, k.node_cw[ni], t, comp=(ts_ap, seq_ap))
+            occ = torch.where(hot, torch.ones_like(occ), occ)
+            fl[r] = torch.where(hot, bits, fl[r])
+            if head.op == "or":
+                done = hot & (bits != 0)
+                occ = torch.where(done, torch.full_like(
+                    occ, PARK if S == 1 else land + 1), occ)
+                for tp in range(1, land + 1 if S > 1 else 1):
+                    enter(tp, done, ts[None, :])
+        elif head.is_count:
+            c = head.cnt_row
+            occ = torch.where(hot, torch.ones_like(occ), occ)
+            cnt[c] = torch.where(hot, torch.ones_like(cnt[c]), cnt[c])
+            cnt_on[c] = torch.where(hot, torch.full_like(
+                cnt_on[c], head.max_count > 1), cnt_on[c])
+            if S > 1:
+                narm[c] = torch.where(hot, torch.full_like(
+                    narm[c], head.min_count <= 1), narm[c])
+            write(hot, k.node_cc[0], t, cnt[c].clone(),
+                  (ts_ap, seq_ap) if S == 1 else None)
+            if S == 1 and head.min_count <= 1:
+                occ = torch.where(hot, torch.full_like(occ, PARK), occ)
+        else:
+            occ = torch.where(hot, torch.full_like(occ, land + 1), occ)
+            write(hot, k.node_cw[0], t)
+            for tp in range(1, land + 1 if S > 1 else 1):
+                enter(tp, hot, ts[None, :])
     if k.parked:
         for _ in range(-(-A // E)):
             drain()
@@ -433,6 +683,9 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     live = (occ > 0) & (occ <= S)
     if k.Ka and bool(live.any()):
         out["meta"][2] = torch.where(live[None], dl, no_dl).min()
+    out["meta"][3] = of_lanes.sum()
     return ({"occ": occ, "first_ts": first_ts, "head_seq": head_seq,
+             "cnt": cnt, "cnt_on": cnt_on, "narm": narm, "fl": fl,
              "caps_f": caps["f"], "caps_i": caps["i"], "caps_l": caps["l"],
-             "dl": dl, "armed0": armed0, "of_slots": of_slots}, out)
+             "dl": dl, "armed0": armed0, "of_slots": of_slots,
+             "of_lanes": of_lanes}, out)

@@ -22,10 +22,18 @@ row of events (stride 0) and keep a tree each, gated by their own
 pre-masks.  Bound on the H100: bytes -- the leaf columns and masks read
 once, each heap (2 Lt entries) written once.
 
+The count positions of the `scan` family add a second launch
+(`use="rank"`, counted apart): one i64 max-tree per count position over
+its occurrence rank column, an (L, F) tensor per lane that K6 computed
+(`_build_heap(r, valid, L, "max", int64)` at nfa_parallel.py:845), whose
+leaves are gated by the lane's valid events only.  K4 and K5 answer
+rank/select -- the first index >= s whose rank reaches r -- as a `ge`
+first-hit on it.
+
 `seg_tree()` launches the kernel for CUDA tensors and runs the plain
 version, `seg_tree_plain()` (level-wise torch.maximum / minimum), for CPU
 tensors.  `first_hit_plain()` is the plain version of the descent that K4
-runs (csrc/seg_tree.cuh).
+and K5 run (csrc/seg_tree.cuh).
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ class _Params(ctypes.Structure):
                 ("src", ctypes.c_void_p), ("src_vt", ctypes.c_void_p),
                 ("vt", ctypes.c_void_p), ("agg", ctypes.c_void_p),
                 ("pre", ctypes.c_void_p), ("node_scode", ctypes.c_void_p),
-                ("heap", ctypes.c_void_p)]
+                ("heap", ctypes.c_void_p), ("src_stride", ctypes.c_void_p)]
 
 
 def sentinel(dt: torch.dtype, agg: str):
@@ -61,8 +69,8 @@ def sentinel(dt: torch.dtype, agg: str):
 
 
 def node_masks(k, ev: dict, pre: list) -> list:
-    """(L, F) bool node mask per chain position: the lane's valid events,
-    of the node's stream, passing its event-only conjuncts."""
+    """(L, F) bool node mask per chain node: the lane's valid events, of
+    the node's stream, passing its event-only conjuncts."""
     ts = lane_grid(ev, "__flat.__ts__")
     L, F = ts.shape
     valid = torch.arange(F, device=ts.device)[None, :] < \
@@ -101,27 +109,36 @@ def build_heap_plain(vals: Optional[torch.Tensor], mask: torch.Tensor,
                      + levels[::-1], dim=1)
 
 
-def seg_tree_plain(k, ev: dict, masks: list) -> list:
+def seg_tree_plain(k, ev: dict, masks: list, trees=None,
+                   cols=None) -> list:
     F = ev["__flat.__ts__"].shape[1]
     Lt = k.leaves(F)
     valid = torch.arange(F, device=masks[0].device)[None, :] < \
         ev["__nev__"].to(torch.int64)[:, None]
     out = []
-    for t in k.trees:
+    for t in (k.trees if trees is None else trees):
         mask = valid.expand_as(masks[0]) if t.node is None else masks[t.node]
-        out.append(build_heap_plain(
-            None if t.src is None else lane_grid(ev, t.src), mask, Lt,
-            t.agg, TORCH_OF_VT[t.vt]))
+        src = None if t.src is None else \
+            cols[t.src] if t.lane else lane_grid(ev, t.src)
+        out.append(build_heap_plain(src, mask, Lt, t.agg,
+                                    TORCH_OF_VT[t.vt]))
     return out
 
 
 def first_hit_plain(heap: torch.Tensor, Lt: int, s: torch.Tensor,
-                    v: torch.Tensor, op: str) -> torch.Tensor:
+                    v: torch.Tensor, op: str,
+                    lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """First leaf index >= s whose value satisfies OP v, Lt when none, per
-    query; heap (L, 2 Lt), s and v (L, Q).  `ge`/`le` become strict
-    compares against the adjacent representable value in the heap type
-    (`_first_hit` of the JAX package), so a sentinel never satisfies
-    them."""
+    query; heap (L, 2 Lt), s and v (L, Q), or, with `lanes`, s, v and
+    lanes of one shape, query i asking lane lanes[i]'s tree.  `ge`/`le`
+    become strict compares against the adjacent representable value in
+    the heap type (`_first_hit` of the JAX package), so a sentinel never
+    satisfies them."""
+    if lanes is None:
+        lanes = torch.arange(heap.shape[0], device=heap.device)[:, None] \
+            .expand(s.shape)
+    flat = heap.reshape(-1)
+    base = lanes.to(torch.int64) * (2 * Lt)
     dt = heap.dtype
     va = v.to(dt)
     if op in ("ge", "le"):
@@ -142,7 +159,7 @@ def first_hit_plain(heap: torch.Tensor, Lt: int, s: torch.Tensor,
     for i in range(P + 1):
         r = (2 * Lt) >> i
         odd = (l & 1) == 1
-        nv = torch.gather(heap, 1, torch.clamp(l, 0, 2 * Lt - 1))
+        nv = flat[base + torch.clamp(l, 0, 2 * Lt - 1)]
         take = odd & (l < r) & cmp(nv) & ~found
         fnode = torch.where(take, l, fnode)
         found = found | take
@@ -150,28 +167,29 @@ def first_hit_plain(heap: torch.Tensor, Lt: int, s: torch.Tensor,
     for _ in range(P):
         internal = found & (fnode < Lt)
         left = 2 * fnode
-        lv = torch.gather(heap, 1, torch.clamp(left, 0, 2 * Lt - 1))
+        lv = flat[base + torch.clamp(left, 0, 2 * Lt - 1)]
         fnode = torch.where(internal, torch.where(cmp(lv), left, left + 1),
                             fnode)
     return torch.where(found, fnode - Lt,
                        torch.full_like(fnode, Lt)).to(torch.int32)
 
 
-def seg_tree(k, ev: dict, pre: list) -> list:
-    """Every tree of ParallelChainKernel `k` for block `ev`: one (L, 2 Lt)
-    heap per `k.trees` entry.  `pre` holds the K1 pre-mask words per
-    chain position (or None)."""
+def seg_tree(k, ev: dict, pre: list, trees=None, cols=None) -> list:
+    """Trees of ParallelChainKernel `k` for block `ev`: one (L, 2 Lt) heap
+    per entry of `trees` (default `k.trees`; `k.rank_trees` with `cols`,
+    their (L, F) rank columns by key, is the `rank` use).  `pre` holds the
+    K1 pre-mask words per chain node (or None)."""
     dev = ev["__flat.__ts__"].device
     if dev.type == "cpu":
-        return seg_tree_plain(k, ev, node_masks(k, ev, pre))
+        return seg_tree_plain(k, ev, node_masks(k, ev, pre), trees, cols)
     if dev.type != "cuda":
         raise ValueError(f"seg_tree: unsupported device {dev}")
-    if not k.trees:             # a strict sequence reads events directly
-        return []
-    return prepare(k, ev, pre)()
+    if not (k.trees if trees is None else trees):
+        return []               # a strict sequence reads events directly
+    return prepare(k, ev, pre, trees, cols)()
 
 
-def prepare(k, ev: dict, pre: list) -> Launch:
+def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
     """Allocate the heaps and upload the parameter table of one K3
     launch (see `seg_tree`)."""
     ts = ev["__flat.__ts__"]
@@ -184,22 +202,26 @@ def prepare(k, ev: dict, pre: list) -> Launch:
     keep: list = []
     ptr = checked_ptr(keep, dev, "seg_tree")
     p = _Params()
-    p.L, p.F, p.Lt, p.n_trees = L, F, Lt, len(k.trees)
+    p.L, p.F, p.Lt = L, F, Lt
     p.ev_stride = F if G == L else 0
     p.nev = ptr(ev["__nev__"], torch.int32)
     if k.multi:
         p.scode = ptr(ev["__flat.__scode__"], torch.int32)
-    heaps, src, src_vt, pre_p, node_sc = [], [], [], [], []
-    for t in k.trees:
+    use_rank = trees is not None
+    trees = k.trees if trees is None else trees
+    heaps, src, src_vt, pre_p, node_sc, stride = [], [], [], [], [], []
+    for t in trees:
         if t.src is not None:
-            col = ev[t.src]
-            if col.shape != (G, F):
-                raise ValueError(f"seg_tree: {t.src} is not ({G}, {F})")
+            col = cols[t.src] if t.lane else ev[t.src]
+            want = (L, F) if t.lane else (G, F)
+            if col.shape != want:
+                raise ValueError(f"seg_tree: {t.src} is not {want}")
             src.append(ptr(col))
             src_vt.append(VT_OF_TORCH[col.dtype])
         else:
             src.append(0)
             src_vt.append(0)
+        stride.append(F if t.lane else p.ev_stride)
         node_sc.append(k.node_scode[t.node] if t.node is not None
                        and k.multi else -1)
         pre_p.append(ptr(pre[t.node], torch.int32) if t.node is not None
@@ -209,15 +231,18 @@ def prepare(k, ev: dict, pre: list) -> Launch:
     tab = DeviceTable()
     tab.field(p, "src", src, "u8")
     tab.field(p, "src_vt", src_vt, "i4")
-    tab.field(p, "vt", [t.vt for t in k.trees], "i4")
-    tab.field(p, "agg", [0 if t.agg == "max" else 1 for t in k.trees], "i4")
+    tab.field(p, "vt", [t.vt for t in trees], "i4")
+    tab.field(p, "agg", [0 if t.agg == "max" else 1 for t in trees], "i4")
     tab.field(p, "pre", pre_p, "u8")
     tab.field(p, "node_scode", node_sc, "i4")
     tab.field(p, "heap", [ptr(h) for h in heaps], "u8")
+    tab.field(p, "src_stride", stride, "i4")
+    p.n_trees = len(trees)
     keep.append(tab.upload(dev))
     lib = load("seg_tree")
     fn = lib.seg_tree_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
-                  "seg_tree_launch", "seg_tree", keep, heaps)
+                  "seg_tree_launch",
+                  "seg_tree:rank" if use_rank else "seg_tree", keep, heaps)

@@ -8,16 +8,19 @@ running aggregates with resets at bucket and group boundaries
 (`_mono_running_*` :189/:199, `_seg_running_*` :163/:168), and the dense
 group ids of `group_seg` (the cumsum of the boundary flags, :588).
 
-A column is `(op, values, masked)`: op "sum", "min" or "max" (min and
-max over floats, max also over i64 for the clock); values a 1-d tensor
-of N entries, or None for a count (the value 1); masked: an entry whose
-`valid` flag is off adds the identity (0, +inf, -inf, or the i64
-minimum).  Sums of floats accumulate in f64 and of integers and
+A column is `(op, values, masked)` or `(op, values, masked, valid_c)`:
+op "sum", "min" or "max" (min and max over floats, max also over
+integers, as i64, for the clock); values a 1-d tensor of N entries, or
+None: for a sum a count (the value 1), for a max the entry's index within
+its segment of `period` entries; masked: an entry whose valid flag is off
+adds the identity (0, +inf, -inf, or the i64 minimum), the flag being
+the column's own `valid_c` when given, else `valid`.  Sums of floats accumulate in f64 and of integers and
 bools in i64, whatever the compute precision (the JAX package sums f32
 in f32 mode; see PERF.md and tests/test_torch_window.py for the bound
 that difference obeys); min/max keep the input dtype and propagate NaN
 as `jnp.minimum`/`jnp.maximum` do.  `flags` (bool, N) starts a new
-segment at every set entry, for every column.
+segment at every set entry, for every column; `period` > 0 instead starts
+one at every multiple of `period`.
 
 Design (csrc/win_scan.cu, combine in csrc/win_scan.cuh): the segmented
 pair (flag, value) combine; a three-phase block scan over 1024-entry
@@ -26,6 +29,14 @@ per-block rescan.  Bound on the H100: bytes (each input read once, each
 output written once).  On data whose f64 prefixes are exact every fold
 order gives the same bits, so the kernel equals `win_scan_plain` (a
 log-step Hillis-Steele scan in torch) there with tolerance 0.
+
+The `scan` pattern family uses K6 on its (L, F) lane grid, flattened,
+with `period` = F (a segment per lane): `use="rank"` for the inclusive
+occurrence ranks of its count positions (a sum over the node mask,
+`jnp.cumsum` at nfa_parallel.py:843) and `use="prev"` for the prev-match
+pointers of its `and` sides (a max over the lane-local event index,
+values None, masked by the side's node mask, `_prev_static_scan` :589; the i64 minimum where the
+lane has no match yet, -1 there).  Each use has its own launch counter.
 
 `win_scan()` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors.
@@ -48,17 +59,22 @@ I64_MIN = -2 ** 63
 
 class _Params(ctypes.Structure):
     _fields_ = [("n", ctypes.c_longlong), ("n_cols", ctypes.c_int),
-                ("nblocks", ctypes.c_int)] + [
+                ("nblocks", ctypes.c_int), ("period", ctypes.c_longlong)] + [
         (f, ctypes.c_void_p) for f in (
             "valid", "flags", "in_", "out", "in_vt", "out_vt", "op",
-            "masked", "agg", "carry", "blk_flag")]
+            "masked", "col_valid", "agg", "carry", "blk_flag")]
+COUNTER = {"window": "win_scan", "rank": "win_scan:rank",
+           "prev": "win_scan:prev"}
 
 
-def column_kind(op: str, values: Optional[torch.Tensor]) -> tuple:
+def column_kind(op: str, values: Optional[torch.Tensor],
+                period: int = 0) -> tuple:
     """(kernel op, output dtype) of a column."""
     isf = values is not None and values.dtype.is_floating_point
     if op == "sum":
         return (SUM_F, torch.float64) if isf else (SUM_I, torch.int64)
+    if values is None and op == "max" and period > 0:
+        return MAX_I, torch.int64
     if values is None or op not in ("min", "max"):
         raise ValueError(f"win_scan: bad column ({op!r}, {values})")
     if isf:
@@ -69,10 +85,12 @@ def column_kind(op: str, values: Optional[torch.Tensor]) -> tuple:
 
 
 def _device(cols: list, valid, flags) -> torch.device:
-    for t in [v for _o, v, _m in cols] + [valid, flags]:
+    for t in [c[1] for c in cols] + [c[3] for c in cols if len(c) > 3] \
+            + [valid, flags]:
         if t is not None:
             return t.device
-    raise ValueError("win_scan: a count needs `valid` or `flags`")
+    raise ValueError("win_scan: a column without values needs `valid`, "
+                     "`flags` or its own valid flags")
 
 
 def _identity(kop: int):
@@ -92,16 +110,24 @@ def combine(kop: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def win_scan_plain(cols: list, n: int, valid: Optional[torch.Tensor] = None,
-                   flags: Optional[torch.Tensor] = None) -> list:
+                   flags: Optional[torch.Tensor] = None,
+                   period: int = 0) -> list:
     outs = []
-    for op, values, masked in cols:
-        kop, odt = column_kind(op, values)
-        dev = _device(cols, valid, flags)
+    dev = _device(cols, valid, flags)
+    if period > 0:
+        flags = torch.arange(n, device=dev) % period == 0
+    for op, values, masked, *own in cols:
+        kop, odt = column_kind(op, values, period)
         acc = torch.float64 if kop in (SUM_F, MIN_F, MAX_F) else torch.int64
-        x = torch.ones(n, dtype=acc, device=dev) if values is None \
-            else values[:n].to(acc)
-        if masked and valid is not None:
-            x = torch.where(valid[:n], x, torch.full_like(x, _identity(kop)))
+        if values is not None:
+            x = values[:n].to(acc)
+        elif kop == MAX_I:
+            x = torch.arange(n, device=dev) % period
+        else:
+            x = torch.ones(n, dtype=acc, device=dev)
+        vc = own[0] if own else valid
+        if masked and vc is not None:
+            x = torch.where(vc[:n], x, torch.full_like(x, _identity(kop)))
         f = flags[:n].clone() if flags is not None else \
             torch.zeros(n, dtype=torch.bool, device=dev)
         d = 1
@@ -116,7 +142,8 @@ def win_scan_plain(cols: list, n: int, valid: Optional[torch.Tensor] = None,
 
 
 def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
-            flags: Optional[torch.Tensor] = None) -> Launch:
+            flags: Optional[torch.Tensor] = None, use: str = "window",
+            period: int = 0) -> Launch:
     """Allocate the outputs and scratch and upload the parameter table of
     one K6 launch (see `win_scan`)."""
     dev = _device(cols, valid, flags)
@@ -125,17 +152,17 @@ def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
     keep: list = []
     ptr = checked_ptr(keep, dev, "win_scan")
     p = _Params()
-    p.n, p.n_cols = n, len(cols)
+    p.n, p.n_cols, p.period = n, len(cols), period
     p.nblocks = max(1, -(-n // TILE))
     if valid is not None:
         p.valid = ptr(valid, torch.bool)
-    if flags is not None:
+    if flags is not None and period <= 0:
         p.flags = ptr(flags, torch.bool)
     rows = {"in": [], "out": [], "in_vt": [], "out_vt": [], "op": [],
-            "masked": []}
+            "masked": [], "col_valid": []}
     outs = []
-    for op, values, masked in cols:
-        kop, odt = column_kind(op, values)
+    for op, values, masked, *own in cols:
+        kop, odt = column_kind(op, values, period)
         if values is not None and (values.dim() != 1 or values.shape[0] < n
                                    or values.dtype not in VT_OF_TORCH):
             raise ValueError(f"win_scan: column {values.dtype} "
@@ -147,7 +174,9 @@ def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
                        ("in_vt", VT_OF_TORCH[values.dtype]
                         if values is not None else 0),
                        ("out_vt", VT_OF_TORCH[odt]), ("op", kop),
-                       ("masked", int(masked))):
+                       ("masked", int(masked)),
+                       ("col_valid", ptr(own[0], torch.bool) if own
+                        else 0)):
             rows[key].append(v)
     agg = torch.empty(len(cols) * p.nblocks, dtype=torch.int64, device=dev)
     carry = torch.empty_like(agg)
@@ -155,7 +184,8 @@ def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
     p.agg, p.carry, p.blk_flag = ptr(agg), ptr(carry), ptr(blk_flag)
     tab = DeviceTable()
     for key, dt in (("in", "u8"), ("out", "u8"), ("in_vt", "i4"),
-                    ("out_vt", "i4"), ("op", "i4"), ("masked", "i4")):
+                    ("out_vt", "i4"), ("op", "i4"), ("masked", "i4"),
+                    ("col_valid", "u8")):
         tab.field(p, "in_" if key == "in" else key, rows[key] or [0], dt)
     keep.append(tab.upload(dev))
     lib = load("win_scan")
@@ -163,14 +193,16 @@ def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
-                  "win_scan_launch", "win_scan", keep, outs)
+                  "win_scan_launch", COUNTER[use], keep, outs)
 
 
 def win_scan(cols: list, n: int, valid: Optional[torch.Tensor] = None,
-             flags: Optional[torch.Tensor] = None) -> list:
+             flags: Optional[torch.Tensor] = None, use: str = "window",
+             period: int = 0) -> list:
     """Inclusive segmented scans of the first n entries of each column
-    (see the module docstring); returns one output tensor per column."""
+    (see the module docstring); returns one output tensor per column.
+    `use` names the launch counter (`window`, `rank`, `prev`)."""
     if _device(cols, valid, flags).type == "cpu":
-        return win_scan_plain(cols, n, valid, flags)
-    return prepare(cols, n, valid, flags)()
+        return win_scan_plain(cols, n, valid, flags, period)
+    return prepare(cols, n, valid, flags, use, period)()
 

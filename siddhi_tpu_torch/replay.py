@@ -1,12 +1,30 @@
-"""Replay a column tape through a window app, flush by flush.
+"""Replay tapes through the port's apps and hold its kernels against their
+plain versions.
 
-The shared runner of `chip_smoke.py`'s window phases and the card tests:
-each flush is one `send_batch` of the tape's columns on `StockStream`
-(symbol codes `K<i>`, `price`, `volume`, and `et` = the arrival time when
-the app declares it) and one `flush()`, timed on the host clock around
-work that ends in `torch.cuda.synchronize()` on a card.  With `record`
-(a list), every window plan of the app appends each kernel call it makes
-as (name, args, kwargs) (`DeviceWindowAggPlan.record`)."""
+Shared by `chip_smoke.py`, `scripts/torch_c4_profile.py` and the card
+tests (tests/test_torch_gpu.py):
+
+  * the app texts of the driven configurations: BASELINE configs 1-5
+    (`C1`, `C3`, `C4`, `c5_app`, `C2`), the grouped time window and C2B,
+    and the pattern-algebra apps of C4's partitioned shape (`C4N`,
+    `C4NS`, `C4A`, `C4O`);
+  * `make_tape`, the benchmark tape: uniform keys, prices on the quarter
+    grid, flushes of `batch` events `dt_ms` apart;
+  * `run_window`, a window app flush by flush (each flush one
+    `send_batch` and one `flush()`, timed on the host clock around work
+    that ends in `torch.cuda.synchronize()` on a card); with `record`
+    (a list) every window plan of the app appends each kernel call it
+    makes as (name, args, kwargs) (`DeviceWindowAggPlan.record`);
+  * the checks: `check_window_calls` (K1's window uses and K6-K8 on the
+    calls a window run recorded), `check_seq_block` (K2 and K1 on a block
+    a `seq` plan handed NFAKernel.run_block), `check_scan_block` (K1, K3,
+    K6, K3's rank trees, K4 and K5 on a block a `scan` plan handed
+    ParallelChainKernel.run_block), each kernel on the same inputs as its
+    plain version, tolerance 0; they raise `KernelMismatch` on the first
+    difference and return the largest |kernel - plain| per kernel use;
+  * `sorted_rows`, a match table in (completion seq, head seq, lane)
+    order (a kernel appends matches in no fixed order).
+"""
 from __future__ import annotations
 
 import time
@@ -15,8 +33,112 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.runtime import SiddhiManager
-from .core.window_device import DeviceWindowAggPlan
+STOCK = "define stream StockStream (symbol string, price double, volume int);\n"
+C1 = STOCK + ("@info(name='q') from StockStream[price > 100] "
+              "select * insert into Out;\n")
+C4 = STOCK + """
+partition with (symbol of StockStream)
+begin
+  @info(name='q')
+  from every e1=StockStream[price > 100] -> e2=StockStream[price > e1.price]
+    -> e3=StockStream[price > e2.price] within 10 sec
+  select e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;
+end;
+"""
+C4_HEAD = "@app:partitionCapacity(1000)\n@app:deviceSlots(32)\n"
+C4_SEQ = "@app:patternFamily('seq')\n"
+C3 = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
+              "e2=StockStream[price > e1.price] within 1 sec "
+              "select e1.price as p1, e2.price as p2 insert into Out;\n")
+C2 = STOCK + ("@info(name='q') from StockStream#window.length(1000) "
+              "select avg(price) as ap insert into Out;\n")
+C2_GROUPED = STOCK + (
+    "@info(name='q') from StockStream[volume > 100]#window.time(10 sec) "
+    "select symbol, min(price) as lo, max(price) as hi, avg(price) as ap, "
+    "count() as n group by symbol having n > 10 insert into Out;\n")
+C2B = ("define stream StockStream (symbol string, price double, volume int, "
+       "et long);\n@info(name='q') from StockStream"
+       "#window.externalTimeBatch(et, 64) select symbol, sum(price) as sp, "
+       "count() as c group by symbol insert into Out;\n")
+
+# the pattern algebra on C4's partitioned shape: counts and logical and/or
+C4N_BODY = (
+    "from every e1=StockStream[price > 110]<1:3> -> "
+    "e2=StockStream[price < 95] within 1 sec "
+    "select e1[0].price as p0, e1[last].price as pl, e2.price as p2 "
+    "insert into Out;")
+C4NS_BODY = (
+    "from every e1=StockStream[price > 100] -> "
+    "e2=StockStream[price > e1.price]<2:4> -> e3=StockStream[price < 95] "
+    "within 10 sec select e1.price as p1, e2[0].price as p20, "
+    "e2[last].price as p2l, e3.price as p3 insert into Out;")
+C4O_BODY = (
+    "from every e1=StockStream[price > 110] -> e2=StockStream[price < 95] "
+    "or e3=StockStream[volume > 990] within 1 sec "
+    "select e1.price as p1, e2.price as p2, e3.volume as v3 "
+    "insert into Out;")
+C4A_BODY = C4O_BODY.replace(" or ", " and ")
+
+
+def partitioned(body: str) -> str:
+    """A pattern query body inside C4's `partition with (symbol)`."""
+    return (STOCK + "partition with (symbol of StockStream)\nbegin\n"
+            "  @info(name='q')\n  " + body + "\nend;\n")
+
+
+C4N = partitioned(C4N_BODY)             # `scan`: count head, rank/select
+C4NS = partitioned(C4NS_BODY)           # `seq`: count with a capture filter
+C4A = partitioned(C4A_BODY)             # `scan`: `and`, prev pointers
+C4O = partitioned(C4O_BODY)             # `or`, NULL losers (seq forced)
+
+
+def c5_app(n_queries=1000):
+    """bench.py:226-266 (BASELINE config 5), copied: 1k concurrent mixed
+    pattern/sequence queries with `not`/`within` over one shared input
+    stream, under @app:playback."""
+    parts = ["@app:playback\n" + STOCK]   # historical tape: event-time
+    for i in range(n_queries):            # deadlines fire in-scan, not via
+        lo = 123 + (i % 6)                # the wall-clock pump
+        shape = i % 4
+        if shape == 0:
+            parts.append(
+                f"@info(name='q{i}') from every e1=StockStream[price > {lo}] -> "
+                f"e2=StockStream[price > e1.price] within 1 sec "
+                f"select e1.price as p1, e2.price as p2 insert into Out{i % 16};")
+        elif shape == 1:
+            parts.append(
+                f"@info(name='q{i}') from e1=StockStream[price > {lo}], "
+                f"e2=StockStream[price > e1.price] "
+                f"select e1.price as p1, e2.price as p2 insert into Out{i % 16};")
+        elif shape == 2:
+            parts.append(
+                f"@info(name='q{i}') from e1=StockStream[price > {lo + 1}] -> "
+                f"not StockStream[price < {lo - 30}] for 500 milliseconds "
+                f"select e1.price as p1 insert into Out{i % 16};")
+        else:
+            parts.append(
+                f"@info(name='q{i}') from every e1=StockStream[price > {lo}] -> "
+                f"e2=StockStream[price > e1.price] -> "
+                f"e3=StockStream[price > e2.price] within 2 sec "
+                f"select e1.price as p1, e3.price as p3 insert into Out{i % 16};")
+    return "\n".join(parts) + "\n"
+
+
+def make_tape(n_events: int, batch: int, keys: int, seed: int = 0,
+              dt_ms: int = 1) -> list:
+    """The benchmark tape shape: uniform keys, prices on the quarter grid
+    (exact in float32), volumes, dt_ms apart, one dict per flush."""
+    rng = np.random.default_rng(seed)
+    tape = []
+    ts0 = 1_700_000_000_000
+    for start in range(0, n_events, batch):
+        n = min(batch, n_events - start)
+        tape.append({
+            "sym_idx": rng.integers(0, keys, size=n).astype(np.int32),
+            "price": np.round(rng.uniform(90.0, 130.0, size=n) * 4) / 4,
+            "volume": rng.integers(1, 1000, size=n).astype(np.int32),
+            "ts": ts0 + np.arange(start, start + n, dtype=np.int64) * dt_ms})
+    return tape
 
 
 def run_window(app: str, tape: list, device: str,
@@ -24,6 +146,8 @@ def run_window(app: str, tape: list, device: str,
     """Feed `tape` (dicts of `ts`, `sym_idx`, `price`, `volume` arrays, one
     per flush) through `app` on `device`; returns (rows as (ts, row) in
     output order, or None when `rows` is false; ms per flush; runtime)."""
+    from .core.runtime import SiddhiManager
+    from .core.window_device import DeviceWindowAggPlan
     rt = SiddhiManager(device=device).create_app_runtime(app)
     if record is not None:
         for p in rt.plans():
@@ -50,3 +174,199 @@ def run_window(app: str, tape: list, device: str,
            for t, row in zip(b.timestamps, b.rows(rt.strings))] \
         if rows else None
     return out, per_flush, rt
+
+
+# ---------------------------------------------------------------------------
+# kernel against plain
+# ---------------------------------------------------------------------------
+
+class KernelMismatch(AssertionError):
+    """A kernel differs from its plain version."""
+
+
+def same(a, b) -> bool:
+    """Equal dtype, shape and values, NaN equal to NaN."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return torch.equal(torch.isnan(a), torch.isnan(b)) and \
+            torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    return torch.equal(a, b)
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b| over the entries finite in both (0 when none)."""
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def _flat(res) -> list:
+    """A kernel's result as a flat list of tensors (or None)."""
+    if res is None or hasattr(res, "dtype"):
+        return [res]
+    return [t for r in res for t in _flat(r)]
+
+
+def _agree(err: dict, key: str, got, want, what: str) -> None:
+    """Record |got - want| under `key`, raising on any difference."""
+    g, w = _flat(got), _flat(want)
+    if len(g) != len(w) or not all(same(x, y) for x, y in zip(g, w)):
+        raise KernelMismatch(f"{key} differs from its plain version "
+                             f"({what})")
+    e = max([max_err(x, y) for x, y in zip(g, w)
+             if x is not None and x.numel()] or [0.0])
+    err[key] = max(err.get(key, 0.0), e)
+
+
+def check_window_calls(calls: list) -> dict:
+    """K1 (window uses), K6, K7 and K8 against their plain versions on
+    every call a window run recorded, tolerance 0 (NaN equal to NaN);
+    returns the largest |kernel - plain| per kernel name or K1 use."""
+    from .core.window_device import KERNELS
+    from .kernels.expr_eval import expr_eval_plain
+    from .kernels.win_compact import win_compact_plain
+    from .kernels.win_range import win_range_plain
+    from .kernels.win_scan import win_scan_plain
+    plain = {"win_scan": win_scan_plain, "win_range": win_range_plain,
+             "win_compact": win_compact_plain}
+    err: dict = {}
+    for j, (name, a, kw) in enumerate(calls):
+        got = KERNELS[name](*a, **kw)
+        if name == "expr_eval":
+            key = f"expr_eval:{kw['use']}"
+            want = expr_eval_plain(*a)
+        else:
+            key = name
+            want = plain[name](*a, **kw)
+        torch.cuda.synchronize()
+        _agree(err, key, got, want, f"call {j}")
+    return err
+
+
+def sorted_rows(kern, out: dict) -> torch.Tensor:
+    """The match rows of an NFAKernel table in (completion seq, head seq,
+    lane) order."""
+    n = min(int(out["meta"][0]), out["out_i"].shape[1])
+    rows = torch.cat([out["out_i"][:, :n].double(),
+                      out["out_f"][:, :n].double(),
+                      out["out_l"][:, :n].double()])
+    order = torch.arange(n, device=rows.device)
+    for name in ("__qid__", "__head_seq__", "__comp_seq__"):
+        if name in kern.lane_names_i:
+            r = rows[kern.lane_names_i.index(name)]
+            order = order[torch.argsort(r[order], stable=True)]
+    return rows[:, order]
+
+
+def _check_select(err: dict, nfak, out: dict, n: int, base_ts) -> None:
+    """K1 selector and `having` over a match table."""
+    from .kernels.expr_eval import expr_eval_plain
+    hw, sel = nfak.select(out, n, base_ts)
+    hp, selp = expr_eval_plain(nfak.select_cols(out), nfak.having_prog,
+                               nfak.sel_progs, n, {"__base_ts__": base_ts},
+                               nfak.select_rows(out))
+    _agree(err, "expr_eval:select", [hw] + list(sel), [hp] + list(selp),
+           "selector")
+
+
+def _check_pre(err: dict, progs: list, pre: list, cols: list, n: int,
+               rows, base_ts) -> None:
+    from .kernels.expr_eval import expr_eval_plain
+    for w, pr in zip(pre, progs):
+        if pr is not None:
+            _agree(err, "expr_eval:pre_mask", w, expr_eval_plain(
+                cols, pr, [], n, {"__base_ts__": base_ts}, rows)[0],
+                "pre-mask")
+
+
+def check_seq_block(kern, state: dict, ev: dict, M: int) -> dict:
+    """K1 pre-masks, K2 (new state, meta and sorted match rows) and K1's
+    selector on one `seq` block, against their plain versions; returns
+    {use: largest |kernel - plain|} plus "matches" and "lost" (direct
+    emissions that found no lane, K2's meta[3])."""
+    from .kernels.expr_eval import unpack_mask
+    from .kernels.nfa_block import nfa_block, nfa_block_plain
+    T, P = ev["__ts__"].shape[0], kern.P
+    err: dict = {}
+    pre = kern.pre_masks(ev)
+    _check_pre(err, kern.pre_progs, pre, kern.pre_mask_cols(ev), T * P,
+               kern.pre_mask_rows(ev), ev["__base_ts__"])
+    new_k, out_k = nfa_block(kern, state, ev, pre, M)
+    masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
+             for w in pre]
+    new_p, out_p = nfa_block_plain(kern, state, ev, masks, M)
+    torch.cuda.synchronize()
+    for key in new_p:
+        _agree(err, "nfa_block", new_k[key], new_p[key], f"state {key}")
+    _agree(err, "nfa_block", out_k["meta"], out_p["meta"], "meta")
+    n = int(out_k["meta"][0])
+    if n <= M:       # past M, which matches fill the table is append order
+        _agree(err, "nfa_block", sorted_rows(kern, out_k),
+               sorted_rows(kern, out_p), "match rows")
+        _check_select(err, kern, out_k, n, ev["__base_ts__"])
+    err["matches"] = n
+    err["lost"] = int(out_k["meta"][3])
+    return err
+
+
+def scan_inputs(k, ev: dict, pre: list) -> tuple:
+    """The node masks and K6's rank and prev columns of one `scan` block
+    (plain versions), and its rank-column dict for K3."""
+    from .kernels.seg_tree import node_masks
+    from .kernels.win_scan import win_scan_plain
+    masks = node_masks(k, ev, pre)
+    L, F = masks[0].shape
+    ranks, prevs = [
+        [r.view(L, F) for r in win_scan_plain(cols, L * F, period=F)]
+        if cols else []
+        for cols in (k.rank_cols(masks), k.prev_cols(masks))]
+    return masks, ranks, prevs, {f"__rank.{ci}": r
+                                 for ci, r in enumerate(ranks)}
+
+
+def check_scan_block(k, ev: dict, M: int) -> dict:
+    """K1 pre-masks, K3 (event trees), K6 (ranks, prev pointers), K3 (rank
+    trees), K4, K5 and K1's selector on one `scan` block, each kernel on
+    the same inputs as its plain version (the plain results feed the next
+    stage); returns {use: largest |kernel - plain|} plus "matches"."""
+    from .kernels.scan_chase import scan_chase, scan_chase_plain
+    from .kernels.scan_compact import scan_compact, scan_compact_plain
+    from .kernels.seg_tree import seg_tree, seg_tree_plain
+    from .kernels.win_scan import win_scan
+    err: dict = {}
+    L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
+    pre = k.pre_masks(ev)
+    _check_pre(err, k.nfak.pre_progs, pre, k.pre_mask_cols(ev), L * F,
+               k.pre_mask_rows(ev), ev["__base_ts__"])
+    masks, ranks, prevs, rcols = scan_inputs(k, ev, pre)
+    heaps = seg_tree_plain(k, ev, masks)
+    _agree(err, "seg_tree", seg_tree(k, ev, pre), heaps, "heaps")
+    for use, cols, want in (("rank", k.rank_cols(masks), ranks),
+                            ("prev", k.prev_cols(masks), prevs)):
+        if cols:
+            _agree(err, f"win_scan:{use}", [r.view(L, F) for r in win_scan(
+                cols, L * F, use=use, period=F)], want, use)
+    rheaps = seg_tree_plain(k, ev, masks, k.rank_trees, rcols)
+    if rheaps:
+        _agree(err, "seg_tree:rank", seg_tree(k, ev, pre, k.rank_trees,
+                                              rcols), rheaps, "rank trees")
+    chase = scan_chase_plain(k, ev, masks, heaps, ranks, rheaps, prevs)
+    _agree(err, "scan_chase", scan_chase(k, ev, pre, heaps, ranks, rheaps,
+                                         prevs), chase, "chase")
+    out_p = scan_compact_plain(k, ev, chase, ranks, rheaps, M)
+    out_k = scan_compact(k, ev, chase, ranks, rheaps, M)
+    torch.cuda.synchronize()
+    n = int(out_p["meta"][0])
+    _agree(err, "scan_compact", [out_k[key] for key in ("meta", "lane_n",
+                                                        "arm")],
+           [out_p[key] for key in ("meta", "lane_n", "arm")], "counts")
+    _agree(err, "scan_compact", [out_k[key][:, :n] for key in
+                                 ("out_i", "out_f", "out_l")],
+           [out_p[key][:, :n] for key in ("out_i", "out_f", "out_l")],
+           "match table")
+    _check_select(err, k.nfak, out_k, n, ev["__base_ts__"])
+    err["matches"] = n
+    return err

@@ -2,7 +2,8 @@
 
 A stream processor's "weights" are its pattern state.  For the `seq`
 family that is the slot state, the stationed partial matches, their
-captures and their absent-state deadlines (`dl`): `nfa_state_from_jax`
+captures and presence rows, count and logical rows and their
+absent-state deadlines (`dl`): `nfa_state_from_jax`
 turns the `state` entry of a `siddhi_tpu` DevicePatternPlan.state_dict()
 (numpy arrays) into this port's state tensors, and the rest of that dict
 (key map, ts/seq bases, last seq, the next deadline) loads as it is
@@ -30,26 +31,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# leaves of the JAX state that this slice's algebra never fills: count
-# and logical rows, init flags, and the direct-emit lane overflow
-_UNUSED = ("cnt", "cnt_on", "narm", "fl", "init", "of_lanes")
-_KEYS = ("occ", "first_ts", "head_seq", "caps_f", "caps_i", "caps_l", "dl",
-         "armed0", "of_slots")
+_KEYS = ("occ", "first_ts", "head_seq", "cnt", "cnt_on", "narm", "fl",
+         "caps_f", "caps_i", "caps_l", "dl", "armed0", "of_slots",
+         "of_lanes")
 _DTYPES = {"occ": np.int32, "first_ts": np.int32, "head_seq": np.int32,
-           "caps_f": np.float32, "caps_i": np.int32, "caps_l": np.int64,
-           "dl": np.int32, "armed0": np.bool_, "of_slots": np.int32}
+           "cnt": np.int32, "cnt_on": np.bool_, "narm": np.bool_,
+           "fl": np.int32, "caps_f": np.float32, "caps_i": np.int32,
+           "caps_l": np.int64, "dl": np.int32, "armed0": np.bool_,
+           "of_slots": np.int32, "of_lanes": np.int32}
 
 
 def nfa_state_from_jax(np_state: dict, device) -> dict:
-    """JAX `seq`-family slot state (numpy) -> the port's state tensors."""
-    for k in _UNUSED:
-        v = np_state.get(k)
-        if v is not None and np.asarray(v).size and k != "init" \
-                and np.any(np.asarray(v) != 0):
-            raise ValueError(f"JAX state leaf {k!r} is in use: its pattern "
-                             f"algebra is not in this slice")
-        if k == "init" and v is not None:
-            raise ValueError("init-slot chains are not in this slice")
+    """JAX `seq`-family slot state (numpy) -> the port's state tensors:
+    stations, captures and presence rows, count rows (`cnt`, `cnt_on`,
+    `narm`), logical fill bits (`fl`), deadlines and the lane counters.
+    An init-slot chain's state (`init`) is refused: absent heads are a
+    later slice."""
+    if np_state.get("init") is not None:
+        raise ValueError("init-slot chains are not in this slice")
     missing = [k for k in _KEYS if k not in np_state]
     if missing:
         raise ValueError(f"not a `seq`-family NFA state (missing {missing}); "

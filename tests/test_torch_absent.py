@@ -237,7 +237,7 @@ def test_absent_shapes_of_later_slices_raise(body, what):
 
 def test_selector_over_an_absent_ref_is_a_later_slice():
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(DeviceNFAUnsupported, match="presence rows"):
+    with pytest.raises(DeviceNFAUnsupported, match="maybe-absent"):
         mgr.create_app_runtime(AB + "@info(name='q') from e1=A -> not "
-                               "e2=B for 1 sec select e1.x as x, e2.y as y "
-                               "insert into O;")
+                               "e2=B for 1 sec select e1.x as x, e2.y + 1 "
+                               "as y insert into O;")

@@ -22,8 +22,11 @@ from siddhi_tpu_torch.core.expr import (F32_MODE, VT_OF_TORCH,
                                         compile_expression, compute_dtypes,
                                         emit_program)
 from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
-from siddhi_tpu_torch.kernels import LAUNCHES
+from siddhi_tpu_torch.kernels import LAUNCHES, reset_launches
 from siddhi_tpu_torch.query import parse, parse_expression
+from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C4A_BODY, C4N_BODY,
+                                     C4NS_BODY, C4O_BODY, c5_app, make_tape,
+                                     partitioned, sorted_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -79,7 +82,7 @@ def test_expr_eval_kernel_matches_plain(cuda, text, f32):
         assert ok[0].dtype == op[0].dtype and torch.equal(ok[0], op[0])
 
 
-@pytest.mark.parametrize("slots", [32, 64, 4])
+@pytest.mark.parametrize("slots", [32, 64, 4, 160])
 def test_nfa_block_kernel_matches_plain(cuda, slots):
     from siddhi_tpu_torch.kernels.expr_eval import unpack_mask
     from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
@@ -128,6 +131,77 @@ def test_nfa_block_kernel_matches_plain(cuda, slots):
         state = sk
         ev = dict(ev, __ts__=ev["__ts__"] + int(ev["__ts__"].max()),
                   __seq__=ev["__seq__"] + T * P)
+
+
+SEQ_ALGEBRA = {
+    # a count with a capture-dependent conjunct (`seq` by default)
+    "count": ("@app:deviceSlots(8)\n" + partitioned(C4NS_BODY), 40, 3000),
+    # `or` with NULL losers and `and` on K2 (the logical station)
+    "or": ("@app:patternFamily('seq')\n" + partitioned(C4O_BODY), 40,
+           3000),
+    "and": ("@app:patternFamily('seq')\n" + partitioned(C4A_BODY), 40,
+            3000),
+    # a final count collecting in many slots at once: more emissions per
+    # event than E lanes, so the plan doubles E and re-runs the block
+    "burst": ("@app:patternFamily('seq')\n@app:deviceSlots(8)\n" +
+              partitioned(
+                  "from every e1=StockStream[price > 100] -> "
+                  "e2=StockStream[price > 90]<1:6> within 1 sec "
+                  "select e1.price as a, e2[last].price as b, e2[2].price "
+                  "as c insert into Out;"), 4, 600),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_ALGEBRA))
+def test_nfa_block_algebra_matches_plain(cuda, name, monkeypatch):
+    """K2's count and logical paths: every accepted block the `seq` plan
+    ran (state, meta, sorted rows) equal to the plain version, the rows
+    equal to the CPU run's with NULLs in place."""
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.replay import check_seq_block
+    app, keys, n = SEQ_ALGEBRA[name]
+    app = f"@app:partitionCapacity({keys})\n" + app
+    blocks = []
+    orig = NFAKernel.run_block
+
+    def rec(self, state, ev, M):
+        new, out = orig(self, state, ev, M)
+        blocks.append((self, state, ev, M, int(out["meta"][0])))
+        return new, out
+    monkeypatch.setattr(NFAKernel, "run_block", rec)
+    tape = make_tape(n, n // 2, keys, seed=13)
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
+            app)
+        out = []
+        rt.add_callback("Out", lambda evs: out.extend(
+            (e.timestamp, e.data) for e in evs))
+        h = rt.input_handler("StockStream")
+        codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                         dtype=np.int32)
+        for f in tape:
+            h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
+                          "volume": f["volume"]}, f["ts"])
+            rt.flush()
+        assert rt.plans()[0].family == "seq"
+        return out, rt
+    got, rt = run(cuda)
+    lost = 0
+    for kern, state, ev, M, n_found in blocks:
+        if n_found > M:
+            continue                # an M overflow's first try
+        err = check_seq_block(kern, state, ev, M)
+        lost += err["lost"]
+        assert max(v for key, v in err.items()
+                   if key not in ("matches", "lost")) == 0.0
+    if name == "burst":
+        assert lost > 0 and rt.plans()[0].kernel.E > 2
+    blocks.clear()
+    want, _rt = run("cpu")
+    assert got == want and got
+    if name == "or":
+        assert any(r[2] is None for _t, r in got)
 
 
 def test_c4_end_to_end_on_the_card(cuda):
@@ -189,6 +263,21 @@ TWO = ("define stream A (k string, x int);\n"
        "insert into Out; end;")
 # name -> (app, keys, flushes, events per flush, tape options)
 SCAN_APPS = {
+    # the pattern algebra on `scan`: a count head (rank/select, K6 rank,
+    # K3 rank trees), `or` with NULL losers, `and` (K6 prev pointers), a
+    # final count's fan-out with [i]/[last-1] captures
+    "count_head": ("@app:partitionCapacity(64)\n" + partitioned(C4N_BODY),
+                   50, 3, 20000, {}),
+    # (_feed's volumes lie in [90, 130))
+    "or": ("@app:partitionCapacity(64)\n" + partitioned(C4O_BODY.replace(
+        "volume > 990", "volume > 125")), 50, 3, 20000, {}),
+    "and": ("@app:partitionCapacity(64)\n" + partitioned(C4A_BODY.replace(
+        "volume > 990", "volume > 125")), 50, 3, 20000, {}),
+    "final_count": ("@app:partitionCapacity(64)\n" + partitioned(
+        "from every e1=StockStream[price > 110] -> "
+        "e2=StockStream[price < 95]<2:5> within 1 sec select e1.price as a, "
+        "e2[0].price as b, e2[last].price as c, e2[last-1].price as d, "
+        "e2[3].price as f insert into Out;"), 50, 3, 20000, {}),
     "c4": ("@app:partitionCapacity(64)\n" + C4_SCAN, 50, 3, 20000, {}),
     # NaN prices and 10% of the timestamps moved back or forward
     "c4_nan_ooo": ("@app:partitionCapacity(64)\n" + C4_SCAN, 50, 3, 20000,
@@ -251,12 +340,7 @@ def test_scan_kernels_match_plain(cuda, name, monkeypatch):
     K3's heaps, K4's status and indices, K5's match table equal their
     plain versions (tolerance 0), and the rows equal the CPU run's."""
     from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
-    from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
-                                                     scan_chase_plain)
-    from siddhi_tpu_torch.kernels.scan_compact import (scan_compact,
-                                                       scan_compact_plain)
-    from siddhi_tpu_torch.kernels.seg_tree import (node_masks, seg_tree,
-                                                   seg_tree_plain)
+    from siddhi_tpu_torch.replay import check_scan_block
     app, keys, flushes, n, opts = SCAN_APPS[name]
     blocks = []
     orig = ParallelChainKernel.run_block
@@ -275,25 +359,17 @@ def test_scan_kernels_match_plain(cuda, name, monkeypatch):
         _feed(rt, keys, flushes, n, **opts)
         assert rt.plans()[0].family == "scan"
         return out
+    reset_launches()
     got = run(cuda)
+    uses = {k for k, v in LAUNCHES.items() if v}
     assert blocks
     for k, ev, M in blocks:
-        pre = k.pre_masks(ev)
-        masks = node_masks(k, ev, pre)
-        hk, hp = seg_tree(k, ev, pre), seg_tree_plain(k, ev, masks)
-        for a, b in zip(hk, hp):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        sk, ik = scan_chase(k, ev, pre, hp)
-        sp, ip = scan_chase_plain(k, ev, masks, hp)
-        assert torch.equal(sk, sp) and torch.equal(ik, ip)
-        ok = scan_compact(k, ev, sp, ip, M)
-        op = scan_compact_plain(k, ev, sp, ip, M)
-        torch.cuda.synchronize()
-        m = int(op["meta"][0])
-        for key in ("meta", "lane_n", "arm"):
-            assert torch.equal(ok[key], op[key]), key
-        for key in ("out_i", "out_f", "out_l"):
-            assert torch.equal(ok[key][:, :m], op[key][:, :m]), key
+        err = check_scan_block(k, ev, M)
+        assert max(v for key, v in err.items() if key != "matches") == 0.0
+    if blocks[0][0].counts:
+        assert {"win_scan:rank", "seg_tree:rank"} <= uses
+    if blocks[0][0].prev_nodes:
+        assert "win_scan:prev" in uses
     blocks.clear()
     assert got == run("cpu")
     if name != "one_shot":
@@ -435,11 +511,10 @@ def test_nfa_block_broadcast_absent_and_ticks_match_plain(cuda, case,
     pre-masks and step programs, `__qid__` rows) with absent deadlines
     firing on events and on timer ticks: every block the plans ran
     equals the plain version, and the rows equal the CPU run's."""
-    import chip_smoke
     from siddhi_tpu_torch.core.nfa_device import NFAKernel
     from siddhi_tpu_torch.kernels.expr_eval import unpack_mask
     from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
-    app = chip_smoke.c5_app(32) if case == "c5_prefix" else MID_ABSENT
+    app = c5_app(32) if case == "c5_prefix" else MID_ABSENT
     tape = _c5_head_tape(600)
     if case == "c5_prefix":     # up to the first arming of a `not` lane
         cut = int(np.flatnonzero(tape["price"] > 124)[0]) + 1
@@ -489,8 +564,7 @@ def test_nfa_block_broadcast_absent_and_ticks_match_plain(cuda, case,
             assert torch.equal(sk[k], sp[k]), k
         assert torch.equal(ok["meta"], op["meta"])
         n = min(int(ok["meta"][0]), M)
-        assert torch.equal(chip_smoke.sorted_rows(torch, kern, ok),
-                           chip_smoke.sorted_rows(torch, kern, op))
+        assert torch.equal(sorted_rows(kern, ok), sorted_rows(kern, op))
         assert n == 0 or "__qid__" in kern.lane_names_i
     blocks.clear()
     assert got == run("cpu") and got
@@ -502,14 +576,8 @@ def test_scan_compact_qid_matches_plain(cuda, case, monkeypatch):
     pre-masks and trees, lane parameters in K4's threshold programs, the
     `__qid__` row): every block equals the plain versions, and the rows
     equal the CPU run's."""
-    import chip_smoke
     from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
-    from siddhi_tpu_torch.kernels.scan_chase import (scan_chase,
-                                                     scan_chase_plain)
-    from siddhi_tpu_torch.kernels.scan_compact import (scan_compact,
-                                                       scan_compact_plain)
-    from siddhi_tpu_torch.kernels.seg_tree import (node_masks, seg_tree,
-                                                   seg_tree_plain)
+    from siddhi_tpu_torch.replay import check_scan_block
     blocks = []
     orig = ParallelChainKernel.run_block
 
@@ -521,7 +589,7 @@ def test_scan_compact_qid_matches_plain(cuda, case, monkeypatch):
 
     def run(device):
         rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
-            chip_smoke.c5_app(64) if case == "c5" else PARAM_APP)
+            c5_app(64) if case == "c5" else PARAM_APP)
         out = []
         for j in range(16 if case == "c5" else 4):
             rt.add_callback(f"Out{j}", lambda evs, j=j: out.extend(
@@ -541,23 +609,9 @@ def test_scan_compact_qid_matches_plain(cuda, case, monkeypatch):
     for k, ev, M in blocks:
         assert ev["__flat.__ts__"].shape[0] == 1 and "__qid__" in \
             k.nfak.lane_names_i
-        pre = k.pre_masks(ev)
-        masks = node_masks(k, ev, pre)
-        hk, hp = seg_tree(k, ev, pre), seg_tree_plain(k, ev, masks)
-        for a, b in zip(hk, hp):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        sk, ik = scan_chase(k, ev, pre, hp)
-        sp, ip = scan_chase_plain(k, ev, masks, hp)
-        assert torch.equal(sk, sp) and torch.equal(ik, ip)
-        ok = scan_compact(k, ev, sp, ip, M)
-        op = scan_compact_plain(k, ev, sp, ip, M)
-        torch.cuda.synchronize()
-        m = int(op["meta"][0])
-        assert m > 0
-        for key in ("meta", "lane_n", "arm"):
-            assert torch.equal(ok[key], op[key]), key
-        for key in ("out_i", "out_f", "out_l"):
-            assert torch.equal(ok[key][:, :m], op[key][:, :m]), key
+        err = check_scan_block(k, ev, M)
+        assert err["matches"] > 0
+        assert max(v for key, v in err.items() if key != "matches") == 0.0
     blocks.clear()
     assert got == run("cpu") and got
 
@@ -670,19 +724,17 @@ def test_window_configs_match_the_cpu_run(cuda, which):
     shortened tape: the card's rows equal the CPU run's, K6-K8 and both K1
     window uses launched, and every kernel call the plan recorded equal to
     its plain version."""
-    import chip_smoke
     from siddhi_tpu_torch import kernels
-    from siddhi_tpu_torch.replay import run_window
-    app = {"c2": chip_smoke.C2, "c2_grouped": chip_smoke.C2_GROUPED,
-           "c2b": chip_smoke.C2B}[which]
-    tape = chip_smoke.make_tape(np, 3 * 8192, 8192, 8, seed=11)
+    from siddhi_tpu_torch.replay import check_window_calls, run_window
+    app = {"c2": C2, "c2_grouped": C2_GROUPED, "c2b": C2B}[which]
+    tape = make_tape(3 * 8192, 8192, 8, seed=11)
     calls: list = []
     kernels.reset_launches()
     got, _ms, rt = run_window(app, tape, "cuda", calls)
     launches = dict(kernels.LAUNCHES)
     want, _ms, _rt = run_window(app, tape, "cpu")
     assert got == want and got
-    err = chip_smoke.check_window_calls(torch, calls, which)
+    err = check_window_calls(calls)
     assert err and max(err.values()) == 0.0
     used = ["expr_eval:window_args", "expr_eval:window_select",
             "win_scan", "win_compact"] + (["win_range"] if which != "c2b"

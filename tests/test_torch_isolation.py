@@ -106,7 +106,7 @@ def test_scan_wrappers_refuse_other_devices(which):
         elif which == "scan_chase":
             scan_chase.scan_chase(None, ev, [], [])
         else:
-            scan_compact.scan_compact(None, ev, g, g, 4)
+            scan_compact.scan_compact(None, ev, (g, g, g, g), [], [], 4)
 
 
 @pytest.mark.parametrize("which", ["win_scan", "win_range", "win_compact"])

@@ -264,13 +264,14 @@ def test_state_carried_from_jax(name):
 
 
 @pytest.mark.parametrize("body,feature", [
-    ("from every e1=StockStream[price > 100]<2:5> -> "
+    ("from e1=StockStream[price > 100]<0:5> -> "
      "e2=StockStream[price > 120] select e2.price as p insert into Out;",
      "count"),
     ("from not StockStream[price > 120] for 1 sec -> "
      "e2=StockStream[price > 100] select e2.price as p insert into Out;",
      "absent"),
-    ("from every e1=StockStream[price > 100] and e2=StockStream[price < 95] "
+    ("from every e1=StockStream[price > 100] -> not StockStream[price > 130] "
+     "and e2=StockStream[price < 95] "
      "select e1.price as p insert into Out;", "logical"),
     ("from e1=StockStream[price > 100] -> every e2=StockStream[price > 110] "
      "select e2.price as p insert into Out;", "every"),
