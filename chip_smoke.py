@@ -67,7 +67,21 @@ Phases (any failure exits non-zero; nothing is caught):
      shape (1000 keys, 2^18 events a flush), each counted, recorded and
      checked like phase 4 (rows equal to the CPU run with NULLs in place,
      every recorded block's kernels equal to their plain versions);
- 17. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 17. J6, bench.py's config 6 (`JOIN_APP`: two length windows of 1024,
+     1000 keys, `a.symbol == b.symbol and a.price > b.price`) on its own
+     tape (seed 0, each flush 2048 events to L, then 2048 to R, one
+     `send_batch` each): 8 flushes of 4096 events, K9 `join_probe`
+     launched in both directions every flush, K1 `join_filter` not;
+ 18. J6W: the same app, 2 flushes of 2^17 events (2^16 a side);
+ 19. J6O: a filtered full outer join with a computed column (K1
+     `join_filter`, both miss words, NULL `tot`/`bv` rows), 2 flushes;
+ 20. J6U: a windowless unidirectional side (K9 for left probes only), 2
+     flushes; phases 17-20 each counted (launch counts from 0 just before,
+     read just after), recorded (every K1/K9 call of the plan), rows equal
+     to the CPU run in order with NULLs in place, every recorded call equal
+     to its plain version, then an unrecorded timing run (ms per flush,
+     the median of the steady flushes, events/s from it);
+ 21. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -91,8 +105,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
     C1, C2, C2_GROUPED, C2B, C3, C4, C4_HEAD, C4_SEQ, C4A, C4N, C4NS, C4O,
-    c5_app, check_scan_block, check_seq_block, check_window_calls,
-    make_tape, max_err, scan_inputs, sorted_rows)
+    JOIN_APP, JOIN_OUTER, JOIN_UNI, c5_app, check_join_calls, join_tape,
+    check_scan_block, check_seq_block, check_window_calls, make_tape,
+    max_err, scan_inputs, sorted_rows)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -110,6 +125,14 @@ ALGEBRA = (("c4n", C4_HEAD + C4N, 4, "scan", 31,
            ("c4ns", C4_HEAD + C4NS, 2, "seq", 32, (), None),
            ("c4a", C4_HEAD + C4A, 2, "scan", 33, ("win_scan:prev",), None),
            ("c4o", C4_SEQ + C4_HEAD + C4O, 2, "seq", 34, (), 2))
+# the join phases: (label, app, events a flush, flushes, K1 join_filter
+# launched, the sides that probe); bench.py's config 6 runs n = 2^15 at
+# flushes of 4096 (`bench_join(n=1 << 15, batch=4096)`)
+JOINS = (("j6", JOIN_APP, 1 << 12, 8, False, "LR"),
+         ("j6w", JOIN_APP, 1 << 17, 2, False, "LR"),
+         ("j6o", JOIN_OUTER, 1 << 12, 2, True, "LR"),
+         ("j6u", JOIN_UNI, 1 << 12, 2, False, "L"))
+JOIN_JAX = "siddhi_tpu/core/join_device.py"
 SCAN_K = ("seg_tree", "scan_chase", "scan_compact", "expr_eval:pre_mask",
           "expr_eval:select")
 SEQ_K = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
@@ -995,6 +1018,151 @@ def check_c2_mean(np):
     return check
 
 
+def join_work(a: tuple, kw: dict, out) -> tuple:
+    """(bytes, operations) of one K9 call: each probe column a program
+    loads, the seqs and pass words, and the opposite mirror rows (Lo of
+    them) and batch rows of each loaded opposite column read once; the
+    written pairs, their computed columns, the miss words and the total
+    written once.  Operations: one binary search step per probe and
+    log2(n_o), and per visible pair (this run's data: the rank arithmetic
+    of `visible`) the `on` program's instructions other than loads and
+    constants (1 without `on`), per written pair the computed programs'."""
+    from siddhi_tpu_torch.core.expr import decode_word
+    from siddhi_tpu_torch.kernels.join_probe import visible
+    p_cols, o_cols, p_seq, o_seq, p_pass, o_pass = a
+    n_p, n_o, Lo, M = kw["n_p"], kw["n_o"], kw["Lo"], kw["M"]
+
+    def work(prog):
+        slots, ops = set(), 0
+        for j in range(0, len(prog.words), 2):
+            op = decode_word(prog.words[j])[0]
+            if op == "load":
+                slots.add(prog.words[j + 1])
+            elif op != "const":
+                ops += 1
+        return slots, ops
+    on_slots, on_ops = work(kw["on"]) if kw["on"] is not None else (set(), 1)
+    outs = [work(p) for p in kw["outs"]]
+    loaded = on_slots.union(*[s_ for s_, _o in outs])
+    nb = 8 * (n_p + n_o)
+    for i in loaded:
+        if i < len(p_cols):
+            nb += n_p * p_cols[i].element_size()
+        else:
+            nb += (Lo + n_o) * o_cols[i - len(p_cols)][0].element_size()
+    nb += sum(-(-n // 32) * 4 for w, n in ((p_pass, n_p), (o_pass, n_o))
+              if w is not None)
+    total, _pa, _pb, out_cols, miss = out
+    k = min(int(total[0]), M)
+    nb += k * (8 + sum(c.element_size() for c in out_cols)) + 8
+    nb += 0 if miss is None else miss.numel() * 4
+    lo, hi, _idx = visible(p_seq, o_seq, p_pass, o_pass, n_p, n_o, Lo,
+                           kw["Mw"])
+    tests = int((hi - lo).sum())
+    ops = n_p * max(n_o, 1).bit_length() + tests * on_ops + \
+        k * sum(o_ for _s, o_ in outs)
+    return nb, ops, tests
+
+
+def join_kernel_metrics(torch, calls) -> dict:
+    """Device, dispatch, plain time, bytes and operations of K9 on its
+    widest recorded call (probes x window) and of K1 `join_filter` on its
+    largest, as `window_kernel_metrics` does for the window kernels."""
+    from siddhi_tpu_torch.kernels import expr_eval as k1
+    from siddhi_tpu_torch.kernels import join_probe as k9
+    from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
+    from siddhi_tpu_torch.core.join_device import KERNELS
+    best: dict = {}
+    for name, a, kw in calls:
+        size = kw["n_p"] * max(kw["Mw"], 1) if name == "join_probe" else a[3]
+        key = "join_probe" if name == "join_probe" else \
+            f"expr_eval:{kw['use']}"
+        if key not in best or size >= best[key][0]:
+            best[key] = (size, name, a, kw)
+    res = {}
+    for key, (_size, name, a, kw) in best.items():
+        fn = KERNELS[name]
+        if name == "expr_eval":
+            cols, mask_p, out_p, n = a
+            ms, host = graph_ms(torch, lambda: fn(*a, **kw), lambda: [
+                k1.prepare(*a, **kw)])
+            nb, ops = k1_work(torch, cols, mask_p, out_p, n)
+            res[key] = {"ms": ms, "dispatch_ms": host, "bytes": nb,
+                        "ops": ops, "library_ms": None, "n": n,
+                        "plain_ms": wall_ms(torch, lambda: expr_eval_plain(
+                            *a))}
+            continue
+        ms, host = graph_ms(torch, lambda: fn(*a, **kw), lambda: [
+            k9.prepare(*a, **kw)])
+        nb, ops, tests = join_work(a, kw, fn(*a, **kw))
+        res[key] = {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
+                    "library_ms": None, "n": kw["n_p"], "pair_tests": tests,
+                    "plain_ms": wall_ms(torch, lambda: k9.join_probe_plain(
+                        *a, **kw))}
+    return res
+
+
+def phase_join(torch, np, label: str, app: str, batch: int, flushes: int,
+               filtered: bool, sides: str) -> dict:
+    """Phases 17-20: a join app on bench.py's config 6 tape through the
+    facade on the card (launch counts from 0 just before its first flush,
+    read just after its last; every K1/K9 call recorded) and on the CPU:
+    equal rows in order, NULLs in place; K9 launched at least once a flush
+    for each side in `sides` and for no other (the plan's per-side tally);
+    K1 `join_filter` launched exactly when `filtered`; every recorded call
+    equal to its plain version.  Then an unrecorded timing run: ms per
+    flush, the median of its steady flushes, events/s from it; the
+    kernels' times."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import run_join
+    tape = join_tape(batch * flushes, batch)
+    calls: list = []
+    kernels.reset_launches()
+    rows, per_flush, rt = run_join(app, tape, "cuda", calls)
+    launches = dict(kernels.LAUNCHES)
+    ref, cpu_flush, _rt = run_join(app, tape, "cpu")
+    if rows != ref or not rows:
+        raise SystemExit(f"[{label}] rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    plan = rt.plans()[0]
+    probes = dict(plan.probe_calls)
+    if any(probes[k] < flushes for k in sides) or \
+            any(probes[k] for k in "LR" if k not in sides) or \
+            launches["join_probe"] != sum(probes.values()):
+        raise SystemExit(f"[{label}] K9 calls per side {probes}, launches "
+                         f"{launches['join_probe']}, wanted >= {flushes} "
+                         f"for {sides!r}")
+    k1 = ("expr_eval:join_filter",)
+    need_launches(label, launches, ("join_probe",) + (k1 if filtered else ()),
+                  () if filtered else k1)
+    nulls = sum(1 for _t, r in rows if None in r)
+    if filtered and not nulls:
+        raise SystemExit(f"[{label}] an outer join without NULL rows")
+    err = check_join_calls(calls)
+    log(f"  [{label}] {len(calls)} kernel calls ({err['pairs']} pairs) equal "
+        f"to their plain versions")
+    _r, timed, _rt = run_join(app, tape, "cuda")
+    steady = sorted(timed[1:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else \
+        (steady[len(steady) // 2 - 1] + steady[len(steady) // 2]) / 2
+    eps = batch / (med / 1e3)
+    log(f"[{label}] {len(rows)} rows ({nulls} with NULLs) equal to the CPU "
+        f"run; K9 calls per side {probes}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; recorded run ms per "
+        f"flush {[round(x, 2) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); timing run "
+        f"{[round(x, 2) for x in timed]}: median of {len(steady)} steady "
+        f"{med:.3f} ms, {eps:.0f} events/s")
+    metrics = join_kernel_metrics(torch, calls)
+    return {"rows": len(rows), "null_rows": nulls, "probe_calls": probes,
+            "recorded_ms_per_flush": per_flush, "ms_per_flush": timed,
+            "median_steady_ms": med, "events_per_s": eps,
+            "cpu_ms_per_flush": cpu_flush, "launches": launches,
+            "err": {k: v for k, v in err.items() if k != "pairs"},
+            "pairs": err["pairs"], "calls": len(calls), "M": plan._m_hint,
+            "kernels": metrics}
+
+
 def kernel_entry(name, source, replaces, launches, err, m) -> dict:
     bound_ms, by = bound(m["bytes"], m["ops"])
     return {"name": name, "route": "cuda", "source": source,
@@ -1155,7 +1323,16 @@ def main() -> int:
                                    family, seed, extra, null_col)
         log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
 
-    # 17. results
+    # 17-20. the window joins: config 6 at bench.py's flush (J6) and at
+    #        2^17 (J6W), filtered full outer (J6O), unidirectional (J6U)
+    joins = {}
+    for label, app, batch, flushes, filtered, sides in JOINS:
+        t0 = time.perf_counter()
+        joins[label] = phase_join(torch, np, label, app, batch, flushes,
+                                  filtered, sides)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
+
+    # 21. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     win = "siddhi_tpu/core/window_device.py"
 
@@ -1252,6 +1429,18 @@ def main() -> int:
         ("win_scan (segmented)", f"{CSRC}/win_scan.cu", f"{win}:163",
          c2b["launches"]["win_scan"], werr("win_scan"),
          c2b["kernels"]["win_scan"])]
+    jerr = max(ph["err"].get("join_probe", 0.0) for ph in joins.values())
+    for label, what in (("j6", "join_probe"),
+                        ("j6w", "join_probe (2^16 probes a flush side)"),
+                        ("j6o", "join_probe (outer, computed column)"),
+                        ("j6u", "join_probe (unidirectional)")):
+        entries.append((what, f"{CSRC}/join_probe.cu", f"{JOIN_JAX}:261",
+                        joins[label]["launches"]["join_probe"], jerr,
+                        joins[label]["kernels"]["join_probe"]))
+    entries.append(("expr_eval:join_filter", K1_SRC, f"{JOIN_JAX}:283",
+                    joins["j6o"]["launches"]["expr_eval:join_filter"],
+                    joins["j6o"]["err"].get("expr_eval:join_filter", 0.0),
+                    joins["j6o"]["kernels"]["expr_eval:join_filter"]))
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -1298,7 +1487,7 @@ def main() -> int:
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
               "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
-              **alg}
+              **alg, **joins}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

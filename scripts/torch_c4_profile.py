@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where a C4 (C5, C2) flush spends its time in the PyTorch/CUDA port.
+"""Where a C4 (C5, C2, J6) flush spends its time in the PyTorch/CUDA port.
 
     python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b|
-                                         c4n|c4ns|c4a|c4o] [--out FILE]
+                                         c4n|c4ns|c4a|c4o|j6|j6w|j6o|j6u]
+                                        [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
 1000 keys, 2^18-event flushes, the chip_smoke.py tape) through
@@ -15,7 +16,11 @@ four fused plans of 250 query lanes; 2^13-event flushes 50 ms apart,
 event flushes over 8 symbols), or one of its pattern-algebra apps at
 C4's shape (`c4n`: a count head on `scan`; `c4ns`: a count with a
 capture filter on `seq`; `c4a`: `and` on `scan`; `c4o`: `or` with NULLs
-on `seq`), warms with one flush, then profiles the
+on `seq`), or one of its join configs on bench.py's config 6 tape (`j6`:
+bench.py's JOIN_APP at 4096-event flushes; `j6w`: 2^17-event flushes;
+`j6o`: the filtered full outer join; `j6u`: the unidirectional one;
+each flush one send_batch to L, one to R), warms with one flush, then
+profiles the
 next FLUSHES (4) with
 cProfile (host clock; each flush ends in torch.cuda.synchronize).
 Device waits show up inside the calls that pull results to the host
@@ -40,7 +45,8 @@ FLUSHES, TRACED = 4, 2
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b",
-                                         "c4n", "c4ns", "c4a", "c4o"),
+                                         "c4n", "c4ns", "c4a", "c4o", "j6",
+                                         "j6w", "j6o", "j6u"),
                     default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
@@ -54,7 +60,11 @@ def main() -> int:
     import siddhi_tpu_torch as pkg
 
     algebra = {a[0]: a[1] for a in chip_smoke.ALGEBRA}
-    if args.config == "c4":
+    joins = {j[0]: j for j in chip_smoke.JOINS}
+    if args.config in joins:
+        keys, flush, dt = 1000, joins[args.config][2], 1
+        app, outs = joins[args.config][1], ["Out"]
+    elif args.config == "c4":
         keys, flush, dt = 1000, 1 << 18, 1
         app, outs = chip_smoke.C4_HEAD + chip_smoke.C4, ["Out"]
     elif args.config in algebra:
@@ -70,22 +80,28 @@ def main() -> int:
                            chip_smoke.C5_DT)
         app = chip_smoke.c5_app(chip_smoke.C5_QUERIES)
         outs = [f"Out{j}" for j in range(16)]
-    tape = chip_smoke.make_tape(flush * (FLUSHES + TRACED + 1), flush,
-                                keys, seed=5, dt_ms=dt)
+    # a flush: the (stream, tape entry) pairs sent before its flush()
+    n_tape = flush * (FLUSHES + TRACED + 1)
+    if args.config in joins:
+        tape = [[("L", f["L"]), ("R", f["R"])]
+                for f in chip_smoke.join_tape(n_tape, flush)]
+    else:
+        tape = [[("StockStream", f)] for f in chip_smoke.make_tape(
+            n_tape, flush, keys, seed=5, dt_ms=dt)]
     rt = pkg.SiddhiManager().create_app_runtime(app)
     got = [0]
     for o in outs:
         rt.add_batch_callback(o, lambda b: got.__setitem__(0, got[0] + b.n))
-    h = rt.input_handler("StockStream")
     codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
                      dtype=np.int32)
 
-    def feed(f):
-        cols = {"symbol": codes[f["sym_idx"]], "price": f["price"],
-                "volume": f["volume"]}
-        if args.config == "c2b":
-            cols["et"] = f["ts"]                # event time = arrival
-        h.send_batch(cols, f["ts"])
+    def feed(sends):
+        for sid, f in sends:
+            cols = {"symbol": codes[f["sym_idx"]], "price": f["price"],
+                    "volume": f["volume"]}
+            if args.config == "c2b":
+                cols["et"] = f["ts"]            # event time = arrival
+            rt.input_handler(sid).send_batch(cols, f["ts"])
         rt.flush()
         torch.cuda.synchronize()
 

@@ -2,8 +2,10 @@
 
 A stream-processing and complex-event-processing engine whose hot paths
 are hand-written CUDA kernels for Hopper (csrc/): the predicate VM
-(`kernels/expr_eval.py`) and the batched pattern NFA
-(`kernels/nfa_block.py`).  The facade matches the JAX package's:
+(`kernels/expr_eval.py`), the batched pattern NFA
+(`kernels/nfa_block.py`), the `scan` family's trees, chase and
+compaction, the window scans, ranges and compaction, and the join probe
+(`kernels/join_probe.py`).  The facade matches the JAX package's:
 
     from siddhi_tpu_torch import SiddhiManager
     rt = SiddhiManager().create_app_runtime(app_text)   # device="cuda"

@@ -2,13 +2,22 @@
 
 Port of `siddhi_tpu/core/build.py` for this slice: single-stream
 filter/projection queries become FilterProjectPlans, pattern/sequence
-queries DevicePatternPlans (an unpartitioned pattern runs with P = 1, as
-the JAX package does under `@app:devicePatterns('prefer')`), window +
-aggregation queries DeviceWindowAggPlans (core/window_device.py), and value
-partitions go to `partition.plan_partition`.  Before them, the fusion
-pre-pass of the JAX package (build.py:97-150) turns every group of at
-least MIN_GROUP structurally identical pattern queries into fused
-multi-query plans (core/multi_query.py), registered first, as there.
+queries DevicePatternPlans, window + aggregation queries
+DeviceWindowAggPlans (core/window_device.py), stream-stream joins
+DeviceJoinPlans (core/join_device.py), and value partitions go to
+`partition.plan_partition`.  Before them, the fusion pre-pass of the JAX
+package (build.py:97-150) turns every group of at least MIN_GROUP
+structurally identical pattern queries into fused multi-query plans
+(core/multi_query.py), registered first, as there.
+
+`@app:devicePatterns`: 'auto' (the default) and 'prefer' run every
+pattern on the device plan (an unpartitioned pattern with P = 1, as the
+JAX package does under 'prefer'; its 'auto' sends those to the host
+matcher); 'always' is the device plan too; 'never' raises PlanError,
+since the host matcher is a later slice.  `@app:deviceJoins`: 'auto'
+and 'always' plan the device join; a shape it refuses raises PlanError
+with the refusal's reason (under 'always' with the JAX package's
+message), and 'never' raises, since the host join is a later slice.
 Every other construct raises PlanError naming the slice it belongs to.
 """
 from __future__ import annotations
@@ -55,8 +64,7 @@ def _fuse_groups(rt) -> set:
     from .multi_query import MIN_GROUP, plan_query_group, query_signature
     from .nfa_device import DeviceNFAUnsupported
     app = rt.app
-    dp = ast.find_annotation(app.annotations, "app:devicePatterns")
-    if dp is not None and str(dp.element()).lower() == "never":
+    if rt.device_patterns == "never":
         return set()
     groups: dict = {}
     for i, elem in enumerate(app.execution_elements):
@@ -117,11 +125,14 @@ def plan_query(rt, q: ast.Query, default_name: str):
             rt.device, q.selector.limit, q.selector.offset,
             events_for=q.output.events_for)
     if isinstance(inp, ast.StateInputStream):
+        if rt.device_patterns == "never":
+            raise PlanError(f"query {name!r}: devicePatterns('never') needs "
+                            f"the host matcher, which {_LATER}")
         from .pattern_plan import DevicePatternPlan
         return DevicePatternPlan(name, rt, q, inp, target,
                                  slots=rt.device_slots)
     if isinstance(inp, ast.JoinInputStream):
-        raise PlanError(f"query {name!r}: joins {_LATER}")
+        return _plan_join(rt, q, inp, name, target)
     raise PlanError(f"query {name!r}: input {type(inp).__name__} {_LATER}")
 
 
@@ -140,3 +151,24 @@ def _plan_window(rt, q: ast.Query, inp: ast.SingleInputStream, name: str,
                         f"needs the host interpreter, which {_LATER}")
     from .window_device import DeviceWindowAggPlan
     return DeviceWindowAggPlan(name, rt, q, inp, target)
+
+
+def _plan_join(rt, q: ast.Query, inp: ast.JoinInputStream, name: str,
+               target):
+    """A stream-stream join on the device (siddhi_tpu/core/build.py:
+    318-338).  Where the JAX package runs its host join interpreter --
+    `@app:deviceJoins('never')` and the shapes the device plan refuses --
+    the port raises PlanError: that interpreter is a later slice."""
+    mode = rt.device_joins
+    if mode == "never":
+        raise PlanError(f"query {name!r}: deviceJoins('never') needs the "
+                        f"host join interpreter, which {_LATER}")
+    from .join_device import DeviceJoinPlan, DeviceJoinUnsupported
+    try:
+        return DeviceJoinPlan(name, rt, q, inp, target)
+    except DeviceJoinUnsupported as e:
+        if mode == "always":
+            raise PlanError(f"query {name!r}: @app:deviceJoins('always') but "
+                            f"the shape is host-only: {e}") from None
+        raise PlanError(f"query {name!r}: {e} needs the host join "
+                        f"interpreter, which {_LATER}") from None

@@ -56,6 +56,10 @@ def plan_partition(rt, part: ast.Partition, index: int) -> None:
             raise PlanError(
                 f"query {name!r}: partitioned non-pattern queries (per-key "
                 f"host clones) are a later slice of the port")
+        if rt.device_patterns == "never":
+            raise PlanError(f"query {name!r}: devicePatterns('never') needs "
+                            f"the host matcher, which is a later slice of "
+                            f"the port")
         sids = set(input_stream_ids(q))
         if not sids <= set(value_keys):
             raise PlanError(

@@ -4,17 +4,20 @@ Port of `siddhi_tpu/core/runtime.py`, kept lean for this slice: events
 accumulate into per-stream columnar builders; `flush()` (or a builder
 reaching `batch_capacity`, 2048 as in the JAX package) drains them as
 micro-batches through the plans, and outputs reach callbacks.  Pattern
-plans buffer what they are sent and run their device blocks when the
-drain round settles, so one `send_batch` is one flush of the NFA.
+and join plans buffer what they are sent (a join both its streams, one
+stream for a self-join) and run their device blocks when the drain round
+settles, so one `send_batch` is one flush of the NFA or the join.
 
 Time: `set_time(ms)` advances the virtual clock and fires the plans'
 due timers (absent-pattern deadlines) in wakeup order, draining after
 each; under `@app:playback` the clock follows the events' timestamps.
 
 Annotations read: `@app:partitionCapacity`, `@app:deviceSlots`,
-`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`, and by the
-window plans `@app:deviceWindows` ('never' raises: no host interpreter
-yet) and `@app:devicePrecision('f64')`.  No
+`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`,
+`@app:devicePatterns` and `@app:deviceJoins` (core/build.py: 'never'
+raises, as there is no host interpreter yet), and by the window plans
+`@app:deviceWindows` ('never' raises too) and
+`@app:devicePrecision('f64')`.  No
 autotuning, write-ahead log, replication, telemetry or network serving:
 those are later slices.
 
@@ -88,6 +91,8 @@ class SiddhiAppRuntime:
         self.partition_capacity = int(pc.element()) if pc is not None else 1024
         ds = qast.find_annotation(app.annotations, "app:deviceSlots")
         self.device_slots = int(ds.element()) if ds is not None else 16
+        self.device_patterns = self._mode(app, "app:devicePatterns")
+        self.device_joins = self._mode(app, "app:deviceJoins")
         self.schemas: dict = {sid: StreamSchema.of(sd)
                               for sid, sd in app.stream_definitions.items()}
         self._plans: list = []
@@ -101,6 +106,12 @@ class SiddhiAppRuntime:
         self._seq = 0
         from .build import build_app
         build_app(self)
+
+    @staticmethod
+    def _mode(app: qast.SiddhiApp, name: str) -> str:
+        """A placement annotation's value, lower case ('auto' when absent)."""
+        a = qast.find_annotation(app.annotations, name)
+        return str(a.element()).lower() if a is not None else "auto"
 
     def _register_plan(self, plan: QueryPlan) -> None:
         self._plans.append(plan)

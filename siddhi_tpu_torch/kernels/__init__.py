@@ -10,11 +10,14 @@ the `scan` plan family, K6-K8 (`win_scan`, `win_range`, `win_compact`)
 the window plans.  The `scan` family's count and logical positions add
 two uses of K6 on its lane grid (`win_scan:rank` occurrence ranks,
 `win_scan:prev` prev-match pointers) and one of K3 (`seg_tree:rank`,
-the max-trees over the ranks).
+the max-trees over the ranks).  K9 `join_probe` carries the window
+joins (one launch per probing direction), after K1's side filters (use
+`join_filter`).
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "expr_eval:select": 0, "expr_eval:window_args": 0,
-            "expr_eval:window_select": 0, "nfa_block": 0, "seg_tree": 0,
+            "expr_eval:window_select": 0, "expr_eval:join_filter": 0,
+            "join_probe": 0, "nfa_block": 0, "seg_tree": 0,
             "seg_tree:rank": 0, "scan_chase": 0, "scan_compact": 0,
             "win_scan": 0, "win_scan:rank": 0, "win_scan:prev": 0,
             "win_range": 0, "win_compact": 0}

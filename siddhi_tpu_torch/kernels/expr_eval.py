@@ -1,6 +1,6 @@
 """K1 `expr_eval`: the predicate/projection VM over typed columns.
 
-Replaces four jitted device programs of the JAX package:
+Replaces five jitted device programs of the JAX package:
   * `FilterProjectPlan._make_step` (siddhi_tpu/core/planner.py:306): filter
     mask & having mask, computed selector columns, the mask bit-packed into
     32-bit words (bit j of word w = row 32w+j, planner.py:324-330);
@@ -11,7 +11,10 @@ Replaces four jitted device programs of the JAX package:
   * inside the window step (siddhi_tpu/core/window_device.py:545): the
     filter mask and the aggregates' argument values over the batch rows
     (:827-838, :562-569; use `window_args`), the selector and `having`
-    over the aggregates (`finish`, :594-606; use `window_select`).
+    over the aggregates (`finish`, :594-606; use `window_select`);
+  * the join block's side filters (siddhi_tpu/core/join_device.py
+    `side_pass`, :283-292; use `join_filter`), their mask words in the
+    layout of `bits32` (:273-281), which K9 `join_probe` reads.
 
 Design (csrc/expr_eval.cu, VM in csrc/expr_vm.cuh): one thread per row
 interprets one mask program (optional) and K output programs over C typed
@@ -267,8 +270,8 @@ def expr_eval(cols: list, mask_prog: Optional[Program], out_progs: list,
     """Run the mask program and the output programs over rows [0, n) of
     `cols` (1-d tensors; a program's load of slot i reads cols[i] at the
     row's element of `rows`, by default the row itself).  `use`
-    ("filter", "pre_mask", "select", "window_args" or "window_select")
-    names the launch counter.
+    ("filter", "pre_mask", "select", "window_args", "window_select" or
+    "join_filter") names the launch counter.
     Returns (mask words int32 (ceil(n/32),) or None, [output tensors])."""
     if f"expr_eval:{use}" not in LAUNCHES:
         raise ValueError(f"expr_eval: unknown use {use!r}")

@@ -6,17 +6,24 @@ tests (tests/test_torch_gpu.py):
 
   * the app texts of the driven configurations: BASELINE configs 1-5
     (`C1`, `C3`, `C4`, `c5_app`, `C2`), the grouped time window and C2B,
-    and the pattern-algebra apps of C4's partitioned shape (`C4N`,
-    `C4NS`, `C4A`, `C4O`);
+    the pattern-algebra apps of C4's partitioned shape (`C4N`, `C4NS`,
+    `C4A`, `C4O`), bench.py's config 6 join (`JOIN_APP`) and its filtered
+    outer and unidirectional variants (`JOIN_OUTER`, `JOIN_UNI`), and the
+    fused lanes' parameter app (`PARAM_APP`);
   * `make_tape`, the benchmark tape: uniform keys, prices on the quarter
     grid, flushes of `batch` events `dt_ms` apart;
+  * `join_tape`, bench.py's config 6 tape (`bench_join`), and
+    `run_join`, a join app through it, each flush one `send_batch` per
+    side and one `flush()`; with `record` (a list) every join plan
+    appends each kernel call it makes (`DeviceJoinPlan.record`);
   * `run_window`, a window app flush by flush (each flush one
     `send_batch` and one `flush()`, timed on the host clock around work
     that ends in `torch.cuda.synchronize()` on a card); with `record`
     (a list) every window plan of the app appends each kernel call it
     makes as (name, args, kwargs) (`DeviceWindowAggPlan.record`);
   * the checks: `check_window_calls` (K1's window uses and K6-K8 on the
-    calls a window run recorded), `check_seq_block` (K2 and K1 on a block
+    calls a window run recorded), `check_join_calls` (K1 `join_filter`
+    and K9 on the calls a join run recorded), `check_seq_block` (K2 and K1 on a block
     a `seq` plan handed NFAKernel.run_block), `check_scan_block` (K1, K3,
     K6, K3's rank trees, K4 and K5 on a block a `scan` plan handed
     ParallelChainKernel.run_block), each kernel on the same inputs as its
@@ -92,6 +99,42 @@ C4A = partitioned(C4A_BODY)             # `scan`: `and`, prev pointers
 C4O = partitioned(C4O_BODY)             # `or`, NULL losers (seq forced)
 
 
+# bench.py:438-444 (config 6), copied
+JOIN_APP = """
+define stream L (symbol string, price double, volume int);
+define stream R (symbol string, price double, volume int);
+@info(name='q') from L#window.length(1024) as a join R#window.length(1024) as b
+on a.symbol == b.symbol and a.price > b.price
+select a.symbol as s, a.price as lp, b.price as rp insert into Out;
+"""
+JOIN_STREAMS = JOIN_APP.split("@info")[0]
+# the same streams: a filtered full outer join with a computed column
+# (K1 `join_filter`, both miss words, host miss rows), and a windowless
+# unidirectional side (one probing direction)
+JOIN_OUTER = JOIN_STREAMS + (
+    "@info(name='q') from L[volume > 2]#window.length(1024) as a full outer "
+    "join R#window.length(256) as b on a.symbol == b.symbol and "
+    "a.price > b.price select a.symbol as s, a.price + b.price as tot, "
+    "b.volume as bv insert into Out;\n")
+JOIN_UNI = JOIN_STREAMS + (
+    "@info(name='q') from L as a unidirectional join R#window.length(1024) "
+    "as b on a.symbol == b.symbol select a.price as lp, b.price as rp "
+    "insert into Out;\n")
+
+# fused lanes with lifted constants in hops and selectors (the card
+# tests and tests/test_torch_multi_query.py)
+PARAM_APP = "@app:playback\n" + "\n".join(
+    ["define stream S (sym string, price double, v int);"] +
+    [f"@info(name='q{i}') from every e1=S[price > {100 + i}.0] -> "
+     f"e2=S[price > e1.price + {i % 3}.5] within 1 sec "
+     f"select e1.price * {i + 1}.0 as a, e2.v + {i} as b "
+     f"insert into Out{i % 2};" for i in range(10)] +
+    [f"@info(name='q{i}') from every e1=S[price > {100 + i % 7}.0], "
+     f"e2=S[price > e1.price - {i % 4}.25 and v != {i}] "
+     f"select e1.v * {i} as a insert into Out{2 + i % 2};"
+     for i in range(10, 20)])
+
+
 def c5_app(n_queries=1000):
     """bench.py:226-266 (BASELINE config 5), copied: 1k concurrent mixed
     pattern/sequence queries with `not`/`within` over one shared input
@@ -139,6 +182,64 @@ def make_tape(n_events: int, batch: int, keys: int, seed: int = 0,
             "volume": rng.integers(1, 1000, size=n).astype(np.int32),
             "ts": ts0 + np.arange(start, start + n, dtype=np.int64) * dt_ms})
     return tape
+
+
+def join_tape(n_events: int, batch: int, keys: int = 1000,
+              seed: int = 0) -> list:
+    """bench.py's `bench_join` tape: per flush `batch // 2` events to L,
+    then as many to R (key index, q4 price in [90, 130), volume 1-8, in
+    that order from one numpy generator), timestamps consecutive from
+    1_700_000_000_000; one dict per flush, {"L": side, "R": side}."""
+    rng = np.random.default_rng(seed)
+    half = batch // 2
+    ts0 = 1_700_000_000_000
+    tape, done = [], 0
+    for _ in range(n_events // batch):
+        flush = {}
+        for sid in ("L", "R"):
+            flush[sid] = {
+                "sym_idx": rng.integers(0, keys, half),
+                "price": np.round(rng.uniform(90, 130, half) * 4) / 4,
+                "volume": rng.integers(1, 9, half).astype(np.int32),
+                "ts": ts0 + np.arange(done, done + half, dtype=np.int64)}
+            done += half
+        tape.append(flush)
+    return tape
+
+
+def run_join(app: str, tape: list, device: str, record: Optional[list] = None,
+             keys: int = 1000) -> tuple:
+    """Feed a `join_tape` through `app` on `device`, flush by flush
+    (`send_batch` to L, to R, then `flush()`, timed on the host clock
+    around work that ends in `torch.cuda.synchronize()` on a card);
+    returns (rows as (ts, row) in output order, ms per flush, runtime)."""
+    from .core.join_device import DeviceJoinPlan
+    from .core.runtime import SiddhiManager
+    rt = SiddhiManager(device=device).create_app_runtime(app)
+    if record is not None:
+        for p in rt.plans():
+            if isinstance(p, DeviceJoinPlan):
+                p.record = record
+    batches: list = []
+    rt.add_batch_callback("Out", batches.append)
+    hs = {sid: rt.input_handler(sid) for sid in ("L", "R")}
+    codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                     dtype=np.int32)
+    per_flush = []
+    for f in tape:
+        t0 = time.perf_counter()
+        for sid in ("L", "R"):
+            s = f[sid]
+            hs[sid].send_batch({"symbol": codes[s["sym_idx"]],
+                                "price": s["price"], "volume": s["volume"]},
+                               s["ts"])
+        rt.flush()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        per_flush.append((time.perf_counter() - t0) * 1e3)
+    out = [(int(t), row) for b in batches
+           for t, row in zip(b.timestamps, b.rows(rt.strings))]
+    return out, per_flush, rt
 
 
 def run_window(app: str, tape: list, device: str,
@@ -241,6 +342,28 @@ def check_window_calls(calls: list) -> dict:
         else:
             key = name
             want = plain[name](*a, **kw)
+        torch.cuda.synchronize()
+        _agree(err, key, got, want, f"call {j}")
+    return err
+
+
+def check_join_calls(calls: list) -> dict:
+    """K1 `join_filter` and K9 against their plain versions on every call
+    a join run recorded, tolerance 0; returns the largest |kernel - plain|
+    per kernel use plus "pairs", the pair totals K9 reported."""
+    from .core.join_device import KERNELS
+    from .kernels.expr_eval import expr_eval_plain
+    from .kernels.join_probe import join_probe_plain
+    err: dict = {"pairs": 0}
+    for j, (name, a, kw) in enumerate(calls):
+        got = KERNELS[name](*a, **kw)
+        if name == "expr_eval":
+            key = f"expr_eval:{kw['use']}"
+            want = expr_eval_plain(*a)
+        else:
+            key = name
+            want = join_probe_plain(*a, **kw)
+            err["pairs"] += int(want[0][0])
         torch.cuda.synchronize()
         _agree(err, key, got, want, f"call {j}")
     return err

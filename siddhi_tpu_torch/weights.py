@@ -18,6 +18,10 @@ DeviceWindowAggPlan.state_dict() into tensors that the port's plan
 loads, deriving there the aggregates' argument values it carries beside
 the columns.
 
+A join plan's state is its two host mirrors (each side's window content:
+columns, `ts`, `seq`); `join_state_from_jax` copies a JAX
+DeviceJoinPlan.state_dict() into the dict the port's plan loads.
+
 The stateless families (`scan`) keep no device state: their continuity
 is the replay tail of the last `within` window (per key when
 partitioned), the last emitted completion seq (per key) and a one-shot
@@ -120,3 +124,14 @@ def window_state_from_jax(d: dict, device) -> dict:
     return {"C": int(d["C"]),
             "state": {k: torch.from_numpy(np.array(v, copy=True)).to(device)
                       for k, v in d["state"].items()}}
+
+
+def join_state_from_jax(d: dict) -> dict:
+    """A JAX DeviceJoinPlan.state_dict() (host mirrors, numpy) -> the dict
+    the port's DeviceJoinPlan.load_state_dict takes: per side the mirror
+    columns with their dtypes, `ts` and `seq` as int64, all copied."""
+    return {side: {"cols": {k: np.array(v, copy=True)
+                            for k, v in d[side]["cols"].items()},
+                   "ts": np.array(d[side]["ts"], dtype=np.int64),
+                   "seq": np.array(d[side]["seq"], dtype=np.int64)}
+            for side in ("left", "right")}

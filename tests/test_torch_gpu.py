@@ -25,8 +25,8 @@ from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
 from siddhi_tpu_torch.kernels import LAUNCHES, reset_launches
 from siddhi_tpu_torch.query import parse, parse_expression
 from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C4A_BODY, C4N_BODY,
-                                     C4NS_BODY, C4O_BODY, c5_app, make_tape,
-                                     partitioned, sorted_rows)
+                                     C4NS_BODY, C4O_BODY, PARAM_APP, c5_app,
+                                     make_tape, partitioned, sorted_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -467,21 +467,10 @@ def _c5_head_tape(n_events, seed=5):
                                                      dtype=np.int64)}
 
 
-# fused groups with lifted constants in a threshold hop's right-hand side
-# (K4), a sequence step (K2) and the selector (K1 by `__qid__`)
-PARAM_APP = "@app:playback\n" + "\n".join(
-    ["define stream S (sym string, price double, v int);"] +
-    [f"@info(name='q{i}') from every e1=S[price > {100 + i}.0] -> "
-     f"e2=S[price > e1.price + {i % 3}.5] within 1 sec "
-     f"select e1.price * {i + 1}.0 as a, e2.v + {i} as b "
-     f"insert into Out{i % 2};" for i in range(10)] +
-    [f"@info(name='q{i}') from every e1=S[price > {100 + i % 7}.0], "
-     f"e2=S[price > e1.price - {i % 4}.25 and v != {i}] "
-     f"select e1.v * {i} as a insert into Out{2 + i % 2};"
-     for i in range(10, 20)])
-
-
 def _feed_param_app(rt, n=2048, seed=3):
+    """PARAM_APP (replay.py): fused groups with lifted constants in a
+    threshold hop's right-hand side (K4), a sequence step (K2) and the
+    selector (K1 by `__qid__`)."""
     rng = np.random.default_rng(seed)
     price = np.round(rng.uniform(88, 115, n) * 4) / 4
     h = rt.input_handler("S")
@@ -740,3 +729,99 @@ def test_window_configs_match_the_cpu_run(cuda, which):
             "win_scan", "win_compact"] + (["win_range"] if which != "c2b"
                                           else [])
     assert all(launches[k] > 0 for k in used), launches
+
+
+@pytest.mark.parametrize("which", ["j6", "j6o", "j6u"])
+def test_join_configs_match_the_cpu_run(cuda, which):
+    """bench.py's config 6 join (J6), its filtered full outer variant with
+    a computed column (J6O) and the windowless unidirectional one (J6U) on
+    a shortened bench tape: the card's rows equal the CPU run's in order
+    (NULLs in place), K9 launched (K1 `join_filter` in J6O), and every
+    recorded K9 and K1 call equal to its plain version, tolerance 0."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import (JOIN_APP, JOIN_OUTER, JOIN_UNI,
+                                         check_join_calls, join_tape,
+                                         run_join)
+    app = {"j6": JOIN_APP, "j6o": JOIN_OUTER, "j6u": JOIN_UNI}[which]
+    tape = join_tape(3 * 4096, 4096, seed=7)
+    calls: list = []
+    kernels.reset_launches()
+    got, _ms, _rt = run_join(app, tape, "cuda", calls)
+    launches = dict(kernels.LAUNCHES)
+    want, _ms, _rt = run_join(app, tape, "cpu")
+    assert got == want and got
+    err = check_join_calls(calls)
+    assert err["pairs"] > 0
+    assert max(v for k, v in err.items() if k != "pairs") == 0.0
+    k9 = [kw for n, _a, kw in calls if n == "join_probe"]
+    assert launches["join_probe"] == len(k9) > 0
+    assert (launches["expr_eval:join_filter"] > 0) == (which == "j6o")
+    if which == "j6u":
+        assert all(kw["Mw"] == 1024 for kw in k9)       # left probes only
+    if which == "j6o":
+        assert any(r[1] is None and r[2] is None for _t, r in got)
+
+
+@pytest.mark.parametrize("M", [16, 1 << 16])
+@pytest.mark.parametrize("outer", [False, True])
+def test_join_probe_kernel_matches_plain(cuda, M, outer):
+    """K9 alone on random sides against its plain version: a window of
+    1024 over 1000 probes with both pass filters, a residual `on` and
+    computed columns of every VM value type, at a capacity far below the
+    pair total (written within M, the total still reported) and above it."""
+    from siddhi_tpu_torch.core.expr import (F32_MODE, MultiStreamContext,
+                                            VT_OF_TORCH, compile_expression,
+                                            compute_dtypes, emit_program)
+    from siddhi_tpu_torch.kernels.expr_eval import pack_mask
+    from siddhi_tpu_torch.kernels.join_probe import (join_probe,
+                                                     join_probe_plain)
+    from siddhi_tpu_torch.replay import same
+    schema = StreamSchema.of(parse(
+        "define stream S (k int, p float, v long, f bool);"
+    ).stream_definitions["S"])
+    ctx = MultiStreamContext({"a": schema, "b": schema}, StringTable())
+    rng = np.random.default_rng(5)
+    n_p, n_o, NO, Lo = 1000, 3000, 1024, 700
+
+    def cols(n):
+        return {"k": torch.from_numpy(rng.integers(0, 4, n).astype(
+                    np.int32)),
+                "p": torch.from_numpy(rng.uniform(-5, 5, n).astype(
+                    np.float32)),
+                "v": torch.from_numpy(rng.integers(-9, 9, n)),
+                "f": torch.from_numpy(rng.integers(0, 2, n).astype(bool))}
+    pc, mc, bc = cols(n_p), cols(NO), cols(n_o)
+    keys = ["a.k", "a.p", "b.k", "b.p", "b.v", "b.f"]
+    slots = {k: (i, VT_OF_TORCH[(pc if k[0] == "a" else bc)[k[2:]].dtype])
+             for i, k in enumerate(keys)}
+    with compute_dtypes(F32_MODE):
+        def prog(text):
+            return emit_program(compile_expression(parse_expression(text),
+                                                   ctx).node, slots)
+        on = prog("a.k == b.k and a.p > b.p - 1.5")
+        outs = [prog(t) for t in ("a.p * b.p + 0.25", "b.v * 3 + a.k",
+                                  "a.k - b.k", "b.f or a.p > 0")]
+    seq = np.sort(rng.permutation(np.arange(10_000, 10_000 + n_p + n_o)))
+    pick = np.zeros(len(seq), bool)
+    pick[rng.choice(len(seq), n_p, replace=False)] = True
+    args = ([pc["k"], pc["p"]],
+            [(mc[c], bc[c]) for c in ("k", "p", "v", "f")],
+            torch.from_numpy(seq[pick]), torch.from_numpy(seq[~pick]),
+            pack_mask(torch.from_numpy(rng.random(n_p) < 0.8)),
+            pack_mask(torch.from_numpy(rng.random(n_o) < 0.7)))
+    kw = dict(n_p=n_p, n_o=n_o, Lo=Lo, NO=NO, Mw=1024, on=on, outs=outs,
+              M=M, outer=outer)
+    want = join_probe_plain(*args, **kw)
+    dev = [[t.to(cuda) for t in a] if isinstance(a, list) and a and
+           torch.is_tensor(a[0]) else
+           [(m.to(cuda), b.to(cuda)) for m, b in a] if isinstance(a, list)
+           else a.to(cuda) for a in args]
+    before = LAUNCHES["join_probe"]
+    got = join_probe(*dev, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["join_probe"] == before + 1
+    assert int(want[0][0]) > 1 << 10
+    flat_g = [got[0], got[1], got[2], *got[3], got[4]]
+    flat_w = [want[0], want[1], want[2], *want[3], want[4]]
+    for g, w in zip(flat_g, flat_w):
+        assert same(None if g is None else g.cpu(), w)

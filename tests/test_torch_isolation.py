@@ -69,6 +69,11 @@ def test_import_leaves_jax_unloaded():
             "import siddhi_tpu_torch.core.multi_query\n"
             "import siddhi_tpu_torch.kernels.table\n"
             "import siddhi_tpu_torch.weights\n"
+            "import siddhi_tpu_torch.core.join_device\n"
+            "import siddhi_tpu_torch.kernels.join_probe\n"
+            "import siddhi_tpu_torch.interp.expr\n"
+            "import siddhi_tpu_torch.interp.joins\n"
+            "import siddhi_tpu_torch.replay\n"
             "bad = sorted(roots() - before)\n"
             "assert not bad, bad\n")
     env = dict(os.environ)
@@ -133,3 +138,13 @@ def test_expr_eval_rejects_an_unknown_use():
     col = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown use"):
         expr_eval([col], None, [], 4, use="window")
+
+
+def test_join_probe_refuses_other_devices():
+    """K9 takes its plain version only for CPU tensors: a probe on any
+    other device that is not CUDA is refused before anything runs."""
+    from siddhi_tpu_torch.kernels.join_probe import join_probe
+    seq = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        join_probe([], [], seq, seq, None, None, n_p=4, n_o=4, Lo=0, NO=1,
+                   Mw=1, on=None, outs=[], M=16, outer=False)

@@ -22,10 +22,9 @@ from siddhi_tpu.core.multi_query import \
     MultiQueryDevicePatternPlan as JMulti
 
 import siddhi_tpu_torch
-from chip_smoke import c5_app
-from test_torch_gpu import PARAM_APP
 from siddhi_tpu_torch.core.multi_query import (MIN_GROUP,
                                                MultiQueryDevicePatternPlan)
+from siddhi_tpu_torch.replay import PARAM_APP, c5_app
 from siddhi_tpu_torch.weights import (nfa_state_from_jax,
                                       stateless_state_from_jax)
 

@@ -290,3 +290,20 @@ def test_unsupported_options_raise_at_create(head, feature):
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
     with pytest.raises(PlanError, match=feature):
         mgr.create_app_runtime(head + APPS["c4"])
+
+
+@pytest.mark.parametrize("name", ["c3", "c4", "fused"])
+def test_device_patterns_never_raises(name):
+    """`@app:devicePatterns('never')` sends patterns to the JAX package's
+    host matcher, a later slice of the port: creating the app raises
+    PlanError naming it, unpartitioned, partitioned or fusable alike (no
+    device plan is built behind the annotation's back)."""
+    app = APPS.get(name) or STOCK + "\n".join(
+        f"@info(name='q{i}') from every e1=StockStream[price > {100 + i}] "
+        f"-> e2=StockStream[price > e1.price] within 1 sec "
+        f"select e1.price as p1 insert into Out;" for i in range(8))
+    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    with pytest.raises(PlanError, match=r"devicePatterns\('never'\) needs "
+                       r"the host matcher"):
+        mgr.create_app_runtime("@app:devicePatterns('never')\n" + app)
+    assert mgr.create_app_runtime("@app:devicePatterns('prefer')\n" + app)
