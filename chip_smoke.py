@@ -81,7 +81,27 @@ Phases (any failure exits non-zero; nothing is caught):
      to the CPU run in order with NULLs in place, every recorded call equal
      to its plain version, then an unrecorded timing run (ms per flush,
      the median of the steady flushes, events/s from it);
- 21. one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 22. A7, bench.py's aggregation matrix (`--matrix`: `_matrix_app`,
+     `_matrix_tape` seed 13, `rollup_k1024`; replay.MATRIX_APP: sum(p * v),
+     avg(p), min(p), max(p), count() group by sym at sec, min, hour) at
+     full scale: 24 flushes of 4096 events over 1024 keys through the
+     device-resident rings, K10 `agg_merge` launched 3 times a flush (K6
+     `agg` not), the sec ring grown past 1024 slots; every K10 call
+     recorded with the ring's state before it; stores and the store
+     query's rows per sec, min and hour equal to the CPU run; every
+     recorded call equal to its plain version; then an unrecorded timing
+     run (the median of the steady flushes, events/s);
+ 23. A7W: the same app, 4 flushes of 2^17 events;
+ 24. A7G: the same selector without `group by` (a global rollup: a
+     2^17-event segment a flush, K10's serial chain), 4 flushes of 2^17;
+ 25. A7M: A7 with `rt.query(matrix_query("min"))` after every flush (the
+     `mixed` cell): every query's rows equal to the CPU run's, store-query
+     p50 and p99 ms (p99 of 24 is their maximum, so it is also given
+     without the first query, which compiles it);
+ 26. A7A: A7W's tape under @app:deviceAggregations('always'), 2 flushes:
+     K6 `agg` 3 times a flush (K10 not), stores and rows equal to the CPU
+     run, every recorded K6 call equal to its plain version;
+ 21. (after 26) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -105,12 +125,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
     C1, C2, C2_GROUPED, C2B, C3, C4, C4_HEAD, C4_SEQ, C4A, C4N, C4NS, C4O,
-    JOIN_APP, JOIN_OUTER, JOIN_UNI, c5_app, check_join_calls, join_tape,
-    check_scan_block, check_seq_block, check_window_calls, make_tape,
-    max_err, scan_inputs, sorted_rows)
+    JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, agg_rows, c5_app,
+    check_agg_calls, check_join_calls, join_tape, check_scan_block,
+    check_seq_block, check_window_calls, make_tape, matrix_tape, max_err,
+    scan_inputs, sorted_rows)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+PEAK_F64_OPS_PER_S = 34e12     # H100 SXM float64 outside the tensor cores
 
 C2_FLUSH, C2_FLUSHES, C2_SYMBOLS = 1 << 17, 2, 8
 C2_TIMED = 8            # flushes of the timing run (the first is not steady)
@@ -133,6 +155,16 @@ JOINS = (("j6", JOIN_APP, 1 << 12, 8, False, "LR"),
          ("j6o", JOIN_OUTER, 1 << 12, 2, True, "LR"),
          ("j6u", JOIN_UNI, 1 << 12, 2, False, "L"))
 JOIN_JAX = "siddhi_tpu/core/join_device.py"
+# the aggregation phases (bench.py --matrix, `_matrix_app`/`_matrix_tape`,
+# bench.py:2849-2904): (label, flushes, events a flush, group by, a store
+# query after every flush, @app:deviceAggregations('always'))
+AGGS = (("a7", 24, 1 << 12, True, False, False),
+        ("a7w", 4, 1 << 17, True, False, False),
+        ("a7g", 4, 1 << 17, False, False, False),
+        ("a7m", 24, 1 << 12, True, True, False),
+        ("a7a", 2, 1 << 17, True, False, True))
+AGG_KEYS = 1024
+AGG_JAX = "siddhi_tpu/core/agg_device.py"
 SCAN_K = ("seg_tree", "scan_chase", "scan_compact", "expr_eval:pre_mask",
           "expr_eval:select")
 SEQ_K = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
@@ -203,11 +235,11 @@ def wall_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, f64: bool = False) -> tuple:
     """(least ms, what bounds it) on the H100: bytes over HBM, operations
-    over the float32 peak."""
+    over the float32 peak (the float64 one for a kernel in f64)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    by_ops = ops / (PEAK_F64_OPS_PER_S if f64 else PEAK_OPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -1163,8 +1195,158 @@ def phase_join(torch, np, label: str, app: str, batch: int, flushes: int,
             "kernels": metrics}
 
 
+def agg_merge_work(torch, a: tuple, kw: dict) -> tuple:
+    """(bytes, f64 operations, chain) of one K10 call: `order`, the value
+    rows the bases read, `seg_off`, `slot` and `fresh` read once, the m x
+    nb ring cells read and written once; an add or compare per event and
+    non-count base plus one merge per segment and base; the chain is the
+    longest segment (its dependent adds run one after another)."""
+    _pre, vals, order, seg_off, slot, fresh = a
+    ops_, rows = kw["ops"], kw["rows"]
+    n, m, nb = order.shape[0], slot.shape[0], len(ops_)
+    read = {r for op, r in zip(ops_, rows) if op != "count"}
+    nbytes_ = nbytes(order, seg_off, slot, fresh) + 8 * n * len(read) + \
+        16 * m * nb
+    lens = (seg_off[1:] - seg_off[:-1])
+    chain = int(lens.max()) if m else 0
+    return nbytes_, n * sum(op != "count" for op in ops_) + m * nb, chain
+
+
+def agg_kernel_metrics(torch, calls) -> dict:
+    """Device, dispatch, plain and library time, bytes, operations and
+    chain of K10 (or K6 use `agg`) on its widest recorded call (segments x
+    bases plus the longest segment).  K10 merges in place, so its replays
+    run on a scratch copy of the ring."""
+    from siddhi_tpu_torch.kernels import agg_merge as k10
+    from siddhi_tpu_torch.kernels import win_scan as k6
+    best = None
+    for name, a, kw in calls:
+        size = a[4].shape[0] * len(kw["ops"]) + \
+            agg_merge_work(torch, a, kw)[2] if name == "agg_merge" else a[1]
+        if best is None or size >= best[0]:
+            best = (size, name, a, kw)
+    _size, name, a, kw = best
+    if name == "win_scan":
+        ms, host = graph_ms(torch, lambda: k6.win_scan(*a, **kw),
+                            lambda: [k6.prepare(*a, **kw)])
+        nb, ops = window_work("win_scan", a, kw, k6.win_scan(*a, **kw))
+        return {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
+                "library_ms": None, "n": a[1],
+                "plain_ms": wall_ms(torch, lambda: k6.win_scan_plain(
+                    *a, flags=kw["flags"]))}
+    pre, rest = a[0], a[1:]
+    scratch = pre.clone()
+    ms, host = graph_ms(torch, lambda: k10.agg_merge(scratch, *rest, **kw),
+                        lambda: [k10.prepare(scratch, *rest, **kw)])
+    nb, ops, chain = agg_merge_work(torch, a, kw)
+    plain_ms = wall_ms(torch, lambda: k10.agg_merge_plain(
+        pre.clone(), *rest, **kw))
+    # the library yardstick: scatter_reduce_ of each op kind over the
+    # event-order segment ids (no fixed fold order, no merge)
+    vals, order, seg_off = rest[0], rest[1].long(), rest[2].long()
+    m, n = rest[3].shape[0], order.shape[0]
+    inv = torch.empty(n, dtype=torch.long, device=order.device)
+    inv[order] = torch.repeat_interleave(
+        torch.arange(m, device=order.device), seg_off[1:] - seg_off[:-1])
+    ones = torch.ones(1, n, dtype=torch.float64, device=order.device)
+    groups = []
+    for kind, want in (("sum", ("sum", "count")), ("amin", ("min",)),
+                       ("amax", ("max",))):
+        src = [ones if op == "count" else vals[r:r + 1]
+               for op, r in zip(kw["ops"], kw["rows"]) if op in want]
+        if src:
+            s_ = torch.cat(src).T.contiguous()
+            groups.append((kind, s_, inv[:, None].expand_as(s_).contiguous()))
+
+    def library():
+        return [torch.zeros(m, s_.shape[1], dtype=torch.float64,
+                            device=s_.device).scatter_reduce_(
+            0, idx, s_, kind, include_self=False)
+            for kind, s_, idx in groups]
+    return {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
+            "f64": True, "chain": chain, "n": n, "m": m,
+            "plain_ms": plain_ms, "library_ms": event_ms(torch, library)}
+
+
+def phase_agg(torch, np, label: str, flushes: int, batch: int,
+              grouped: bool, query_every: bool, always: bool) -> dict:
+    """Phases 22-26: bench.py's aggregation matrix app on its tape (seed
+    13, 1024 keys) through the facade on the card (launch counts from 0
+    just before the first flush, read just after the last; every K10 or
+    K6 `agg` call recorded with its inputs, K10's with the ring's state
+    before it) and on the CPU: equal stores and query rows per sec, min
+    and hour (tolerance 0), and with `query_every` equal rows from the
+    store query after every flush; K10 launched 3 times a flush (K6 `agg`
+    not), or under 'always' K6 `agg` 3 times a flush (K10 not); every
+    recorded call equal to its plain version.  Then an unrecorded timing
+    run: the median ms of its steady flushes, events/s from it."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.query.ast import Duration
+    from siddhi_tpu_torch.replay import run_agg
+    head = "@app:deviceAggregations('always')\n" if always else ""
+    app = MATRIX_APP(head, grouped)
+    tape = matrix_tape(flushes, batch, AGG_KEYS)
+    calls: list = []           # A7M records nothing: A7 checks its path
+    kernels.reset_launches()
+    per_flush, qlat, qrows, rt = run_agg(app, tape, "cuda",
+                                         None if query_every else calls,
+                                         query_every=int(query_every))
+    launches = dict(kernels.LAUNCHES)
+    cpu_flush, _ql, cpu_q, ref = run_agg(app, tape, "cpu",
+                                         query_every=int(query_every))
+    agg, ref_agg = rt.aggregations["Roll"], ref.aggregations["Roll"]
+    rows = agg_rows(rt)
+    if rows != agg_rows(ref) or not all(rows.values()) or \
+            agg.state_dict() != ref_agg.state_dict() or qrows != cpu_q:
+        raise SystemExit(f"[{label}] stores or rows differ from the CPU run")
+    path = rt.explain()["aggregations"]["Roll"]["path"]
+    used, unused = ("win_scan:agg", "agg_merge") if always else \
+        ("agg_merge", "win_scan:agg")
+    if path != ("device-batch" if always else "device-resident") or \
+            launches[used] != 3 * flushes or launches[unused]:
+        raise SystemExit(f"[{label}] path {path}, launches {launches}")
+    cap = None if always else agg.device_plan.capacity(Duration.SECONDS)
+    if cap is not None and grouped and cap <= 1024:
+        raise SystemExit(f"[{label}] the sec ring did not grow ({cap})")
+    err = check_agg_calls(calls)
+    if calls:
+        log(f"  [{label}] {len(calls)} kernel calls equal to their plain "
+            f"versions: {sorted(err)}")
+    _ms, _q, _r, _rt = run_agg(app, tape[:1], "cuda")   # warm
+    timed, _q, _r, _rt = run_agg(app, tape, "cuda")
+    steady = sorted(timed[1:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else \
+        (steady[len(steady) // 2 - 1] + steady[len(steady) // 2]) / 2
+    eps = batch / (med / 1e3)
+    q = {}
+    if qlat:
+        ql = sorted(qlat)
+        q = {"query_p50_ms": float(np.percentile(ql, 50)),
+             "query_p99_ms": float(np.percentile(ql, 99)),
+             # without the first query, which compiles it
+             "query_p99_warm_ms": float(np.percentile(qlat[1:], 99)),
+             "query_ms": qlat}
+    live = {per: len(r) for per, r in rows.items()}
+    log(f"[{label}] path {path}, buckets {live} equal to the CPU run; sec "
+        f"ring {cap}; launches { {k: v for k, v in launches.items() if v} }; "
+        f"recorded run ms per flush {[round(x, 2) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); timing run "
+        f"{[round(x, 2) for x in timed]}: median of {len(steady)} steady "
+        f"{med:.3f} ms, {eps:.0f} events/s"
+        + (f"; store query p50 {q['query_p50_ms']:.3f} ms, p99 "
+           f"{q['query_p99_ms']:.3f} ms of {len(qlat)} "
+           f"({q['query_p99_warm_ms']:.3f} ms without the first, "
+           f"compiling one)" if q else ""))
+    return {"buckets": live, "ring": cap, "launches": launches, "err": err,
+            "recorded_ms_per_flush": per_flush, "ms_per_flush": timed,
+            "median_steady_ms": med, "events_per_s": eps,
+            "cpu_ms_per_flush": cpu_flush, "flush_events": batch,
+            "calls": len(calls), **q,
+            "kernels": agg_kernel_metrics(torch, calls) if calls else None}
+
+
 def kernel_entry(name, source, replaces, launches, err, m) -> dict:
-    bound_ms, by = bound(m["bytes"], m["ops"])
+    bound_ms, by = bound(m["bytes"], m["ops"], m.get("f64", False))
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": m["ms"], "dispatch_ms": m["dispatch_ms"],
@@ -1332,6 +1514,16 @@ def main() -> int:
                                   filtered, sides)
         log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
 
+    # 22-26. incremental aggregation: bench.py's matrix rollup at 4096
+    #        (A7) and 2^17 (A7W) a flush, a global rollup (A7G), a store
+    #        query after every flush (A7M), the per-batch path (A7A)
+    aggs = {}
+    for label, flushes, batch, grouped, query_every, always in AGGS:
+        t0 = time.perf_counter()
+        aggs[label] = phase_agg(torch, np, label, flushes, batch, grouped,
+                                query_every, always)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
+
     # 21. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     win = "siddhi_tpu/core/window_device.py"
@@ -1441,6 +1633,19 @@ def main() -> int:
                     joins["j6o"]["launches"]["expr_eval:join_filter"],
                     joins["j6o"]["err"].get("expr_eval:join_filter", 0.0),
                     joins["j6o"]["kernels"]["expr_eval:join_filter"]))
+    k10_err = max(aggs[x]["err"].get("agg_merge", 0.0)
+                  for x in ("a7", "a7w", "a7g"))
+    for label, what in (("a7", "agg_merge"),
+                        ("a7w", "agg_merge (2^17 a flush)"),
+                        ("a7g", "agg_merge (global rollup, 2^17 chain)")):
+        entries.append((what, f"{CSRC}/agg_merge.cu", f"{AGG_JAX}:102",
+                        aggs[label]["launches"]["agg_merge"], k10_err,
+                        aggs[label]["kernels"]))
+    entries.append(("win_scan:agg", f"{CSRC}/win_scan.cu",
+                    "siddhi_tpu/core/aggregation.py:463",
+                    aggs["a7a"]["launches"]["win_scan:agg"],
+                    aggs["a7a"]["err"].get("win_scan:agg", 0.0),
+                    aggs["a7a"]["kernels"]))
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -1487,7 +1692,7 @@ def main() -> int:
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
               "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
-              **alg, **joins}
+              **alg, **joins, **aggs}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

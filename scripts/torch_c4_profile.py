@@ -2,7 +2,8 @@
 """Where a C4 (C5, C2, J6) flush spends its time in the PyTorch/CUDA port.
 
     python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b|
-                                         c4n|c4ns|c4a|c4o|j6|j6w|j6o|j6u]
+                                         c4n|c4ns|c4a|c4o|j6|j6w|j6o|j6u|
+                                         agg|aggw|aggg]
                                         [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
@@ -19,12 +20,17 @@ capture filter on `seq`; `c4a`: `and` on `scan`; `c4o`: `or` with NULLs
 on `seq`), or one of its join configs on bench.py's config 6 tape (`j6`:
 bench.py's JOIN_APP at 4096-event flushes; `j6w`: 2^17-event flushes;
 `j6o`: the filtered full outer join; `j6u`: the unidirectional one;
-each flush one send_batch to L, one to R), warms with one flush, then
+each flush one send_batch to L, one to R), or one of its aggregation
+cells on bench.py's matrix tape (`agg`: A7, bench.py's `_matrix_app`
+rollup at 4096-event flushes over 1024 keys; `aggw`: A7W, 2^17-event
+flushes; `aggg`: A7G, the global rollup at 2^17; each flush one
+send_batch to Trades), warms with one flush, then
 profiles the
 next FLUSHES (4) with
 cProfile (host clock; each flush ends in torch.cuda.synchronize).
 Device waits show up inside the calls that pull results to the host
-(`Tensor.cpu`).  Prints the flush times and the functions with the most
+(`Tensor.cpu`).  Prints the flush times (an aggregation reports its live
+sec buckets in place of matches) and the functions with the most
 cumulative and own time.  Then TRACED (2) more flushes run under
 torch.profiler: device time per kernel and copy, and the device's busy
 share of the traced wall time (the rest is the card's idle share).
@@ -46,7 +52,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b",
                                          "c4n", "c4ns", "c4a", "c4o", "j6",
-                                         "j6w", "j6o", "j6u"),
+                                         "j6w", "j6o", "j6u", "agg",
+                                         "aggw", "aggg"),
                     default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
@@ -61,7 +68,14 @@ def main() -> int:
 
     algebra = {a[0]: a[1] for a in chip_smoke.ALGEBRA}
     joins = {j[0]: j for j in chip_smoke.JOINS}
-    if args.config in joins:
+    aggs = {"agg": ("a7", True), "aggw": ("a7w", True),
+            "aggg": ("a7g", False)}
+    if args.config in aggs:
+        label, grouped = aggs[args.config]
+        keys = chip_smoke.AGG_KEYS
+        flush = {a[0]: a[2] for a in chip_smoke.AGGS}[label]
+        app, outs = chip_smoke.MATRIX_APP("", grouped), []
+    elif args.config in joins:
         keys, flush, dt = 1000, joins[args.config][2], 1
         app, outs = joins[args.config][1], ["Out"]
     elif args.config == "c4":
@@ -82,7 +96,10 @@ def main() -> int:
         outs = [f"Out{j}" for j in range(16)]
     # a flush: the (stream, tape entry) pairs sent before its flush()
     n_tape = flush * (FLUSHES + TRACED + 1)
-    if args.config in joins:
+    if args.config in aggs:
+        tape = [[("Trades", f)] for f in chip_smoke.matrix_tape(
+            FLUSHES + TRACED + 1, flush, keys)]
+    elif args.config in joins:
         tape = [[("L", f["L"]), ("R", f["R"])]
                 for f in chip_smoke.join_tape(n_tape, flush)]
     else:
@@ -97,6 +114,9 @@ def main() -> int:
 
     def feed(sends):
         for sid, f in sends:
+            if sid == "Trades":             # a matrix tape entry
+                rt.input_handler(sid).send_batch(*f)
+                continue
             cols = {"symbol": codes[f["sym_idx"]], "price": f["price"],
                     "volume": f["volume"]}
             if args.config == "c2b":
@@ -114,6 +134,9 @@ def main() -> int:
         feed(f)
         prof.disable()
         ms.append((time.perf_counter() - t0) * 1e3)
+    if args.config in aggs:
+        got[0] = rt.aggregations["Roll"].metrics()["durations"][
+            "SECONDS"]["buckets"]
     buf = io.StringIO()
     buf.write(f"card {torch.cuda.get_device_name(0)}; {args.config.upper()} "
               f"flushes of {flush} events over {keys} keys; ms per flush "

@@ -1,9 +1,10 @@
 """Geometry annotations of the pattern plans.
 
 Port of `pattern_family_for` (siddhi_tpu/core/autotune.py:437) and
-`fused_lane_pack_for` (:462) for the annotations alone: the tuning cache,
-which the JAX package consults after them, is a later slice of the port,
-and `chunk_lanes_for` comes with the `chunk` family, which reads it.
+`fused_lane_pack_for` (:462) and `agg_capacity_for` (:477) for the
+annotations alone: the tuning cache, which the JAX package consults after
+them, is a later slice of the port, and `chunk_lanes_for` comes with the
+`chunk` family, which reads it.
 """
 from __future__ import annotations
 
@@ -44,3 +45,15 @@ def fused_lane_pack_for(rt) -> int:
     `@app:fusedLanes(N)`."""
     an = ast.find_annotation(rt.app.annotations, "app:fusedLanes")
     return max(0, int(an.element())) if an is not None else 0
+
+
+AGG_CAPACITY = 1024
+
+
+def agg_capacity_for(rt) -> int:
+    """Initial slot count of a device-resident aggregation ring, per
+    duration (core/agg_device.py; the ring doubles when full, so this is
+    a starting geometry, not a bound): `@app:aggCapacity(N)` (at least
+    8), else `AGG_CAPACITY`."""
+    an = ast.find_annotation(rt.app.annotations, "app:aggCapacity")
+    return max(8, int(an.element())) if an is not None else AGG_CAPACITY

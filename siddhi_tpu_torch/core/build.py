@@ -5,7 +5,11 @@ filter/projection queries become FilterProjectPlans, pattern/sequence
 queries DevicePatternPlans, window + aggregation queries
 DeviceWindowAggPlans (core/window_device.py), stream-stream joins
 DeviceJoinPlans (core/join_device.py), and value partitions go to
-`partition.plan_partition`.  Before them, the fusion pre-pass of the JAX
+`partition.plan_partition`.  Incremental aggregations (`define
+aggregation`) are registered first, as AggregationRuntimes
+(core/aggregation.py; siddhi_tpu/core/build.py:88-95); an aggregation
+join raises PlanError (the host join is a later slice).  Before the
+queries, the fusion pre-pass of the JAX
 package (build.py:97-150) turns every group of at least MIN_GROUP
 structurally identical pattern queries into fused multi-query plans
 (core/multi_query.py), registered first, as there.
@@ -36,11 +40,17 @@ def build_app(rt) -> None:
     for what, defs in (("tables", app.table_definitions),
                        ("named windows", app.window_definitions),
                        ("triggers", app.trigger_definitions),
-                       ("script functions", app.function_definitions),
-                       ("incremental aggregations",
-                        app.aggregation_definitions)):
+                       ("script functions", app.function_definitions)):
         if defs:
             raise PlanError(f"{what}: {_LATER}")
+    from .aggregation import AggregationRuntime
+    for aid, ad in app.aggregation_definitions.items():
+        if aid in rt.schemas:
+            raise PlanError(f"{aid!r} defined as both aggregation and "
+                            f"stream")
+        agg = AggregationRuntime(rt, ad)
+        rt.aggregations[aid] = agg
+        rt._register_plan(agg)
     fused = _fuse_groups(rt)
     for i, elem in enumerate(app.execution_elements):
         if i in fused:
@@ -159,6 +169,10 @@ def _plan_join(rt, q: ast.Query, inp: ast.JoinInputStream, name: str,
     318-338).  Where the JAX package runs its host join interpreter --
     `@app:deviceJoins('never')` and the shapes the device plan refuses --
     the port raises PlanError: that interpreter is a later slice."""
+    if inp.per is not None or rt.aggregations.keys() & {
+            inp.left.stream_id, inp.right.stream_id}:
+        raise PlanError(f"query {name!r}: an aggregation join (`within ... "
+                        f"per`) needs the host join, which {_LATER}")
     mode = rt.device_joins
     if mode == "never":
         raise PlanError(f"query {name!r}: deviceJoins('never') needs the "

@@ -17,9 +17,11 @@ Annotations read: `@app:partitionCapacity`, `@app:deviceSlots`,
 `@app:devicePatterns` and `@app:deviceJoins` (core/build.py: 'never'
 raises, as there is no host interpreter yet), and by the window plans
 `@app:deviceWindows` ('never' raises too) and
-`@app:devicePrecision('f64')`.  No
-autotuning, write-ahead log, replication, telemetry or network serving:
-those are later slices.
+`@app:devicePrecision('f64')`, and by the aggregations
+`@app:deviceAggregations` and `@app:aggCapacity`.  Store queries on
+aggregations: `query()` / `query_with_schema()`; `explain()` reports the
+aggregations' placement.  No autotuning, write-ahead log, replication,
+telemetry or network serving: those are later slices.
 
 The runtime runs on `device` ("cuda" by default).  Without a CUDA card it
 raises unless the caller asked for the CPU, where every kernel wrapper
@@ -104,6 +106,9 @@ class SiddhiAppRuntime:
         self._builders: dict = {}
         self._pending: list = []
         self._seq = 0
+        self.tables: dict = {}          # tables are a later slice: empty
+        self.aggregations: dict = {}    # id -> AggregationRuntime
+        self._store_cache: dict = {}    # store-query text -> compiled, LRU
         from .build import build_app
         build_app(self)
 
@@ -163,6 +168,49 @@ class SiddhiAppRuntime:
 
     def start(self) -> None:
         pass
+
+    # -- on-demand (store) queries (siddhi_tpu/core/runtime.py:746-786) ------
+
+    def query(self, text: str) -> list:
+        """Run a store query against an aggregation (`from A [on cond]
+        within t0, t1 per 'min' select ...`) after a flush; returns
+        [(timestamp_ms, row_tuple)].  The compiled form is cached per
+        text."""
+        return self.query_with_schema(text)[1]
+
+    def query_with_schema(self, text: str) -> tuple:
+        """query() plus the compiled output schema: (StreamSchema, rows).
+        The 64 most recent texts stay compiled (least recently used
+        first out)."""
+        from ..query.parser import parse_store_query
+        from .store import compile_store_query
+        exec_ = self._store_cache.pop(text, None)
+        if exec_ is None:
+            if len(self._store_cache) >= 64:
+                self._store_cache.pop(next(iter(self._store_cache)))
+            exec_ = compile_store_query(self, parse_store_query(text))
+        self._store_cache[text] = exec_
+        self.flush()
+        return exec_.out_schema, exec_.execute()
+
+    def explain(self) -> dict:
+        """Placement of the app's aggregations, in the form of the JAX
+        package's explain() (siddhi_tpu/core/placement.py:274-292): per
+        aggregation its path (`device-resident`, `device-batch` or
+        `host`), durations, retention, evictions and the D-AGG records of
+        a path other than the default."""
+        aggs = {}
+        for an, a in sorted(self.aggregations.items()):
+            ent = {"path": a.path, "durations": [d.name for d in a.durations]}
+            if a.retention_ms:
+                ent["retention_ms"] = {d.name: v for d, v in sorted(
+                    a.retention_ms.items(), key=lambda kv: kv[0].approx_millis)}
+            if any(a.evicted.values()):
+                ent["evicted"] = {d.name: k for d, k in a.evicted.items() if k}
+            if a.demotions:
+                ent["demotions"] = list(a.demotions)
+            aggs[an] = ent
+        return {"aggregations": aggs}
 
     def shutdown(self) -> None:
         """Nothing to stop: the port runs no threads or sockets."""

@@ -14,6 +14,12 @@
 // masked by the valid flags (an invalid entry adds the identity), and a
 // column without input counts ones.
 //
+// The incremental aggregation's per-batch path (siddhi_tpu/core/
+// aggregation.py:463-532, `_reduce_device` under
+// @app:deviceAggregations('always')) runs it over each duration's
+// (bucket, group)-sorted batch: f64 sums, counts, min and max, reset at
+// every segment start.
+//
 // The `scan` pattern family runs it on its (L, F) lane grid, a segment
 // per lane: occurrence ranks (a count of each count position's node mask,
 // the jnp.cumsum of siddhi_tpu/core/nfa_parallel.py:843) and the prev-match

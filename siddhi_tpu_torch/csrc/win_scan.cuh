@@ -6,9 +6,10 @@
 // start (or the range's beginning) to its end.  The combine of a left and a
 // right element is (fl | fr, fr ? vr : op(vl, vr)); it is associative, and
 // with f always false it is the plain scan.  Each Op gives its value type,
-// its identity and op(left, right).  min/max propagate NaN as jnp.minimum /
-// jnp.maximum do (CUDA's fmin/fmax would drop it), by selecting the left
-// operand when it is NaN or strictly better.
+// its identity and op(left, right).  min/max are jnp.minimum / jnp.maximum
+// exactly: NaN propagates (CUDA's fmin/fmax would drop it) and -0.0 counts
+// below +0.0 whichever side it is on (fmin/fmax leave the sign of zero
+// open), so the comparison is written out.  K10 agg_merge uses them too.
 #pragma once
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -32,12 +33,16 @@ struct SumI {
 struct MinF {
   typedef double T;
   static __device__ __forceinline__ T id() { return CUDART_INF; }
-  static __device__ __forceinline__ T op(T a, T b) { return (a < b || isnan(a)) ? a : b; }
+  static __device__ __forceinline__ T op(T a, T b) {
+    return (isnan(a) || a < b || (a == b && signbit(a))) ? a : b;
+  }
 };
 struct MaxF {
   typedef double T;
   static __device__ __forceinline__ T id() { return -CUDART_INF; }
-  static __device__ __forceinline__ T op(T a, T b) { return (a > b || isnan(a)) ? a : b; }
+  static __device__ __forceinline__ T op(T a, T b) {
+    return (isnan(a) || a > b || (a == b && !signbit(a))) ? a : b;
+  }
 };
 struct MaxI {
   typedef long long T;

@@ -1,16 +1,19 @@
 """Aggregate sites of a selector and their output types.
 
 Port of the parts of the JAX package's host interpreter that the device
-window plan reads: `extract_aggregators` and `AggSite`
-(siddhi_tpu/interp/engine.py:33-74), the output types of the
+window plan and the incremental aggregation read: `extract_aggregators`
+and `AggSite` (siddhi_tpu/interp/engine.py:33-74), the output types of the
 incremental aggregators (siddhi_tpu/interp/aggregators.py:37-136), and
-`_collect_site_args` (siddhi_tpu/core/window_device.py:1130).  There is no
-host evaluator here: a site keeps its argument's AST, and the plan takes
-the argument's type from the port's expression compiler.
+`_collect_site_args` (siddhi_tpu/core/window_device.py:1130).  Without a
+context a site keeps its argument's AST, and the window plan takes the
+argument's type from the port's expression compiler; with a host
+expression context (`interp/expr.py`) it also carries the compiled per-row
+argument (`arg_fns`), `in_type` and `out_type`, as the JAX package's
+sites do for its aggregation runtime.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from ..core.planner import AGGREGATOR_NAMES
@@ -28,34 +31,49 @@ class AggSite:
     name: str                       # lower-case aggregator name
     arg: Optional[ast.Expression]   # its first argument, or None
     key: str
+    arg_fns: list = field(default_factory=list)   # compiled host getters
+    in_type: Optional[AttrType] = None
+    out_type: Optional[AttrType] = None
 
 
-def extract_aggregators(expr: ast.Expression, sites: list) -> ast.Expression:
+def extract_aggregators(expr: ast.Expression, sites: list,
+                        ctx=None) -> ast.Expression:
     """Replace aggregator calls with placeholder variables, appending an
-    AggSite per call in traversal order."""
+    AggSite per call in traversal order.  With `ctx` (a PyExprContext)
+    each site compiles its arguments and takes its types; `out_type` is
+    None for an aggregator without an incremental form."""
     if isinstance(expr, ast.FunctionCall) and expr.namespace is None \
             and expr.name.lower() in AGGREGATOR_NAMES:
         key = f"__agg{len(sites)}"
-        sites.append(AggSite(expr.name.lower(),
-                             expr.args[0] if expr.args else None, key))
+        site = AggSite(expr.name.lower(),
+                       expr.args[0] if expr.args else None, key)
+        if ctx is not None:
+            from .expr import compile_py
+            fns = [compile_py(a, ctx) for a in expr.args]
+            site.arg_fns = [f for f, _t in fns]
+            site.in_type = fns[0][1] if fns else None
+            try:
+                site.out_type = out_type(site.name, site.in_type)
+            except ValueError:
+                site.out_type = None
+        sites.append(site)
         return ast.Variable(key)
+
+    def sub(e):
+        return extract_aggregators(e, sites, ctx)
     if isinstance(expr, ast.Math):
-        return ast.Math(extract_aggregators(expr.left, sites), expr.op,
-                        extract_aggregators(expr.right, sites))
+        return ast.Math(sub(expr.left), expr.op, sub(expr.right))
     if isinstance(expr, ast.Compare):
-        return ast.Compare(extract_aggregators(expr.left, sites), expr.op,
-                           extract_aggregators(expr.right, sites))
+        return ast.Compare(sub(expr.left), expr.op, sub(expr.right))
     if isinstance(expr, ast.And):
-        return ast.And(extract_aggregators(expr.left, sites),
-                       extract_aggregators(expr.right, sites))
+        return ast.And(sub(expr.left), sub(expr.right))
     if isinstance(expr, ast.Or):
-        return ast.Or(extract_aggregators(expr.left, sites),
-                      extract_aggregators(expr.right, sites))
+        return ast.Or(sub(expr.left), sub(expr.right))
     if isinstance(expr, ast.Not):
-        return ast.Not(extract_aggregators(expr.expr, sites))
+        return ast.Not(sub(expr.expr))
     if isinstance(expr, ast.FunctionCall):
-        return ast.FunctionCall(expr.name, tuple(
-            extract_aggregators(a, sites) for a in expr.args), expr.namespace)
+        return ast.FunctionCall(expr.name, tuple(sub(a) for a in expr.args),
+                                expr.namespace)
     return expr
 
 

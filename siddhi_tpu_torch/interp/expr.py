@@ -5,7 +5,9 @@ first piece of the host interpreter: one closure per AST node, evaluated
 per event over a dict env.  The device join plan (core/join_device.py)
 evaluates its computed selector outputs with it on an outer join's miss
 rows, where the other side is NULL and the device programs have no value
-to read.
+to read.  The incremental aggregation (core/aggregation.py) evaluates its
+input filters, non-plain aggregate arguments (`sum(p * v)`), output rows
+and store queries' `on` conditions and selectors with it.
 
 Env convention matches core/expr.py: keys "attr", "ref.attr",
 "ref[i].attr", "__timestamp__".  Values are Python scalars; strings stay
@@ -30,25 +32,39 @@ PyFn = Callable[[dict], object]
 
 class PyExprContext:
     """Resolution for the host evaluator, the protocol of core/expr.py's
-    contexts with string constants kept as strings; `schemas`: ref ->
-    StreamSchema.  (The JAX package's `extra`, `default_ref` and `tables`
-    serve its single-stream and table plans, later slices here.)"""
+    contexts with string constants kept as strings (siddhi_tpu/interp/
+    expr.py:31-72): `schemas`: ref -> StreamSchema; `extra`: name ->
+    (env key, AttrType) for names outside any schema (an aggregation's
+    group attributes, `AGG_TIMESTAMP`, the `__agg<i>` placeholders);
+    `default_ref`: the home of unqualified attributes when several
+    schemas hold one; `tables`: id -> table for `in Table` (kept for the
+    JAX package's signature; tables are a later slice, so it stays
+    empty)."""
 
-    def __init__(self, schemas: dict):
+    def __init__(self, schemas: dict, extra: Optional[dict] = None,
+                 default_ref: Optional[str] = None,
+                 tables: Optional[dict] = None):
         self.schemas = schemas
+        self.extra = extra or {}
+        self.default_ref = default_ref
+        self.tables = tables or {}
 
     def resolve(self, var: ast.Variable) -> tuple[str, AttrType]:
         ref = var.stream_ref
         if ref is None:
+            if var.attribute in self.extra:
+                return self.extra[var.attribute]
             hits = [(r, s) for r, s in self.schemas.items()
                     if var.attribute in s.types]
+            if len(hits) > 1 and self.default_ref is not None:
+                hits = [h for h in hits if h[0] == self.default_ref]
             if not hits:
                 raise ExprError(f"unknown attribute {var.attribute!r}")
             if len(hits) > 1:
                 raise ExprError(f"ambiguous attribute {var.attribute!r}")
             r, s = hits[0]
-            key = var.attribute if len(self.schemas) == 1 \
-                else f"{r}.{var.attribute}"
+            key = var.attribute if len(self.schemas) == 1 or \
+                r == self.default_ref else f"{r}.{var.attribute}"
             return key, s.type_of(var.attribute)
         if ref not in self.schemas:
             raise ExprError(f"unknown stream reference {ref!r}; have "
@@ -57,6 +73,10 @@ class PyExprContext:
         if var.index is not None:
             return f"{ref}[{var.index}].{var.attribute}", \
                 s.type_of(var.attribute)
+        if ref == self.default_ref:
+            # a qualified self-reference (`S.x` in `from S[...]`): the
+            # single-stream env carries unqualified keys
+            return var.attribute, s.type_of(var.attribute)
         return f"{ref}.{var.attribute}", s.type_of(var.attribute)
 
 

@@ -12,7 +12,10 @@ two uses of K6 on its lane grid (`win_scan:rank` occurrence ranks,
 `win_scan:prev` prev-match pointers) and one of K3 (`seg_tree:rank`,
 the max-trees over the ranks).  K9 `join_probe` carries the window
 joins (one launch per probing direction), after K1's side filters (use
-`join_filter`).
+`join_filter`).  K10 `agg_merge` folds an incremental aggregation's
+batch segments into its device-resident bucket rings (one launch per
+duration a batch); under `@app:deviceAggregations('always')` the
+aggregation's per-batch segmented scans run on K6 (use `agg`).
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "expr_eval:select": 0, "expr_eval:window_args": 0,
@@ -20,7 +23,8 @@ LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "join_probe": 0, "nfa_block": 0, "seg_tree": 0,
             "seg_tree:rank": 0, "scan_chase": 0, "scan_compact": 0,
             "win_scan": 0, "win_scan:rank": 0, "win_scan:prev": 0,
-            "win_range": 0, "win_compact": 0}
+            "win_scan:agg": 0, "win_range": 0, "win_compact": 0,
+            "agg_merge": 0}
 
 
 def reset_launches() -> None:

@@ -17,9 +17,9 @@ adds the identity (0, +inf, -inf, or the i64 minimum), the flag being
 the column's own `valid_c` when given, else `valid`.  Sums of floats accumulate in f64 and of integers and
 bools in i64, whatever the compute precision (the JAX package sums f32
 in f32 mode; see PERF.md and tests/test_torch_window.py for the bound
-that difference obeys); min/max keep the input dtype and propagate NaN
-as `jnp.minimum`/`jnp.maximum` do.  `flags` (bool, N) starts a new
-segment at every set entry, for every column; `period` > 0 instead starts
+that difference obeys); min/max keep the input dtype and follow
+`jnp.minimum`/`jnp.maximum` (`jmin`/`jmax`: NaN propagates, -0.0 below
++0.0 in either order).  `flags` (bool, N) starts a new segment at every set entry, for every column; `period` > 0 instead starts
 one at every multiple of `period`.
 
 Design (csrc/win_scan.cu, combine in csrc/win_scan.cuh): the segmented
@@ -37,6 +37,12 @@ occurrence ranks of its count positions (a sum over the node mask,
 pointers of its `and` sides (a max over the lane-local event index,
 values None, masked by the side's node mask, `_prev_static_scan` :589; the i64 minimum where the
 lane has no match yet, -1 there).  Each use has its own launch counter.
+
+The incremental aggregation's per-batch path (`use="agg"`,
+`@app:deviceAggregations('always')`, core/aggregation.py) scans each
+duration's (bucket, group)-sorted batch with resets at the segment starts:
+f64 sums, counts, min and max (`_reduce_device`,
+siddhi_tpu/core/aggregation.py:463-532).
 
 `win_scan()` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors.
@@ -64,7 +70,7 @@ class _Params(ctypes.Structure):
             "valid", "flags", "in_", "out", "in_vt", "out_vt", "op",
             "masked", "col_valid", "agg", "carry", "blk_flag")]
 COUNTER = {"window": "win_scan", "rank": "win_scan:rank",
-           "prev": "win_scan:prev"}
+           "prev": "win_scan:prev", "agg": "win_scan:agg"}
 
 
 def column_kind(op: str, values: Optional[torch.Tensor],
@@ -93,6 +99,19 @@ def _device(cols: list, valid, flags) -> torch.device:
                      "`flags` or its own valid flags")
 
 
+def jmin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.minimum: NaN propagates, -0.0 below +0.0 (MinF in
+    csrc/win_scan.cuh; K10 agg_merge folds with it too)."""
+    return torch.where(torch.isnan(a) | (a < b) | ((a == b) & torch.signbit(a)),
+                       a, b)
+
+
+def jmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.maximum, the mirror of `jmin`."""
+    return torch.where(torch.isnan(a) | (a > b) | ((a == b) & ~torch.signbit(a)),
+                       a, b)
+
+
 def _identity(kop: int):
     return {SUM_F: 0.0, SUM_I: 0, MIN_F: float("inf"), MAX_F: float("-inf"),
             MAX_I: I64_MIN}[kop]
@@ -103,9 +122,9 @@ def combine(kop: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if kop in (SUM_F, SUM_I):
         return a + b
     if kop == MIN_F:
-        return torch.where((a < b) | torch.isnan(a), a, b)
+        return jmin(a, b)
     if kop == MAX_F:
-        return torch.where((a > b) | torch.isnan(a), a, b)
+        return jmax(a, b)
     return torch.maximum(a, b)
 
 
@@ -201,7 +220,7 @@ def win_scan(cols: list, n: int, valid: Optional[torch.Tensor] = None,
              period: int = 0) -> list:
     """Inclusive segmented scans of the first n entries of each column
     (see the module docstring); returns one output tensor per column.
-    `use` names the launch counter (`window`, `rank`, `prev`)."""
+    `use` names the launch counter (`window`, `rank`, `prev`, `agg`)."""
     if _device(cols, valid, flags).type == "cpu":
         return win_scan_plain(cols, n, valid, flags, period)
     return prepare(cols, n, valid, flags, use, period)()

@@ -21,7 +21,14 @@ tests (tests/test_torch_gpu.py):
     that ends in `torch.cuda.synchronize()` on a card); with `record`
     (a list) every window plan of the app appends each kernel call it
     makes as (name, args, kwargs) (`DeviceWindowAggPlan.record`);
-  * the checks: `check_window_calls` (K1's window uses and K6-K8 on the
+  * bench.py's aggregation matrix (`--matrix`, docs/AGGREGATION.md "The
+    workload matrix"): `MATRIX_APP`, `matrix_tape`, `matrix_query`, and
+    `run_agg`, an aggregation app through such a tape, each flush one
+    `send_batch` (and `flush()`), optionally a store query after every
+    `query_every` flushes; with `record` (a list) the aggregation appends
+    each K10 call (device-resident rings) or K6 call (`'always'`);
+  * the checks: `check_agg_calls` (K10 and K6 use `agg` on the calls an
+    aggregation run recorded), `check_window_calls` (K1's window uses and K6-K8 on the
     calls a window run recorded), `check_join_calls` (K1 `join_filter`
     and K9 on the calls a join run recorded), `check_seq_block` (K2 and K1 on a block
     a `seq` plan handed NFAKernel.run_block), `check_scan_block` (K1, K3,
@@ -277,6 +284,91 @@ def run_window(app: str, tape: list, device: str,
     return out, per_flush, rt
 
 
+# the incremental aggregation matrix of bench.py (`_matrix_app`,
+# `_matrix_tape`, `_matrix_query`, bench.py:2849-2880)
+MATRIX_TS0 = 1_700_000_000_000
+MATRIX_PERS = ("sec", "min", "hour")
+
+
+def MATRIX_APP(head: str = "", group_by: bool = True) -> str:
+    """bench.py's `_matrix_app`: a DEBS-shaped rollup of Trades by symbol
+    at sec, min and hour; `group_by=False` drops the `group by` (a global
+    rollup, one segment per bucket) and `sym` from the selector."""
+    return (head +
+            "define stream Trades "
+            "(sym string, p double, v double, ts long);\n"
+            "define aggregation Roll\n"
+            "from Trades\n"
+            "select " + ("sym, " if group_by else "") +
+            "sum(p * v) as turnover, avg(p) as mean, "
+            "min(p) as lo, max(p) as hi, count() as n\n"
+            + ("group by sym\n" if group_by else "") +
+            "aggregate by ts every sec, min, hour;\n")
+
+
+def matrix_tape(n_batches: int, batch: int, keys: int, seed: int = 13) -> list:
+    """bench.py's `_matrix_tape`: batches 1.5 s of event time apart, each
+    `batch` events at sorted offsets in [0, 1500) ms, symbols G0..G<keys>,
+    p uniform in [10, 500), v in [1, 50); [(columns, timestamps)]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n_batches):
+        ts = (MATRIX_TS0 + k * 1500
+              + np.sort(rng.integers(0, 1500, batch))).astype(np.int64)
+        out.append(({"sym": np.array([f"G{i}" for i in
+                                      rng.integers(0, keys, batch)]),
+                     "p": rng.uniform(10, 500, batch),
+                     "v": rng.uniform(1, 50, batch),
+                     "ts": ts}, ts))
+    return out
+
+
+def matrix_query(per: str = "min", group_by: bool = True) -> str:
+    """bench.py's `_matrix_query`: every bucket of `per` from an hour
+    before the tape to a day after (without `sym` for a global rollup)."""
+    return (f"from Roll within {MATRIX_TS0 - 3_600_000}L, "
+            f"{MATRIX_TS0 + 86_400_000}L per {per!r} select "
+            + ("sym, " if group_by else "") + "turnover, mean, lo, hi, n")
+
+
+def run_agg(app: str, tape: list, device: str, record: Optional[list] = None,
+            query_every: int = 0, per: str = "min") -> tuple:
+    """Feed a `matrix_tape` through `app` (an aggregation on `Trades`) on
+    `device`, flush by flush (`send_batch`, `flush()`, timed on the host
+    clock around work that ends in `torch.cuda.synchronize()` on a card);
+    after every `query_every` flushes one `rt.query(matrix_query(per))`,
+    timed alone.  Returns (ms per flush, ms per store query, the store
+    queries' rows, runtime)."""
+    from .core.runtime import SiddhiManager
+    rt = SiddhiManager(device=device).create_app_runtime(app)
+    grouped = bool(rt.aggregations["Roll"].group_attrs)
+    if record is not None:
+        for agg in rt.aggregations.values():
+            agg.record = record
+            if agg.device_plan is not None:
+                agg.device_plan.record = record
+    h = rt.input_handler("Trades")
+    per_flush, qlat, qrows = [], [], []
+    for i, (cols, ts) in enumerate(tape):
+        t0 = time.perf_counter()
+        h.send_batch(cols, ts)
+        rt.flush()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        per_flush.append((time.perf_counter() - t0) * 1e3)
+        if query_every and (i + 1) % query_every == 0:
+            t0 = time.perf_counter()
+            qrows.append(rt.query(matrix_query(per, grouped)))
+            qlat.append((time.perf_counter() - t0) * 1e3)
+    return per_flush, qlat, qrows, rt
+
+
+def agg_rows(rt) -> dict:
+    """The matrix query's rows per sec, min and hour, in query order."""
+    grouped = bool(rt.aggregations["Roll"].group_attrs)
+    return {per: rt.query(matrix_query(per, grouped)) for per in MATRIX_PERS}
+
+
 # ---------------------------------------------------------------------------
 # kernel against plain
 # ---------------------------------------------------------------------------
@@ -342,6 +434,28 @@ def check_window_calls(calls: list) -> dict:
         else:
             key = name
             want = plain[name](*a, **kw)
+        torch.cuda.synchronize()
+        _agree(err, key, got, want, f"call {j}")
+    return err
+
+
+def check_agg_calls(calls: list) -> dict:
+    """K10 `agg_merge` (each from its recorded pre-state, kernel and plain
+    version on copies of it) and K6 use `agg` against their plain versions
+    on every call an aggregation run recorded, tolerance 0 (NaN equal to
+    NaN); returns the largest |kernel - plain| per kernel use."""
+    from .kernels.agg_merge import agg_merge, agg_merge_plain
+    from .kernels.win_scan import win_scan, win_scan_plain
+    err: dict = {}
+    for j, (name, a, kw) in enumerate(calls):
+        if name == "agg_merge":
+            got = agg_merge(a[0].clone(), *a[1:], **kw)
+            want = agg_merge_plain(a[0].clone(), *a[1:], **kw)
+            key = "agg_merge"
+        else:
+            got = win_scan(*a, **kw)
+            want = win_scan_plain(*a, flags=kw["flags"])
+            key = "win_scan:agg"
         torch.cuda.synchronize()
         _agree(err, key, got, want, f"call {j}")
     return err

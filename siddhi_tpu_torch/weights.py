@@ -22,6 +22,13 @@ A join plan's state is its two host mirrors (each side's window content:
 columns, `ts`, `seq`); `join_state_from_jax` copies a JAX
 DeviceJoinPlan.state_dict() into the dict the port's plan loads.
 
+An incremental aggregation's state is its per-duration bucket store,
+{duration value: {(bucket start, group key): [bases]}}, the same in both
+packages; a string group key is the runtime's string code, so
+`agg_state_from_jax` maps those codes through both string tables.  The
+port's AggregationRuntime.load_state_dict loads the result (and refills
+its device rings from it).
+
 The stateless families (`scan`) keep no device state: their continuity
 is the replay tail of the last `within` window (per key when
 partitioned), the last emitted completion seq (per key) and a one-shot
@@ -135,3 +142,21 @@ def join_state_from_jax(d: dict) -> dict:
                    "ts": np.array(d[side]["ts"], dtype=np.int64),
                    "seq": np.array(d[side]["seq"], dtype=np.int64)}
             for side in ("left", "right")}
+
+
+def agg_state_from_jax(d: dict, jax_strings, port_strings,
+                       string_keys=()) -> dict:
+    """A JAX AggregationRuntime.state_dict() as the port's
+    AggregationRuntime.load_state_dict input: each key's string group
+    values (the positions `string_keys`, the port runtime's
+    `string_keys`) go from the JAX runtime's string codes to the port's
+    (`jax_strings`, `port_strings`: the two StringTables, read with
+    decode/encode); bases are copied as Python floats."""
+    def key(k):
+        start, g = k
+        return (int(start), tuple(
+            port_strings.encode(jax_strings.decode(int(v)))
+            if i in string_keys else v for i, v in enumerate(g)))
+    return {"store": {dv: {key(k): [float(x) for x in v]
+                           for k, v in st.items()}
+                      for dv, st in d["store"].items()}}

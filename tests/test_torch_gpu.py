@@ -11,7 +11,9 @@ family) must give the same heaps, chase results and match table as
 theirs on every block a run hands them; K6-K8 (the window kernels) the
 same scans, range reductions and compacted columns as theirs on data
 whose f64 prefixes are exact, and the window configs the CPU run's
-rows."""
+rows; K10 (`agg_merge`) the same ring as its plain version bit for bit
+(NaN and the sign of zero included), K6 use `agg` the same scans, and
+the aggregation matrix app the CPU run's stores and rows."""
 import numpy as np
 import pytest
 import torch
@@ -825,3 +827,114 @@ def test_join_probe_kernel_matches_plain(cuda, M, outer):
     flat_w = [want[0], want[1], want[2], *want[3], want[4]]
     for g, w in zip(flat_g, flat_w):
         assert same(None if g is None else g.cpu(), w)
+
+
+def _agg_segments(rng, lens, dev):
+    """K10 inputs: segments of the given lengths over shuffled events (each
+    in increasing event order), value rows with NaN and signed zeros, a
+    ring with a pre-state, distinct slots, fresh flags."""
+    n, m = int(sum(lens)), len(lens)
+    perm = rng.permutation(n)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    order = np.concatenate([np.sort(perm[off[i]:off[i + 1]])
+                            for i in range(m)]).astype(np.int32)
+    vals = rng.uniform(-1, 1, (2, n)) * np.exp(rng.uniform(-30, 30, (2, n)))
+    vals[0, rng.integers(0, n, 3)] = np.nan
+    vals[1, rng.integers(0, n, 5)] = -0.0
+    vals[1, rng.integers(0, n, 5)] = 0.0
+    cap = 2 * m
+    pre = rng.uniform(-5, 5, (cap, 7))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(pre), t(vals), t(order), t(off),
+            t(rng.permutation(cap)[:m].astype(np.int32)),
+            t((rng.uniform(size=m) < 0.5).astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["small", "mixed", "canary", "chain"])
+def test_agg_merge_kernel_matches_plain(cuda, case):
+    """K10 against its plain version, tolerance 0 (NaN equal to NaN, the
+    sign of zero compared too): random short segments, a mix of short and
+    long ones, the [1e16, 1, -1e16, 1] canary, and one segment of 2^17
+    events (a global rollup's hour bucket)."""
+    from siddhi_tpu_torch.kernels.agg_merge import agg_merge, agg_merge_plain
+    rng = np.random.default_rng(5)
+    lens = {"small": [1, 3, 2, 7, 1] * 500, "mixed": [3] * 2000 + [40, 900],
+            "canary": [4], "chain": [1 << 17]}[case]
+    pre, vals, order, off, slot, fresh = _agg_segments(rng, lens, cuda)
+    if case == "canary":
+        vals[0] = torch.tensor([1e16, 1.0, -1e16, 1.0], dtype=torch.float64)
+        order = torch.arange(4, dtype=torch.int32, device=cuda)
+    ops = ["sum", "count", "min", "max", "sum", "min", "max"]
+    rows = [0, -1, 1, 0, 1, 0, 1]
+    before = LAUNCHES["agg_merge"]
+    got = agg_merge(pre.clone(), vals, order, off, slot, fresh, ops, rows)
+    want = agg_merge_plain(pre.clone(), vals, order, off, slot, fresh, ops,
+                           rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["agg_merge"] == before + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    if case == "canary":
+        s = int(slot[0])
+        assert float(got[s, 0]) == (1.0 if int(fresh[0]) else
+                                    float(pre[s, 0]) + 1.0)
+
+
+@pytest.mark.parametrize("n", [7, 4096, 131_072])
+def test_win_scan_agg_matches_plain(cuda, n):
+    """K6 use `agg`: f64 sums of f32-rounded values (exact prefixes here),
+    counts, and jnp.minimum/maximum with signed zeros and NaN, reset at
+    segment flags."""
+    from siddhi_tpu_torch.kernels.win_scan import win_scan, win_scan_plain
+    rng = np.random.default_rng(n)
+    v = np.float32(np.round(rng.uniform(-100, 100, n) * 4) / 4)
+    v[rng.integers(0, n, 3)] = 0.0
+    v[rng.integers(0, n, 3)] = -0.0
+    if n > 7:
+        v[rng.integers(0, n, 2)] = np.nan
+    x = torch.from_numpy(v.astype(np.float64)).to(cuda)
+    flags = torch.from_numpy(rng.uniform(size=n) < 0.05).to(cuda)
+    flags[0] = True
+    cols = [("sum", x, False), ("sum", None, False), ("min", x, False),
+            ("max", x, False)]
+    before = LAUNCHES["win_scan:agg"]
+    got = win_scan(cols, n, flags=flags, use="agg")
+    want = win_scan_plain(cols, n, flags=flags)
+    torch.cuda.synchronize()
+    assert LAUNCHES["win_scan:agg"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(torch.isnan(a.double()), torch.isnan(b.double()))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+        assert torch.equal(torch.signbit(a), torch.signbit(b))
+
+
+@pytest.mark.parametrize("head,kernel", [
+    ("", "agg_merge"),
+    ("@app:deviceAggregations('always')\n", "win_scan:agg")])
+@pytest.mark.parametrize("group_by", [True, False])
+def test_agg_matrix_matches_the_cpu_run(cuda, head, kernel, group_by):
+    """bench.py's aggregation matrix app (grouped and global) on a short
+    tape: the card's stores and query rows equal the CPU run's, K10 (or K6
+    `agg` under 'always') launched three times a flush and no other, and
+    every recorded call equal to its plain version."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import (MATRIX_APP, agg_rows,
+                                         check_agg_calls, matrix_tape,
+                                         run_agg)
+    app = MATRIX_APP(head, group_by)
+    tape = matrix_tape(4, 4096, 256)
+    calls: list = []
+    kernels.reset_launches()
+    _ms, _q, _r, rt = run_agg(app, tape, "cuda", calls, query_every=2)
+    launches = dict(kernels.LAUNCHES)
+    _ms, _q, _r, ref = run_agg(app, tape, "cpu")
+    assert agg_rows(rt) == agg_rows(ref)
+    assert rt.aggregations["Roll"].state_dict() == \
+        ref.aggregations["Roll"].state_dict()
+    other = "win_scan:agg" if kernel == "agg_merge" else "agg_merge"
+    assert launches[kernel] == 3 * len(tape) == len(calls)
+    assert launches[other] == 0
+    err = check_agg_calls(calls)
+    assert err == {kernel: 0.0}

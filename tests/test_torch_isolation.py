@@ -74,6 +74,10 @@ def test_import_leaves_jax_unloaded():
             "import siddhi_tpu_torch.interp.expr\n"
             "import siddhi_tpu_torch.interp.joins\n"
             "import siddhi_tpu_torch.replay\n"
+            "import siddhi_tpu_torch.core.aggregation\n"
+            "import siddhi_tpu_torch.core.agg_device\n"
+            "import siddhi_tpu_torch.core.store\n"
+            "import siddhi_tpu_torch.kernels.agg_merge\n"
             "bad = sorted(roots() - before)\n"
             "assert not bad, bad\n")
     env = dict(os.environ)
@@ -148,3 +152,33 @@ def test_join_probe_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         join_probe([], [], seq, seq, None, None, n_p=4, n_o=4, Lo=0, NO=1,
                    Mw=1, on=None, outs=[], M=16, outer=False)
+
+
+def test_agg_merge_refuses_other_devices():
+    """K10 takes its plain version only for CPU tensors: a ring on any
+    other device that is not CUDA is refused before anything runs."""
+    from siddhi_tpu_torch.kernels.agg_merge import agg_merge
+    f64 = torch.zeros((4, 1), dtype=torch.float64, device="meta")
+    i32 = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        agg_merge(f64, f64.T.contiguous(), i32, i32, i32[:1], i32[:1],
+                  ["sum"], [0])
+
+
+@pytest.mark.parametrize("name", ["aggregation.py", "agg_device.py"])
+def test_no_quiet_host_fallback_for_the_aggregation(name):
+    """The JAX package moves an aggregation to the host when its device
+    plan fails to build (`except Exception`, siddhi_tpu/core/
+    aggregation.py:307-312); the port has no such handler, so a failure
+    to build or launch K10 raises."""
+    path = os.path.join(PORT, "core", name)
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    broad = [h.lineno for h in ast.walk(tree)
+             if isinstance(h, ast.ExceptHandler) and (
+                 h.type is None or any(
+                     isinstance(t, ast.Name) and t.id in (
+                         "Exception", "BaseException", "RuntimeError")
+                     for t in ([h.type] if not isinstance(h.type, ast.Tuple)
+                               else h.type.elts)))]
+    assert not broad, f"{name}: broad except at lines {broad}"

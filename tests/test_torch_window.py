@@ -45,7 +45,8 @@ DEV = "@app:deviceWindows('always')\n"
 def tape(kind: str, n: int, seed: int) -> list:
     """(ts, row) rows from a numpy seed.  kind: "q4" quarter-grid prices in
     [-50, 150), "cent" the 0.01 grid, "et" an event-time column too,
-    "nan" quarter grid with NaN prices, "long" LONG values past 2^24."""
+    "nan" quarter grid with NaN prices, "zero" prices of -1, -0.0, +0.0
+    and 1, "long" LONG values past 2^24."""
     rng = np.random.default_rng(seed)
     ts = 1000 + np.cumsum(rng.integers(0, 400, n))
     syms = rng.integers(0, 3, n)
@@ -53,6 +54,8 @@ def tape(kind: str, n: int, seed: int) -> list:
     p = np.round(rng.uniform(-50, 150, n) * grid) / grid
     if kind == "nan":
         p[rng.choice(n, 3, replace=False)] = np.nan
+    if kind == "zero":
+        p = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0]), n)
     v = rng.integers(1, 10, n)
     if kind == "long":
         v = 10_000_001 + np.arange(n)
@@ -375,20 +378,42 @@ def test_external_time_batch_carry_grows():
     assert rt.plans()[0].C == jrt._plans[0].C == 2048
 
 
-@pytest.mark.parametrize("q", [
+MIN_MAX_QUERIES = [
     "from S#window.length(4) select min(p) as lo, max(p) as hi "
     "insert into O;",
     "from S#window.time(900) select sym, min(p) as lo, max(p) as hi "
     "group by sym insert into O;",
     "from S#window.lengthBatch(3) select sym, min(p) as lo, max(p) as hi "
     "group by sym insert into O;",
-])
+]
+
+
+@pytest.mark.parametrize("q", MIN_MAX_QUERIES)
 def test_nan_price_in_min_max(q):
     """A NaN price propagates through min/max as jnp.minimum/maximum do."""
     app = HEAD + q
     want = canon(jax_rows(app, "nan", 80, 23))
     assert any("nan" in r for _t, r in want)
     assert canon(port_rows(app, "nan", 80, 23)) == want
+
+
+def signed(rows: list) -> list:
+    """Rows with each float's sign bit beside it (-0.0 == 0.0 otherwise)."""
+    return [(t, tuple((x, math.copysign(1.0, x)) if isinstance(x, float)
+                      else x for x in r)) for t, r in rows]
+
+
+@pytest.mark.parametrize("q", MIN_MAX_QUERIES[:2])
+def test_signed_zero_in_min_max(q):
+    """-0.0 counts below +0.0 in min/max whichever side it is on, as
+    jnp.minimum/maximum do in the JAX sliding windows' range reductions.
+    The tumbling query is not compared: inside the JAX package's jitted
+    associative_scan, XLA on the CPU folds min(+0.0, -0.0) to +0.0 where
+    jnp.minimum alone gives -0.0, so no one rule matches it there."""
+    app = HEAD + q
+    want = signed(jax_rows(app, "zero", 80, 29))
+    assert any((0.0, -1.0) in r for _t, r in want)
+    assert signed(port_rows(app, "zero", 80, 29)) == want
 
 
 @pytest.mark.parametrize("q", [
@@ -508,10 +533,12 @@ def test_win_scan_plain_matches_brute_force():
                 acc = x
             elif op == "sum":
                 acc = acc + x
-            elif op == "min":       # op(left, right): left if NaN or less
-                acc = acc if (acc < x or acc != acc) else x
+            elif op == "min":       # jnp.minimum: NaN, then -0.0 < +0.0
+                acc = acc if (acc < x or acc != acc or (
+                    acc == x and math.copysign(1.0, acc) < 0)) else x
             else:
-                acc = acc if (acc > x or acc != acc) else x
+                acc = acc if (acc > x or acc != acc or (
+                    acc == x and math.copysign(1.0, acc) > 0)) else x
             want[j] = acc
         np.testing.assert_array_equal(got.numpy(), want)
 
