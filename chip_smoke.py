@@ -101,7 +101,29 @@ Phases (any failure exits non-zero; nothing is caught):
  26. A7A: A7W's tape under @app:deviceAggregations('always'), 2 flushes:
      K6 `agg` 3 times a flush (K10 not), stores and rows equal to the CPU
      run, every recorded K6 call equal to its plain version;
- 21. (after 26) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 27. C4H (`every not S[price > 128] for 3 sec -> e2=S[price < 92] within
+     10 sec`): init slots armed per key, the deadline pre-pass forking a
+     clone every quiet period (K2's EXT instantiation, `nfa_block:ext`);
+ 28. C4Z (`e1=S[price > 125]<0:3> -> e2=S[price < 92]`, selecting
+     e1[0].price and `e1 is null`): a min-0 count head, rows with NULL
+     p10 and `none` true required;
+ 29. C4F (`every e1 -> every e2=S[price < 100] -> e3=S[price >
+     e2.price]`) from @app:deviceSlots(4): the stream fork; A must end
+     above 4 with a growth after clones that found no free slot (growths
+     after dropped heads and after lost clones logged apart);
+ 30. C4L, an absent side of `or` (rows with `timed_out` true and false
+     required) and of `and`; phases 27-30 at C4's shape under
+     @app:playback, 2 flushes each, counted (K2 EXT and K1 launched, K2's
+     other instantiations and K3-K5 not), recorded, rows equal to the CPU
+     run in order with NULLs in place, every recorded block's K2 and K1
+     equal to their plain versions; ms per flush, events/s, the final A;
+     K2 timed at C4H, C4F and C4L `or` (the kernel line's entries);
+ 31. C3H, an unpartitioned absent head on the wall clock: `set_time` to
+     the START anchor (the wakeup before the first block must be anchor
+     + 100 ms), a tick arming the init slot (`__anchor__`), 2^13 events in
+     one flush, `set_time` past them; rows equal to the CPU run, tick
+     blocks among the recorded ones, each equal to the plain version;
+ 21. (after 31) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -124,8 +146,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
-    C1, C2, C2_GROUPED, C2B, C3, C4, C4_HEAD, C4_SEQ, C4A, C4N, C4NS, C4O,
-    JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, agg_rows, c5_app,
+    C1, C2, C2_GROUPED, C2B, C3, C3H, C4, C4_HEAD, C4_SEQ, C4A, C4F, C4H,
+    C4L_AND, C4L_OR, C4N, C4NS, C4O, C4Z, JOIN_APP, JOIN_OUTER, JOIN_UNI,
+    MATRIX_APP, agg_rows, c5_app,
     check_agg_calls, check_join_calls, join_tape, check_scan_block,
     check_seq_block, check_window_calls, make_tape, matrix_tape, max_err,
     scan_inputs, sorted_rows)
@@ -165,9 +188,19 @@ AGGS = (("a7", 24, 1 << 12, True, False, False),
         ("a7a", 2, 1 << 17, True, False, True))
 AGG_KEYS = 1024
 AGG_JAX = "siddhi_tpu/core/agg_device.py"
+# K2's EXT phases (init slots, forks, absent sides): (label, app, seed),
+# each 2 flushes of C4's shape under @app:playback; C4F runs C4's head
+# with 4 slots a lane in place of 32
+EXT_FLUSHES = 2
+EXT = (("c4h", C4_HEAD + C4H, 27), ("c4z", C4_HEAD + C4Z, 28),
+       ("c4f", "@app:partitionCapacity(1000)\n" + C4F, 29),
+       ("c4l_or", C4_HEAD + C4L_OR, 30), ("c4l_and", C4_HEAD + C4L_AND, 30))
+C3H_EVENTS = 1 << 13
+EXT_TIMED = ("c4h", "c4f", "c4l_or")   # K2 EXT's entries in the kernel line
 SCAN_K = ("seg_tree", "scan_chase", "scan_compact", "expr_eval:pre_mask",
           "expr_eval:select")
 SEQ_K = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
+EXT_K = ("nfa_block:ext", "expr_eval:pre_mask", "expr_eval:select")
 K1_SRC = "siddhi_tpu_torch/csrc/expr_eval.cu"
 CSRC = "siddhi_tpu_torch/csrc"
 PAR = "siddhi_tpu/core/nfa_parallel.py"
@@ -718,13 +751,16 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     return res
 
 
-def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
+def phase_blocks(torch, blocks, label: str = "c4 seq",
+                 timed_k2: bool = True) -> dict:
     """K2 and K1 against their plain versions on every block a `seq` run
     accepted (an M overflow's first try is re-run by the plan with a
     larger M and is left out; replay.check_seq_block), counting the blocks
     in which absent deadlines fired, the timer ticks and the blocks whose
     final count's emissions outran the E lanes; K2 is timed on the last
-    block that is not a tick (K1 is timed on the `scan` blocks)."""
+    block that is not a tick (K1 is timed on the `scan` blocks), unless
+    `timed_k2` is False (a phase whose K2 time the kernel line does not
+    report)."""
     from siddhi_tpu_torch.kernels import nfa_block as k2
     from siddhi_tpu_torch.kernels.expr_eval import unpack_mask
     from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
@@ -750,6 +786,10 @@ def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
             f"{n_fired}{' (tick)' if tick else ''}: K2 state and rows, K1 "
             f"pre-masks and selector equal to their plain versions")
 
+    res = {"blocks": len(accepted), "err": err, "fired_blocks": fired,
+           "tick_blocks": ticks, "lane_retry_blocks": lane_retries}
+    if not timed_k2:
+        return res
     timed = [b for b in accepted if "__tick__" not in b[2]] or accepted
     kern, state, ev, M = timed[-1]
     T, P = ev["__ts__"].shape[0], kern.P
@@ -760,9 +800,8 @@ def phase_blocks(torch, blocks, label: str = "c4 seq") -> dict:
              for w in pre]
     plain_ms = wall_ms(torch, lambda: nfa_block_plain(kern, state, ev,
                                                       masks, M))
-    res = {"T": T, "P": P, "A": kern.A, "E": kern.E, "M": M, "matches": n,
-           "blocks": len(accepted), "err": err, "fired_blocks": fired,
-           "tick_blocks": ticks, "lane_retry_blocks": lane_retries}
+    res.update({"T": T, "P": P, "A": kern.A, "E": kern.E, "M": M,
+                "matches": n})
     # K2: the grids, pre-mask words, state in and out and the match rows,
     # each moved once; one station test per slot and lane for each event
     tensors = [v for v in ev.values() if torch.is_tensor(v)]
@@ -854,6 +893,132 @@ def phase_algebra(torch, np, pkg, label: str, app: str, flushes: int,
     return {"rows": len(rows), "null_rows": nulls, "family": plan.family,
             "ms_per_flush": per_flush, "cpu_ms_per_flush": cpu_flush,
             "events_per_s": eps, "launches": launches, "blocks": blk}
+
+
+def phase_ext(torch, np, pkg, label: str, app: str, seed: int) -> dict:
+    """Phases 27-30: an init-slot, fork or absent-side pattern of C4's
+    shape (1000 keys, 2^18 events a flush, playback) on the card: the
+    `seq` family, K2's EXT instantiation and K1 launched (K2's others and
+    K3-K5 not), rows equal to the CPU run's in order with NULLs in place,
+    every recorded block's K2 and K1 equal to their plain versions; ms per
+    flush, events/s, the A the plan ends at and its growths by cause."""
+    tape = make_tape(FLUSH * EXT_FLUSHES, FLUSH, KEYS, seed=seed)
+    rows, per_flush, launches, rt, _scan_b, seq_b = run_recorded(
+        pkg, np, app, tape)
+    plan = rt.plans()[0]
+    if plan.family != "seq" or not plan.kernel.ext:
+        raise SystemExit(f"[{label}] planned {plan.family!r} "
+                         f"(ext={plan.kernel.ext}), expected `seq` with EXT")
+    need_launches(label, launches, EXT_K, ("nfa_block", "seg_tree",
+                                           "scan_chase", "scan_compact"))
+    ref, cpu_flush, _rt = run_app(pkg, np, app, tape, KEYS, "cpu")
+    if rows != ref or not rows:
+        raise SystemExit(f"[{label}] rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    if label == "c4z" and not any(r[0] is None and r[1] for _t, r in rows):
+        raise SystemExit("[c4z] no row with NULL p10 and `none` true")
+    if label == "c4l_or" and {r[2] for _t, r in rows} != {True, False}:
+        raise SystemExit("[c4l_or] `timed_out` is not both true and false")
+    growths = dict(plan.growths)
+    if label == "c4f" and (plan.kernel.A <= 4 or not growths["forks"]):
+        raise SystemExit(f"[c4f] A={plan.kernel.A}, growths {growths}: no "
+                         f"growth after a fork overflow")
+    blk = phase_blocks(torch, seq_b, label, timed_k2=label in EXT_TIMED)
+    steady = per_flush[1:]
+    eps = FLUSH / (sum(steady) / len(steady) / 1e3)
+    nulls = sum(1 for _t, r in rows if None in r)
+    log(f"[{label}] {len(rows)} rows ({nulls} with NULLs) equal to the CPU "
+        f"run; family {plan.family}; A={plan.kernel.A} (growths: "
+        f"{growths['heads']} after dropped heads, {growths['forks']} after "
+        f"clones without a free slot); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; per flush ms "
+        f"{[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); {eps:.0f} events/s; "
+        f"{blk['blocks']} blocks equal to plain")
+    return {"rows": len(rows), "null_rows": nulls, "A": plan.kernel.A,
+            "growths": growths, "ms_per_flush": per_flush,
+            "cpu_ms_per_flush": cpu_flush, "events_per_s": eps,
+            "launches": launches, "blocks": blk}
+
+
+def run_c3h(pkg, np, tape, device: str, record: bool = False):
+    """C3H through the facade on the wall clock: `set_time` to the START
+    anchor (the absent head's first wakeup is one waiting period later,
+    before any block ran), `set_time` past it (a tick arms the init slot
+    at the anchor and fires its deadline), the tape as one flush, then
+    `set_time` a second past its last event.  Launch counts from 0 just
+    before the first `set_time`, read after the last.  Returns (rows, ms
+    of the flush, launches, runtime, recorded blocks, wakeup)."""
+    import torch
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    blocks = []
+    run_seq = NFAKernel.run_block
+
+    def rec_seq(kern, state, ev, M):
+        new, out = run_seq(kern, state, ev, M)
+        blocks.append((kern, state, ev, M, out["meta"]))
+        return new, out
+    if record:
+        NFAKernel.run_block = rec_seq
+    try:
+        rt = pkg.SiddhiManager(device=device).create_app_runtime(C3H)
+        batches = []
+        rt.add_batch_callback("Out", batches.append)
+        f = tape[0]
+        ts0 = int(f["ts"][0])
+        kernels.reset_launches()
+        rt.set_time(ts0 - 1000)
+        wakeup = rt.plans()[0].next_wakeup()
+        rt.set_time(ts0 - 1)
+        codes = np.array([rt.strings.encode(f"K{i}") for i in range(KEYS)],
+                         dtype=np.int32)
+        t0 = time.perf_counter()
+        rt.input_handler("StockStream").send_batch(
+            {"symbol": codes[f["sym_idx"]], "price": f["price"],
+             "volume": f["volume"]}, f["ts"])
+        rt.flush()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rt.set_time(int(f["ts"][-1]) + 1000)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        NFAKernel.run_block = run_seq
+    rows = [(int(t), row) for b in batches
+            for t, row in zip(b.timestamps, b.rows(rt.strings))]
+    return rows, ms, launches, rt, blocks, wakeup
+
+
+def phase_c3h(torch, np, pkg) -> dict:
+    """Phase 31: C3H, an unpartitioned absent head on the wall clock: the
+    wakeup before the first block is the anchor plus its 100 ms, a tick
+    block arms the init slot (`__anchor__`), the rows equal the CPU run's,
+    K2 EXT launched, every recorded block (ticks among them) equal to the
+    plain version."""
+    tape = make_tape(C3H_EVENTS, C3H_EVENTS, KEYS, seed=31)
+    ts0 = int(tape[0]["ts"][0])
+    rows, ms, launches, rt, blocks, wakeup = run_c3h(pkg, np, tape, "cuda",
+                                                     record=True)
+    if wakeup != ts0 - 900:
+        raise SystemExit(f"[c3h] wakeup {wakeup} before the first block, "
+                         f"expected {ts0 - 900}")
+    need_launches("c3h", launches, ("nfa_block:ext", "expr_eval:pre_mask"),
+                  ("nfa_block",))
+    ref = run_c3h(pkg, np, tape, "cpu")[0]
+    if rows != ref or not rows:
+        raise SystemExit(f"[c3h] rows differ from the CPU run: {len(rows)} "
+                         f"vs {len(ref)}")
+    blk = phase_blocks(torch, blocks, "c3h", timed_k2=False)
+    if not blk["tick_blocks"]:
+        raise SystemExit("[c3h] no tick block was recorded")
+    log(f"[c3h] {len(rows)} rows equal to the CPU run; wakeup before the "
+        f"first block {wakeup} (anchor {ts0 - 1000}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {ms:.1f} ms for "
+        f"{C3H_EVENTS} events; {blk['blocks']} blocks ({blk['tick_blocks']} "
+        f"ticks) equal to plain")
+    return {"rows": len(rows), "ms": ms, "launches": launches,
+            "blocks": blk, "wakeup": wakeup}
 
 
 def phase_c1(torch, np, pkg) -> dict:
@@ -1383,6 +1548,7 @@ def main() -> int:
     import siddhi_tpu_torch as pkg
     from siddhi_tpu_torch.kernels import build
 
+    t_start = time.perf_counter()
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1524,6 +1690,19 @@ def main() -> int:
                                 query_every, always)
         log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
 
+    # 27-31. K2's EXT instantiation: an `every` absent head (C4H), a min-0
+    #        count head with presence (C4Z), `every` below the head with
+    #        4 slots (C4F), absent `or`/`and` sides (C4L), an unpartitioned
+    #        absent head on the wall clock (C3H)
+    ext = {}
+    for label, app, seed in EXT:
+        t0 = time.perf_counter()
+        ext[label] = phase_ext(torch, np, pkg, label, app, seed)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ext["c3h"] = phase_c3h(torch, np, pkg)
+    log(f"[c3h phase] {time.perf_counter() - t0:.1f} s")
+
     # 21. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     win = "siddhi_tpu/core/window_device.py"
@@ -1646,6 +1825,15 @@ def main() -> int:
                     aggs["a7a"]["launches"]["win_scan:agg"],
                     aggs["a7a"]["err"].get("win_scan:agg", 0.0),
                     aggs["a7a"]["kernels"]))
+    ext_err = max(ext[x]["blocks"]["err"].get("nfa_block", 0.0)
+                  for x in ext)
+    for label, what, line in (
+            ("c4h", "nfa_block:ext (init slot, sticky absent)", 751),
+            ("c4f", "nfa_block:ext (stream fork)", 1004),
+            ("c4l_or", "nfa_block:ext (absent or-side)", 1259)):
+        entries.append((what, f"{CSRC}/nfa_block.cuh", f"{nfa_dev}:{line}",
+                        ext[label]["launches"]["nfa_block:ext"], ext_err,
+                        ext[label]["blocks"]["nfa_block"]))
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -1692,7 +1880,8 @@ def main() -> int:
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
               "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
-              **alg, **joins, **aggs}
+              **alg, **joins, **aggs, **ext}
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

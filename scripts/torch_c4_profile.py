@@ -2,8 +2,8 @@
 """Where a C4 (C5, C2, J6) flush spends its time in the PyTorch/CUDA port.
 
     python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b|
-                                         c4n|c4ns|c4a|c4o|j6|j6w|j6o|j6u|
-                                         agg|aggw|aggg]
+                                         c4n|c4ns|c4a|c4o|c4h|c4f|c4l|
+                                         j6|j6w|j6o|j6u|agg|aggw|aggg]
                                         [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
@@ -17,7 +17,9 @@ four fused plans of 250 query lanes; 2^13-event flushes 50 ms apart,
 event flushes over 8 symbols), or one of its pattern-algebra apps at
 C4's shape (`c4n`: a count head on `scan`; `c4ns`: a count with a
 capture filter on `seq`; `c4a`: `and` on `scan`; `c4o`: `or` with NULLs
-on `seq`), or one of its join configs on bench.py's config 6 tape (`j6`:
+on `seq`; K2's EXT instantiation under playback: `c4h` an `every`
+absent head, `c4f` `every` below the head from 4 slots a lane, `c4l` an
+absent `or` side), or one of its join configs on bench.py's config 6 tape (`j6`:
 bench.py's JOIN_APP at 4096-event flushes; `j6w`: 2^17-event flushes;
 `j6o`: the filtered full outer join; `j6u`: the unidirectional one;
 each flush one send_batch to L, one to R), or one of its aggregation
@@ -51,9 +53,9 @@ FLUSHES, TRACED = 4, 2
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b",
-                                         "c4n", "c4ns", "c4a", "c4o", "j6",
-                                         "j6w", "j6o", "j6u", "agg",
-                                         "aggw", "aggg"),
+                                         "c4n", "c4ns", "c4a", "c4o", "c4h",
+                                         "c4f", "c4l", "j6", "j6w", "j6o",
+                                         "j6u", "agg", "aggw", "aggg"),
                     default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
@@ -67,6 +69,8 @@ def main() -> int:
     import siddhi_tpu_torch as pkg
 
     algebra = {a[0]: a[1] for a in chip_smoke.ALGEBRA}
+    algebra.update({("c4l" if e[0] == "c4l_or" else e[0]): e[1]
+                    for e in chip_smoke.EXT})
     joins = {j[0]: j for j in chip_smoke.JOINS}
     aggs = {"agg": ("a7", True), "aggw": ("a7w", True),
             "aggg": ("a7g", False)}

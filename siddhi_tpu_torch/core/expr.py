@@ -365,13 +365,28 @@ def _compile_function(expr: ast.FunctionCall, ctx) -> CompiledExpr:
 
 
 def _compile_is_null(expr: ast.IsNull, ctx) -> CompiledExpr:
+    v = expr.expr
+    if isinstance(v, ast.Variable) and v.stream_ref is None \
+            and v.index is None and v.attribute in getattr(ctx, "schemas",
+                                                           {}):
+        # `e1 is null` parses as a bare variable: where `e1` is no
+        # attribute but a pattern ref, it tests the ref's presence
+        try:
+            ctx.resolve(v)
+        except ExprError:
+            expr = ast.IsNull(stream_ref=v.attribute)
     if expr.expr is not None:
         e = compile_expression(expr.expr, ctx)
         if e.type == AttrType.STRING:
             zero = Node("const", AttrType.STRING, value=0)
             return _ce(Node("eq", AttrType.BOOL, (e.node, zero)), e.reads)
         return _ce(Node("const", AttrType.BOOL, value=False), e.reads)
-    raise ExprError("`ref is null` over pattern presence is a later slice")
+    # `e1 is null` / `e1[i] is null`: the pattern's presence row of the
+    # ref (or of the index), which the NFA keeps among its capture rows
+    key = f"__present__.{expr.stream_ref}" if expr.index is None \
+        else f"__present__.{expr.stream_ref}[{expr.index}]"
+    var = Node("var", AttrType.BOOL, key=key)
+    return _ce(Node("not", AttrType.BOOL, (var,)), [key])
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,44 @@
 """Batched device NFA: chain lowering, slot/capture layout, block runner.
 
-Port of `siddhi_tpu/core/nfa_device.py` for the `seq` family and the
-pattern algebra of this slice:
+Port of `siddhi_tpu/core/nfa_device.py`: every chain its device block
+lowers, for the `seq` family and (where the plan picks it) `scan`:
 
   * chains of positions joined by `->` (pattern) or `,` (sequence
     strictness), an `every` head or a one-shot head, a query-level or
     per-position `within`, one or several input streams;
-  * count quantifiers `<m:n>`, `<m:>`, `+` anywhere in the chain (min 0
-    only below the head: the epsilon cascade of `_landing_from`), adjacent
-    counts, a count in the final position (every collection at or past
-    min emits; emissions of a still-collecting slot leave through the E
-    direct-emit lanes, and a burst wider than E raises `of_lanes`, which
-    the plan answers by doubling E and re-running the block);
-  * logical `and`/`or` positions of two stream states, at the head, below
-    it or in a sequence; an `or` leaves the loser NULL;
+  * count quantifiers `<m:n>`, `<m:>`, `+` anywhere in the chain (the
+    epsilon cascade of min-0 counts, `_landing_from`), adjacent counts, a
+    count in the final position (every collection at or past min emits;
+    emissions of a still-collecting slot leave through the E direct-emit
+    lanes, and a burst wider than E raises `of_lanes`, which the plan
+    answers by doubling E and re-running the block);
+  * logical `and`/`or` positions, at the head, below it or in a
+    sequence; an `or` leaves the loser NULL; a side may be absent (`not A
+    and e2=B`, `not A for T or e2=B`): an `and` dies when the absent side
+    arrives, an `or` disarms that side's deadline, and a side's deadline
+    passage advances the pair;
+  * absent positions (`not B[...] for T`): entering one arms a deadline,
+    a forbidden arrival kills the partial match, and a deadline at or
+    before an event's (or a timer tick's) timestamp fires before that
+    event is processed, advancing the slot -- a completion then carries
+    the deadline as its timestamp;
+  * init slots (`ChainSpec.needs_init_slot`: an absent head, a logical
+    head with an absent side, a min-0 count head): each lane arms slot 0
+    on its first event (an unpartitioned plan also on a timer tick, at
+    the plan's START anchor `__anchor__`), with `first_ts = NO_FIRST`
+    until the first capture stamps it;
+  * slot forking (`_fork_slots`) for `every` below the head: an `every`
+    absent (the deadline forks a clone that advances, the standing arm
+    re-arms one period later; an arrival re-arms it) and an `every`
+    stream position (a clone advances with the capture, the slot stays a
+    standing arm); clones that find no free slot count in `of_slots`, and
+    the plan grows A and re-runs the block;
   * indexed captures `e[i]`, `e[last]`, `e[last-1]`, with per-index
-    presence rows for indices a match may leave unfilled, and presence
-    rows for every maybe-absent ref a selector reads (the host turns a
-    zero presence into a NULL column value);
-  * absent positions below the head (`-> not B[...] for T`): entering one
-    arms a deadline, a forbidden arrival kills the partial match, and a
-    deadline at or before an event's (or a timer tick's) timestamp fires
-    before that event is processed, advancing the slot -- a completion
-    then carries the deadline as its timestamp;
+    presence rows for indices a match may leave unfilled, presence rows
+    for every maybe-absent ref a selector reads (the host turns a zero
+    presence into a NULL column value), and `e1 is null` / `e1[i] is
+    null` as a read of such a row in a selector, `having` or a later
+    position's filter;
   * fused multi-query lanes (core/multi_query.py): the partition axis
     holds query instances, events arrive as broadcast (T, 1) grids, lifted
     constants are per-lane parameters and every match carries its lane's
@@ -32,11 +48,14 @@ pattern algebra of this slice:
   * selectors and `having` over captures run on the compacted match rows
     (K1 again).
 
-Absent heads and init slots (a min-0 count head included), absent sides
-of a logical, `every` around absent states, `every` below the head,
-presence tests (`e1 is null`), `e[last-2]` and beyond, selectors deriving
-a value from a maybe-absent ref, and `@app:devicePrecision('f64')` raise
-DeviceNFAUnsupported naming the feature; they are later slices.
+The JAX device block refuses some shapes and sends them to its host
+matcher, which this port does not have (ROADMAP queue A item 4): they
+raise DeviceNFAUnsupported naming the host matcher -- `e[last-2]` and
+beyond, selectors deriving a value from a maybe-absent ref, NULL routing
+in a fused group, and the JAX refusals of `lower_chain` (`every` around a
+logical or count below the head or around an absent-logical or
+optional-count head, an optional-count run landing on a non-stream
+state).  `@app:devicePrecision('f64')` raises too (its own ROADMAP item).
 
 State (a dict of tensors, partition axis P minor, as in the JAX package):
   occ (A, P) i32        0 = free, p = stationed at position p-1,
@@ -52,11 +71,14 @@ State (a dict of tensors, partition axis P minor, as in the JAX package):
                         capture rows (only the columns something reads);
                         caps_i also holds presence rows and the parked
                         completion's ts/seq
-  dl (Ka, A, P) i32     absent deadlines, one row per absent position
+  dl (Ka, A, P) i32     absent deadlines, one row per absent node with a
+                        waiting time, in position and node order
                         (NO_DEADLINE = disarmed)
   armed0 (P,) bool      entry arm (stays True for `every`)
   of_slots (P,) i32     heads dropped for want of a free slot
   of_lanes (P,) i32     direct emissions that found no lane (E too narrow)
+  init (P,) bool        the lane's init slot is armed (init-slot chains
+                        only)
 """
 from __future__ import annotations
 
@@ -90,7 +112,11 @@ W_SRC, W_ONE, W_PREV, W_IDX, W_PRES_GE = range(5)
 
 
 class DeviceNFAUnsupported(PlanError):
-    """A pattern shape outside this slice's device algebra."""
+    """A pattern shape outside the device algebra."""
+
+
+HOST_MATCHER = (" (the JAX package runs it on its host matcher, which the "
+                "port does not have yet)")
 
 
 class PatternFilterContext(MultiStreamContext):
@@ -132,11 +158,12 @@ class Position:
     min_count: int = 1
     max_count: int = 1
     within_ms: Optional[int] = None
-    sticky: bool = False            # `every` head arm
+    sticky: bool = False            # `every` arm (head or below it)
     # state-row assignments (set by the kernel)
     cnt_row: Optional[int] = None   # counter row (count positions)
     log_row: Optional[int] = None   # fill-bit row (logical positions)
-    dl_row: Optional[int] = None    # deadline row (absent with `for`)
+    dl_rows: Optional[dict] = None  # node index -> deadline row (absent
+    #                                 nodes with `for`)
 
     @property
     def node(self) -> PNode:
@@ -211,16 +238,6 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
     nodes = comp.nodes
     is_sequence = state_input.type == StateType.SEQUENCE
     qw = state_input.within.millis if state_input.within else None
-    for n in nodes:
-        if n.partner_id is not None and any(
-                m.kind == "absent" for m in (n, nodes[n.partner_id])):
-            raise DeviceNFAUnsupported(
-                "absent states inside logical positions (`not A and B`) "
-                "are a later slice")
-        if n.kind == "absent" and n.sticky:
-            raise DeviceNFAUnsupported(
-                "`every`-wrapped (sticky) absent states (slot forking, "
-                "`_fork_slots`) are a later slice")
     if len(entries) == 1:
         head_ids = [entries[0].id]
     elif len(entries) == 2 and entries[0].partner_id == entries[1].id:
@@ -264,11 +281,21 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
     if len(seen) != len(nodes):
         raise DeviceNFAUnsupported("non-linear state graph")
 
+    # the JAX package's support matrix (nfa_device.py:278-310), word for
+    # word; its host matcher runs these shapes
     S = len(positions)
     for i, pos in enumerate(positions):
-        if pos.sticky and i > 0:
-            raise DeviceNFAUnsupported("`every` below the head is a later "
-                                       "slice")
+        if pos.sticky and i != 0 and (pos.op is not None or pos.is_count):
+            raise DeviceNFAUnsupported(
+                "`every`-wrapped logical/count state below the head"
+                + HOST_MATCHER)
+        if pos.sticky and i == 0 and (
+                (pos.op is not None
+                 and any(n.kind == "absent" for n in pos.nodes))
+                or (pos.is_count and pos.min_count == 0)):
+            raise DeviceNFAUnsupported(
+                "`every`-wrapped absent-logical or optional-count head"
+                + HOST_MATCHER)
         if pos.min_count == 0 and i > 0 and positions[i - 1].is_count \
                 and positions[i - 1].min_count >= 1:
             # an optional-count run after a counting state keeps the
@@ -284,15 +311,11 @@ def lower_chain(state_input, schemas_by_stream: dict, strings: StringTable,
                     or positions[k].sticky):
                 raise DeviceNFAUnsupported(
                     "optional count run after a counting state landing on "
-                    "a non-stream state")
+                    "a non-stream state" + HOST_MATCHER)
     spec = ChainSpec(positions, stream_ids,
                      {n.ref: schemas_by_stream[n.stream_id]
                       for p in positions for n in p.nodes},
                      is_sequence, positions[0].sticky)
-    if spec.needs_init_slot:
-        raise DeviceNFAUnsupported(
-            "absent heads and init slots (`needs_init_slot`, a min-0 count "
-            "head included) are a later slice")
     if len(spec.all_nodes) > MAX_NODES:
         raise DeviceNFAUnsupported(f"more than {MAX_NODES} pattern states")
 
@@ -375,14 +398,17 @@ class NFAKernel:
     `params` (a LaneParams) holds a fused group's per-lane constants,
     `broadcast` marks its lanes (events shared, a `__qid__` row per
     match), `playback` lets deadlines fire on events as well as on timer
-    ticks (the JAX package's `dl_fire` rule), and `E` is the number of
-    emission lanes per step."""
+    ticks (the JAX package's `dl_fire` rule), `E` is the number of
+    emission lanes per step, and `init_on_tick` lets an init-slot chain
+    arm a lane's slot on a timer tick as well as on its first event (an
+    unpartitioned plan; its blocks then carry the START anchor as the int
+    "__anchor__", the deadline base of the armed slot)."""
 
     def __init__(self, spec: ChainSpec, sel_fns: dict,
                  having: Optional[CompiledExpr], P: int, A: int,
                  params: Optional[LaneParams] = None,
                  broadcast: bool = False, playback: bool = False,
-                 E: Optional[int] = None):
+                 E: Optional[int] = None, init_on_tick: bool = False):
         self.spec = spec
         self.sel_fns = sel_fns
         self.having = having
@@ -392,24 +418,33 @@ class NFAKernel:
         self.params = params
         self.broadcast = broadcast
         self.playback = playback
+        self.needs_init = spec.needs_init_slot
+        self.init_on_tick = init_on_tick
         kc = kl = ka = 0
         for pos in spec.positions:
-            pos.cnt_row = pos.log_row = pos.dl_row = None
+            pos.cnt_row = pos.log_row = None
             if pos.is_count:
                 pos.cnt_row = kc
                 kc += 1
             if pos.op is not None:
                 pos.log_row = kl
                 kl += 1
-            if pos.node.kind == "absent" and pos.node.waiting_ms is not None:
-                pos.dl_row = ka
-                ka += 1
+            pos.dl_rows = {}
+            for ni, n in enumerate(pos.nodes):
+                if n.kind == "absent" and n.waiting_ms is not None:
+                    pos.dl_rows[ni] = ka
+                    ka += 1
         if kc > MAX_COUNTS or kl > MAX_LOGICALS:
             raise DeviceNFAUnsupported(
                 f"more than {MAX_COUNTS} count or {MAX_LOGICALS} logical "
                 f"positions")
         self.Kc, self.Kl, self.Ka = kc, kl, ka
         self.has_absent = any(n.kind == "absent" for n in spec.all_nodes)
+        # the K2 instantiation with init slots, forks and absent sides
+        self.ext = self.needs_init or any(
+            p.sticky for p in spec.positions[1:]) or any(
+            p.op is not None and any(n.kind == "absent" for n in p.nodes)
+            for p in spec.positions)
         self._maybe_absent = spec.maybe_absent_refs()
 
         # ---- capture rows: only the columns something downstream reads
@@ -425,11 +460,8 @@ class NFAKernel:
         sel_rparts: set = set()
         for ce in list(sel_fns.values()) + ([having] if having else []):
             for k in ce.reads:
-                if k.startswith("__present__."):
-                    raise DeviceNFAUnsupported(
-                        f"presence tests ({k!r}, `is null` over a pattern "
-                        f"ref) are a later slice")
-                if "." in k and not k.startswith("__"):
+                if k.startswith("__present__.") or (
+                        "." in k and not k.startswith("__")):
                     cap_keys.add(k)
         for ce in sel_fns.values():
             for k in ce.reads:
@@ -448,8 +480,8 @@ class NFAKernel:
             if cidx is not None and cidx not in ("last", "last-1") \
                     and not cidx.isdigit():
                 raise DeviceNFAUnsupported(
-                    f"indexed capture {k!r} ({cidx!r} beyond [last-1] is a "
-                    f"later slice)")
+                    f"indexed capture {k!r} ({cidx!r} beyond [last-1])"
+                    + HOST_MATCHER)
         # indexed captures a match may leave UNFILLED (fewer occurrences
         # than the index needs) are NULL at the host: a presence row per
         # such index read by the selector; a predicate or `having` cannot
@@ -523,13 +555,15 @@ class NFAKernel:
                 continue
             if broadcast:
                 raise DeviceNFAUnsupported(
-                    "fused selector over maybe-absent refs (null routing)")
+                    "fused selector over maybe-absent refs (null routing)"
+                    + HOST_MATCHER)
             if ce.is_var and len(hit) == 1:
                 self.null_outputs[name] = next(iter(hit))
             else:
                 raise DeviceNFAUnsupported(
                     f"selector output {name!r} derives from a maybe-absent "
-                    f"ref (only bare variables null-reconstruct)")
+                    f"ref (only bare variables null-reconstruct)"
+                    + HOST_MATCHER)
 
         self.lane_names_i = list(self.rows_i) + ["__head_seq__"]
         if broadcast:
@@ -562,7 +596,7 @@ class NFAKernel:
             for k, (_s, _a, t) in zip(self.grid_keys, self.grid_attrs)}
         cap_slot = {}
         for k, (g, r) in self._row_of.items():
-            if k.startswith("__"):
+            if k.startswith("__") and not k.startswith("__present__."):
                 continue
             off = {"f": C, "i": C + len(self.rows_f),
                    "l": C + len(self.rows_f) + len(self.rows_i)}[g]
@@ -762,7 +796,7 @@ class NFAKernel:
         """The same chain at another partition/slot count (or E)."""
         return NFAKernel(self.spec, self.sel_fns, self.having, P, A,
                          self.params, self.broadcast, self.playback,
-                         self.E if E is None else E)
+                         self.E if E is None else E, self.init_on_tick)
 
     def comp_rows(self) -> tuple:
         """caps_i rows of the parked completion's ts and seq (-1 when the
@@ -777,8 +811,13 @@ class NFAKernel:
 
         def z(shape, dt):
             return torch.zeros(shape, dtype=dt, device=device)
-        return {"occ": z((A, P), torch.int32),
-                "first_ts": z((A, P), torch.int32),
+        # an init-slot chain's state also holds its lanes' `init` flags
+        # (the JAX package's layout)
+        init = {"init": z((P,), torch.bool)} if self.needs_init else {}
+        return {**init, "occ": z((A, P), torch.int32),
+                "first_ts": torch.full((A, P), NO_FIRST if self.needs_init
+                                       else 0, dtype=torch.int32,
+                                       device=device),
                 "head_seq": z((A, P), torch.int32),
                 "cnt": z((self.Kc, A, P), torch.int32),
                 "cnt_on": z((self.Kc, A, P), torch.bool),

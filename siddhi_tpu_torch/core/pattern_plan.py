@@ -34,11 +34,18 @@ Absent positions (`-> not B for T`) keep deadlines in the `seq` slot
 state: the plan reports the earliest live one as `next_wakeup()`, and
 `on_timer(now)` runs a one-step tick block that fires the deadlines due
 by then (the runtime's `set_time` drives it; under `@app:playback`
-deadlines also fire on the events themselves).
+deadlines also fire on the events themselves).  An init-slot chain (an
+absent or min-0 count head) arms each lane's slot on the lane's first
+event; an unpartitioned plan (a fused group too) also arms it on a timer
+tick, its deadlines based at the plan's START anchor (`_anchor_ms`: the
+runtime clock at the first flush or wakeup, or the earliest buffered
+event under playback before the clock is set), which every block of
+such a plan carries as `__anchor__` and `state_dict()` keeps.
 
 Timestamps and seqs travel as i32 offsets from per-plan bases; the plan
 rebases the slot state before offsets can overflow.  Partition growth
-doubles P as keys arrive; slot exhaustion doubles A up to A_CAP
+doubles P as keys arrive; slot exhaustion (a head, or a clone of an
+`every` below the head, without a free slot) doubles A up to A_CAP
 (`@app:deviceSlotCap`) and re-runs from the pre-block state; a match
 buffer overflow re-runs the block with a bigger M.  Both retries are exact
 because a block never updates its input state.
@@ -155,10 +162,17 @@ class DevicePatternPlan(QueryPlan):
             ast.Attribute(n, t) for n, t in zip(names, types)))
         self.params = None if not params else LaneParams(params,
                                                           self.device)
+        # unpartitioned chains also arm their init slot on a timer tick
+        # (the host matcher starts at plan start); partitioned lanes arm
+        # on their key's first event only
+        self._init_on_tick = part_key_fns is None
         self.kernel = NFAKernel(self.spec, dict(zip(names, fns)), having,
                                 self.P, slots, self.params, broadcast_events,
-                                rt._playback)
+                                rt._playback,
+                                init_on_tick=self._init_on_tick)
         self.state = self.kernel.init_state(self.device)
+        self._start_anchor: Optional[int] = None     # init-slot arm time
+        self.growths = {"heads": 0, "forks": 0}     # A doublings, by cause
         self._next_deadline: Optional[int] = None   # absent-state wakeup
         self._tick_chunks: list = []                 # fused: timer matches
         self._ts_base: Optional[int] = None
@@ -189,7 +203,7 @@ class DevicePatternPlan(QueryPlan):
         # first, async ingest workers, has no counterpart here: the port
         # ingests on the caller's thread)
         hard = None
-        if self.kernel.has_absent:      # (absent heads are refused above)
+        if self.kernel.has_absent or self.spec.needs_init_slot:
             hard = "absent state (timer-driven deadlines need device state)"
         elif not all(p.within_ms is not None for p in self.spec.positions):
             hard = "position without a `within` bound"
@@ -350,9 +364,28 @@ class DevicePatternPlan(QueryPlan):
             self._buffered = snapshot
             raise
 
+    def _anchored(self) -> bool:
+        """An init-slot chain whose lanes arm at the START anchor."""
+        return self.spec.needs_init_slot and self._init_on_tick
+
+    def _anchor_ms(self) -> int:
+        """START-state arm time of an init-slot chain: the runtime clock
+        at the first flush or wakeup, or, under playback before the clock
+        is set, the earliest buffered event (pattern_plan.py:1477 of the
+        JAX package)."""
+        if self._start_anchor is None:
+            now = self.rt.now_ms()
+            if self.rt._playback and self.rt._clock_ms is None \
+                    and self._buffered:
+                now = min(int(b.timestamps.min()) for _s, b in self._buffered)
+            self._start_anchor = int(now)
+        return self._start_anchor
+
     def _finalize_chunks(self) -> list:
         if not self._buffered:
             return []
+        if self._anchored():
+            self._anchor_ms()       # pinned while the tape is buffered
         bufs, self._buffered = self._buffered, []
         N = sum(b.n for _s, b in bufs)
         ts = np.empty(N, dtype=np.int64)
@@ -395,7 +428,10 @@ class DevicePatternPlan(QueryPlan):
         # when a stale event pins the minimum; older events clamp low)
         budget = LOCAL_SPAN - (1 << 16)
         if self._ts_base is None:
-            self._ts_base = max(int(ts.min()), int(ts.max()) - budget)
+            lo = int(ts.min())
+            if self._anchored():
+                lo = min(lo, self._anchor_ms())
+            self._ts_base = max(lo, int(ts.max()) - budget)
             self._seq_base = max(int(seq.min()), int(seq.max()) - budget)
         if int(ts.max()) - self._ts_base >= budget \
                 or int(seq.max()) - self._seq_base >= budget:
@@ -583,7 +619,13 @@ class DevicePatternPlan(QueryPlan):
         for k, v in cols.items():
             ev[k] = g(v, v.dtype)
         ev["__base_ts__"] = int(self._ts_base)
+        if self._anchored():
+            ev["__anchor__"] = self._anchor_offset()
         return ev
+
+    def _anchor_offset(self) -> int:
+        return int(np.clip(self._anchor_ms() - self._ts_base, -LOCAL_SPAN,
+                           LOCAL_SPAN))
 
     def _run_chunks(self, chunk_evs: list) -> list:
         """Run blocks in order; an M overflow re-runs the block from its
@@ -604,13 +646,17 @@ class DevicePatternPlan(QueryPlan):
             while True:
                 st, out = self.kernel.run_block(pre, ev, M)
                 self.blocks_run += 1
-                n, ofs, dlm, ofl = out["meta"].cpu().tolist()
+                n, ofs, dlm, ofl, lost_forks = out["meta"].cpu().tolist()
                 if n <= M:
                     break
                 M = pow2_at_least(n) if self.broadcast_events \
                     else _m_bucket(n)
             self._m_hint = max(self._m_hint, M)
             if ofs > self._of_slots_seen and self.kernel.A < self.A_CAP:
+                # dropped heads, or `every` clones without a free slot
+                grown = ofs - self._of_slots_seen - lost_forks
+                self.growths["forks"] += int(lost_forks > 0)
+                self.growths["heads"] += int(grown > 0)
                 self._resize(self.P, min(2 * self.kernel.A, self.A_CAP))
                 continue            # re-run this block from `pre`, wider
             if ofl > 0:
@@ -712,16 +758,31 @@ class DevicePatternPlan(QueryPlan):
     # -- timers (absent-state deadlines, pattern_plan.py:1490-1545) ---------
 
     def next_wakeup(self) -> Optional[int]:
-        """Earliest pending absent deadline (absolute ms), or None."""
+        """Earliest pending absent deadline (absolute ms), or None.  An
+        anchored absent head that no block has run yet wakes one waiting
+        period after its START anchor."""
+        if self._anchored() and self._ts_base is None:
+            ws = [n.waiting_ms for n in self.spec.positions[0].nodes
+                  if n.kind == "absent" and n.waiting_ms is not None]
+            if ws:
+                return self._anchor_ms() + min(ws)
         return self._next_deadline
 
     def on_timer(self, now_ms: int) -> list:
         """Fire the absent deadlines due by `now_ms` through a one-step
         tick block (an invalid cell with the timer's timestamp, `__tick__`
-        set); a fused group keeps the matches for its next finalize."""
-        if not self.kernel.has_absent or self._ts_base is None \
-                or self._next_deadline is None \
-                or now_ms < self._next_deadline:
+        set); a fused group keeps the matches for its next finalize.  A
+        tick may be an anchored plan's first activity: it then sets the
+        offset bases at the anchor."""
+        if not self.kernel.has_absent:
+            return []
+        if self._ts_base is None:
+            w = self.next_wakeup() if self._anchored() else None
+            if w is None or now_ms < w:
+                return []
+            self._ts_base = self._anchor_ms()
+            self._seq_base = 0
+        elif self._next_deadline is None or now_ms < self._next_deadline:
             return []
         G = 1 if self.broadcast_events else self.P
 
@@ -736,6 +797,8 @@ class DevicePatternPlan(QueryPlan):
               "__valid__": full(False, torch.bool),
               "__tick__": full(True, torch.bool),
               "__base_ts__": int(self._ts_base)}
+        if self._anchored():
+            ev["__anchor__"] = self._anchor_offset()
         if len(self.spec.stream_ids) > 1:
             ev["__scode__"] = full(-1, torch.int32)
         for si, attr, t in self.kernel.grid_attrs:
@@ -755,7 +818,8 @@ class DevicePatternPlan(QueryPlan):
              "key_to_part": dict(self._key_to_part),
              "ts_base": self._ts_base, "seq_base": self._seq_base,
              "next_deadline": self._next_deadline,
-             "last_seq": self._last_seq, "family": self.family}
+             "last_seq": self._last_seq, "family": self.family,
+             "start_anchor": self._start_anchor}
         if self.family != "seq":
             # stateless families keep no device state: continuity lives in
             # the per-lane replayed tails + last emitted completion seqs
@@ -802,6 +866,7 @@ class DevicePatternPlan(QueryPlan):
         self._key_to_part = dict(d["key_to_part"])
         self._ts_base = d.get("ts_base")
         self._seq_base = d.get("seq_base")
+        self._start_anchor = d.get("start_anchor")
         self._last_seq = int(d.get("last_seq") or self._seq_base or 0)
         self._of_slots_seen = int(st["of_slots"].sum())
         # pending deadlines survive the restore (else the timer never

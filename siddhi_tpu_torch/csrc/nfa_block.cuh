@@ -1,13 +1,14 @@
 // K2 nfa_block: the sequential batched NFA over one (T, P) event block --
 // the kernel template, shared by nfa_block.cu (1-4 slots a thread, A up
-// to 128) and nfa_block_wide.cu (8 or 16 slots a thread, A up to 512):
-// two sources, so nvcc builds the instantiations in parallel.
+// to 128), nfa_block_wide.cu (8 or 16 slots a thread, A up to 512) and
+// their EXT twins nfa_block_ext.cu and nfa_block_wide_ext.cu: four
+// sources, so nvcc builds the instantiations in parallel.
 //
 // Replaces the jitted _block_impl of siddhi_tpu/core/nfa_device.py (:1486,
 // :1560): lax.scan over T of _step (:726) with _alloc_head (:1328) and the
 // E-lane drain _drain_done (:1428), then ceil(A/E) drain rounds (:1581),
-// and the earliest live deadline (:1649).  The pattern algebra is the JAX
-// kernel's minus init slots, slot forking and absent logical sides.
+// and the earliest live deadline (:1649).  The whole pattern algebra of
+// the JAX step, init slots, slot forking and absent logical sides included.
 // One warp per partition lane, one thread per slot (thread `lane` owns
 // slots lane, lane+32, ... when A > 32).  Slot stations, count flags
 // (cnt_on, narm: a bit per count position) and logical fill bits (two per
@@ -37,11 +38,13 @@
 //   4. death, completion (parked, or emitted in place while a final count
 //      still collects), entries into positions (counters, fill bits,
 //      deadlines, presence rows cleared), sequence strictness.
-// Each slot width has two instantiations, chosen at launch: ALG (a count
-// or logical position in the chain) runs steps 0-4 as above; otherwise
-// chain_step runs the same step on stream and absent positions alone,
-// matching only the station's node after the deadlines fire, with no
-// count or fill-bit state (fewer registers, fewer node matches).
+// Each slot width has three instantiations, chosen at launch: EXT (an
+// init slot, an `every` below the head or an absent logical side) runs
+// ext_step below; ALG (a count or logical position in the chain) runs
+// steps 0-4 as above; otherwise chain_step runs the same step on stream
+// and absent positions alone, matching only the station's node after the
+// deadlines fire, with no count or fill-bit state (fewer registers, fewer
+// node matches).
 // The wide instantiations (8 or 16 slots a thread) keep the per-slot step
 // and the head allocation rolled: unrolled 16 times the step takes nvcc
 // minutes to compile, and slot growth past 128 slots is rare.
@@ -80,6 +83,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   int T, P, A, S, E, is_seq, every_head, multi, Kf, Ki, Kl, Ka, Kc, Klog, C, M;
   int ts_slot, wpb, bcast, playback, emit_qid, comp_ts_row, comp_seq_row, n_words;
   int n_consts, stage, prog_bytes, parked, all_pz_off, all_pz_len;
+  int ext, needs_init, init_on_tick, has_anchor, anchor, init_land;
   const int* ts;
   const int* seq;
   const unsigned char* valid;
@@ -130,6 +134,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   const unsigned char* armed_in;
   const int* ofs_in;
   const int* ofl_in;
+  const unsigned char* init_in;
   int* occ_out;
   int* first_out;
   int* hseq_out;
@@ -144,12 +149,17 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   unsigned char* armed_out;
   int* ofs_out;
   int* ofl_out;
+  unsigned char* init_out;
   int* out_i;
   float* out_f;
   long long* out_l;
   int* meta;
   const long long* consts;
   const int* words;
+  const int* pos_sticky;    // `every` position (a standing arm that forks)
+  const int* node_dl;       // deadline row of an absent node, -1 none
+  const int* node_wait;     // its waiting time
+  const int* node_absent;
 };
 
 struct Caps {  // one warp's capture, deadline and counter rows, [K][A]
@@ -256,6 +266,24 @@ __device__ __forceinline__ void enter(const NfaParams& p, int tp, int a, int at,
   if (r >= 0)
     c.d[r * p.A + a] = static_cast<int>(static_cast<unsigned>(at) +
                                         static_cast<unsigned>(p.pos_waiting[tp]));
+}
+
+// The same for the EXT instantiation, where a logical position may hold
+// an absent side: every absent node of the position with a waiting time
+// arms its deadline (the per-position row above stays the chain and
+// algebra steps' single load: reading the node tables there cost them
+// 4-8% on C4 `seq` and C5).
+__device__ __forceinline__ void enter_ext(const NfaParams& p, int tp, int a, int at, Caps c,
+                                          unsigned& con, unsigned& nar, unsigned& flb) {
+  const int kind = p.pos_kind[tp];
+  enter<true>(p, tp, a, at, c, con, nar, flb);
+  if (kind != K_LOGICAL) return;
+  for (int g = p.pos_node[tp]; g < p.pos_node[tp] + 2; ++g) {
+    const int r = p.node_dl[g];
+    if (r >= 0)
+      c.d[r * p.A + a] = static_cast<int>(static_cast<unsigned>(at) +
+                                          static_cast<unsigned>(p.node_wait[g]));
+  }
 }
 
 // Emit slot a's snapshot as match row `pos`.
@@ -404,7 +432,376 @@ __device__ __forceinline__ int chain_step(const NfaParams& p, const int* words,
   return o;
 }
 
-template <int NJ, bool ALG>
+// ---- EXT: init slots, slot forking, absent sides of and/or -------------
+// The step of a chain with an init slot, an `every` below the head or an
+// absent side inside a logical position.  It runs the JAX step statement
+// for statement, phase by phase over all of the thread's slots (the
+// phases meet at each fork, a warp-wide exchange), with the capture
+// writes deferred to the end of the step as JAX defers them: a clone then
+// copies its source's rows as they were before the event, and the
+// capture of the forking event goes to the clone alone.
+
+// _fork_slots: the k-th source slot of the lane (by slot index) is cloned
+// into its k-th free slot -- stations, anchors, count and fill bits from
+// the source's registers (staged in the warp's fork rows), capture,
+// counter and deadline rows column to column in shared memory.  `dst`
+// marks the clones; clones without a free slot count into `ofs` (the
+// plan grows A and re-runs the block) and `lostf` (this block's share).
+template <int NJ>
+__device__ void fork_slots(const NfaParams& p, int lane, const bool (&src)[NJ], bool (&dst)[NJ],
+                           int (&occ)[NJ], int (&fts)[NJ], int (&hsq)[NJ], unsigned (&con)[NJ],
+                           unsigned (&nar)[NJ], unsigned (&flb)[NJ], Caps c, int* fk, int& ofs,
+                           int& lostf) {
+  const int A = p.A;
+  const unsigned lt = (1u << lane) - 1u;
+  int total = 0, nfree = 0;
+  for (int j = 0; j < NJ; ++j) {
+    total += __popc(__ballot_sync(FULL, src[j]));
+    nfree += __popc(__ballot_sync(FULL, occ[j] == 0));
+    dst[j] = false;
+  }
+  if (total == 0) return;
+  int* slot_of = fk;                     // source slot by rank
+  int* st = fk + A;                      // staged registers [6][A]
+  int before = 0;
+  for (int j = 0; j < NJ; ++j) {
+    const unsigned b = __ballot_sync(FULL, src[j]);
+    if (src[j]) {
+      const int a = lane + 32 * j;
+      slot_of[before + __popc(b & lt)] = a;
+      st[a] = occ[j];
+      st[A + a] = fts[j];
+      st[2 * A + a] = hsq[j];
+      st[3 * A + a] = static_cast<int>(con[j]);
+      st[4 * A + a] = static_cast<int>(nar[j]);
+      st[5 * A + a] = static_cast<int>(flb[j]);
+    }
+    before += __popc(b);
+  }
+  __syncwarp();
+  before = 0;
+  for (int j = 0; j < NJ; ++j) {
+    const unsigned b = __ballot_sync(FULL, occ[j] == 0);
+    const int r = before + __popc(b & lt);
+    if (occ[j] == 0 && r < total) {
+      const int a = lane + 32 * j, s = slot_of[r];
+      occ[j] = st[s];
+      fts[j] = st[A + s];
+      hsq[j] = st[2 * A + s];
+      con[j] = static_cast<unsigned>(st[3 * A + s]);
+      nar[j] = static_cast<unsigned>(st[4 * A + s]);
+      flb[j] = static_cast<unsigned>(st[5 * A + s]);
+      for (int k = 0; k < p.Kf; ++k) c.f[k * A + a] = c.f[k * A + s];
+      for (int k = 0; k < p.Ki; ++k) c.i[k * A + a] = c.i[k * A + s];
+      for (int k = 0; k < p.Kl; ++k) c.l[k * A + a] = c.l[k * A + s];
+      for (int k = 0; k < p.Ka; ++k) c.d[k * A + a] = c.d[k * A + s];
+      for (int k = 0; k < p.Kc; ++k) c.c[k * A + a] = c.c[k * A + s];
+      dst[j] = true;
+    }
+    before += __popc(b);
+  }
+  __syncwarp();
+  const int lost = total > nfree ? total - nfree : 0;
+  ofs += lost;
+  lostf += lost;
+}
+
+// One event of the EXT step for all of the warp's slots (nfa_block_plain
+// is its vector form).  `init` is the lane's init-slot flag.
+template <int NJ>
+__device__ void ext_step(const NfaParams& p, const int* words, const long long* consts, int lane,
+                         int part, long long eidx, long long pidx, int ts, int seq, bool valid,
+                         bool tick, bool timey, bool dl_fire, int sc, int (&occ)[NJ],
+                         int (&fts)[NJ], int (&hsq)[NJ], unsigned (&con)[NJ], unsigned (&nar)[NJ],
+                         unsigned (&flb)[NJ], bool (&now)[NJ], bool& init, int& ofs, int& lostf,
+                         Caps c, int* fk) {
+  const int A = p.A, S = p.S, PARK = S + 1;
+  const int n_nodes = p.pos_node[S - 1] + (p.pos_kind[S - 1] == K_LOGICAL ? 2 : 1);
+  // the lane's init slot, armed on its first event (or tick)
+  if (p.needs_init && !init && (valid || (p.init_on_tick && tick))) {
+    init = true;
+    if (lane == 0) {
+      const int arm = p.has_anchor ? p.anchor : ts;
+      const int k0 = p.pos_kind[0];
+      const int land = (k0 == K_ABSENT || k0 == K_LOGICAL) ? 0 : p.init_land;
+      occ[0] = land + 1;
+      for (int tp = 0; tp <= land; ++tp) enter_ext(p, tp, 0, arm, c, con[0], nar[0], flb[0]);
+      hsq[0] = seq;
+    }
+  }
+  // node matches of every slot (a slot free now may become a clone) on
+  // the captures before the event, its age and its successor arms
+  unsigned nm[NJ], narm0[NJ], enters[NJ], pcw[NJ], pcc[NJ];
+  int age[NJ], stn[NJ], pre_at[NJ];
+  bool complete[NJ], trans[NJ], expired[NJ], kill[NJ], pre[NJ], m[NJ], d2[NJ];
+#pragma unroll (NJ <= 4 ? NJ : 1)
+  for (int j = 0; j < NJ; ++j) {
+    const int a = lane + 32 * j;
+    nm[j] = narm0[j] = enters[j] = pcw[j] = pcc[j] = 0u;
+    age[j] = pre_at[j] = 0;
+    complete[j] = trans[j] = expired[j] = kill[j] = pre[j] = false;
+    if (a >= A) continue;
+    age[j] = static_cast<int>(static_cast<unsigned>(ts) - static_cast<unsigned>(fts[j]));
+    narm0[j] = nar[j];
+    for (int gi = 0; gi < n_nodes; ++gi) {
+      bool mm = base_match(p, gi, valid, sc, pidx);
+      if (mm && p.node_prog_len[gi] > 0) {
+        SlotEnv env{p, eidx, a, part, c, ts};
+        mm = vm_run(words + p.node_prog_off[gi], p.node_prog_len[gi], consts, env).i != 0;
+      }
+      if (mm) nm[j] |= 1u << gi;
+    }
+  }
+  // 1. absent deadlines at or before the event fire first, position by
+  //    position; an `every` absent forks a clone that advances while the
+  //    standing arm re-arms one period after the fired deadline
+  for (int pi = 0; pi < S; ++pi) {
+    const int g = p.pos_node[pi];
+    const int r = p.pos_kind[pi] == K_ABSENT ? p.node_dl[g] : -1;
+    if (r < 0) continue;
+    bool due[NJ], adv[NJ];
+    for (int j = 0; j < NJ; ++j) {
+      const int a = lane + 32 * j;
+      due[j] = a < A && dl_fire && occ[j] == pi + 1 && c.d[r * A + a] <= ts;
+      adv[j] = due[j];
+    }
+    const bool sticky = p.pos_sticky[pi] != 0;
+    if (sticky) {
+      fork_slots<NJ>(p, lane, due, adv, occ, fts, hsq, con, nar, flb, c, fk, ofs, lostf);
+      const int w = p.node_wait[g];
+      for (int j = 0; j < NJ; ++j)
+        if (due[j]) {
+          const int a = lane + 32 * j;
+          c.d[r * A + a] = static_cast<int>(static_cast<unsigned>(c.d[r * A + a]) +
+                                            static_cast<unsigned>(w >= 1 ? w : 1));
+        }
+    }
+    for (int j = 0; j < NJ; ++j) {
+      const int a = lane + 32 * j;
+      if (adv[j]) {
+        const int at = c.d[r * A + a];
+        if (fts[j] == NO_FIRST) fts[j] = at;
+        const int pr = p.node_pres[g];
+        if (pi == S - 1) {
+          complete[j] = pre[j] = true;
+          pre_at[j] = at;
+        } else {
+          const int land = p.pos_land[pi];
+          occ[j] = land + 1;
+          for (int tp = pi + 1; tp <= land; ++tp) {
+            enter_ext(p, tp, a, at, c, con[j], nar[j], flb[j]);
+            zero_rows(p, p.pos_pz_off[tp], p.pos_pz_len[tp], a, c);
+          }
+          if (pr >= 0) c.i[pr * A + a] = 0;
+        }
+      }
+      if (sticky ? adv[j] : due[j]) c.d[r * A + a] = NO_DEADLINE;
+    }
+  }
+  // lazy, strict `within` expiry on the ages before the deadlines fired
+  for (int j = 0; j < NJ; ++j) {
+    const int o = occ[j];
+    stn[j] = (o >= 1 && o <= S) ? o - 1 : -1;
+    if (stn[j] >= 0 && p.pos_within[stn[j]] >= 0 && timey && age[j] > p.pos_within[stn[j]]) {
+      expired[j] = true;
+      stn[j] = -1;
+    }
+  }
+  // 2. count collection (station-independent), adjacent-count entries
+  for (int pi = 0; pi < (p.Kc > 0 ? S : 0); ++pi) {
+    if (p.pos_kind[pi] != K_COUNT) continue;
+    const int cr = p.pos_cnt[pi], gi = p.pos_node[pi];
+    const bool adj = pi > 0 && p.pos_kind[pi - 1] == K_COUNT;
+    const int pc = adj ? p.pos_cnt[pi - 1] : 0;
+    for (int j = 0; j < NJ; ++j) {
+      const int a = lane + 32 * j;
+      if (a >= A) continue;
+      const bool hit = (nm[j] >> gi) & 1u;
+      const bool collect = ((con[j] >> cr) & 1u) && hit;
+      const int newc = c.c[cr * A + a] + (collect ? 1 : 0);
+      c.c[cr * A + a] = newc;
+      if (collect) pcc[j] |= 1u << cr;
+      if (!(newc < p.pos_max[pi])) con[j] &= ~(1u << cr);
+      if (pi < S - 1 && collect && newc == p.pos_min[pi]) {
+        nar[j] |= 1u << cr;
+        for (int tp = pi + 1; tp < p.pos_land[pi]; ++tp) enters[j] |= 1u << tp;
+      }
+      trans[j] = trans[j] || collect;
+      if (pi == S - 1 && collect && newc >= p.pos_min[pi]) complete[j] = true;
+      if (adj && stn[j] == pi - 1 && ((narm0[j] >> pc) & 1u) && hit) {
+        nar[j] &= ~(1u << pc);
+        occ[j] = pi + 1;
+        trans[j] = true;
+        c.c[cr * A + a] = 1;              // the entry's write replaces the collection's
+        pcc[j] |= 1u << cr;
+        if (p.pos_max[pi] > 1) con[j] |= 1u << cr;
+        else con[j] &= ~(1u << cr);
+        zero_rows(p, p.pos_pz_off[pi], p.pos_pz_len[pi], a, c);
+        if (p.pos_min[pi] <= 1) {
+          if (pi == S - 1) complete[j] = true;
+          else nar[j] |= 1u << cr;
+        }
+      }
+    }
+  }
+  // 3. stations, position by position
+  for (int pi = 0; pi < S; ++pi) {
+    const int kind = p.pos_kind[pi];
+    if (kind == K_COUNT || (pi == 0 && kind == K_STREAM)) continue;
+    const int gi = p.pos_node[pi];
+    if (kind == K_LOGICAL) {
+      // an absent side kills an `and` on arrival and disarms an `or`
+      // side; a side's deadline passage advances the pair
+      const int sh = 2 * p.pos_log[pi];
+      for (int j = 0; j < NJ; ++j) {
+        const int a = lane + 32 * j;
+        m[j] = false;
+        if (a >= A) continue;
+        const bool at = stn[j] == pi;
+        unsigned bits = (flb[j] >> sh) & 3u, need = 0u;
+        bool lkill = false, side_due = false;
+        for (int ni = 0; ni < 2; ++ni) {
+          const int g = gi + ni;
+          const bool hit = at && ((nm[j] >> g) & 1u);
+          if (p.node_absent[g]) {
+            const int dr = p.node_dl[g];
+            if (!p.pos_or[pi]) lkill = lkill || hit;
+            else if (dr >= 0 && hit) c.d[dr * A + a] = NO_DEADLINE;
+            if (dr >= 0 && at && dl_fire && c.d[dr * A + a] <= ts) {
+              side_due = true;
+              c.d[dr * A + a] = NO_DEADLINE;
+            }
+            continue;
+          }
+          need |= 1u << ni;
+          if (hit) {
+            bits |= 1u << ni;
+            trans[j] = true;
+            pcw[j] |= 1u << g;
+          }
+        }
+        const bool filled = p.pos_or[pi] ? bits != 0u : (bits & need) == need;
+        m[j] = at && (filled || side_due) && !lkill;
+        trans[j] = trans[j] || m[j];
+        if (m[j] || lkill)
+          for (int g = gi; g < gi + 2; ++g)
+            if (p.node_dl[g] >= 0) c.d[p.node_dl[g] * A + a] = NO_DEADLINE;
+        flb[j] = (flb[j] & ~(3u << sh)) | ((m[j] ? 0u : bits) << sh);
+        kill[j] = kill[j] || lkill;
+      }
+    } else if (kind == K_ABSENT) {
+      const int dr = p.node_dl[gi];
+      for (int j = 0; j < NJ; ++j) {
+        m[j] = false;
+        const bool arr = stn[j] == pi && ((nm[j] >> gi) & 1u);     // a forbidden arrival
+        if (!arr) continue;
+        if (!p.pos_sticky[pi]) kill[j] = true;
+        else if (dr >= 0)                 // an `every` arm re-arms its wait
+          c.d[dr * A + lane + 32 * j] = static_cast<int>(static_cast<unsigned>(ts) +
+                                                         static_cast<unsigned>(p.node_wait[gi]));
+      }
+      continue;
+    } else {
+      // a (1,1) stream position: stationed here, or through an armed
+      // predecessor count, walking back over optional counts
+      for (int j = 0; j < NJ; ++j) {
+        bool elig = stn[j] == pi;
+        unsigned chain = 0u;
+        for (int q = pi - 1; q >= 0 && p.pos_kind[q] == K_COUNT; --q) {
+          const int cq = p.pos_cnt[q];
+          chain |= 1u << cq;
+          if (stn[j] == q && ((narm0[j] >> cq) & 1u)) elig = true;
+          if (p.pos_min[q] != 0) break;
+        }
+        m[j] = elig && ((nm[j] >> gi) & 1u);
+        if (m[j]) {
+          nar[j] &= ~chain;
+          trans[j] = true;
+        }
+      }
+      if (p.pos_sticky[pi]) {
+        // `every` below the head: the slot stays a standing arm, a clone
+        // advances with the capture
+        fork_slots<NJ>(p, lane, m, d2, occ, fts, hsq, con, nar, flb, c, fk, ofs, lostf);
+        for (int j = 0; j < NJ; ++j) {
+          m[j] = d2[j];
+          trans[j] = trans[j] || d2[j];
+        }
+      }
+      for (int j = 0; j < NJ; ++j)
+        if (m[j]) pcw[j] |= 1u << gi;
+    }
+    for (int j = 0; j < NJ; ++j) {      // advance
+      if (!m[j]) continue;
+      if (pi == S - 1) {
+        complete[j] = true;
+      } else {
+        const int land = p.pos_land[pi];
+        for (int tp = pi + 1; tp <= land; ++tp) enters[j] |= 1u << tp;
+        occ[j] = land + 1;
+      }
+    }
+  }
+  // 4. death, the deferred capture writes, completion, entries, the
+  //    within anchor of an init slot, sequence strictness
+  const int final_cnt = p.pos_kind[S - 1] == K_COUNT ? p.pos_cnt[S - 1] : -1;
+  for (int j = 0; j < NJ; ++j) {
+    const int a = lane + 32 * j;
+    now[j] = false;
+    if (a >= A) continue;
+    const bool dead = expired[j] || kill[j];
+    if (dead) {
+      occ[j] = 0;
+      con[j] = nar[j] = 0u;
+      for (int r = 0; r < p.Ka; ++r) c.d[r * A + a] = NO_DEADLINE;
+      complete[j] = false;
+    } else {
+      if (pre[j]) {
+        const int pr = p.node_pres[p.pos_node[S - 1]];
+        if (pr >= 0) c.i[pr * A + a] = 0;
+        c.i[p.comp_ts_row * A + a] = pre_at[j];
+        c.i[p.comp_seq_row * A + a] = seq;
+      }
+      for (int pi = 0; pcc[j] != 0u && pi < S; ++pi) {
+        if (p.pos_kind[pi] != K_COUNT || !((pcc[j] >> p.pos_cnt[pi]) & 1u)) continue;
+        const int gi = p.pos_node[pi];
+        apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], c.c[p.pos_cnt[pi] * A + a], eidx,
+                     a, c, pi == S - 1, ts, seq);
+      }
+      for (unsigned rest = pcw[j]; rest != 0u; rest &= rest - 1u) {
+        const int gi = __ffs(rest) - 1;
+        apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, eidx, a, c, true, ts, seq);
+      }
+    }
+    const bool survivor = final_cnt >= 0 && ((con[j] >> final_cnt) & 1u);
+    if (complete[j] && !survivor) {
+      occ[j] = PARK;
+      con[j] = nar[j] = 0u;
+    }
+    now[j] = complete[j] && survivor;
+    if (!dead)
+      for (unsigned rest = enters[j]; rest != 0u; rest &= rest - 1u) {
+        const int tp = __ffs(rest) - 1;
+        enter_ext(p, tp, a, ts, c, con[j], nar[j], flb[j]);
+        zero_rows(p, p.pos_pz_off[tp], p.pos_pz_len[tp], a, c);
+      }
+    if (p.needs_init && trans[j] && fts[j] == NO_FIRST) fts[j] = ts;
+    if (p.is_seq && occ[j] > 0 && occ[j] < PARK && fts[j] != NO_FIRST && !trans[j] && valid) {
+      occ[j] = 0;
+      con[j] = nar[j] = 0u;
+    }
+  }
+}
+
+// A new head's slot entering position tp.
+template <bool ALG, bool EXT>
+__device__ __forceinline__ void head_enter(const NfaParams& p, int tp, int a, int at, Caps c,
+                                           unsigned& con, unsigned& nar, unsigned& flb) {
+  if constexpr (EXT) enter_ext(p, tp, a, at, c, con, nar, flb);
+  else enter<ALG>(p, tp, a, at, c, con, nar, flb);
+}
+
+template <int NJ, bool ALG, bool EXT>
 __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   extern __shared__ long long smem[];
   const int* words = p.words;
@@ -418,13 +815,15 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   const int n_nodes = p.pos_node[S - 1] + (p.pos_kind[S - 1] == K_LOGICAL ? 2 : 1);
   const unsigned all_nodes = n_nodes >= 32 ? 0xffffffffu : ((1u << n_nodes) - 1u);
   const size_t per_warp = static_cast<size_t>(p.Kl) * A +
-                          (static_cast<size_t>(p.Kf + p.Ki + p.Ka + p.Kc) * A + 1) / 2;
+                          (static_cast<size_t>(p.Kf + p.Ki + p.Ka + p.Kc + (EXT ? 7 : 0)) * A +
+                           1) / 2;
   Caps c;
   c.l = smem + p.prog_bytes / 8 + wib * per_warp;
   c.f = reinterpret_cast<float*>(c.l + static_cast<size_t>(p.Kl) * A);
   c.i = reinterpret_cast<int*>(c.f + static_cast<size_t>(p.Kf) * A);
   c.d = c.i + static_cast<size_t>(p.Ki) * A;
   c.c = c.d + static_cast<size_t>(p.Ka) * A;
+  int* fk = c.c + static_cast<size_t>(p.Kc) * A;   // EXT: the fork rows
 
   int occ[NJ], fts[NJ], hsq[NJ];
   unsigned con[NJ], nar[NJ], flb[NJ];
@@ -457,8 +856,10 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
     }
   }
   bool armed = p.armed_in[part] != 0;
+  bool init = p.init_in != nullptr && p.init_in[part] != 0;
   int ofs = p.ofs_in[part];
   int ofl = p.ofl_in[part];
+  int lostf = 0;
   const int final_cnt = p.pos_kind[S - 1] == K_COUNT ? p.pos_cnt[S - 1] : -1;
 
   for (int t = 0; t < p.T; ++t) {
@@ -473,8 +874,11 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
     const bool dl_fire = p.playback ? timey : tick;
     const int sc = p.multi ? p.scode[eidx] : 0;
 
+    if constexpr (EXT)
+      ext_step<NJ>(p, words, consts, lane, part, eidx, pidx, ts, seq, valid, tick, timey,
+                   dl_fire, sc, occ, fts, hsq, con, nar, flb, now, init, ofs, lostf, c, fk);
 #pragma unroll (NJ <= 4 ? NJ : 1)
-    for (int j = 0; j < NJ; ++j) {
+    for (int j = 0; j < (EXT ? 0 : NJ); ++j) {
       now[j] = false;
       const int a = lane + 32 * j;
       if (a >= A) continue;
@@ -678,8 +1082,9 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
     }
 
     // 6. head
-    // (a disarmed one-shot head reads no pre-mask)
-    const bool ok0 = armed && (base_match(p, 0, valid, sc, pidx) ||
+    // (a disarmed one-shot head reads no pre-mask; an init-slot chain
+    // has no head allocation, its entry being the init slot)
+    const bool ok0 = !(EXT && p.needs_init) && armed && (base_match(p, 0, valid, sc, pidx) ||
                                (ALG && p.pos_kind[0] == K_LOGICAL &&
                                 base_match(p, 1, valid, sc, pidx)));
     if (!ok0) continue;
@@ -722,7 +1127,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
         if (p.pos_or[0] && bits != 0u) {
           o = S == 1 ? PARK : land + 1;
           if (S > 1)
-            for (int tp = 1; tp <= land; ++tp) enter<ALG>(p, tp, a, ts, c, con[j], nar[j], flb[j]);
+            for (int tp = 1; tp <= land; ++tp) head_enter<ALG, EXT>(p, tp, a, ts, c, con[j], nar[j], flb[j]);
         }
       } else if (ALG && kind == K_COUNT) {
         const int cr = p.pos_cnt[0];
@@ -740,7 +1145,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
         o = land + 1;
         apply_writes(p, p.node_cw_off[0], p.node_cw_len[0], 0, eidx, a, c, false, ts, seq);
         if (S > 1)
-          for (int tp = 1; tp <= land; ++tp) enter<ALG>(p, tp, a, ts, c, con[j], nar[j], flb[j]);
+          for (int tp = 1; tp <= land; ++tp) head_enter<ALG, EXT>(p, tp, a, ts, c, con[j], nar[j], flb[j]);
       }
       occ[j] = o;
     }
@@ -782,35 +1187,44 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   min_dl = __reduce_min_sync(FULL, min_dl);
   if (lane == 0) {
     p.armed_out[part] = armed;
+    if (p.init_out != nullptr) p.init_out[part] = init;
     p.ofs_out[part] = ofs;
     p.ofl_out[part] = ofl;
     atomicAdd(p.meta + 1, ofs);
     atomicAdd(p.meta + 3, ofl);
+    if (lostf) atomicAdd(p.meta + 4, lostf);
     if (min_dl != NO_DEADLINE) atomicMin(p.meta + 2, min_dl);
   }
 }
 
-template <int NJ, bool ALG>
+template <int NJ, bool ALG, bool EXT>
 static int launch_as(NfaParams& p, size_t per_warp, cudaStream_t stream) {
   const size_t smem = p.prog_bytes + per_warp * 8 * p.wpb;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(nfa_block_kernel<NJ, ALG>,
+    cudaError_t e = cudaFuncSetAttribute(nfa_block_kernel<NJ, ALG, EXT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (p.P + p.wpb - 1) / p.wpb;
-  nfa_block_kernel<NJ, ALG><<<blocks, 32 * p.wpb, smem, stream>>>(p);
+  nfa_block_kernel<NJ, ALG, EXT><<<blocks, 32 * p.wpb, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// A chain with a count or logical position runs the algebra
-// instantiation; any other, the chain step (same results, fewer node
-// matches and no count or fill-bit state).
-template <int NJ>
+// A chain with an init slot, a fork or an absent logical side runs the
+// EXT instantiation (built from its own sources, nfa_block_ext.cu and
+// nfa_block_wide_ext.cu, so that nvcc compiles it beside the others);
+// one with a count or logical position the algebra instantiation; any
+// other, the chain step (same results, fewer node matches and no count
+// or fill-bit state).
+template <int NJ, bool EXT>
 static int launch(NfaParams& p, size_t per_warp, cudaStream_t stream) {
-  if (p.Kc > 0 || p.Klog > 0) return launch_as<NJ, true>(p, per_warp, stream);
-  return launch_as<NJ, false>(p, per_warp, stream);
+  if constexpr (EXT) {
+    return launch_as<NJ, true, true>(p, per_warp, stream);
+  } else {
+    if (p.Kc > 0 || p.Klog > 0) return launch_as<NJ, true, false>(p, per_warp, stream);
+    return launch_as<NJ, false, false>(p, per_warp, stream);
+  }
 }
 
 // The launch's shared memory per warp (8-byte units) and warps per block;
@@ -819,10 +1233,36 @@ static long long nfa_setup(NfaParams& p) {
   if (p.Kc > 32 || p.Klog > 16) return -1;
   p.prog_bytes = (p.prog_bytes + 7) / 8 * 8;
   const size_t per_warp = static_cast<size_t>(p.Kl) * p.A +
-                          (static_cast<size_t>(p.Kf + p.Ki + p.Ka + p.Kc) * p.A + 1) / 2;
+                          (static_cast<size_t>(p.Kf + p.Ki + p.Ka + p.Kc + (p.ext ? 7 : 0)) *
+                               p.A + 1) / 2;
   int wpb = 4;
   while (wpb > 1 && p.prog_bytes + per_warp * 8 * wpb > 96 * 1024) wpb >>= 1;
   if (p.prog_bytes + per_warp * 8 > 200 * 1024) return -1;
   p.wpb = wpb;
   return static_cast<long long>(per_warp);
+}
+
+// The launch entries: 1-4 slots a thread (A up to 128) or 8-16 (A from
+// 129 to 512), the EXT instantiation or the others.
+template <bool EXT>
+static int launch_narrow(const NfaParams* params, cudaStream_t stream) {
+  NfaParams p = *params;
+  const long long per_warp = nfa_setup(p);
+  if (per_warp < 0 || (p.ext != 0) != EXT) return static_cast<int>(cudaErrorInvalidValue);
+  const int nj = (p.A + 31) / 32;
+  if (nj <= 1) return launch<1, EXT>(p, per_warp, stream);
+  if (nj <= 2) return launch<2, EXT>(p, per_warp, stream);
+  if (nj <= 4) return launch<4, EXT>(p, per_warp, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool EXT>
+static int launch_wide(const NfaParams* params, cudaStream_t stream) {
+  NfaParams p = *params;
+  const long long per_warp = nfa_setup(p);
+  if (per_warp < 0 || (p.ext != 0) != EXT) return static_cast<int>(cudaErrorInvalidValue);
+  const int nj = (p.A + 31) / 32;
+  if (nj <= 8) return launch<8, EXT>(p, per_warp, stream);
+  if (nj <= 16) return launch<16, EXT>(p, per_warp, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,9 @@
+// K2 nfa_block, 8 or 16 slots a thread (A from 129 to 512), the EXT
+// instantiation (init slots, slot forking, absent logical sides): the
+// launch entry for the kernel of nfa_block.cuh.  Python side:
+// kernels/nfa_block.py.
+#include "nfa_block.cuh"
+
+extern "C" int nfa_block_wide_ext_launch(const NfaParams* params, cudaStream_t stream) {
+  return launch_wide<true>(params, stream);
+}

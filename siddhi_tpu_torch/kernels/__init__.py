@@ -15,12 +15,15 @@ joins (one launch per probing direction), after K1's side filters (use
 `join_filter`).  K10 `agg_merge` folds an incremental aggregation's
 batch segments into its device-resident bucket rings (one launch per
 duration a batch); under `@app:deviceAggregations('always')` the
-aggregation's per-batch segmented scans run on K6 (use `agg`).
+aggregation's per-batch segmented scans run on K6 (use `agg`).  K2
+counts a launch of its EXT instantiation (init slots, slot forking,
+absent sides of and/or) as `nfa_block:ext`, any other as `nfa_block`.
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "expr_eval:select": 0, "expr_eval:window_args": 0,
             "expr_eval:window_select": 0, "expr_eval:join_filter": 0,
-            "join_probe": 0, "nfa_block": 0, "seg_tree": 0,
+            "join_probe": 0, "nfa_block": 0, "nfa_block:ext": 0,
+            "seg_tree": 0,
             "seg_tree:rank": 0, "scan_chase": 0, "scan_compact": 0,
             "win_scan": 0, "win_scan:rank": 0, "win_scan:prev": 0,
             "win_scan:agg": 0, "win_range": 0, "win_compact": 0,

@@ -5,18 +5,34 @@ Replaces the jitted `_block_impl` of the JAX package
 (:726) with `_alloc_head` (:1328) and the E-lane `_drain_done` (:1428),
 ceil(A/E) drain rounds after the scan (:1581-1592), the cumsum + scatter
 compaction of emissions into a flat (M,) buffer, and the earliest live
-deadline (:1649-1656).  The pattern algebra is the JAX kernel's minus
-init slots, slot forking and absent logical sides: absent deadlines,
-count collection (station-independent, `:886-945`), the epsilon
-cascade of min-0 counts (`_landing_from` :1157), adjacent counts, the
-logical station (`_logical_step` :1259), indexed captures and presence
-rows (`_count_capture_values` :1212, `_present_zero` :1169), a final
-count's direct emissions through the E lanes (`of_lanes`, :1034-1080).
+deadline (:1649-1656).  The whole pattern algebra of the JAX step: absent
+deadlines, count collection (station-independent, `:886-945`), the
+epsilon cascade of min-0 counts (`_landing_from` :1157), adjacent
+counts, the logical station with absent sides (`_logical_step` :1259),
+indexed captures and presence rows (`_count_capture_values` :1212,
+`_present_zero` :1169), a final count's direct emissions through the E
+lanes (`of_lanes`, :1034-1080), the init slot (`:751-790`, `NO_FIRST`
+until the first capture, `:1062-1066`) and slot forking (`_fork_slots`
+:1117) for `every` around an absent state (the deadline pre-pass,
+`:800-860`, and the re-arming arrival, `:971-980`) and `every` on a
+stream position below the head (`:1004-1015`).
 
 Design (csrc/nfa_block.cuh, launched from csrc/nfa_block.cu for up to 4
-slots a thread and csrc/nfa_block_wide.cu for 8 or 16): one warp per
+slots a thread and csrc/nfa_block_wide.cu for 8 or 16, and from
+nfa_block_ext.cu and nfa_block_wide_ext.cu for EXT): one warp per
 partition lane, one thread per slot (a thread loops over A/32 slots when
-slot growth took A past 32).
+slot growth took A past 32).  Three instantiations a slot width, chosen
+at launch from the chain: the chain step (stream and absent positions),
+the algebra step (counts, logicals) and EXT (an init slot, an `every`
+below the head, an absent logical side; launches counted apart as
+`nfa_block:ext`).  EXT runs the JAX step phase by phase over the
+thread's slots with the capture writes deferred to the end of the step,
+as JAX defers them; a fork is a warp-wide exchange: sources and free
+slots ranked by slot index (ballot + popc), the sources' registers staged
+in shared memory, the k-th source's rows copied column to column into
+the k-th free slot; clones without one count into `of_slots` and meta[4],
+and the plan grows A and re-runs the block.  The init slot is slot 0,
+armed by the thread that owns it.
 The T loop runs inside the kernel with slot stations, count and logical
 flags in registers and capture, counter and deadline rows in shared
 memory.  Every step of `_step` is per slot but for the head allocation
@@ -52,7 +68,8 @@ before one warp has walked T events.
 
 `nfa_block()` launches the kernel for CUDA tensors and runs the plain
 version, `nfa_block_plain()` (a Python loop over T of vector ops on
-(A, P) tensors, mirroring `_step`), for CPU tensors.  Both read the
+(A, P) tensors, mirroring `_step` statement for statement), for CPU
+tensors.  A failed build or launch raises; nothing falls back.  Both read the
 capture-write tables of NFAKernel (`capture_values`,
 `count_capture_values`, `presence_rows`).
 """
@@ -75,7 +92,7 @@ from .table import DeviceTable, Launch, checked_ptr, stream_of
 MAX_A = 512                         # nfa_block.cuh: A/32 slots a thread
 _STATE = ("occ", "first_ts", "head_seq", "cnt", "cnt_on", "narm", "fl",
           "caps_f", "caps_i", "caps_l", "dl", "armed0", "of_slots",
-          "of_lanes")
+          "of_lanes", "init")
 
 
 class _Params(ctypes.Structure):
@@ -84,7 +101,8 @@ class _Params(ctypes.Structure):
         "Ki", "Kl", "Ka", "Kc", "Klog", "C", "M", "ts_slot", "wpb", "bcast",
         "playback", "emit_qid", "comp_ts_row", "comp_seq_row", "n_words",
         "n_consts", "stage", "prog_bytes", "parked", "all_pz_off",
-        "all_pz_len")] + [(n, ctypes.c_void_p) for n in (
+        "all_pz_len", "ext", "needs_init", "init_on_tick", "has_anchor",
+        "anchor", "init_land")] + [(n, ctypes.c_void_p) for n in (
         "ts", "seq", "valid", "tick", "scode", "qparams", "ev", "ev_vt",
         "pos_kind", "pos_node", "pos_within", "pos_dl_row", "pos_waiting",
         "pos_min", "pos_max", "pos_cnt", "pos_log", "pos_or", "pos_land",
@@ -93,20 +111,22 @@ class _Params(ctypes.Structure):
         "node_cc_off", "node_cc_len", "node_pres", "w_group", "w_row",
         "w_mode", "w_src", "w_arg", "pz_rows",
         *[f"{k}_in" for k in _STATE], *[f"{k}_out" for k in _STATE],
-        "out_i", "out_f", "out_l", "meta", "consts", "words")]
+        "out_i", "out_f", "out_l", "meta", "consts", "words",
+        "pos_sticky", "node_dl", "node_wait", "node_absent")]
 
 
 def _alloc_out(k, M: int, dev, rows=torch.zeros) -> dict:
     """Match rows, allocated by `rows` (the kernel writes only the first
     meta[0] columns and takes torch.empty), and the meta counts [matches,
-    dropped heads, earliest live deadline, lost direct emissions]."""
+    dropped heads and clones so far, earliest live deadline, lost direct
+    emissions, clones of this block that found no free slot]."""
     return {"out_i": rows((len(k.lane_names_i), M), dtype=torch.int32,
                           device=dev),
             "out_f": rows((len(k.rows_f), M), dtype=torch.float32,
                           device=dev),
             "out_l": rows((len(k.rows_l), M), dtype=torch.int64, device=dev),
-            "meta": torch.tensor([0, 0, NO_DEADLINE, 0], dtype=torch.int32,
-                                 device=dev)}
+            "meta": torch.tensor([0, 0, NO_DEADLINE, 0, 0],
+                                 dtype=torch.int32, device=dev)}
 
 
 def nfa_block(k, state: dict, ev: dict, pre: list, M: int):
@@ -154,6 +174,10 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     p.comp_ts_row, p.comp_seq_row = k.comp_rows()
     p.parked = int(k.parked)
     p.all_pz_off, p.all_pz_len = k.all_pz
+    p.ext, p.needs_init = int(k.ext), int(k.needs_init)
+    p.init_on_tick, p.init_land = int(k.init_on_tick), k.landing(-1)
+    if "__anchor__" in ev:
+        p.has_anchor, p.anchor = 1, int(ev["__anchor__"])
     keep: list = []
     ptr = checked_ptr(keep, dev, "nfa_block")
     p.ts = ptr(ev["__ts__"], torch.int32)
@@ -175,9 +199,10 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
             ("pos_node", k.pos_node),
             ("pos_within", [-1 if q.within_ms is None else q.within_ms
                             for q in pos]),
-            ("pos_dl_row", [-1 if q.dl_row is None else q.dl_row
-                            for q in pos]),
+            ("pos_dl_row", [q.dl_rows.get(0, -1) if pos_kind(q) == K_ABSENT
+                            else -1 for q in pos]),
             ("pos_waiting", [q.node.waiting_ms or 0 for q in pos]),
+            ("pos_sticky", [int(q.sticky) for q in pos]),
             ("pos_min", [q.min_count for q in pos]),
             ("pos_max", [q.max_count for q in pos]),
             ("pos_cnt", [-1 if q.cnt_row is None else q.cnt_row
@@ -192,6 +217,11 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
         tab.field(p, name, vals, "i4")
     nodes = spec.all_nodes
     tab.field(p, "node_scode", [n.scode for n in nodes], "i4")
+    tab.field(p, "node_dl", [q.dl_rows.get(ni, -1) for q in pos
+                             for ni in range(len(q.nodes))], "i4")
+    tab.field(p, "node_wait", [n.waiting_ms or 0 for n in nodes], "i4")
+    tab.field(p, "node_absent", [int(n.kind == "absent") for n in nodes],
+              "i4")
     tab.field(p, "node_pre", [0 if w is None else ptr(w, torch.int32)
                               for w in pre], "u8")
     progs, gidx = [], []
@@ -218,8 +248,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
                               "w_arg")):
         tab.field(p, name, [w[i] for w in k.writes] or [0], "i4")
     tab.field(p, "pz_rows", k.pz_rows or [0], "i4")
-    new = {key: torch.empty_like(state[key]) for key in _STATE}
-    for key in _STATE:
+    new = {key: torch.empty_like(state[key]) for key in _STATE
+           if key in state}
+    for key in new:
         setattr(p, f"{key}_in", ptr(state[key]))
         setattr(p, f"{key}_out", ptr(new[key]))
     out = _alloc_out(k, M, dev, torch.empty)
@@ -229,16 +260,19 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
                                          ptr(out["out_l"]),
                                          ptr(out["meta"]))
     keep.append(tab.upload(dev))
-    wide = k.A > 128                # csrc/nfa_block_wide.cu: 8-16 a thread
-    lib = load("nfa_block_wide" if wide else "nfa_block")
-    fn = lib.nfa_block_wide_launch if wide else lib.nfa_block_launch
+    # csrc/nfa_block[_wide][_ext].cu: 8-16 slots a thread past A = 128;
+    # the EXT instantiation apart from the others
+    name = "nfa_block" + ("_wide" if k.A > 128 else "") + \
+        ("_ext" if k.ext else "")
+    fn = getattr(load(name), f"{name}_launch")
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def run():
         out["meta"].copy_(meta0)
         return fn(ctypes.byref(p), stream_of(dev))
-    return Launch(run, "nfa_block_launch", "nfa_block", keep + [meta0],
+    return Launch(run, "nfa_block_launch",
+                  "nfa_block:ext" if k.ext else "nfa_block", keep + [meta0],
                   (new, out))
 
 
@@ -254,12 +288,12 @@ def _eval(tree: Node, env: dict):
 
 def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     """Python loop over T of (A, P) vector ops -- `_step` of the JAX
-    package restricted to this slice's algebra, then ceil(A/E) drain
-    rounds; emissions are compacted in (step, lane, partition) order."""
+    package, statement for statement, then ceil(A/E) drain rounds;
+    emissions are compacted in (step, lane, partition) order."""
     spec, A, P, S, E = k.spec, k.A, k.P, k.S, k.E
     PARK = S + 1
     dev = state["occ"].device
-    st = {key: state[key].clone() for key in _STATE}
+    st = {key: state[key].clone() for key in _STATE if key in state}
     occ, first_ts, head_seq = st["occ"], st["first_ts"], st["head_seq"]
     cnt, cnt_on, narm, fl, dl = (st["cnt"], st["cnt_on"], st["narm"],
                                  st["fl"], st["dl"])
@@ -267,6 +301,8 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     groups = "fil"
     armed0, of_slots, of_lanes = st["armed0"], st["of_slots"], \
         st["of_lanes"]
+    init = st.get("init")
+    fork_lost = 0
     nodes = spec.all_nodes
     multi = len(spec.stream_ids) > 1
     base = torch.tensor(ev["__base_ts__"], dtype=torch.int64)
@@ -278,8 +314,10 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     ts_g, seq_g, valid_g = grid("__ts__"), grid("__seq__"), grid("__valid__")
     tick_g = grid("__tick__") if "__tick__" in ev else None
     sc_g = grid("__scode__") if multi else None
+    anchor = ev.get("__anchor__")
     qenv = k.params.env() if k.params is not None else {}
     lanes_all = torch.arange(P, dtype=torch.int32, device=dev)
+    slot0 = (torch.arange(A, device=dev) == 0)[:, None]
     comp_ts_row, comp_seq_row = k.comp_rows()
     emitted: list = []          # (i rows, f rows, l rows) per emission
     no_dl = torch.full_like(dl, NO_DEADLINE)
@@ -363,8 +401,8 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
         """State rows of slots `mask` entering position tpi
         (`_enter_position`): a count starts collecting (a min-0 count
         below the final position arms its successor at once), a logical
-        pair clears its fill bits, an absent position arms its deadline
-        one waiting period after `at`."""
+        pair clears its fill bits, each absent node with a waiting time
+        arms its deadline one period after `at`."""
         nonlocal cnt, cnt_on, narm
         tpos = spec.positions[tpi]
         if tpos.is_count:
@@ -377,9 +415,44 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
         if tpos.log_row is not None:
             r = tpos.log_row
             fl[r] = torch.where(mask, torch.zeros_like(fl[r]), fl[r])
-        if tpos.dl_row is not None:
-            r = tpos.dl_row
-            dl[r] = torch.where(mask, at + tpos.node.waiting_ms, dl[r])
+        for ni, r in tpos.dl_rows.items():
+            dl[r] = torch.where(mask, at + tpos.nodes[ni].waiting_ms, dl[r])
+
+    def fork(src, occ_):
+        """`_fork_slots`: the k-th source slot (by slot index) is cloned
+        into the k-th free slot; returns (clone mask, occ').  Clones that
+        find no free slot count into `of_slots`."""
+        nonlocal first_ts, head_seq, cnt, cnt_on, narm, fl, dl, of_slots, \
+            fork_lost
+        srci = src.to(torch.int32)
+        nfork = torch.cumsum(srci, 0, dtype=torch.int32)
+        total = nfork[-1]
+        free = occ_ == 0
+        freei = free.to(torch.int32)
+        dst_rank = torch.cumsum(freei, 0, dtype=torch.int32) - freei
+        dst = free & (dst_rank < total[None])
+        lost = torch.clamp(total - freei.sum(0, dtype=torch.int32), min=0)
+        of_slots = of_slots + lost
+        fork_lost += int(lost.sum())
+        key = torch.where(src, nfork - srci, torch.full_like(srci, A + 1))
+        by_rank = torch.argsort(key, dim=0, stable=True)
+        src_of = torch.gather(by_rank, 0, torch.clamp(dst_rank, max=A - 1)
+                              .to(torch.int64))
+
+        def cp(row):
+            return torch.where(dst, torch.gather(row, 0, src_of), row)
+
+        def cp3(t3):
+            if t3.shape[0] == 0:
+                return t3
+            g = torch.gather(t3, 1, src_of[None].expand(t3.shape))
+            return torch.where(dst[None], g, t3)
+        first_ts, head_seq = cp(first_ts), cp(head_seq)
+        cnt, cnt_on, narm, fl, dl = (cp3(cnt), cp3(cnt_on), cp3(narm),
+                                     cp3(fl), cp3(dl))
+        for g in groups:
+            caps[g] = cp3(caps[g])
+        return dst, cp(occ_)
 
     def drain(emit_now=None):
         nonlocal occ, of_lanes
@@ -411,6 +484,26 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
         timey = valid if tick is None else (valid | tick)
         dl_fire = timey if k.playback else (
             tick if tick is not None else torch.zeros_like(valid))
+        if k.needs_init:
+            # the lane's init slot: slot 0, armed on the lane's first
+            # event (or timer tick, `init_on_tick`), its deadlines based
+            # at the START anchor when the block carries one
+            trig = valid | tick if (k.init_on_tick and tick is not None) \
+                else valid
+            act = ~init & trig
+            init = init | act
+            hot0 = slot0 & act[None, :]
+            arm = ts if anchor is None else torch.full_like(ts, anchor)
+            head = spec.positions[0]
+            if head.node.kind == "absent" or head.op is not None:
+                occ = torch.where(hot0, torch.ones_like(occ), occ)
+                enter(0, hot0, arm[None, :])
+            else:               # a min-0 count head: land past it
+                land = k.landing(-1)
+                occ = torch.where(hot0, torch.full_like(occ, land + 1), occ)
+                for tp in range(land + 1):
+                    enter(tp, hot0, arm[None, :])
+            head_seq = torch.where(hot0, seq_ap, head_seq)
         occ0 = occ.clone()
         env = caps_env()
         age = ts[None, :] - first_ts
@@ -424,33 +517,45 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
 
         # absent deadlines at or before this timestamp fire BEFORE the
         # event: the slot advances (or completes with the deadline as its
-        # timestamp) and can consume this very event downstream
+        # timestamp) and can consume this very event downstream; an
+        # `every` absent forks a clone that advances while the standing
+        # arm re-arms one period after the fired deadline
         for pi, pos in enumerate(spec.positions):
-            if pos.op is not None or pos.dl_row is None \
+            if pos.op is not None or not pos.dl_rows \
                     or pos.node.kind != "absent":
                 continue
-            r = pos.dl_row
+            r = pos.dl_rows[0]
             due = (occ0 == pi + 1) & (dl[r] <= ts[None, :]) & \
                 dl_fire[None, :]
-            dl_at = dl[r].clone()
+            if pos.sticky:
+                adv, occ0 = fork(due, occ0)
+                dl_at = dl[r].clone()
+                dl[r] = torch.where(due, dl[r] + max(pos.node.waiting_ms
+                                                     or 1, 1), dl[r])
+            else:
+                adv = due
+                dl_at = dl[r].clone()
+            first_ts = torch.where(adv & (first_ts == NO_FIRST), dl_at,
+                                   first_ts)
             pres = k.node_pres_row[k.pos_node[pi]]
             if pi == S - 1:
-                complete |= due
-                writes.append((due, (0, 0), None, (dl_at, seq_ap),
+                complete |= adv
+                writes.append((adv, (0, 0), None, (dl_at, seq_ap),
                                [pres] if pres >= 0 else []))
             else:
                 land = k.landing(pi)
-                occ0 = torch.where(due, torch.full_like(occ0, land + 1), occ0)
+                occ0 = torch.where(adv, torch.full_like(occ0, land + 1), occ0)
                 for tp in range(pi + 1, land + 1):
-                    enter(tp, due, dl_at)
+                    enter(tp, adv, dl_at)
                 rows = [r_ for tp in range(pi + 1, land + 1)
                         for r_ in pz(k.pos_pz[tp])]
-                zero_rows(due, rows + ([pres] if pres >= 0 else []))
-            dl[r] = torch.where(due, torch.full_like(dl_at, NO_DEADLINE),
-                                dl[r])
+                zero_rows(adv, rows + ([pres] if pres >= 0 else []))
+            dl[r] = torch.where(adv if pos.sticky else due,
+                                torch.full_like(dl_at, NO_DEADLINE), dl[r])
         occ = occ0.clone()
 
-        # lazy, strict `within` expiry per station
+        # lazy, strict `within` expiry per station (on the ages before
+        # the deadlines fired)
         expired = zeros_ap.clone()
         at_pos = []
         for pi, pos in enumerate(spec.positions):
@@ -521,25 +626,56 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
         for pi, pos in enumerate(spec.positions):
             at = at_pos[pi]
             gi = k.pos_node[pi]
-            if pos.is_count or (pi == 0 and pos.op is None):
+            if pos.is_count or (pi == 0 and pos.op is None
+                                and pos.node.kind != "absent"):
                 continue              # counts above; the head: alloc below
             if pos.op is not None:
+                # `_logical_step`: an absent side kills an `and` on
+                # arrival and disarms an `or` side; a side's deadline
+                # passage advances the pair
                 r = pos.log_row
                 newbits = fl[r].clone()
-                for ni in range(2):
+                lkill = zeros_ap.clone()
+                side_due = zeros_ap.clone()
+                need = 0
+                for ni, n in enumerate(pos.nodes):
                     m = at & nm[gi + ni]
+                    if n.kind == "absent":
+                        dr = pos.dl_rows.get(ni)
+                        if pos.op == "or":
+                            if dr is not None:
+                                dl[dr] = torch.where(m, no_dl[dr], dl[dr])
+                        else:
+                            lkill |= m
+                        if dr is not None:
+                            due = at & (dl[dr] <= ts[None, :]) & \
+                                dl_fire[None, :]
+                            side_due |= due
+                            dl[dr] = torch.where(due, no_dl[dr], dl[dr])
+                        continue
+                    need |= 1 << ni
                     newbits = torch.where(m, newbits | (1 << ni), newbits)
                     trans |= m
-                    writes.append((m, k.node_cw[gi + ni], None,
+                    writes.append((m & ~lkill, k.node_cw[gi + ni], None,
                                    (ts_ap, seq_ap), None))
-                done = at & ((newbits != 0) if pos.op == "or"
-                             else (newbits == 3))
+                filled = (newbits != 0) if pos.op == "or" else \
+                    ((newbits & need) == need)
+                done = at & (filled | side_due) & ~lkill
                 advance(pi, done)
                 trans |= done
+                for dr in pos.dl_rows.values():
+                    dl[dr] = torch.where(done | lkill, no_dl[dr], dl[dr])
                 fl[r] = torch.where(done, torch.zeros_like(newbits), newbits)
+                kill |= lkill
                 continue
             if pos.node.kind == "absent":
-                kill |= at & nm[gi]   # a forbidden arrival
+                arr = at & nm[gi]     # a forbidden arrival
+                if not pos.sticky:
+                    kill |= arr
+                elif pos.dl_rows:     # an `every` arm re-arms its wait
+                    r = pos.dl_rows[0]
+                    dl[r] = torch.where(arr, ts_ap + (pos.node.waiting_ms
+                                                      or 0), dl[r])
                 continue
             # (1,1) stream position: eligible when stationed here, or via
             # an armed predecessor count (consumed here), walking back
@@ -558,6 +694,11 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
                 cr = spec.positions[j].cnt_row
                 narm[cr] = narm[cr] & ~m
             trans |= m
+            if pos.sticky:
+                # `every` below the head: the slot stays a standing arm, a
+                # clone advances with the capture
+                m, occ = fork(m, occ)
+                trans |= m
             writes.append((m, k.node_cw[gi], None, (ts_ap, seq_ap), None))
             advance(pi, m)
 
@@ -589,6 +730,10 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
             enter(tpi, mask, ts[None, :])
             zero_rows(mask, pz(k.pos_pz[tpi]))
 
+        if k.needs_init:
+            # the first capture stamps the `within` anchor
+            first_ts = torch.where(trans & (first_ts == NO_FIRST), ts_ap,
+                                   first_ts)
         if spec.is_sequence:
             started = (occ > 0) & (occ < PARK) & (first_ts != NO_FIRST)
             kills = started & ~trans & valid[None, :]
@@ -598,6 +743,8 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
 
         if k.parked:
             drain(emit_now)
+        if k.needs_init:
+            continue                  # the init slot is the chain's entry
 
         # head: slot alloc (or direct single-position emission)
         head = spec.positions[0]
@@ -684,8 +831,12 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     if k.Ka and bool(live.any()):
         out["meta"][2] = torch.where(live[None], dl, no_dl).min()
     out["meta"][3] = of_lanes.sum()
-    return ({"occ": occ, "first_ts": first_ts, "head_seq": head_seq,
-             "cnt": cnt, "cnt_on": cnt_on, "narm": narm, "fl": fl,
-             "caps_f": caps["f"], "caps_i": caps["i"], "caps_l": caps["l"],
-             "dl": dl, "armed0": armed0, "of_slots": of_slots,
-             "of_lanes": of_lanes}, out)
+    out["meta"][4] = fork_lost
+    new = {"occ": occ, "first_ts": first_ts, "head_seq": head_seq,
+           "cnt": cnt, "cnt_on": cnt_on, "narm": narm, "fl": fl,
+           "caps_f": caps["f"], "caps_i": caps["i"], "caps_l": caps["l"],
+           "dl": dl, "armed0": armed0, "of_slots": of_slots,
+           "of_lanes": of_lanes}
+    if init is not None:
+        new["init"] = init
+    return new, out

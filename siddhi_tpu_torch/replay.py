@@ -7,7 +7,10 @@ tests (tests/test_torch_gpu.py):
   * the app texts of the driven configurations: BASELINE configs 1-5
     (`C1`, `C3`, `C4`, `c5_app`, `C2`), the grouped time window and C2B,
     the pattern-algebra apps of C4's partitioned shape (`C4N`, `C4NS`,
-    `C4A`, `C4O`), bench.py's config 6 join (`JOIN_APP`) and its filtered
+    `C4A`, `C4O`), the init-slot, fork and absent-side apps of K2's EXT
+    instantiation (`C4H`, `C4Z`, `C4F`, `C4L_OR`, `C4L_AND` under
+    @app:playback, and `C3H`, unpartitioned on the wall clock), bench.py's
+    config 6 join (`JOIN_APP`) and its filtered
     outer and unidirectional variants (`JOIN_OUTER`, `JOIN_UNI`), and the
     fused lanes' parameter app (`PARAM_APP`);
   * `make_tape`, the benchmark tape: uniform keys, prices on the quarter
@@ -31,7 +34,8 @@ tests (tests/test_torch_gpu.py):
     aggregation run recorded), `check_window_calls` (K1's window uses and K6-K8 on the
     calls a window run recorded), `check_join_calls` (K1 `join_filter`
     and K9 on the calls a join run recorded), `check_seq_block` (K2 and K1 on a block
-    a `seq` plan handed NFAKernel.run_block), `check_scan_block` (K1, K3,
+    a `seq` plan handed NFAKernel.run_block: every state field, the
+    init-slot flags and the deadline rows included), `check_scan_block` (K1, K3,
     K6, K3's rank trees, K4 and K5 on a block a `scan` plan handed
     ParallelChainKernel.run_block), each kernel on the same inputs as its
     plain version, tolerance 0; they raise `KernelMismatch` on the first
@@ -104,6 +108,38 @@ C4N = partitioned(C4N_BODY)             # `scan`: count head, rank/select
 C4NS = partitioned(C4NS_BODY)           # `seq`: count with a capture filter
 C4A = partitioned(C4A_BODY)             # `scan`: `and`, prev pointers
 C4O = partitioned(C4O_BODY)             # `or`, NULL losers (seq forced)
+
+# init slots, forks and absent sides (K2's EXT instantiation) on C4's
+# partitioned shape under @app:playback, and one unpartitioned absent head
+# on the wall clock
+C4H_BODY = (
+    "from every not StockStream[price > 128] for 3 sec -> "
+    "e2=StockStream[price < 92] within 10 sec "
+    "select e2.price as p2, e2.volume as v2 insert into Out;")
+C4Z_BODY = (
+    "from e1=StockStream[price > 125]<0:3> -> e2=StockStream[price < 92] "
+    "within 10 sec select e1[0].price as p10, e1 is null as none, "
+    "e2.price as p2 insert into Out;")
+C4F_BODY = (
+    "from every e1=StockStream[price > 126] -> every "
+    "e2=StockStream[price < 100] -> e3=StockStream[price > e2.price] "
+    "within 10 sec select e1.price as p1, e2.price as p2, e3.price as p3 "
+    "insert into Out;")
+C4L_OR_BODY = (
+    "from every e1=StockStream[price > 120] -> e2=StockStream[price < 92] "
+    "or not StockStream[price > 128] for 1 sec within 10 sec "
+    "select e1.price as p1, e2.price as p2, e2 is null as timed_out "
+    "insert into Out;")
+C4L_AND_BODY = C4L_OR_BODY.replace(" or ", " and ")
+PLAYBACK = "@app:playback\n"
+C4H = PLAYBACK + partitioned(C4H_BODY)
+C4Z = PLAYBACK + partitioned(C4Z_BODY)
+C4F = "@app:deviceSlots(4)\n" + PLAYBACK + partitioned(C4F_BODY)
+C4L_OR = PLAYBACK + partitioned(C4L_OR_BODY)
+C4L_AND = PLAYBACK + partitioned(C4L_AND_BODY)
+C3H = STOCK + ("@info(name='q') from not StockStream[price > 129] for 100 "
+               "milliseconds -> e2=StockStream[price < 91] "
+               "select e2.price as p2, e2.volume as v2 insert into Out;\n")
 
 
 # bench.py:438-444 (config 6), copied

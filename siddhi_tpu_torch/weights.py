@@ -2,12 +2,14 @@
 
 A stream processor's "weights" are its pattern state.  For the `seq`
 family that is the slot state, the stationed partial matches, their
-captures and presence rows, count and logical rows and their
-absent-state deadlines (`dl`): `nfa_state_from_jax`
-turns the `state` entry of a `siddhi_tpu` DevicePatternPlan.state_dict()
-(numpy arrays) into this port's state tensors, and the rest of that dict
-(key map, ts/seq bases, last seq, the next deadline) loads as it is
-through DevicePatternPlan.load_state_dict.  A fused multi-query plan's
+captures and presence rows, count and logical rows, their absent-state
+deadlines (`dl`, one row per absent node with a waiting time, in the JAX
+package's order) and an init-slot chain's per-lane `init` flags:
+`nfa_state_from_jax` turns the `state` entry of a `siddhi_tpu`
+DevicePatternPlan.state_dict() (numpy arrays) into this port's state
+tensors, and the rest of that dict (key map, ts/seq bases, last seq, the
+next deadline, the START anchor `start_anchor`) loads as it is through
+DevicePatternPlan.load_state_dict.  A fused multi-query plan's
 state_dict() is its inner plan's, lanes being query instances, and
 carries over the same way.
 `nfa_state_to_numpy` is the inverse view the tests compare with.
@@ -55,11 +57,8 @@ _DTYPES = {"occ": np.int32, "first_ts": np.int32, "head_seq": np.int32,
 def nfa_state_from_jax(np_state: dict, device) -> dict:
     """JAX `seq`-family slot state (numpy) -> the port's state tensors:
     stations, captures and presence rows, count rows (`cnt`, `cnt_on`,
-    `narm`), logical fill bits (`fl`), deadlines and the lane counters.
-    An init-slot chain's state (`init`) is refused: absent heads are a
-    later slice."""
-    if np_state.get("init") is not None:
-        raise ValueError("init-slot chains are not in this slice")
+    `narm`), logical fill bits (`fl`), deadlines, the lane counters and,
+    for an init-slot chain, the lanes' `init` flags."""
     missing = [k for k in _KEYS if k not in np_state]
     if missing:
         raise ValueError(f"not a `seq`-family NFA state (missing {missing}); "
@@ -72,6 +71,9 @@ def nfa_state_from_jax(np_state: dict, device) -> dict:
                              f"expected {np.dtype(_DTYPES[k])} (an f64-mode "
                              f"plan is not in this slice)")
         out[k] = torch.from_numpy(np.array(a, copy=True)).to(device)
+    if np_state.get("init") is not None:
+        out["init"] = torch.from_numpy(np.array(
+            np_state["init"], dtype=np.bool_, copy=True)).to(device)
     return out
 
 

@@ -8,7 +8,9 @@ unpartitioned and partitioned, under `@app:playback` (deadlines fire on
 events) and on the wall clock with `set_time` (deadlines fire on timer
 ticks); K2's plain version against the JAX package's jitted block on
 recorded blocks with live deadlines and on a tick block; the `dl` rebase;
-and the absent shapes that stay later slices.  The JAX package runs each
+the absent shapes once refused (an `every` absent, an absent head, an
+absent `and` side), now equal to the JAX block; and the selector over an
+absent ref that stays refused.  The JAX package runs each
 unpartitioned app under `@app:devicePatterns('prefer')`, its device NFA."""
 import functools
 
@@ -229,15 +231,30 @@ def test_deadline_rows_survive_a_rebase():
      "insert into O;", "inside logical"),
 ])
 def test_absent_shapes_of_later_slices_raise(body, what):
-    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(DeviceNFAUnsupported, match=what) as e:
-        mgr.create_app_runtime(AB + "@info(name='q') " + body)
-    assert "later slice" in str(e.value)
+    """The absent shapes this file once showed refused -- an `every`
+    around an absent final state (the deadline forks a completing clone),
+    an absent head (the init slot), an absent side of `and` -- under
+    playback, against the JAX device block, rows in order."""
+    text = "@app:playback\n" + AB + "@info(name='q') " + body
+    rng = np.random.default_rng(3)
+    ts = 1000 + np.cumsum(rng.integers(100, 700, size=120))
+    # no B in the first 25 events: the absent head, anchored at the
+    # first flush's clock, can wait out its second
+    ss = [("B" if i >= 25 and rng.random() < 0.15 else "A",
+           (f"K{int(rng.integers(0, 3))}", int(rng.integers(0, 10))), int(t))
+          for i, t in enumerate(ts)]
+    want, _ = run(siddhi_tpu, PREFER + text, ss, False)
+    got, rt = run(siddhi_tpu_torch, text, ss, False, device="cpu")
+    assert got == want and got, what
+    assert rt.plans()[0].kernel.ext
 
 
 def test_selector_over_an_absent_ref_is_a_later_slice():
+    """A selector deriving a value from a maybe-absent ref stays refused,
+    as in the JAX device block (its host matcher runs it)."""
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(DeviceNFAUnsupported, match="maybe-absent"):
+    with pytest.raises(DeviceNFAUnsupported, match="maybe-absent") as e:
         mgr.create_app_runtime(AB + "@info(name='q') from e1=A -> not "
                                "e2=B for 1 sec select e1.x as x, e2.y + 1 "
                                "as y insert into O;")
+    assert "host matcher" in str(e.value)

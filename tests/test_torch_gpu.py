@@ -11,7 +11,9 @@ family) must give the same heaps, chase results and match table as
 theirs on every block a run hands them; K6-K8 (the window kernels) the
 same scans, range reductions and compacted columns as theirs on data
 whose f64 prefixes are exact, and the window configs the CPU run's
-rows; K10 (`agg_merge`) the same ring as its plain version bit for bit
+rows; K2's EXT instantiation (init slots, forks, absent logical sides)
+the same state and rows as its plain version on the chip_smoke phase
+apps at A = 32, 64 and 256, after fork overflows and on timer ticks; K10 (`agg_merge`) the same ring as its plain version bit for bit
 (NaN and the sign of zero included), K6 use `agg` the same scans, and
 the aggregation matrix app the CPU run's stores and rows."""
 import numpy as np
@@ -26,9 +28,11 @@ from siddhi_tpu_torch.core.expr import (F32_MODE, VT_OF_TORCH,
 from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
 from siddhi_tpu_torch.kernels import LAUNCHES, reset_launches
 from siddhi_tpu_torch.query import parse, parse_expression
-from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C4A_BODY, C4N_BODY,
-                                     C4NS_BODY, C4O_BODY, PARAM_APP, c5_app,
-                                     make_tape, partitioned, sorted_rows)
+from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C3H, C4A_BODY,
+                                     C4F, C4F_BODY, C4H, C4L_AND, C4L_OR,
+                                     C4N_BODY, C4NS_BODY, C4O_BODY, C4Z,
+                                     PARAM_APP, PLAYBACK, c5_app, make_tape,
+                                     partitioned, sorted_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -204,6 +208,111 @@ def test_nfa_block_algebra_matches_plain(cuda, name, monkeypatch):
     assert got == want and got
     if name == "or":
         assert any(r[2] is None for _t, r in got)
+
+
+# K2's EXT instantiation (init slots, forks, absent logical sides) on the
+# chip_smoke phase apps, small: (app, keys, events, flush, ms apart); the
+# slot counts take the narrow (A = 32, 64) and the wide (A = 256)
+# instantiations, and C4F grows from 4 slots through fork overflows
+EXT_APPS = {
+    "c4h": (C4H, 16, 6000, 3000, 40),
+    "c4h_a64": ("@app:deviceSlots(64)\n" + C4H, 16, 6000, 3000, 40),
+    "c4z": (C4Z, 16, 6000, 3000, 40),
+    "c4f": (C4F, 4, 2400, 1200, 25),
+    "c4f_a256": ("@app:deviceSlots(256)\n" + PLAYBACK + partitioned(C4F_BODY),
+                 4, 2400, 1200, 25),
+    "c4l_or": (C4L_OR, 16, 6000, 3000, 40),
+    "c4l_and": (C4L_AND, 16, 6000, 3000, 40),
+}
+
+
+def _run_ext(app, tape, keys, device, set_times=()):
+    rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(app)
+    out = []
+    rt.add_callback("Out", lambda evs: out.extend(
+        (e.timestamp, e.data) for e in evs))
+    h = rt.input_handler("StockStream")
+    codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                     dtype=np.int32)
+    for f in tape:
+        h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
+                      "volume": f["volume"]}, f["ts"])
+        rt.flush()
+    for t in set_times:
+        rt.set_time(t)
+    return out, rt
+
+
+@pytest.mark.parametrize("name", sorted(EXT_APPS) + ["c3h"])
+def test_nfa_block_ext_matches_plain(cuda, name, monkeypatch):
+    """K2's EXT instantiation: every accepted block the `seq` plan ran
+    (state, meta, sorted rows) equal to the plain version, EXT launched,
+    the rows equal to the CPU run's.  C3H, unpartitioned on the wall
+    clock, arms its init slot on a timer tick at the START anchor."""
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.replay import check_seq_block
+    blocks = []
+    orig = NFAKernel.run_block
+
+    def rec(self, state, ev, M):
+        new, out = orig(self, state, ev, M)
+        blocks.append((self, state, ev, M, int(out["meta"][0])))
+        return new, out
+    monkeypatch.setattr(NFAKernel, "run_block", rec)
+    if name == "c3h":
+        tape = make_tape(4096, 4096, 8, seed=17)
+        ts0 = int(tape[0]["ts"][0])
+        app, keys = C3H, 8
+        marks = (ts0 + 5000, int(tape[-1]["ts"][-1]) + 1000)
+
+        def run(device):
+            rt = siddhi_tpu_torch.SiddhiManager(
+                device=device).create_app_runtime(app)
+            out = []
+            rt.add_callback("Out", lambda evs: out.extend(
+                (e.timestamp, e.data) for e in evs))
+            rt.set_time(ts0 - 1000)
+            assert rt.plans()[0].next_wakeup() == ts0 - 900
+            rt.set_time(ts0 - 1)
+            h = rt.input_handler("StockStream")
+            codes = np.array([rt.strings.encode(f"K{i}") for i in range(8)],
+                             dtype=np.int32)
+            f = tape[0]
+            h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
+                          "volume": f["volume"]}, f["ts"])
+            rt.flush()
+            for t in marks:
+                rt.set_time(t)
+            return out, rt
+    else:
+        app, keys, n, flush, dt = EXT_APPS[name]
+        app = f"@app:partitionCapacity({keys})\n" + app
+        tape = make_tape(n, flush, keys, seed=19, dt_ms=dt)
+
+        def run(device):
+            return _run_ext(app, tape, keys, device)
+    reset_launches()
+    got, rt = run(cuda)
+    assert LAUNCHES["nfa_block:ext"] > 0 and LAUNCHES["nfa_block"] == 0
+    plan = rt.plans()[0]
+    assert plan.family == "seq" and plan.kernel.ext
+    ticks = 0
+    for kern, state, ev, M, n_found in blocks:
+        if n_found > M:
+            continue                # an M overflow's first try
+        err = check_seq_block(kern, state, ev, M)
+        assert max(v for key, v in err.items()
+                   if key not in ("matches", "lost")) == 0.0
+        ticks += "__tick__" in ev
+    if name == "c3h":
+        assert ticks
+    if name.startswith("c4f"):
+        assert plan.kernel.A > (4 if name == "c4f" else 128)
+    if name == "c4f":
+        assert plan.growths["forks"] > 0
+    blocks.clear()
+    want, _rt = run("cpu")
+    assert got == want and got
 
 
 def test_c4_end_to_end_on_the_card(cuda):

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under siddhi_tpu_torch/ nor chip_smoke.py
-imports jax or siddhi_tpu (importing any siddhi_tpu module loads JAX and
+"""The port stands alone: nothing under siddhi_tpu_torch/, chip_smoke.py
+nor the port's scripts imports jax or siddhi_tpu (importing any siddhi_tpu module loads JAX and
 switches on x64 for the whole process), importing the port leaves jax out
 of sys.modules, and the facade refuses to fall back to the CPU silently."""
 import ast
@@ -16,7 +16,8 @@ PORT = os.path.join(ROOT, "siddhi_tpu_torch")
 
 def _port_files() -> list:
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_c4_profile.py")]
+           os.path.join(ROOT, "scripts", "torch_c4_profile.py"),
+           os.path.join(ROOT, "scripts", "k2_ab.py")]
     for d, _dirs, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -12,8 +12,10 @@ family (the port has no `chunk` yet: where JAX picks it, the port runs
 `seq`).  Also: a final count whose emissions outrun the E lanes (the
 plan doubles E and re-runs the block), slot state carried over from a
 JAX plan mid-tape (`weights.nfa_state_from_jax`, counters, fill bits and
-presence rows included), and the shapes of later slices refused with a
-PlanError naming the feature."""
+presence rows included), the shapes once refused (init slots, forks,
+absent `and` sides) against the JAX device block, and the shapes the JAX
+device block refuses too, raising a PlanError naming the feature and the
+host matcher."""
 import numpy as np
 import pytest
 
@@ -343,9 +345,23 @@ def test_logical_after_count_never_completes_like_the_jax_device():
     ("from e1=StockStream[price > 110] -> e2=StockStream[price < 95] or "
      "e3=StockStream[volume > 990] select e3.volume is null as n "
      "insert into Out;", "null"),
-    ("from every not StockStream[price > 120] for 1 sec -> "
-     "e2=StockStream[price > 100] select e2.price as p insert into Out;",
-     "sticky"),
+    ("from e1=StockStream[price > 110] -> e2=StockStream[price < 95] or "
+     "e3=StockStream[volume > 990] select e3.volume + 1 as v "
+     "insert into Out;", "maybe-absent"),
+])
+def test_later_slice_shapes_raise_naming_the_feature(body, feature):
+    """The shapes the JAX device block refuses too (its host matcher runs
+    them) raise PlanError naming the feature and the host matcher."""
+    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    with pytest.raises(PlanError, match=feature) as e:
+        mgr.create_app_runtime(STOCK + "@info(name='q') " + body)
+    assert "host matcher" in str(e.value)
+
+
+@pytest.mark.parametrize("body,feature", [
+    ("from every not StockStream[price > 128] for 1 sec -> "
+     "e2=StockStream[price > 100] within 2 sec select e2.price as p "
+     "insert into Out;", "sticky"),
     ("from e1=StockStream[price > 110]<0:2> -> e2=StockStream[price < 95] "
      "select e2.price as p insert into Out;", "init slot"),
     ("from e1=StockStream[price > 110] -> every e2=StockStream[price < 95] "
@@ -353,11 +369,15 @@ def test_logical_after_count_never_completes_like_the_jax_device():
     ("from e1=StockStream[price > 110] -> not StockStream[price > 125] and "
      "e2=StockStream[price < 95] select e1.price as p insert into Out;",
      "logical"),
-    ("from e1=StockStream[price > 110] -> e2=StockStream[price < 95] or "
-     "e3=StockStream[volume > 990] select e3.volume + 1 as v "
-     "insert into Out;", "maybe-absent"),
 ])
-def test_later_slice_shapes_raise_naming_the_feature(body, feature):
-    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(PlanError, match=feature):
-        mgr.create_app_runtime(STOCK + "@info(name='q') " + body)
+def test_once_refused_shapes_match_jax(body, feature):
+    """The shapes this file once showed refused -- an `every` absent head,
+    a min-0 count head (init slots), `every` below the head (the stream
+    fork), an absent `and` side -- partitioned over 8 keys under
+    playback: the JAX device block's rows and family (`seq`)."""
+    app = "@app:playback\n" + partitioned(body)
+    feed = tape_sends(8, 3000, 40 + len(feature), flush=500, dt=20)
+    want, jrt = run_tape(siddhi_tpu, DEV + app, feed)
+    got, rt = run_tape(siddhi_tpu_torch, app, feed, device="cpu")
+    assert got == want and got, feature
+    assert rt.plans()[0].family == "seq" and rt.plans()[0].kernel.ext

@@ -6,8 +6,9 @@ pick the same plan family: `scan` for the within-bounded chains, `seq`
 otherwise) and with the sequential `seq` family forced in both; slot
 growth and match-buffer retries are forced with tiny slot counts on
 `seq`; slot state carried over from the JAX package continues to the JAX
-package's result; shapes outside the slice raise when the app is
-created.  The JAX package's rows and the port's are
+package's result; the shapes once refused at create (init slots, forks,
+absent `and` sides) give the JAX package's rows; options outside the
+port raise when the app is created.  The JAX package's rows and the port's are
 computed once per app and tape (`jax_rows`, `port_rows`) and shared by
 the tests that compare them."""
 import functools
@@ -277,9 +278,16 @@ def test_state_carried_from_jax(name):
      "select e2.price as p insert into Out;", "every"),
 ])
 def test_unsupported_shapes_raise_at_create(body, feature):
-    mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(PlanError, match=feature):
-        mgr.create_app_runtime(STOCK + part(body))
+    """The shapes this file once showed refused at create -- a min-0
+    count head, an absent head, an absent `and` side, `every` below the
+    head -- now plan on the port's `seq` family and give the JAX package's
+    rows on the file's tape (under playback, so deadlines fire)."""
+    app = "@app:playback\n" + STOCK + part(body)
+    sends = tape("c4", flushes=2, n=400)
+    want, _ = run(siddhi_tpu, "@app:devicePatterns('prefer')\n" + app, sends)
+    got, rt = run(siddhi_tpu_torch, app, sends, device="cpu")
+    assert got == want and got, feature
+    assert rt.plans()[0].family == "seq"
 
 
 @pytest.mark.parametrize("head,feature", [
