@@ -123,7 +123,31 @@ Phases (any failure exits non-zero; nothing is caught):
      + 100 ms), a tick arming the init slot (`__anchor__`), 2^13 events in
      one flush, `set_time` past them; rows equal to the CPU run, tick
      blocks among the recorded ones, each equal to the plain version;
- 21. (after 31) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 32. C3K, bench.py's C3 under @app:patternFamily('chunk') (8 keys, 2
+     flushes of 2^17): K2 over K own-chunks of the flat flush with halo
+     reads (`nfa_block:chunk`), K1 pre-masks and selector launched, K3-K5
+     and K2's other launches not; K, CS, H, T and A logged (K = 64, T =
+     4096 expected); rows equal to the CPU run and to the card's `seq`
+     run of the same tape;
+ 33. C3X, a capture-dependent conjunction (`e2=S[price > e1.price and
+     volume > e1.volume]`), which `scan` refuses and which runs `chunk`
+     with no annotation: 2 flushes of 2^18;
+ 34. C3E, `every` below the head (K2's EXT step in chunk lanes: forks),
+     `chunk` with no annotation: 2 flushes of 2^17; phases 32-34 each
+     counted, recorded, rows equal to the CPU run in order, every block
+     the plan kept equal to its plain version (K2 from fresh state, K1);
+ 35. C3SD, bench.py's static C3S under @app:patternFamily('dfa'): 2
+     flushes of 2^18 over 8 keys; K11 `dfa_tables` and K4's `dfa` mode
+     (`scan_chase:dfa`) launched with K1, K3 (the `within` killer's tree
+     only: no mask tree for the chase node) and K5, K4's tree mode and
+     K2 not; rows equal to the CPU run and to the card's `scan` run of the
+     same tape, whose K3 and K4 are timed beside K11 and K4 `dfa`;
+ 36. C4D, C4's partitioned head (1000 keys) with a static hop and a
+     threshold hop (`e2=S[price < 100] -> e3=S[price > e1.price]`) under
+     @app:patternFamily('dfa'): K11 over the (L, F) lane grid; phases 35
+     and 36 each counted, recorded, every block's kernels (K11 and K4
+     `dfa` included) equal to their plain versions;
+ 21. (after 36) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -146,11 +170,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
-    C1, C2, C2_GROUPED, C2B, C3, C3H, C4, C4_HEAD, C4_SEQ, C4A, C4F, C4H,
-    C4L_AND, C4L_OR, C4N, C4NS, C4O, C4Z, JOIN_APP, JOIN_OUTER, JOIN_UNI,
-    MATRIX_APP, agg_rows, c5_app,
-    check_agg_calls, check_join_calls, join_tape, check_scan_block,
-    check_seq_block, check_window_calls, make_tape, matrix_tape, max_err,
+    C1, C2, C2_GROUPED, C2B, C3, C3E, C3H, C3K, C3S, C3SD, C3X, C4, C4_HEAD,
+    C4_SEQ, C4A, C4D, C4D_BODY, C4F, C4H, C4L_AND, C4L_OR, C4N, C4NS, C4O,
+    C4Z, JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, agg_rows, block_masks,
+    c5_app, check_agg_calls, check_chunk_block, check_dfa_block,
+    check_join_calls, join_tape, check_scan_block, check_seq_block,
+    check_window_calls, make_tape, matrix_tape, max_err, partitioned,
     scan_inputs, sorted_rows)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -197,6 +222,26 @@ EXT = (("c4h", C4_HEAD + C4H, 27), ("c4z", C4_HEAD + C4Z, 28),
        ("c4l_or", C4_HEAD + C4L_OR, 30), ("c4l_and", C4_HEAD + C4L_AND, 30))
 C3H_EVENTS = 1 << 13
 EXT_TIMED = ("c4h", "c4f", "c4l_or")   # K2 EXT's entries in the kernel line
+# the stateless families: (label, app, events a flush, flushes, keys,
+# seed, family, the app of the comparison run on the card: `seq` for
+# C3K, `scan` for the dfa phases).  The slot count of a chunk lane is set
+# to the A its retries reach on these tapes (C3K 32, C3X 64, C3E 128:
+# `every e2` forks a clone per live head), so the CPU run does not repeat
+# the growth retries
+STATELESS = (
+    ("c3k", "@app:deviceSlots(32)\n" + C3K, 1 << 17, 2, 8, 32, "chunk",
+     C4_SEQ + C3),
+    ("c3x", "@app:deviceSlots(64)\n" + C3X, 1 << 18, 2, 8, 33, "chunk",
+     None),
+    ("c3e", "@app:deviceSlots(128)\n" + C3E, 1 << 17, 2, 8, 34, "chunk",
+     None),
+    ("c3sd", C3SD, 1 << 18, 2, 8, 35, "dfa",
+     "@app:patternFamily('scan')\n" + C3S),
+    ("c4d", C4_HEAD + C4D, 1 << 18, 2, KEYS, 36, "dfa",
+     C4_HEAD + partitioned(C4D_BODY)))
+CHUNK_K = ("nfa_block:chunk", "expr_eval:pre_mask", "expr_eval:select")
+DFA_K = ("dfa_tables", "scan_chase:dfa", "seg_tree", "scan_compact",
+         "expr_eval:pre_mask", "expr_eval:select")
 SCAN_K = ("seg_tree", "scan_chase", "scan_compact", "expr_eval:pre_mask",
           "expr_eval:select")
 SEQ_K = ("nfa_block", "expr_eval:pre_mask", "expr_eval:select")
@@ -598,7 +643,7 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     rheaps = seg_tree_plain(kern, ev, masks, kern.rank_trees, rcols)
     alive: list = []
     chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps, prevs,
-                             alive)
+                             alive=alive)
     status, idx, cand, pres = chase
     out = scan_compact(kern, ev, chase, ranks, rheaps, M)
     n = int(out["meta"][0])
@@ -820,7 +865,7 @@ def phase_blocks(torch, blocks, label: str = "c4 seq",
     return res
 
 
-def run_recorded(pkg, np, app: str, tape) -> tuple:
+def run_recorded(pkg, np, app: str, tape, keys: int = KEYS) -> tuple:
     """An app through the facade on the card, launch counts from 0 just
     before its first flush and read just after its last, recording every
     block its plan hands ParallelChainKernel.run_block (kernel, event
@@ -844,7 +889,7 @@ def run_recorded(pkg, np, app: str, tape) -> tuple:
     ParallelChainKernel.run_block, NFAKernel.run_block = rec_scan, rec_seq
     try:
         kernels.reset_launches()
-        rows, per_flush, rt = run_app(pkg, np, app, tape, KEYS, "cuda")
+        rows, per_flush, rt = run_app(pkg, np, app, tape, keys, "cuda")
         launches = dict(kernels.LAUNCHES)
     finally:
         ParallelChainKernel.run_block, NFAKernel.run_block = run_scan, run_seq
@@ -1019,6 +1064,226 @@ def phase_c3h(torch, np, pkg) -> dict:
         f"ticks) equal to plain")
     return {"rows": len(rows), "ms": ms, "launches": launches,
             "blocks": blk, "wakeup": wakeup}
+
+
+def chunk_kept(kern, meta, M: int, cap: int) -> bool:
+    """A chunk block the plan kept: no retry followed it (no M overflow,
+    no lost E-lane emission, no dropped head below the slot cap)."""
+    n, ofs, _dl, ofl, _lost = meta.tolist()
+    return n <= M and ofl == 0 and (ofs == 0 or kern.A >= cap)
+
+
+def phase_chunk_blocks(torch, blocks, label: str, cap: int,
+                       timed: bool) -> dict:
+    """K2 (chunk mode) and K1 against their plain versions on every chunk
+    block the plan kept (replay.check_chunk_block, from fresh state); K2
+    timed on the last one when `timed`."""
+    from siddhi_tpu_torch.kernels import nfa_block as k2
+    from siddhi_tpu_torch.kernels.nfa_block import nfa_block, nfa_block_plain
+    kept = [(k, ev, M) for k, _st, ev, M, meta in blocks
+            if chunk_kept(k, meta.cpu(), M, cap)]
+    if not kept:
+        raise SystemExit(f"[{label}] recorded no kept chunk block")
+    err: dict = {}
+    for b, (kern, ev, M) in enumerate(kept):
+        e = check_chunk_block(kern, ev, M)
+        merge_err(err, e)
+        T, cs, nev, _prev = ev["__chunk__"]
+        log(f"  [{label}] block {b}: K={kern.P} T={T} CS={cs} F={nev} "
+            f"A={kern.A} E={kern.E} M={M} matches={e['matches']}: K2 state "
+            f"and rows, K1 pre-masks and selector equal to their plain "
+            f"versions")
+    res = {"blocks": len(kept), "err": err}
+    if not timed:
+        return res
+    kern, ev, M = kept[-1]
+    T, cs, nev, _prev = ev["__chunk__"]
+    state = kern.init_state(ev["__ts__"].device)
+    pre = kern.pre_masks(ev)
+    out = nfa_block(kern, state, ev, pre, M)[1]
+    n = int(out["meta"][0])
+    masks = block_masks(kern, ev, pre)
+    plain_ms = wall_ms(torch, lambda: nfa_block_plain(kern, state, ev,
+                                                      masks, M))
+    # the flat events and pre-mask words read once, the fresh state in
+    # and out and the match rows moved once; one station test per slot
+    # for each (lane, step) cell holding an event (halo reads included)
+    tensors = [v for v in ev.values() if torch.is_tensor(v)]
+    k2_bytes = sum(v.numel() * v.element_size() for v in tensors)
+    k2_bytes += sum(w.numel() * 4 for w in pre if w is not None)
+    k2_bytes += 2 * sum(v.numel() * v.element_size() for v in state.values())
+    k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) * 4 +
+                     len(kern.rows_l) * 8) + 20
+    cells = sum(max(0, min(T, nev - lane * cs)) for lane in range(kern.P))
+    ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
+                        lambda: [k2.prepare(kern, state, ev, pre, M)],
+                        reps=10)
+    res.update({"K": kern.P, "T": T, "CS": cs, "A": kern.A, "M": M,
+                "matches": n})
+    res["nfa_block:chunk"] = {"ms": ms, "dispatch_ms": host,
+                              "plain_ms": plain_ms, "bytes": k2_bytes,
+                              "ops": cells * kern.A, "library_ms": None}
+    return res
+
+
+def time_k3_k4(torch, kern, ev, pre, heaps, tables=None) -> dict:
+    """Device and dispatch ms of K3 and of K4 (tree or `dfa` mode) on one
+    single-position block (no ranks, prev pointers or rank trees)."""
+    from siddhi_tpu_torch.kernels import scan_chase as k4
+    from siddhi_tpu_torch.kernels import seg_tree as k3
+    from siddhi_tpu_torch.kernels.scan_chase import scan_chase
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree
+    k3_ms, k3_host = graph_ms(torch, lambda: seg_tree(kern, ev, pre),
+                              lambda: [k3.prepare(kern, ev, pre)])
+    k4_ms, k4_host = graph_ms(
+        torch, lambda: scan_chase(kern, ev, pre, heaps, tables=tables),
+        lambda: [k4.prepare(kern, ev, pre, heaps, tables=tables)])
+    return {"seg_tree": k3_ms, "seg_tree_dispatch": k3_host,
+            "scan_chase": k4_ms, "scan_chase_dispatch": k4_host}
+
+
+def phase_dfa_blocks(torch, blocks, label: str, scan_blocks) -> dict:
+    """K1, K3, K11, K4 (`dfa` mode) and K5 against their plain versions on
+    every `dfa` block (replay.check_dfa_block); K11 and K4 `dfa` timed on
+    the last one, K3 and K4 on the last block of the `scan` run of the
+    same tape beside them."""
+    from siddhi_tpu_torch.kernels import dfa_tables as k11
+    from siddhi_tpu_torch.kernels.dfa_tables import (dfa_tables,
+                                                     dfa_tables_plain)
+    from siddhi_tpu_torch.kernels.scan_chase import scan_chase_plain
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree, seg_tree_plain
+    err: dict = {}
+    for b, (kern, ev, M) in enumerate(blocks):
+        if any(t.node in kern.dfa_nodes for t in kern.trees):
+            raise SystemExit(f"[{label}] K3 built a tree for a chase node")
+        e = check_dfa_block(kern, ev, M)
+        merge_err(err, e)
+        L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
+        log(f"  [{label}] block {b}: L={L} F={F} chase nodes="
+            f"{len(kern.dfa_nodes)} trees={len(kern.trees)} matches="
+            f"{e['matches']}: {sorted(k for k in e if k != 'matches')} "
+            f"equal to their plain versions")
+    kern, ev, M = blocks[-1]
+    L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
+    Lt = kern.leaves(F)
+    pre = kern.pre_masks(ev)
+    masks = scan_inputs(kern, ev, pre)[0]
+    heaps = seg_tree(kern, ev, pre)
+    chase_masks = [masks[gi] for gi in kern.dfa_nodes]
+    tables = dfa_tables(kern, ev, pre)
+    nk, NB = len(kern.dfa_nodes), tables[1].shape[1]
+    alive: list = []
+    status, idx, cand, pres = scan_chase_plain(
+        kern, ev, masks, heaps, tables=tables, alive=alive)
+    res = {"blocks": len(blocks), "err": err, "L": L, "F": F, "Lt": Lt,
+           "chase_nodes": nk}
+    pre_chase = [pre[gi] for gi in kern.dfa_nodes if pre[gi] is not None]
+    ms, host = graph_ms(torch, lambda: dfa_tables(kern, ev, pre),
+                        lambda: [k11.prepare(kern, ev, pre)])
+    # K11: the chase nodes' pre-mask words, the lane counts and (several
+    # streams) the stream codes read once, the suffix words, block words
+    # and next pointers written once; a bit test per node and event and a
+    # min per node and block
+    scode = [ev["__flat.__scode__"]] if kern.multi else []
+    res["dfa_tables"] = {
+        "ms": ms, "dispatch_ms": host, "library_ms": None,
+        "bytes": nbytes(ev["__nev__"], *pre_chase, *scode, *tables),
+        "ops": L * NB * 4 * nk + L * NB * nk,
+        "plain_ms": wall_ms(torch, lambda: dfa_tables_plain(chase_masks))}
+    # K4 in `dfa` mode: as K4, the tables in place of the mask trees; per
+    # head alive at a hop the killer's descent (2 log2 Lt), a threshold
+    # hop's descent, or a static hop's three table reads
+    log2 = max(Lt.bit_length() - 1, 1)
+    vm_cols = {key for key, _pos in kern.loads}
+    per_hop = [2 * log2 + (2 * log2 if h.kind == "threshold" else 3)
+               for h in kern.hops]
+    t = time_k3_k4(torch, kern, ev, pre, heaps, tables)
+    res["scan_chase:dfa"] = {
+        "ms": t["scan_chase"], "dispatch_ms": t["scan_chase_dispatch"],
+        "library_ms": None,
+        "bytes": nbytes(ev["__flat.__ts__"], ev["__nev__"],
+                        *[ev[c] for c in vm_cols], *[w for w in pre
+                                                     if w is not None],
+                        *heaps, *tables, status, idx, cand, pres),
+        "ops": sum(a * d for a, d in zip(alive, per_hop)),
+        "plain_ms": wall_ms(torch, lambda: scan_chase_plain(
+            kern, ev, masks, heaps, tables=tables))}
+    res["seg_tree"] = {"ms": t["seg_tree"],
+                       "dispatch_ms": t["seg_tree_dispatch"],
+                       "plain_ms": wall_ms(torch, lambda: seg_tree_plain(
+                           kern, ev, masks))}
+    skern, sev, _sM = scan_blocks[-1]
+    spre = skern.pre_masks(sev)
+    st = time_k3_k4(torch, skern, sev, spre, seg_tree(skern, sev, spre))
+    res["scan_run"] = {"trees": len(skern.trees), **st}
+    log(f"  [{label}] K11 {ms:.4f} ms + K4 dfa {t['scan_chase']:.4f} ms + K3 "
+        f"{t['seg_tree']:.4f} ms ({len(kern.trees)} trees); the `scan` run: "
+        f"K3 {st['seg_tree']:.4f} ms ({len(skern.trees)} trees) + K4 "
+        f"{st['scan_chase']:.4f} ms")
+    return res
+
+
+def phase_stateless(torch, np, pkg, label: str, app: str, n: int,
+                    flushes: int, keys: int, seed: int, family: str,
+                    cmp_app) -> dict:
+    """Phases 32-36: a `chunk` or `dfa` app on the card: the family,
+    launches, rows equal to the CPU run's in order (and to the card's
+    `seq` or `scan` run of the same tape), every recorded block's kernels
+    equal to their plain versions; ms per flush and events/s, and for
+    `chunk` the geometry (K, CS, H, T) and the final A."""
+    tape = make_tape(n * flushes, n, keys, seed=seed)
+    rows, per_flush, launches, rt, scan_b, seq_b = run_recorded(
+        pkg, np, app, tape, keys)
+    plan = rt.plans()[0]
+    if plan.family != family:
+        raise SystemExit(f"[{label}] planned {plan.family!r}, expected "
+                         f"{family!r} ({plan.families})")
+    if label == "c3x" and "conjunct" not in str(plan.families["scan"]):
+        raise SystemExit(f"[c3x] `scan` verdict {plan.families['scan']!r}")
+    ref, cpu_flush, _rt = run_app(pkg, np, app, tape, keys, "cpu")
+    if rows != ref or not rows:
+        raise SystemExit(f"[{label}] rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    res = {"rows": len(rows), "family": plan.family,
+           "ms_per_flush": per_flush, "cpu_ms_per_flush": cpu_flush,
+           "launches": launches}
+    cmp_scan = None
+    if cmp_app is not None:
+        cmp_rows, cmp_flush, _l, cmp_rt, cmp_scan, _s = run_recorded(
+            pkg, np, cmp_app, tape, keys)
+        cmp_fam = cmp_rt.plans()[0].family
+        if cmp_rows != rows:
+            raise SystemExit(f"[{label}] rows differ from the card's "
+                             f"{cmp_fam!r} run: {len(rows)} vs "
+                             f"{len(cmp_rows)}")
+        res[f"{cmp_fam}_ms_per_flush"] = cmp_flush
+    if family == "chunk":
+        need_launches(label, launches, CHUNK_K,
+                      ("nfa_block", "nfa_block:ext", "seg_tree",
+                       "scan_chase", "scan_compact", "dfa_tables",
+                       "scan_chase:dfa"))
+        blk = phase_chunk_blocks(torch, seq_b, label, plan.A_CAP,
+                                 timed=label in ("c3k", "c3x"))
+        K, CS, H, T = plan.chunk_geometry
+        res.update({"K": K, "CS": CS, "H": H, "T": T,
+                    "A": plan._chunk_A})
+        geo = f"; K={K} CS={CS} H={H} T={T} A={plan._chunk_A}"
+    else:
+        need_launches(label, launches, DFA_K,
+                      ("scan_chase", "nfa_block", "nfa_block:chunk"))
+        blk = phase_dfa_blocks(torch, scan_b, label, cmp_scan)
+        geo = ""
+    steady = per_flush[1:]
+    eps = n / (sum(steady) / len(steady) / 1e3)
+    log(f"[{label}] {len(rows)} rows equal to the CPU run"
+        f"{'' if cmp_app is None else ' and the comparison run'}; family "
+        f"{plan.family}{geo}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; per flush ms "
+        f"{[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); {eps:.0f} events/s; "
+        f"{blk['blocks']} blocks equal to plain")
+    res.update({"events_per_s": eps, "blocks": blk})
+    return res
 
 
 def phase_c1(torch, np, pkg) -> dict:
@@ -1703,6 +1968,15 @@ def main() -> int:
     ext["c3h"] = phase_c3h(torch, np, pkg)
     log(f"[c3h phase] {time.perf_counter() - t0:.1f} s")
 
+    # 32-36. the stateless `chunk` (C3K, C3X, C3E) and `dfa` (C3SD, C4D)
+    #        families
+    sl = {}
+    for label, app, n, flushes, keys, seed, family, cmp_app in STATELESS:
+        t0 = time.perf_counter()
+        sl[label] = phase_stateless(torch, np, pkg, label, app, n, flushes,
+                                    keys, seed, family, cmp_app)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
+
     # 21. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     win = "siddhi_tpu/core/window_device.py"
@@ -1834,6 +2108,23 @@ def main() -> int:
         entries.append((what, f"{CSRC}/nfa_block.cuh", f"{nfa_dev}:{line}",
                         ext[label]["launches"]["nfa_block:ext"], ext_err,
                         ext[label]["blocks"]["nfa_block"]))
+    plan_py = "siddhi_tpu/core/pattern_plan.py"
+    k2c_err = max(sl[x]["blocks"]["err"].get("nfa_block", 0.0)
+                  for x in ("c3k", "c3x", "c3e"))
+    for label, what in (("c3k", "nfa_block:chunk"),
+                        ("c3x", "nfa_block:chunk (conjunction)")):
+        entries.append((what, f"{CSRC}/nfa_block.cuh",
+                        f"{plan_py}:886 + {nfa_dev}:1529",
+                        sl[label]["launches"]["nfa_block:chunk"], k2c_err,
+                        sl[label]["blocks"]["nfa_block:chunk"]))
+    for key, src, line in (("dfa_tables", "dfa_tables.cu", 728),
+                           ("scan_chase:dfa", "scan_chase.cu", 777)):
+        e_ = max(sl[x]["blocks"]["err"].get(key, 0.0)
+                 for x in ("c3sd", "c4d"))
+        for label, what in (("c3sd", key), ("c4d", f"{key} (keyed lanes)")):
+            entries.append((what, f"{CSRC}/{src}", f"{PAR}:{line}",
+                            sl[label]["launches"][key], e_,
+                            sl[label]["blocks"][key]))
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -1880,7 +2171,7 @@ def main() -> int:
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
               "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
-              **alg, **joins, **aggs, **ext}
+              **alg, **joins, **aggs, **ext, **sl}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

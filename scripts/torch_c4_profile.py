@@ -3,7 +3,8 @@
 
     python3 scripts/torch_c4_profile.py [--config c4|c5|c2|c2g|c2b|
                                          c4n|c4ns|c4a|c4o|c4h|c4f|c4l|
-                                         j6|j6w|j6o|j6u|agg|aggw|aggg]
+                                         j6|j6w|j6o|j6u|agg|aggw|aggg|
+                                         c3k|c3x|c3e|c3sd|c4d]
                                         [--out FILE]
 
 Runs BASELINE config 4 (partitioned `every e1 -> e2 -> e3 within 10 sec`,
@@ -26,9 +27,14 @@ each flush one send_batch to L, one to R), or one of its aggregation
 cells on bench.py's matrix tape (`agg`: A7, bench.py's `_matrix_app`
 rollup at 4096-event flushes over 1024 keys; `aggw`: A7W, 2^17-event
 flushes; `aggg`: A7G, the global rollup at 2^17; each flush one
-send_batch to Trades), warms with one flush, then
-profiles the
-next FLUSHES (4) with
+send_batch to Trades), or one of its stateless-family apps (`c3k`:
+bench.py's C3 under `patternFamily('chunk')`, 2^17-event flushes over 8
+keys; `c3x`: the capture-dependent conjunction, `chunk` by default,
+2^18; `c3e`: `every` below the head in chunk lanes, 2^17; `c3sd`:
+bench.py's C3S under `patternFamily('dfa')`, 2^18 over 8 keys; `c4d`:
+C4's partitioned head with a static and a threshold hop under
+`patternFamily('dfa')`, 2^18 over 1000 keys), warms with one flush, then
+profiles the next FLUSHES (4) with
 cProfile (host clock; each flush ends in torch.cuda.synchronize).
 Device waits show up inside the calls that pull results to the host
 (`Tensor.cpu`).  Prints the flush times (an aggregation reports its live
@@ -55,7 +61,8 @@ def main() -> int:
     ap.add_argument("--config", choices=("c4", "c5", "c2", "c2g", "c2b",
                                          "c4n", "c4ns", "c4a", "c4o", "c4h",
                                          "c4f", "c4l", "j6", "j6w", "j6o",
-                                         "j6u", "agg", "aggw", "aggg"),
+                                         "j6u", "agg", "aggw", "aggg",
+                                         "c3k", "c3x", "c3e", "c3sd", "c4d"),
                     default="c4")
     ap.add_argument("--out", help="also write the report here")
     args = ap.parse_args()
@@ -72,6 +79,7 @@ def main() -> int:
     algebra.update({("c4l" if e[0] == "c4l_or" else e[0]): e[1]
                     for e in chip_smoke.EXT})
     joins = {j[0]: j for j in chip_smoke.JOINS}
+    stateless = {s[0]: s for s in chip_smoke.STATELESS}
     aggs = {"agg": ("a7", True), "aggw": ("a7w", True),
             "aggg": ("a7g", False)}
     if args.config in aggs:
@@ -82,6 +90,10 @@ def main() -> int:
     elif args.config in joins:
         keys, flush, dt = 1000, joins[args.config][2], 1
         app, outs = joins[args.config][1], ["Out"]
+    elif args.config in stateless:
+        _label, app, flush, _n, keys, _seed, _fam, _cmp = \
+            stateless[args.config]
+        dt, outs = 1, ["Out"]
     elif args.config == "c4":
         keys, flush, dt = 1000, 1 << 18, 1
         app, outs = chip_smoke.C4_HEAD + chip_smoke.C4, ["Out"]

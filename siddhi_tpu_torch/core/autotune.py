@@ -1,10 +1,9 @@
 """Geometry annotations of the pattern plans.
 
-Port of `pattern_family_for` (siddhi_tpu/core/autotune.py:437) and
-`fused_lane_pack_for` (:462) and `agg_capacity_for` (:477) for the
-annotations alone: the tuning cache, which the JAX package consults after
-them, is a later slice of the port, and `chunk_lanes_for` comes with the
-`chunk` family, which reads it.
+Port of `chunk_lanes_for` (siddhi_tpu/core/autotune.py:423),
+`pattern_family_for` (:437), `fused_lane_pack_for` (:462) and
+`agg_capacity_for` (:477) for the annotations alone: the tuning cache,
+which the JAX package consults after them, is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -19,6 +18,13 @@ PATTERN_FAMILIES = ("seq", "chunk", "scan", "dfa")
 class AutotuneError(PlanError):
     """A malformed plan-family annotation (a PlanError, so app creation
     fails with it)."""
+
+
+def chunk_lanes_for(rt, q=None, default: int = 64) -> int:
+    """Lane count K of the `chunk` family: `@app:deviceChunkLanes(N)`,
+    else `default`."""
+    an = ast.find_annotation(rt.app.annotations, "app:deviceChunkLanes")
+    return int(an.element()) if an is not None else default
 
 
 def pattern_family_for(rt, q=None) -> Optional[str]:

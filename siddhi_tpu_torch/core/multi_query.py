@@ -14,6 +14,13 @@ Grouping is automatic in core/build.py: >= MIN_GROUP pattern queries with
 equal shape signatures (and no rate/having/limit) fuse, packed into
 kernels of at most `@app:fusedLanes(N)` lanes; everything else plans
 individually.  `@app:devicePatterns('never')` disables it.
+
+A fused group's inner DevicePatternPlan picks its family as the JAX
+package's does: `scan` where eligible, `dfa` when
+`@app:patternFamily('dfa')` asks and a static hop exists (the lanes'
+pre-masks over the one shared row of events feed K11's tables), `seq`
+otherwise; `chunk` is refused there with the JAX package's reason
+("fused multi-query lane kernel"), the lane axis being the queries.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """Batched device NFA: chain lowering, slot/capture layout, block runner.
 
 Port of `siddhi_tpu/core/nfa_device.py`: every chain its device block
-lowers, for the `seq` family and (where the plan picks it) `scan`:
+lowers, for the `seq` and `chunk` families (K2 over persistent slot
+state, or over a flush's own-chunks from fresh state: `_expand_flat`
+and its replay dedup) and, where the plan picks them, `scan` and `dfa`:
 
   * chains of positions joined by `->` (pattern) or `,` (sequence
     strictness), an `every` head or a one-shot head, a query-level or
@@ -389,7 +391,11 @@ class NFAKernel:
     present), "__scode__" (T, G) i32 (several streams), one (T, G) grid per
     key of `grid_keys` ("<scode>.<attr>"), and the int base "__base_ts__";
     G is P, or 1 when the events broadcast to every lane (fused
-    multi-query lanes).  It returns the raw match table: `out_i` (rows
+    multi-query lanes).  A chunk block (the `chunk` family; P is its K
+    lanes) holds flat (F,) event arrays instead, no `__valid__`, and
+    `__chunk__` = (T, CS, nev, prev_seq): lane l reads events [l*CS,
+    l*CS + T), arms heads on its first CS, and drops completions at or
+    before prev_seq.  It returns the raw match table: `out_i` (rows
     `lane_names_i`, M) i32, `out_f` (rows_f, M) f32, `out_l` (rows_l, M)
     i64, and `meta` = [matches found (may exceed M), heads dropped so far,
     earliest deadline of a live slot (NO_DEADLINE when none), direct
@@ -836,17 +842,22 @@ class NFAKernel:
 
     def pre_mask_rows(self, ev: dict):
         """K1's row map for the pre-masks: the (T, P) grid; over broadcast
-        (T, 1) events row r reads event r // P of lane r % P."""
+        (T, 1) events row r reads event r // P of lane r % P; over a chunk
+        block's flat events (never fused) row r is event r."""
         from ..kernels.expr_eval import RowMap
+        if "__chunk__" in ev:
+            return None
         if ev["__ts__"].shape[1] == self.P:
             return RowMap(qparams=self.params, lane_mod=self.P)
         return RowMap(col_div=self.P, lane_mod=self.P, qparams=self.params)
 
     def pre_masks(self, ev: dict) -> list:
-        """K1 over the flattened (T*P,) grid: one bit-packed mask per chain
-        node with event-only conjuncts (None where it has none)."""
+        """K1 over the flattened (T*P,) grid, or once over the F flat
+        events of a chunk block (each lane's halo reads the same bits):
+        one bit-packed mask per chain node with event-only conjuncts (None
+        where it has none)."""
         from ..kernels.expr_eval import expr_eval
-        T = ev["__ts__"].shape[0]
+        n = ev["__ts__"].shape[0] * (1 if "__chunk__" in ev else self.P)
         cols = self.pre_mask_cols(ev)
         rows = self.pre_mask_rows(ev)
         out = []
@@ -854,7 +865,7 @@ class NFAKernel:
             if prog is None:
                 out.append(None)
                 continue
-            words, _ = expr_eval(cols, prog, [], T * self.P,
+            words, _ = expr_eval(cols, prog, [], n,
                                  {"__base_ts__": ev["__base_ts__"]},
                                  use="pre_mask", rows=rows)
             out.append(words)

@@ -1,4 +1,5 @@
-"""Parallel-in-time NFA plan family `scan`: lowering, classifier, block.
+"""Parallel-in-time NFA plan families `scan` and `dfa`: lowering,
+classifier, block.
 
 Port of `siddhi_tpu/core/nfa_parallel.py` for the pattern algebra of this
 slice (chains of single positions joined by `->` or `,`, an `every` or
@@ -20,9 +21,16 @@ O(log F):
 
 Blocks carry no device state: the plan replays the last `within` window of
 events at the next flush and K5 drops completions at or before the
-previous flush's last seq (per lane for partitioned grids).  The count,
-logical and `dfa` machinery of the JAX module waits for later slices:
-`lower_chain` refuses counts and logical positions.
+previous flush's last seq (per lane for partitioned grids).
+
+The `dfa` family (`@app:patternFamily('dfa')`; automatic selection takes
+`scan` first, as the JAX package does) is the same block with the chase
+nodes -- the static hops below the head and both sides of a logical
+position, at most 8 -- answered from bit-packed tables instead of trees:
+one symbol bit per chase node an event, stride-4 block tables (K11
+`dfa_tables`), and K4's `dfa` lookup mode (`_dfa_tables`, `_dfa_next`
+of the JAX module).  K3 then builds no mask tree for those nodes;
+threshold hops, counts and the `within` killer keep their trees.
 
 Lanes are partition keys, each with its own row of events, or the query
 instances of a fused multi-query group: those share ONE row of events
@@ -47,6 +55,8 @@ from .nfa_device import (TS_SUBST, UNBOUNDED, ChainSpec, NFAKernel,
                          PatternFilterContext, _and_all, _base_ref,
                          _index_want, pow2_at_least)
 
+STRIDE = 4                # dfa family: events per precomposed transition
+_OFF_BITS = 3             # bits per packed first-hit offset (0..STRIDE)
 NUMERIC = (ast.AttrType.INT, ast.AttrType.LONG,
            ast.AttrType.FLOAT, ast.AttrType.DOUBLE)
 # how K5 resolves a count capture's index: the emitting occurrence (a
@@ -78,6 +88,10 @@ class HopNode:
     pre_conjs: list = field(default_factory=list)   # CompiledExpr, event-only
     threshold: Optional[HopThreshold] = None
     step_conjs: list = field(default_factory=list)  # sequence-mode direct eval
+
+    @property
+    def is_static(self) -> bool:
+        return self.threshold is None and not self.step_conjs
 
 
 @dataclass
@@ -298,10 +312,11 @@ def _lower_threshold(node, cond, spec, strings, ref_of,
 
 def classify_parallel(spec: ChainSpec, kernel: NFAKernel, strings,
                       param_extra: Optional[dict] = None) -> dict:
-    """{'scan': True | reason} for one lowered chain.  True means the
-    family is sound for this ChainSpec; a string is the ineligibility
-    reason (the plan's `families` entry), as classify_parallel of the JAX
-    package (nfa_parallel.py:345-383) gives it."""
+    """{'scan': True | reason, 'dfa': True | reason} for one lowered
+    chain.  True means the family is sound for this ChainSpec; a string is
+    the ineligibility reason (the plan's `families` entry), as
+    classify_parallel of the JAX package (nfa_parallel.py:345-383) gives
+    it."""
     try:
         prog = lower_parallel(spec, strings, param_extra)
         count_refs = prog.count_refs
@@ -329,14 +344,43 @@ def classify_parallel(spec: ChainSpec, kernel: NFAKernel, strings,
                         "having reads a capture of a logical (maybe-"
                         "absent) position")
     except ParallelUnsupported as e:
-        return {"scan": str(e)}
+        return {"scan": str(e), "dfa": str(e)}
     return _classify_prog(prog)
 
 
+def _chase_lanes(prog: ParallelProgram) -> list:
+    """Static chase nodes (pi, ni) that resolve via next-match pointers --
+    the `dfa` family's bit-packable symbol lanes (nfa_parallel.py:385 of
+    the JAX package).  Count positions resolve via rank/select and
+    threshold hops via the segment tree; neither consumes a symbol bit."""
+    lanes = []
+    for pi, pos in enumerate(prog.positions):
+        if pi == 0:
+            continue
+        if pos.kind == "single" and pos.nodes[0].is_static:
+            lanes.append((pi, 0))
+        elif pos.kind == "logical":
+            lanes.extend((pi, ni) for ni in range(len(pos.nodes)))
+    return lanes
+
+
 def _classify_prog(prog: ParallelProgram) -> dict:
-    """Family verdicts for a successfully lowered chase program.  The
-    `dfa` verdict of the JAX package belongs to the `dfa` slice."""
-    return {"scan": True}
+    """Family verdicts for a successfully lowered chase program, the JAX
+    package's reasons word for word (`_classify_prog` :401)."""
+    out = {"scan": True}
+    lanes = _chase_lanes(prog)
+    if prog.sequence:
+        out["dfa"] = ("strict sequence (consecutive-event steps leave "
+                      "nothing to bit-pack)")
+    elif len(lanes) > 8:
+        out["dfa"] = ("more than 8 positions (symbol words bit-pack one "
+                      "position per u32 lane bit)")
+    elif not lanes:
+        out["dfa"] = ("no static transition to bit-pack (every hop is "
+                      "threshold- or count-dependent)")
+    else:
+        out["dfa"] = True
+    return out
 
 
 def grid_dtype(t: ast.AttrType) -> torch.dtype:
@@ -391,6 +435,7 @@ class HopSpec:
     op: str = "gt"                # threshold compare (static: gt 0)
     prog: Optional[Program] = None    # rhs, or the strict step conjunction
     tree2: int = -1               # logical: the right side's tree
+    dfa: tuple = (-1, -1)         # `dfa`: chase lanes (static; sides)
     is_or: bool = False           # logical: `or` (else `and`)
     prev: tuple = (-1, -1)        # logical `and`: prev columns per side
     sides: tuple = (-1, -1)       # logical: idx rows of the sides
@@ -405,7 +450,9 @@ class ParallelChainKernel:
     flat block is L = 1): K1 pre-masks -> K3 trees -> K6 ranks and prev
     pointers -> K3 rank trees -> K4 chase -> K5 dedup and compaction into
     the NFAKernel's match table, whose rows the plan's selector pass (K1)
-    and unpack read exactly as for `seq`.
+    and unpack read exactly as for `seq`.  With family `dfa` the chase
+    nodes (`_chase_lanes`, flat nodes `dfa_nodes`) get no K3 mask tree:
+    K11 builds their symbol tables and K4 looks their first hits up there.
 
     `ev` holds "__flat.__ts__", "__flat.__seq__" (G, F) i32 offsets from
     the flush's bases, "__flat.__scode__" (several streams), one
@@ -423,9 +470,11 @@ class ParallelChainKernel:
     (its completion index).  K4 and K5 address them as `loc` = row + 1,
     0 meaning the head and -1 the hop's start s."""
 
-    def __init__(self, prog: ParallelProgram, nfak: NFAKernel):
+    def __init__(self, prog: ParallelProgram, nfak: NFAKernel,
+                 family: str = "scan"):
         self.prog = prog
         self.nfak = nfak
+        self.family = family
         self.S = S = prog.S
         self.multi = len(prog.stream_ids) > 1
         self.grid_keys = list(nfak.grid_keys)
@@ -507,6 +556,20 @@ class ParallelChainKernel:
                                        None, gi))
             return len(self.trees) - 1
 
+        # `dfa`: the chase nodes' symbol bits (in _chase_lanes order)
+        chase = _chase_lanes(prog) if family == "dfa" else []
+        if family == "dfa" and not 1 <= len(chase) <= 8:
+            raise ParallelUnsupported(f"{len(chase)} chase nodes for dfa")
+        self.dfa_nodes = [self.pos_node[pi] + ni for pi, ni in chase]
+        lane_of = {pn: i for i, pn in enumerate(chase)}
+
+        def hit(pi: int, ni: int) -> tuple:
+            """(tree, chase lane) answering a static first-hit: the lane
+            under `dfa`, else a mask tree."""
+            if (pi, ni) in lane_of:
+                return -1, lane_of[(pi, ni)]
+            return mask_tree(self.pos_node[pi] + ni), -1
+
         self.trees: list = []
         self.hops: list = []
         self.ts_tree = -1
@@ -526,9 +589,10 @@ class ParallelChainKernel:
                             for ni in range(2):
                                 prev[ni] = len(self.prev_nodes)
                                 self.prev_nodes.append(gi + ni)
+                        (tl, dl), (tr, dr) = hit(pi, 0), hit(pi, 1)
                         self.hops.append(HopSpec(
-                            "logical", pos.within_ms, mask_tree(gi),
-                            tree2=mask_tree(gi + 1), is_or=pos.op == "or",
+                            "logical", pos.within_ms, tl, tree2=tr,
+                            dfa=(dl, dr), is_or=pos.op == "or",
                             prev=tuple(prev),
                             sides=tuple(self.side_row[n.ref]
                                         for n in pos.nodes),
@@ -569,8 +633,9 @@ class ParallelChainKernel:
                             "threshold", pos.within_ms, len(self.trees) - 1,
                             th.op, rhs))
                     else:
+                        tree, lane = hit(pi, 0)
                         self.hops.append(HopSpec("static", pos.within_ms,
-                                                 mask_tree(gi)))
+                                                 tree, dfa=(lane, -1)))
         except ExprError as e:
             raise ParallelUnsupported(f"not in the device VM: {e}") from None
         head = prog.positions[0]
@@ -681,19 +746,22 @@ class ParallelChainKernel:
         return tuple(out)
 
     def run_block(self, ev: dict, M: int) -> dict:
-        """K1 pre-masks -> K3 -> K6 -> K3 rank trees -> K4 -> K5: the
-        match table of one (L, F) block (see scan_compact for its
-        layout)."""
+        """K1 pre-masks -> K3 -> (`dfa`: K11) -> K6 -> K3 rank trees -> K4
+        -> K5: the match table of one (L, F) block (see scan_compact for
+        its layout)."""
+        from ..kernels.dfa_tables import dfa_tables
         from ..kernels.scan_chase import scan_chase
         from ..kernels.scan_compact import scan_compact
         from ..kernels.seg_tree import node_masks, seg_tree
         pre = self.pre_masks(ev)
         heaps = seg_tree(self, ev, pre)
+        tables = dfa_tables(self, ev, pre) if self.dfa_nodes else None
         ranks, prevs, rheaps = [], [], []
         if self.counts or self.prev_nodes:
             ranks, prevs = self.lane_scans(ev, node_masks(self, ev, pre))
             rheaps = seg_tree(self, ev, pre, self.rank_trees,
                               {f"__rank.{ci}": r
                                for ci, r in enumerate(ranks)})
-        chase = scan_chase(self, ev, pre, heaps, ranks, rheaps, prevs)
+        chase = scan_chase(self, ev, pre, heaps, ranks, rheaps, prevs,
+                           tables)
         return scan_compact(self, ev, chase, ranks, rheaps, M)

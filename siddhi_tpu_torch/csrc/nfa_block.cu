@@ -4,5 +4,5 @@
 #include "nfa_block.cuh"
 
 extern "C" int nfa_block_launch(const NfaParams* params, cudaStream_t stream) {
-  return launch_narrow<false>(params, stream);
+  return launch_narrow<false, false>(params, stream);
 }

@@ -65,7 +65,15 @@
 // with a bigger M from the untouched input state).  Fused multi-query
 // lanes (bcast) read the broadcast (T, 1) event grids at row t, their
 // (T, P) pre-masks at (t, lane), `qparam` operands at the warp's lane, and
-// emit the lane as the match's __qid__.  Per-position, per-node and
+// emit the lane as the match's __qid__.  Chunk lanes (the `chunk`
+// family; JAX: _expand_flat, nfa_device.py:1529, and the dedup at
+// :1598-1604) read one flat (F,) buffer of a flush: lane `part` reads
+// event part*cs + t (clipped to F - 1; valid while below nev, pre-mask
+// bits at the same flat index), arms heads only for t < cs (a halo event
+// extends pending matches but never starts one), runs from fresh state,
+// and writes no completion whose seq is at or before prev_seq (the
+// previous flush's last: a replay), so meta[0] counts what the JAX
+// block's compaction counts.  Per-position, per-node and
 // capture-write tables, column pointers and programs come in a device
 // table; each block stages the programs in shared memory ahead of the
 // warps' rows.
@@ -84,9 +92,10 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   int ts_slot, wpb, bcast, playback, emit_qid, comp_ts_row, comp_seq_row, n_words;
   int n_consts, stage, prog_bytes, parked, all_pz_off, all_pz_len;
   int ext, needs_init, init_on_tick, has_anchor, anchor, init_land;
+  int chunk, cs, nflat, nev, prev_seq;  // chunk lanes (flat events, halo reads)
   const int* ts;
   const int* seq;
-  const unsigned char* valid;
+  const unsigned char* valid;        // (T, G); chunk lanes derive it
   const unsigned char* tick;
   const int* scode;
   const long long* qparams;
@@ -324,34 +333,58 @@ __device__ void emit_single(const NfaParams& p, long long idx, int ts, int seq, 
 // Drain: parked slots and in-place emissions (`now`), ranked by slot
 // index; the first E emit, parked ones free; in-place emissions past E
 // are returned as lost.
-template <int NJ, bool ALG>
+// Chunk lanes (CH instantiations, p.chunk set) rank the same way but
+// write only the completions after the previous flush's last seq
+// (prev_seq), so a replayed completion takes no row of M: the JAX block's
+// dedup before its compaction.
+template <int NJ, bool ALG, bool CH>
 __device__ int drain(const NfaParams& p, int lane, int part, int (&occ)[NJ],
                      const int (&hsq)[NJ], const bool (&now)[NJ], Caps c) {
   const int PARK = p.S + 1;
-  unsigned pb[NJ];
+  const unsigned lt = (1u << lane) - 1u;
+  unsigned pb[NJ], kb[NJ];
   int tot = 0;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     pb[j] = __ballot_sync(FULL, occ[j] == PARK || (ALG && now[j]));
+    kb[j] = 0u;
     tot += __popc(pb[j]);
   }
   if (tot == 0) return 0;
+  int kept = tot < p.E ? tot : p.E;
+  if (CH && p.chunk) {
+    int before = 0;
+    kept = 0;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int rank = before + __popc(pb[j] & lt);
+      const bool keep = ((pb[j] >> lane) & 1u) && rank < p.E &&
+                        c.i[p.comp_seq_row * p.A + lane + 32 * j] > p.prev_seq;
+      kb[j] = __ballot_sync(FULL, keep);
+      kept += __popc(kb[j]);
+      before += __popc(pb[j]);
+    }
+  }
   int base = 0;
-  if (lane == 0) base = atomicAdd(p.meta, tot < p.E ? tot : p.E);
+  if (lane == 0 && (!CH || kept > 0)) base = atomicAdd(p.meta, kept);
   base = __shfl_sync(FULL, base, 0);
-  int before = 0, lost = 0;
+  int before = 0, kbefore = 0, lost = 0;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     if (occ[j] == PARK || (ALG && now[j])) {
-      const int rank = before + __popc(pb[j] & ((1u << lane) - 1u));
+      const int rank = before + __popc(pb[j] & lt);
       if (rank < p.E) {
-        emit_slot(p, base + rank, lane + 32 * j, hsq[j], part, c);
+        if (!(CH && p.chunk))
+          emit_slot(p, base + rank, lane + 32 * j, hsq[j], part, c);
+        else if ((kb[j] >> lane) & 1u)
+          emit_slot(p, base + kbefore + __popc(kb[j] & lt), lane + 32 * j, hsq[j], part, c);
         if (occ[j] == PARK) occ[j] = 0;
       } else if (occ[j] != PARK) {
         ++lost;
       }
     }
     before += __popc(pb[j]);
+    kbefore += __popc(kb[j]);
   }
   return lost;
 }
@@ -801,7 +834,7 @@ __device__ __forceinline__ void head_enter(const NfaParams& p, int tp, int a, in
   else enter<ALG>(p, tp, a, at, c, con, nar, flb);
 }
 
-template <int NJ, bool ALG, bool EXT>
+template <int NJ, bool ALG, bool EXT, bool CH>
 __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   extern __shared__ long long smem[];
   const int* words = p.words;
@@ -863,12 +896,22 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   const int final_cnt = p.pos_kind[S - 1] == K_COUNT ? p.pos_cnt[S - 1] : -1;
 
   for (int t = 0; t < p.T; ++t) {
-    const long long eidx = p.bcast ? static_cast<long long>(t)
-                                   : static_cast<long long>(t) * P + part;
-    const long long pidx = static_cast<long long>(t) * P + part;
+    long long eidx = p.bcast ? static_cast<long long>(t)
+                             : static_cast<long long>(t) * P + part;
+    long long pidx = static_cast<long long>(t) * P + part;
+    bool in_flat = true;
+    if constexpr (CH) {
+      // a chunk lane reads the flat events part*cs + t (clipped to the
+      // last; its pre-masks are over the flat events too)
+      if (p.chunk) {
+        const long long f = static_cast<long long>(part) * p.cs + t;
+        eidx = pidx = f < p.nflat ? f : p.nflat - 1;
+        in_flat = f < p.nev;
+      }
+    }
     const int ts = p.ts[eidx];
     const int seq = p.seq[eidx];
-    const bool valid = p.valid[eidx] != 0;
+    const bool valid = (CH && p.chunk) ? in_flat : p.valid[eidx] != 0;
     const bool tick = p.tick != nullptr && p.tick[eidx] != 0;
     const bool timey = valid || tick;
     const bool dl_fire = p.playback ? timey : tick;
@@ -1077,20 +1120,21 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
 
     // 5. drain lanes
     if (p.parked) {
-      const int lost = drain<NJ, ALG>(p, lane, part, occ, hsq, now, c);
+      const int lost = drain<NJ, ALG, CH>(p, lane, part, occ, hsq, now, c);
       if constexpr (ALG) ofl += __reduce_add_sync(FULL, lost);
     }
 
     // 6. head
     // (a disarmed one-shot head reads no pre-mask; an init-slot chain
     // has no head allocation, its entry being the init slot)
-    const bool ok0 = !(EXT && p.needs_init) && armed && (base_match(p, 0, valid, sc, pidx) ||
-                               (ALG && p.pos_kind[0] == K_LOGICAL &&
-                                base_match(p, 1, valid, sc, pidx)));
+    // (a chunk lane arms heads in its own range t < cs only)
+    const bool ok0 = !(EXT && p.needs_init) && armed && (!(CH && p.chunk) || t < p.cs) &&
+                     (base_match(p, 0, valid, sc, pidx) ||
+                      (ALG && p.pos_kind[0] == K_LOGICAL && base_match(p, 1, valid, sc, pidx)));
     if (!ok0) continue;
     if (!p.every_head) armed = false;
     if (!p.parked) {
-      if (lane == 0) emit_single(p, eidx, ts, seq, part);
+      if (lane == 0 && (!CH || seq > p.prev_seq)) emit_single(p, eidx, ts, seq, part);
       continue;
     }
     int hot = -1;
@@ -1154,7 +1198,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) now[j] = false;
     const int rounds = (A + p.E - 1) / p.E;
-    for (int r = 0; r < rounds; ++r) drain<NJ, ALG>(p, lane, part, occ, hsq, now, c);
+    for (int r = 0; r < rounds; ++r) drain<NJ, ALG, CH>(p, lane, part, occ, hsq, now, c);
   }
 
   int min_dl = NO_DEADLINE;
@@ -1197,17 +1241,17 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   }
 }
 
-template <int NJ, bool ALG, bool EXT>
+template <int NJ, bool ALG, bool EXT, bool CH>
 static int launch_as(NfaParams& p, size_t per_warp, cudaStream_t stream) {
   const size_t smem = p.prog_bytes + per_warp * 8 * p.wpb;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(nfa_block_kernel<NJ, ALG, EXT>,
+    cudaError_t e = cudaFuncSetAttribute(nfa_block_kernel<NJ, ALG, EXT, CH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (p.P + p.wpb - 1) / p.wpb;
-  nfa_block_kernel<NJ, ALG, EXT><<<blocks, 32 * p.wpb, smem, stream>>>(p);
+  nfa_block_kernel<NJ, ALG, EXT, CH><<<blocks, 32 * p.wpb, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1217,13 +1261,13 @@ static int launch_as(NfaParams& p, size_t per_warp, cudaStream_t stream) {
 // one with a count or logical position the algebra instantiation; any
 // other, the chain step (same results, fewer node matches and no count
 // or fill-bit state).
-template <int NJ, bool EXT>
+template <int NJ, bool EXT, bool CH>
 static int launch(NfaParams& p, size_t per_warp, cudaStream_t stream) {
   if constexpr (EXT) {
-    return launch_as<NJ, true, true>(p, per_warp, stream);
+    return launch_as<NJ, true, true, CH>(p, per_warp, stream);
   } else {
-    if (p.Kc > 0 || p.Klog > 0) return launch_as<NJ, true, false>(p, per_warp, stream);
-    return launch_as<NJ, false, false>(p, per_warp, stream);
+    if (p.Kc > 0 || p.Klog > 0) return launch_as<NJ, true, false, CH>(p, per_warp, stream);
+    return launch_as<NJ, false, false, CH>(p, per_warp, stream);
   }
 }
 
@@ -1243,16 +1287,21 @@ static long long nfa_setup(NfaParams& p) {
 }
 
 // The launch entries: 1-4 slots a thread (A up to 128) or 8-16 (A from
-// 129 to 512), the EXT instantiation or the others.
-template <bool EXT>
+// 129 to 512), the EXT instantiation or the others.  The narrow ones come
+// with chunk mode (CH, nfa_block_chunk[_ext].cu) or without it
+// (nfa_block[_ext].cu): chunk mode adds a branch to every step and to the
+// drain, which the `seq` blocks' own instantiations leave out.  The wide
+// ones (slot growth past 128 is rare) take both in one instantiation.
+template <bool EXT, bool CH>
 static int launch_narrow(const NfaParams* params, cudaStream_t stream) {
   NfaParams p = *params;
   const long long per_warp = nfa_setup(p);
-  if (per_warp < 0 || (p.ext != 0) != EXT) return static_cast<int>(cudaErrorInvalidValue);
+  if (per_warp < 0 || (p.ext != 0) != EXT || (p.chunk != 0) != CH)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int nj = (p.A + 31) / 32;
-  if (nj <= 1) return launch<1, EXT>(p, per_warp, stream);
-  if (nj <= 2) return launch<2, EXT>(p, per_warp, stream);
-  if (nj <= 4) return launch<4, EXT>(p, per_warp, stream);
+  if (nj <= 1) return launch<1, EXT, CH>(p, per_warp, stream);
+  if (nj <= 2) return launch<2, EXT, CH>(p, per_warp, stream);
+  if (nj <= 4) return launch<4, EXT, CH>(p, per_warp, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1262,7 +1311,7 @@ static int launch_wide(const NfaParams* params, cudaStream_t stream) {
   const long long per_warp = nfa_setup(p);
   if (per_warp < 0 || (p.ext != 0) != EXT) return static_cast<int>(cudaErrorInvalidValue);
   const int nj = (p.A + 31) / 32;
-  if (nj <= 8) return launch<8, EXT>(p, per_warp, stream);
-  if (nj <= 16) return launch<16, EXT>(p, per_warp, stream);
+  if (nj <= 8) return launch<8, EXT, true>(p, per_warp, stream);
+  if (nj <= 16) return launch<16, EXT, true>(p, per_warp, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

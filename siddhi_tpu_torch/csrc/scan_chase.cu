@@ -39,6 +39,12 @@
 // shared memory.  Event columns are read at lane * ev_stride + i: a fused
 // multi-query group's lanes share one row of events (ev_stride 0), with
 // their own pre-masks, trees and `qparam` values (qparams[i * P + lane]).
+// In `dfa` mode (the `dfa` family) a static hop's or logical side's first
+// hit is the table lookup of nfa_parallel.py _dfa_next (:777) on K11's
+// tables (dfa_tables.cu): the suffix word at s when s's block has a hit at
+// or after s, else the packed word of the next block with a hit (the
+// block's next pointer), else Lt -- the index a descent of the node's mask
+// tree gives, so K3 builds no tree for those nodes.
 // A chain with no count or logical position (alg 0) runs an instantiation
 // without the rank, logical and candidate code, so it keeps the register
 // count (and occupancy) of single-position chases.
@@ -53,6 +59,7 @@ enum HopKind {
 struct ChaseParams {  // layout mirrored by kernels/scan_chase.py _Params
   int L, F, Lt, S, is_seq, ts_tree, n_loads, ev_stride, P, n_words, n_consts, stage;
   int n_idx, C, head_node, head_rank, head_min, head_within, alg;
+  int dfa, NB;                  // dfa mode: K11's tables, NB stride-4 blocks a lane
   const int* nev;
   const int* ts;
   const int* scode;
@@ -92,6 +99,11 @@ struct ChaseParams {  // layout mirrored by kernels/scan_chase.py _Params
   int* pres;
   const long long* consts;
   const int* words;
+  const int* hop_dfa_l;         // dfa: chase lane of a static hop / left side, -1 none
+  const int* hop_dfa_r;         // dfa: chase lane of a logical right side
+  const int* dfa_suffix;        // (L, 4 NB) in-block first-hit offsets, 3 bits a lane
+  const int* dfa_packed;        // (L, NB) the blocks' first-hit offsets
+  const int* dfa_nblk;          // (lanes, L, NB) next block with a hit
 };
 
 // VM environment of one head: a load reads its column at the index its
@@ -137,11 +149,26 @@ __device__ __forceinline__ int rank_select(const ChaseParams& p, int ci, int lan
                    vm_l(r), TOP_GE);
 }
 
+// dfa mode: the first index >= s of the lane's row matching chase lane k
+// (Lt when none), from K11's tables.
+__device__ __forceinline__ int dfa_next(const ChaseParams& p, int k, int lane, int s) {
+  const long long Fp = 4ll * p.NB;
+  if (s >= Fp) return p.Lt;
+  const int sc = s < 0 ? 0 : s;
+  const int b = sc >> 2;
+  const int inb = (p.dfa_suffix[lane * Fp + sc] >> (3 * k)) & 7;
+  if (inb < 4) return (b << 2) + inb;
+  if (b + 1 >= p.NB) return p.Lt;
+  const int b2 = p.dfa_nblk[(static_cast<long long>(k) * p.L + lane) * p.NB + b + 1];
+  if (b2 >= p.NB) return p.Lt;
+  return (b2 << 2) + ((p.dfa_packed[static_cast<long long>(lane) * p.NB + b2] >> (3 * k)) & 7);
+}
+
 __device__ __forceinline__ int clip(const ChaseParams& p, int x) {
   return x < 0 ? 0 : (x > p.F - 1 ? p.F - 1 : x);
 }
 
-template <bool ALG>
+template <bool ALG, bool DFA>
 __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
   extern __shared__ long long smem[];
   const int* words = p.words;
@@ -199,22 +226,32 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
     } else if (kind == HOP_STATIC || kind == HOP_THRESHOLD) {
       const int kl = killer(s, pend >= 0 ? pend : p.hop_within[pi]);
       pend = -1;
-      const int t = p.hop_tree[pi];
-      const int hvt = p.heap_vt[t];
-      VmVal v = vm_cast(vm_i(0), VT_I32, hvt);
-      int op = TOP_GT;
-      if (kind == HOP_THRESHOLD) {
-        ChaseEnv env{p, erow, row + j, plane, j, s, lane};
-        v = vm_cast(vm_run(words + p.prog_off[pi], p.prog_len[pi], consts, env), p.hop_vt[pi], hvt);
-        op = p.hop_op[pi];
+      int jn;
+      if (DFA && kind == HOP_STATIC && p.hop_dfa_l[pi] >= 0) {
+        jn = dfa_next(p, p.hop_dfa_l[pi], lane, s);
+      } else {
+        const int t = p.hop_tree[pi];
+        const int hvt = p.heap_vt[t];
+        VmVal v = vm_cast(vm_i(0), VT_I32, hvt);
+        int op = TOP_GT;
+        if (kind == HOP_THRESHOLD) {
+          ChaseEnv env{p, erow, row + j, plane, j, s, lane};
+          v = vm_cast(vm_run(words + p.prog_off[pi], p.prog_len[pi], consts, env), p.hop_vt[pi],
+                      hvt);
+          op = p.hop_op[pi];
+        }
+        jn = first_hit(lane_heap(p, t, lane), hvt, p.Lt, s, v, op);
       }
-      const int jn = first_hit(lane_heap(p, t, lane), hvt, p.Lt, s, v, op);
       step(jn, kl);
       cur = clip(p, jn);
     } else if (ALG && kind == HOP_LOGICAL) {
       const VmVal zero = vm_i(0);
-      const int jl = first_hit(lane_heap(p, p.hop_tree[pi], lane), VT_I32, p.Lt, s, zero, TOP_GT);
-      const int jr = first_hit(lane_heap(p, p.hop_tree2[pi], lane), VT_I32, p.Lt, s, zero, TOP_GT);
+      const int jl = (DFA && p.hop_dfa_l[pi] >= 0)
+                         ? dfa_next(p, p.hop_dfa_l[pi], lane, s)
+                         : first_hit(lane_heap(p, p.hop_tree[pi], lane), VT_I32, p.Lt, s, zero, TOP_GT);
+      const int jr = (DFA && p.hop_dfa_r[pi] >= 0)
+                         ? dfa_next(p, p.hop_dfa_r[pi], lane, s)
+                         : first_hit(lane_heap(p, p.hop_tree2[pi], lane), VT_I32, p.Lt, s, zero, TOP_GT);
       const bool is_or = p.hop_bit_l[pi] >= 0;
       const int jd = is_or ? (jl < jr ? jl : jr)
                            : ((jl < p.F && jr < p.F) ? (jl > jr ? jl : jr) : p.Lt);
@@ -269,9 +306,13 @@ extern "C" int scan_chase_launch(const ChaseParams* params, int smem, cudaStream
   const int threads = 256;
   const long long tiles = (params->F + threads - 1) / threads;
   const unsigned blocks = static_cast<unsigned>(tiles * params->L);
-  if (params->alg)
-    scan_chase_kernel<true><<<blocks, threads, smem, stream>>>(*params);
+  if (params->alg && params->dfa)
+    scan_chase_kernel<true, true><<<blocks, threads, smem, stream>>>(*params);
+  else if (params->alg)
+    scan_chase_kernel<true, false><<<blocks, threads, smem, stream>>>(*params);
+  else if (params->dfa)
+    scan_chase_kernel<false, true><<<blocks, threads, smem, stream>>>(*params);
   else
-    scan_chase_kernel<false><<<blocks, threads, smem, stream>>>(*params);
+    scan_chase_kernel<false, false><<<blocks, threads, smem, stream>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,14 +17,18 @@ batch segments into its device-resident bucket rings (one launch per
 duration a batch); under `@app:deviceAggregations('always')` the
 aggregation's per-batch segmented scans run on K6 (use `agg`).  K2
 counts a launch of its EXT instantiation (init slots, slot forking,
-absent sides of and/or) as `nfa_block:ext`, any other as `nfa_block`.
+absent sides of and/or) as `nfa_block:ext`, a launch over a `chunk`
+block's own-chunks as `nfa_block:chunk`, any other as `nfa_block`.  The
+`dfa` family adds K11 `dfa_tables` (its stride-4 symbol tables) and
+counts K4's launches in its table-lookup mode as `scan_chase:dfa`.
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "expr_eval:select": 0, "expr_eval:window_args": 0,
             "expr_eval:window_select": 0, "expr_eval:join_filter": 0,
             "join_probe": 0, "nfa_block": 0, "nfa_block:ext": 0,
-            "seg_tree": 0,
-            "seg_tree:rank": 0, "scan_chase": 0, "scan_compact": 0,
+            "nfa_block:chunk": 0, "seg_tree": 0, "seg_tree:rank": 0,
+            "scan_chase": 0, "scan_chase:dfa": 0, "dfa_tables": 0,
+            "scan_compact": 0,
             "win_scan": 0, "win_scan:rank": 0, "win_scan:prev": 0,
             "win_scan:agg": 0, "win_range": 0, "win_compact": 0,
             "agg_merge": 0}

@@ -20,9 +20,10 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("expr_eval", "nfa_block", "nfa_block_wide", "nfa_block_ext",
-           "nfa_block_wide_ext", "seg_tree",
+           "nfa_block_wide_ext", "nfa_block_chunk", "nfa_block_chunk_ext",
+           "seg_tree",
            "scan_chase", "scan_compact", "win_scan", "win_range",
-           "win_compact", "join_probe", "agg_merge")
+           "win_compact", "join_probe", "agg_merge", "dfa_tables")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]

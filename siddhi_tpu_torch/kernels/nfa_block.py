@@ -18,8 +18,10 @@ until the first capture, `:1062-1066`) and slot forking (`_fork_slots`
 stream position below the head (`:1004-1015`).
 
 Design (csrc/nfa_block.cuh, launched from csrc/nfa_block.cu for up to 4
-slots a thread and csrc/nfa_block_wide.cu for 8 or 16, and from
-nfa_block_ext.cu and nfa_block_wide_ext.cu for EXT): one warp per
+slots a thread and csrc/nfa_block_wide.cu for 8 or 16, from
+nfa_block_ext.cu and nfa_block_wide_ext.cu for EXT, and in chunk mode up
+to 4 slots a thread from nfa_block_chunk.cu and nfa_block_chunk_ext.cu,
+so the `seq` blocks' instantiations carry none of its code): one warp per
 partition lane, one thread per slot (a thread loops over A/32 slots when
 slot growth took A past 32).  Three instantiations a slot width, chosen
 at launch from the chain: the chain step (stream and absent positions),
@@ -57,7 +59,12 @@ M overflow, slot exhaustion or lane overflow is retried by the plan from
 the old state, as the functional JAX state allows.  Fused multi-query
 lanes read broadcast (T, 1) event grids (the lane's pre-masks stay (T,
 P)), their `__qparam` operands at the warp's lane, and emit the lane as
-`__qid__`.  Per-position, per-node and capture-write tables, column
+`__qid__`.  Chunk blocks (the `chunk` family, `_expand_flat` and the
+replay dedup of the JAX package, nfa_device.py:1529, :1598-1604) carry
+flat (F,) events and `__chunk__` = (T, CS, nev, prev_seq): warp l reads
+event l*CS + t, clipped to F - 1 (valid while below nev), arms heads only
+for t < CS, and writes no completion at or before prev_seq; their
+launches count as `nfa_block:chunk`.  Per-position, per-node and capture-write tables, column
 pointers and the programs travel in a device table (kernels/table.py);
 each block stages the programs in shared memory.
 
@@ -102,7 +109,8 @@ class _Params(ctypes.Structure):
         "playback", "emit_qid", "comp_ts_row", "comp_seq_row", "n_words",
         "n_consts", "stage", "prog_bytes", "parked", "all_pz_off",
         "all_pz_len", "ext", "needs_init", "init_on_tick", "has_anchor",
-        "anchor", "init_land")] + [(n, ctypes.c_void_p) for n in (
+        "anchor", "init_land", "chunk", "cs", "nflat", "nev",
+        "prev_seq")] + [(n, ctypes.c_void_p) for n in (
         "ts", "seq", "valid", "tick", "scode", "qparams", "ev", "ev_vt",
         "pos_kind", "pos_node", "pos_within", "pos_dl_row", "pos_waiting",
         "pos_min", "pos_max", "pos_cnt", "pos_log", "pos_or", "pos_land",
@@ -131,14 +139,37 @@ def _alloc_out(k, M: int, dev, rows=torch.zeros) -> dict:
 
 def nfa_block(k, state: dict, ev: dict, pre: list, M: int):
     """Run one block of NFAKernel `k`: (state', out).  `pre` holds the
-    bit-packed pre-mask words per chain node (or None)."""
+    bit-packed pre-mask words per chain node (or None): over the (T, P)
+    grid, or over the F flat events of a chunk block."""
     dev = state["occ"].device
     if dev.type == "cpu":
-        T = ev["__ts__"].shape[0]
-        masks = [None if w is None else unpack_mask(w, T * k.P).view(T, k.P)
-                 for w in pre]
+        F = ev["__ts__"].shape[0]
+        if "__chunk__" in ev:
+            masks = [None if w is None else unpack_mask(w, F) for w in pre]
+        else:
+            masks = [None if w is None else
+                     unpack_mask(w, F * k.P).view(F, k.P) for w in pre]
         return nfa_block_plain(k, state, ev, masks, M)
     return prepare(k, state, ev, pre, M)()
+
+
+def chunk_grids(k, ev: dict, masks: list) -> tuple:
+    """A chunk block's (T, K) grids, gathered from its flat (F,) events:
+    lane l reads events [l*CS, l*CS + T), clipped to F - 1
+    (`_expand_flat` of the JAX package); `__valid__` is flat index < nev,
+    and the returned (T, 1) `can_start` marks the lane's own range (t <
+    CS: a halo event extends pending matches but arms no head)."""
+    T, cs, nev, _prev = ev["__chunk__"]
+    F = ev["__ts__"].shape[0]
+    dev = ev["__ts__"].device
+    t = torch.arange(T, device=dev)[:, None]
+    idx = torch.arange(k.P, device=dev)[None, :] * cs + t
+    safe = torch.clamp(idx, max=F - 1)
+    out = {key: v[safe] for key, v in ev.items()
+           if isinstance(v, torch.Tensor) and v.dim() == 1}
+    out["__valid__"] = idx < nev
+    out["__base_ts__"] = ev["__base_ts__"]
+    return out, [None if m is None else m[safe] for m in masks], t < cs
 
 
 def pos_kind(pos) -> int:
@@ -155,7 +186,8 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     dev = state["occ"].device
     if dev.type != "cuda":
         raise ValueError(f"nfa_block: unsupported device {dev}")
-    T, G = ev["__ts__"].shape
+    chunk = ev.get("__chunk__")
+    T, G = (chunk[0], 1) if chunk is not None else ev["__ts__"].shape
     spec = k.spec
     if G not in (k.P, 1) or state["occ"].shape != (k.A, k.P):
         raise ValueError("nfa_block: grid/state shape does not match kernel")
@@ -169,7 +201,13 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
                               k.Ka)
     p.Kc, p.Klog = k.Kc, k.Kl
     p.C, p.M, p.ts_slot = len(k.grid_keys), M, k.ts_slot
-    p.bcast = int(G == 1 and k.P > 1)
+    p.bcast = int(G == 1 and k.P > 1 and chunk is None)
+    # chunk lanes: lane l reads flat events l*CS + t, arms heads for t <
+    # CS and drops completions at or before the previous flush's last seq
+    p.prev_seq = -(1 << 31)
+    if chunk is not None:
+        p.chunk, p.cs, p.nev, p.prev_seq = 1, chunk[1], chunk[2], chunk[3]
+        p.nflat = ev["__ts__"].shape[0]
     p.playback, p.emit_qid = int(k.playback), int(k.broadcast)
     p.comp_ts_row, p.comp_seq_row = k.comp_rows()
     p.parked = int(k.parked)
@@ -182,7 +220,8 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     ptr = checked_ptr(keep, dev, "nfa_block")
     p.ts = ptr(ev["__ts__"], torch.int32)
     p.seq = ptr(ev["__seq__"], torch.int32)
-    p.valid = ptr(ev["__valid__"], torch.bool)
+    if chunk is None:
+        p.valid = ptr(ev["__valid__"], torch.bool)
     if "__tick__" in ev:
         p.tick = ptr(ev["__tick__"], torch.bool)
     if p.multi:
@@ -260,9 +299,11 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
                                          ptr(out["out_l"]),
                                          ptr(out["meta"]))
     keep.append(tab.upload(dev))
-    # csrc/nfa_block[_wide][_ext].cu: 8-16 slots a thread past A = 128;
-    # the EXT instantiation apart from the others
-    name = "nfa_block" + ("_wide" if k.A > 128 else "") + \
+    # csrc/nfa_block[_chunk|_wide][_ext].cu: 8-16 slots a thread past A =
+    # 128 (chunk mode or not); up to 128, chunk mode and the EXT
+    # instantiation each apart from the others
+    name = "nfa_block" + ("_wide" if k.A > 128 else
+                          "_chunk" if chunk is not None else "") + \
         ("_ext" if k.ext else "")
     fn = getattr(load(name), f"{name}_launch")
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
@@ -271,9 +312,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     def run():
         out["meta"].copy_(meta0)
         return fn(ctypes.byref(p), stream_of(dev))
-    return Launch(run, "nfa_block_launch",
-                  "nfa_block:ext" if k.ext else "nfa_block", keep + [meta0],
-                  (new, out))
+    use = "nfa_block:chunk" if chunk is not None else \
+        "nfa_block:ext" if k.ext else "nfa_block"
+    return Launch(run, "nfa_block_launch", use, keep + [meta0], (new, out))
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +330,15 @@ def _eval(tree: Node, env: dict):
 def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
     """Python loop over T of (A, P) vector ops -- `_step` of the JAX
     package, statement for statement, then ceil(A/E) drain rounds;
-    emissions are compacted in (step, lane, partition) order."""
+    emissions are compacted in (step, lane, partition) order.  A chunk
+    block (`__chunk__` = (T, CS, nev, prev_seq) over flat (F,) events and
+    masks) is gathered into its (T, K) lane grids first; its heads arm
+    only in the lane's own range, and completions at or before prev_seq
+    are dropped before the compaction."""
+    can_start, prev_seq = None, None
+    if "__chunk__" in ev:
+        prev_seq = ev["__chunk__"][3]
+        ev, masks, can_start = chunk_grids(k, ev, masks)
     spec, A, P, S, E = k.spec, k.A, k.P, k.S, k.E
     PARK = S + 1
     dev = state["occ"].device
@@ -752,6 +801,8 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
         for gi in range(len(head.nodes)):
             ok0 |= base_match(gi, t)
         ok0 &= armed0
+        if can_start is not None:
+            ok0 &= can_start[t]
         if not spec.every_head:
             armed0 = armed0 & ~ok0
         if not k.parked:
@@ -820,6 +871,11 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
             drain()
 
     out = _alloc_out(k, M, dev)
+    if emitted and prev_seq is not None:
+        # chunk lanes: replayed completions never take a row of M
+        r = k.lane_names_i.index("__comp_seq__")
+        emitted = [tuple(x[:, e[0][r] > prev_seq] for x in e)
+                   for e in emitted]
     n = sum(e[0].shape[1] for e in emitted)
     if emitted:
         for key, idx in (("out_i", 0), ("out_f", 1), ("out_l", 2)):

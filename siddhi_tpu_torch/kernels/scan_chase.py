@@ -37,6 +37,12 @@ pre-mask grids read once, the status and index grids written once; the
 descents read 2 log2(Lt) tree nodes per query, which stay in the 50 MB
 L2 at the C4 and C3 shapes (16 and 12 MB of trees).
 
+In `dfa` mode (the `dfa` family; launches counted as `scan_chase:dfa`)
+a static hop's or a logical side's first hit is the table lookup of
+`_dfa_next` (nfa_parallel.py:777): the suffix word of K11 at s, else the
+packed word of the next block with a hit, else Lt -- the same index the
+descent of a mask tree gives, without the tree.
+
 Output: `status` (L, F) uint8 (bit 1 resolved-live: the head's chain
 completed, or, with a final count, its last candidate did; bit 2 dead;
 bit 4 the head's node mask), `idx` (n_idx, L, F) int32 (the rows of
@@ -56,6 +62,7 @@ import torch
 from ..core.expr import VT_OF_TORCH, decode_word
 from ..core.nfa_parallel import lane_grid
 from .build import load
+from .dfa_tables import dfa_next_plain
 from .expr_eval import (merge_programs, program_table, stage_bytes,
                         vm_run_plain)
 from .seg_tree import first_hit_plain, node_masks
@@ -70,7 +77,8 @@ class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "L", "F", "Lt", "S", "is_seq", "ts_tree", "n_loads", "ev_stride",
         "P", "n_words", "n_consts", "stage", "n_idx", "C", "head_node",
-        "head_rank", "head_min", "head_within", "alg")] + [
+        "head_rank", "head_min", "head_within", "alg", "dfa",
+        "NB")] + [
         (n, ctypes.c_void_p) for n in (
             "nev", "ts", "scode", "qparams", "pre", "node_scode",
             "pos_node", "hop_kind", "hop_within", "hop_tree", "hop_op",
@@ -79,7 +87,8 @@ class _Params(ctypes.Structure):
             "hop_rank", "hop_min", "hop_row", "prog_off", "prog_len",
             "heap", "heap_vt", "rank", "rank_heap", "prev", "comp_row",
             "load_col", "load_vt", "load_pos", "status", "idx", "cand",
-            "pres", "consts", "words")]
+            "pres", "consts", "words", "hop_dfa_l", "hop_dfa_r",
+            "dfa_suffix", "dfa_packed", "dfa_nblk")]
 
 
 def _vm_plain(k, prog, ev: dict, at: list, s: torch.Tensor) -> torch.Tensor:
@@ -107,9 +116,11 @@ def _vm_plain(k, prog, ev: dict, at: list, s: torch.Tensor) -> torch.Tensor:
 
 def scan_chase_plain(k, ev: dict, masks: list, heaps: list,
                      ranks: list = (), rheaps: list = (), prevs: list = (),
+                     tables: Optional[tuple] = None,
                      alive: Optional[list] = None):
-    """The chase over the (L, F) grid; `alive`, when given, receives the
-    number of heads still ok on entering each hop (the work K4 does)."""
+    """The chase over the (L, F) grid; `tables` are K11's (`dfa`), and
+    `alive`, when given, receives the number of heads still ok on
+    entering each hop (the work K4 does)."""
     ts = lane_grid(ev, "__flat.__ts__")
     L, F = ts.shape
     Lt = k.leaves(F)
@@ -139,8 +150,13 @@ def scan_chase_plain(k, ev: dict, masks: list, heaps: list,
         dead = dead | (ok & ~good & (kl < F))
         ok = ok & good
 
-    def loc(l, s):
-        return s if l < 0 else j0 if l == 0 else rows[l - 1]
+    def first(tree: int, lane: int, s):
+        """First node-mask hit >= s: K11's tables for a chase lane, else
+        the hop's mask tree."""
+        if lane >= 0:
+            return dfa_next_plain(tables, lane, s, Lt)
+        return first_hit_plain(heaps[tree], Lt, s, torch.zeros(
+            (L, F), dtype=torch.int32, device=dev), "gt").to(torch.int64)
     j = j0
     pend = None                 # within of a count awaiting its successor
     if k.head is not None:
@@ -170,21 +186,17 @@ def scan_chase_plain(k, ev: dict, masks: list, heaps: list,
         elif hop.kind in ("static", "threshold"):
             kl = killer(s, hop.within if pend is None else pend)
             pend = None
-            heap = heaps[hop.tree]
             if hop.kind == "threshold":
-                v, op = _vm_plain(k, hop.prog, ev, [j0] + rows, s), hop.op
+                v = _vm_plain(k, hop.prog, ev, [j0] + rows, s)
+                jn = first_hit_plain(heaps[hop.tree], Lt, s, v, hop.op
+                                     ).to(torch.int64)
             else:
-                v, op = torch.zeros((L, F), dtype=heap.dtype,
-                                    device=dev), "gt"
-            jn = first_hit_plain(heap, Lt, s, v, op).to(torch.int64)
+                jn = first(hop.tree, hop.dfa[0], s)
             step(jn, kl)
             j = torch.clamp(jn, 0, F - 1)
         elif hop.kind == "logical":
-            zero = torch.zeros((L, F), dtype=torch.int32, device=dev)
-            jl = first_hit_plain(heaps[hop.tree], Lt, s, zero, "gt"
-                                 ).to(torch.int64)
-            jr = first_hit_plain(heaps[hop.tree2], Lt, s, zero, "gt"
-                                 ).to(torch.int64)
+            jl = first(hop.tree, hop.dfa[0], s)
+            jr = first(hop.tree2, hop.dfa[1], s)
             if hop.is_or:
                 jd = torch.minimum(jl, jr)
             else:
@@ -228,19 +240,21 @@ def scan_chase_plain(k, ev: dict, masks: list, heaps: list,
 
 
 def scan_chase(k, ev: dict, pre: list, heaps: list, ranks: list = (),
-               rheaps: list = (), prevs: list = ()):
+               rheaps: list = (), prevs: list = (),
+               tables: Optional[tuple] = None):
     """(status, idx, cand, pres) of ParallelChainKernel `k` for block
     `ev`, its K1 pre-mask words `pre` (per chain node, or None), K3
-    `heaps`, and, with counts or `and` positions, the K6 rank columns,
-    K3 rank trees and K6 prev columns."""
+    `heaps`, with counts or `and` positions the K6 rank columns, K3 rank
+    trees and K6 prev columns, and in the `dfa` family K11's tables."""
     if ev["__flat.__ts__"].device.type == "cpu":
         return scan_chase_plain(k, ev, node_masks(k, ev, pre), heaps,
-                                ranks, rheaps, prevs)
-    return prepare(k, ev, pre, heaps, ranks, rheaps, prevs)()
+                                ranks, rheaps, prevs, tables)
+    return prepare(k, ev, pre, heaps, ranks, rheaps, prevs, tables)()
 
 
 def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
-            rheaps: list = (), prevs: list = ()) -> Launch:
+            rheaps: list = (), prevs: list = (),
+            tables: Optional[tuple] = None) -> Launch:
     """Allocate the outputs and upload the parameter table of one K4
     launch (see `scan_chase`)."""
     ts = ev["__flat.__ts__"]
@@ -274,7 +288,13 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
         p.qparams = ptr(k.nfak.params.bits, torch.int64)
         p.P = k.nfak.params.P
     S = k.S
+    if tables is not None:
+        p.dfa, p.NB = 1, tables[1].shape[1]
+        p.dfa_suffix = ptr(tables[0], torch.int32)
+        p.dfa_packed = ptr(tables[1], torch.int32)
+        p.dfa_nblk = ptr(tables[2], torch.int32)
     cols = {"kind": [0] * S, "within": [0] * S, "tree": [0] * S,
+            "dfa_l": [-1] * S, "dfa_r": [-1] * S,
             "op": [0] * S, "vt": [0] * S, "tree2": [0] * S,
             "prev_l": [-1] * S, "prev_r": [-1] * S, "side_l": [0] * S,
             "side_r": [0] * S, "bit_l": [-1] * S, "bit_r": [-1] * S,
@@ -288,7 +308,8 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
                        ("side_l", hop.sides[0]), ("side_r", hop.sides[1]),
                        ("bit_l", hop.bits[0]), ("bit_r", hop.bits[1]),
                        ("rank", hop.rank), ("min", hop.min_count),
-                       ("row", k.pos_row[pi])):
+                       ("row", k.pos_row[pi]), ("dfa_l", hop.dfa[0]),
+                       ("dfa_r", hop.dfa[1])):
             cols[key][pi] = v
         if hop.prog is not None:
             pidx.append(pi)
@@ -336,5 +357,7 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return Launch(lambda: fn(ctypes.byref(p), smem, stream_of(dev)),
-                  "scan_chase_launch", "scan_chase", keep,
+                  "scan_chase_launch",
+                  "scan_chase:dfa" if tables is not None else "scan_chase",
+                  keep,
                   (status, idx[:k.n_idx], cand, pres))

@@ -9,7 +9,13 @@ tests (tests/test_torch_gpu.py):
     the pattern-algebra apps of C4's partitioned shape (`C4N`, `C4NS`,
     `C4A`, `C4O`), the init-slot, fork and absent-side apps of K2's EXT
     instantiation (`C4H`, `C4Z`, `C4F`, `C4L_OR`, `C4L_AND` under
-    @app:playback, and `C3H`, unpartitioned on the wall clock), bench.py's
+    @app:playback, and `C3H`, unpartitioned on the wall clock), the
+    stateless `chunk` and `dfa` apps (`C3K`: bench.py's C3 under
+    `patternFamily('chunk')`; `C3X`, a capture-dependent conjunction, and
+    `C3E`, `every` below the head, which pick `chunk` by default; `C3SD`:
+    bench.py's static C3S under `patternFamily('dfa')`; `C4D`: C4's
+    partitioned head with a static hop and a threshold hop under
+    `patternFamily('dfa')`), bench.py's
     config 6 join (`JOIN_APP`) and its filtered
     outer and unidirectional variants (`JOIN_OUTER`, `JOIN_UNI`), and the
     fused lanes' parameter app (`PARAM_APP`);
@@ -35,9 +41,11 @@ tests (tests/test_torch_gpu.py):
     calls a window run recorded), `check_join_calls` (K1 `join_filter`
     and K9 on the calls a join run recorded), `check_seq_block` (K2 and K1 on a block
     a `seq` plan handed NFAKernel.run_block: every state field, the
-    init-slot flags and the deadline rows included), `check_scan_block` (K1, K3,
+    init-slot flags and the deadline rows included), `check_chunk_block`
+    (the same on a `chunk` block, from fresh state), `check_scan_block` (K1, K3,
     K6, K3's rank trees, K4 and K5 on a block a `scan` plan handed
-    ParallelChainKernel.run_block), each kernel on the same inputs as its
+    ParallelChainKernel.run_block; K11 and K4's `dfa` mode too on a `dfa`
+    block, which `check_dfa_block` asserts), each kernel on the same inputs as its
     plain version, tolerance 0; they raise `KernelMismatch` on the first
     difference and return the largest |kernel - plain| per kernel use;
   * `sorted_rows`, a match table in (completion seq, head seq, lane)
@@ -140,6 +148,29 @@ C4L_AND = PLAYBACK + partitioned(C4L_AND_BODY)
 C3H = STOCK + ("@info(name='q') from not StockStream[price > 129] for 100 "
                "milliseconds -> e2=StockStream[price < 91] "
                "select e2.price as p2, e2.volume as v2 insert into Out;\n")
+
+# the stateless `chunk` family (K2 over own-chunks with halo reads) and the
+# `dfa` family (K11 symbol tables, K4's lookup mode); bench.py:211 (C3S)
+CHUNK = "@app:patternFamily('chunk')\n"
+DFA = "@app:patternFamily('dfa')\n"
+C3K = CHUNK + C3
+C3X = STOCK + (
+    "@info(name='q') from every e1=StockStream[price > 100] -> "
+    "e2=StockStream[price > e1.price and volume > e1.volume] within 1 sec "
+    "select e1.price as p1, e2.price as p2 insert into Out;\n")
+C3E = STOCK + (
+    "@info(name='q') from every e1=StockStream[price > 127] -> "
+    "every e2=StockStream[price < 91] within 200 milliseconds "
+    "select e1.price as a, e2.price as b insert into Out;\n")
+C3S = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
+               "e2=StockStream[price < 95] within 1 sec "
+               "select e1.price as p1, e2.price as p2 insert into Out;\n")
+C3SD = DFA + C3S
+C4D_BODY = (
+    "from every e1=StockStream[price > 110] -> e2=StockStream[price < 100] "
+    "-> e3=StockStream[price > e1.price] within 10 sec "
+    "select e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;")
+C4D = DFA + partitioned(C4D_BODY)
 
 
 # bench.py:438-444 (config 6), copied
@@ -555,22 +586,31 @@ def _check_pre(err: dict, progs: list, pre: list, cols: list, n: int,
                 "pre-mask")
 
 
+def block_masks(kern, ev: dict, pre: list) -> list:
+    """K2's plain-version masks from pre-mask words: (T, P) grids, or the
+    F flat events of a chunk block."""
+    from .kernels.expr_eval import unpack_mask
+    n = ev["__ts__"].shape[0]
+    if "__chunk__" in ev:
+        return [None if w is None else unpack_mask(w, n) for w in pre]
+    return [None if w is None else unpack_mask(w, n * kern.P).view(
+        n, kern.P) for w in pre]
+
+
 def check_seq_block(kern, state: dict, ev: dict, M: int) -> dict:
     """K1 pre-masks, K2 (new state, meta and sorted match rows) and K1's
-    selector on one `seq` block, against their plain versions; returns
-    {use: largest |kernel - plain|} plus "matches" and "lost" (direct
-    emissions that found no lane, K2's meta[3])."""
-    from .kernels.expr_eval import unpack_mask
+    selector on one `seq` (or `chunk`) block, against their plain
+    versions; returns {use: largest |kernel - plain|} plus "matches" and
+    "lost" (direct emissions that found no lane, K2's meta[3])."""
     from .kernels.nfa_block import nfa_block, nfa_block_plain
-    T, P = ev["__ts__"].shape[0], kern.P
+    n_pre = ev["__ts__"].shape[0] * (1 if "__chunk__" in ev else kern.P)
     err: dict = {}
     pre = kern.pre_masks(ev)
-    _check_pre(err, kern.pre_progs, pre, kern.pre_mask_cols(ev), T * P,
+    _check_pre(err, kern.pre_progs, pre, kern.pre_mask_cols(ev), n_pre,
                kern.pre_mask_rows(ev), ev["__base_ts__"])
     new_k, out_k = nfa_block(kern, state, ev, pre, M)
-    masks = [None if w is None else unpack_mask(w, T * P).view(T, P)
-             for w in pre]
-    new_p, out_p = nfa_block_plain(kern, state, ev, masks, M)
+    new_p, out_p = nfa_block_plain(kern, state, ev,
+                                   block_masks(kern, ev, pre), M)
     torch.cuda.synchronize()
     for key in new_p:
         _agree(err, "nfa_block", new_k[key], new_p[key], f"state {key}")
@@ -583,6 +623,15 @@ def check_seq_block(kern, state: dict, ev: dict, M: int) -> dict:
     err["matches"] = n
     err["lost"] = int(out_k["meta"][3])
     return err
+
+
+def check_chunk_block(kern, ev: dict, M: int) -> dict:
+    """check_seq_block on a `chunk` block (flat events, `__chunk__`), from
+    the fresh slot state every chunk block starts from."""
+    if "__chunk__" not in ev:
+        raise ValueError("not a chunk block")
+    return check_seq_block(kern, kern.init_state(ev["__ts__"].device), ev,
+                           M)
 
 
 def scan_inputs(k, ev: dict, pre: list) -> tuple:
@@ -604,7 +653,9 @@ def check_scan_block(k, ev: dict, M: int) -> dict:
     """K1 pre-masks, K3 (event trees), K6 (ranks, prev pointers), K3 (rank
     trees), K4, K5 and K1's selector on one `scan` block, each kernel on
     the same inputs as its plain version (the plain results feed the next
-    stage); returns {use: largest |kernel - plain|} plus "matches"."""
+    stage); returns {use: largest |kernel - plain|} plus "matches".  On a
+    `dfa` block, K11's tables and K4's lookup mode too."""
+    from .kernels.dfa_tables import dfa_tables, dfa_tables_plain
     from .kernels.scan_chase import scan_chase, scan_chase_plain
     from .kernels.scan_compact import scan_compact, scan_compact_plain
     from .kernels.seg_tree import seg_tree, seg_tree_plain
@@ -626,9 +677,15 @@ def check_scan_block(k, ev: dict, M: int) -> dict:
     if rheaps:
         _agree(err, "seg_tree:rank", seg_tree(k, ev, pre, k.rank_trees,
                                               rcols), rheaps, "rank trees")
-    chase = scan_chase_plain(k, ev, masks, heaps, ranks, rheaps, prevs)
-    _agree(err, "scan_chase", scan_chase(k, ev, pre, heaps, ranks, rheaps,
-                                         prevs), chase, "chase")
+    tables, use = None, "scan_chase"
+    if k.dfa_nodes:
+        tables = dfa_tables_plain([masks[gi] for gi in k.dfa_nodes])
+        _agree(err, "dfa_tables", dfa_tables(k, ev, pre), tables, "tables")
+        use = "scan_chase:dfa"
+    chase = scan_chase_plain(k, ev, masks, heaps, ranks, rheaps, prevs,
+                             tables)
+    _agree(err, use, scan_chase(k, ev, pre, heaps, ranks, rheaps, prevs,
+                                tables), chase, "chase")
     out_p = scan_compact_plain(k, ev, chase, ranks, rheaps, M)
     out_k = scan_compact(k, ev, chase, ranks, rheaps, M)
     torch.cuda.synchronize()
@@ -643,3 +700,11 @@ def check_scan_block(k, ev: dict, M: int) -> dict:
     _check_select(err, k.nfak, out_k, n, ev["__base_ts__"])
     err["matches"] = n
     return err
+
+
+def check_dfa_block(k, ev: dict, M: int) -> dict:
+    """check_scan_block on a `dfa` block: K11 and K4's lookup mode held to
+    their plain versions with the rest of the block."""
+    if k.family != "dfa" or not k.dfa_nodes:
+        raise ValueError("not a dfa block")
+    return check_scan_block(k, ev, M)

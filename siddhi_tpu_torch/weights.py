@@ -31,11 +31,12 @@ packages; a string group key is the runtime's string code, so
 port's AggregationRuntime.load_state_dict loads the result (and refills
 its device rings from it).
 
-The stateless families (`scan`) keep no device state: their continuity
-is the replay tail of the last `within` window (per key when
-partitioned), the last emitted completion seq (per key) and a one-shot
-head's resolution flag.  `stateless_state_from_jax` takes those from a
-JAX `scan` plan's state_dict() into the dict the port's plan loads.  The
+The stateless families (`scan`, `dfa`, `chunk`) keep no device state:
+their continuity is the replay tail of the last `within` window (per key
+when partitioned), the last emitted completion seq (per key), a one-shot
+head's resolution flag and, for `chunk`, the heads dropped at the slot
+cap.  `stateless_state_from_jax` takes those from a JAX `scan`, `dfa` or
+`chunk` plan's state_dict() into the dict the port's plan loads.  The
 string table travels apart (`rt.strings.state()` / `restore`), as for
 `seq`.
 """
@@ -101,10 +102,12 @@ def _tail(t, part: bool):
 
 
 def stateless_state_from_jax(d: dict) -> dict:
-    """A JAX stateless-family (`scan`) plan's state_dict() -> the dict the
-    port's DevicePatternPlan.load_state_dict takes on a `scan` plan.  The
-    port runs an unpartitioned pattern as one lane, so the JAX flat tail
-    (`chunk_tail`, `chunk_prev_last_seq`) becomes lane 0's; a fused
+    """A JAX stateless-family (`scan`, `dfa`, `chunk`) plan's
+    state_dict() -> the dict the port's DevicePatternPlan.load_state_dict
+    takes on a plan of the same family.  The port runs an unpartitioned
+    pattern as one lane, so the JAX flat tail (`chunk_tail`,
+    `chunk_prev_last_seq`) becomes lane 0's, and `chunk_of_dropped` the
+    plan's `of_dropped`; a fused
     group's query lanes share that one tail and keep their own one-shot
     flags (`arm_done`).  Every array is copied: the JAX dict aliases the
     live plan's state."""
@@ -123,7 +126,8 @@ def stateless_state_from_jax(d: dict) -> dict:
             "ts_base": d.get("ts_base"), "seq_base": d.get("seq_base"),
             "last_seq": d.get("last_seq"),
             "lane_tail": tail, "lane_prev": lane_prev,
-            "arm_done": None if arm is None else np.array(arm, dtype=bool)}
+            "arm_done": None if arm is None else np.array(arm, dtype=bool),
+            "of_dropped": int(d.get("chunk_of_dropped") or 0)}
 
 
 def window_state_from_jax(d: dict, device) -> dict:

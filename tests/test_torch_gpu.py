@@ -15,7 +15,11 @@ rows; K2's EXT instantiation (init slots, forks, absent logical sides)
 the same state and rows as its plain version on the chip_smoke phase
 apps at A = 32, 64 and 256, after fork overflows and on timer ticks; K10 (`agg_merge`) the same ring as its plain version bit for bit
 (NaN and the sign of zero included), K6 use `agg` the same scans, and
-the aggregation matrix app the CPU run's stores and rows."""
+the aggregation matrix app the CPU run's stores and rows; K2's chunk
+mode (chain, algebra, EXT and the wide instantiation at A = 256) the
+same state and rows as its plain version on every chunk block; K11
+`dfa_tables` and K4's `dfa` mode the same tables and chase as theirs on
+flat, keyed, logical and fused `dfa` blocks."""
 import numpy as np
 import pytest
 import torch
@@ -28,11 +32,12 @@ from siddhi_tpu_torch.core.expr import (F32_MODE, VT_OF_TORCH,
 from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
 from siddhi_tpu_torch.kernels import LAUNCHES, reset_launches
 from siddhi_tpu_torch.query import parse, parse_expression
-from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C3H, C4A_BODY,
-                                     C4F, C4F_BODY, C4H, C4L_AND, C4L_OR,
-                                     C4N_BODY, C4NS_BODY, C4O_BODY, C4Z,
-                                     PARAM_APP, PLAYBACK, c5_app, make_tape,
-                                     partitioned, sorted_rows)
+from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C3E, C3H, C3K,
+                                     C3SD, C3X, C4A_BODY, C4D, C4F, C4F_BODY,
+                                     C4H, C4L_AND, C4L_OR, C4N_BODY,
+                                     C4NS_BODY, C4O_BODY, C4Z, CHUNK, DFA,
+                                     PARAM_APP, PLAYBACK, STOCK, c5_app,
+                                     make_tape, partitioned, sorted_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -1047,3 +1052,123 @@ def test_agg_matrix_matches_the_cpu_run(cuda, head, kernel, group_by):
     assert launches[other] == 0
     err = check_agg_calls(calls)
     assert err == {kernel: 0.0}
+
+
+# ---------------------------------------------------------------------------
+# the stateless `chunk` family (K2 over own-chunks with halo reads) and the
+# `dfa` family (K11 symbol tables, K4's lookup mode)
+# ---------------------------------------------------------------------------
+
+CHUNK_COUNT = CHUNK + STOCK + (
+    "@info(name='q') from every e1=StockStream[price > 110]<1:3> -> "
+    "e2=StockStream[price < 95] within 1 sec select e1[0].price as a, "
+    "e1[last].price as b, e2.price as c insert into Out;\n")
+# name -> (app, events a flush, flushes, dt ms): the chain, algebra and EXT
+# instantiations in chunk mode, the wide one at A = 256, and slot growth
+CHUNK_APPS = {"chain": (C3K, 8192, 2, 1), "conj": (C3X, 8192, 2, 1),
+              "count": (CHUNK_COUNT, 8192, 2, 1), "ext": (C3E, 8192, 2, 1),
+              "a256": ("@app:deviceSlots(256)\n" + C3K, 4096, 2, 1),
+              "growth": ("@app:deviceSlots(2)\n" + C3K, 4096, 2, 1)}
+
+
+def _run_stream(app, tape, keys, device):
+    rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(app)
+    out = []
+    rt.add_callback("Out", lambda evs: out.extend(
+        (e.timestamp, e.data) for e in evs))
+    h = rt.input_handler("StockStream")
+    codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                     dtype=np.int32)
+    for f in tape:
+        h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
+                      "volume": f["volume"]}, f["ts"])
+        rt.flush()
+    return out, rt
+
+
+@pytest.mark.parametrize("name", sorted(CHUNK_APPS))
+def test_nfa_block_chunk_matches_plain(cuda, name, monkeypatch):
+    """K2 in chunk mode: every accepted chunk block (state, meta, sorted
+    rows, from fresh state) equal to the plain version, launched as
+    `nfa_block:chunk` and nothing else of K2, the rows equal to the CPU
+    run's in order."""
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.replay import check_chunk_block
+    app, n, flushes, dt = CHUNK_APPS[name]
+    tape = make_tape(n * flushes, n, 8, seed=23, dt_ms=dt)
+    blocks = []
+    orig = NFAKernel.run_block
+
+    def rec(self, state, ev, M):
+        new, out = orig(self, state, ev, M)
+        blocks.append((self, ev, M, int(out["meta"][0])))
+        return new, out
+    monkeypatch.setattr(NFAKernel, "run_block", rec)
+    reset_launches()
+    got, rt = _run_stream(app, tape, 8, cuda)
+    plan = rt.plans()[0]
+    assert plan.family == "chunk"
+    assert LAUNCHES["nfa_block:chunk"] > 0
+    assert LAUNCHES["nfa_block"] == LAUNCHES["nfa_block:ext"] == 0
+    for kern, ev, M, n_found in blocks:
+        if n_found > M:
+            continue                # an M overflow's first try
+        err = check_chunk_block(kern, ev, M)
+        assert max(v for key, v in err.items()
+                   if key not in ("matches", "lost")) == 0.0
+    if name == "a256":
+        assert plan._chunk_A == 256
+    if name == "growth":
+        assert plan._chunk_A > 2
+    blocks.clear()
+    want, _rt = _run_stream(app, tape, 8, "cpu")
+    assert got == want and got
+
+
+DFA_FUSED = DFA + STOCK + "\n".join(
+    f"@info(name='q{i}') from every e1=StockStream[price > {110 + i}] -> "
+    f"e2=StockStream[price < {96 - i % 3}] within 1 sec "
+    f"select e1.price as p1, e2.price as p2 insert into Out;"
+    for i in range(8)) + "\n"
+DFA_OR = DFA + STOCK + (
+    "@info(name='q') from every e1=StockStream[price > 122] -> "
+    "e2=StockStream[price < 95] or e3=StockStream[price > 126] within "
+    "1 sec select e1.price as a, e2.price as b, e3.price as c "
+    "insert into Out;\n")
+# name -> (app, keys, events a flush, flushes)
+DFA_APPS = {"c3sd": (C3SD, 8, 8192, 2),
+            "c4d": ("@app:partitionCapacity(64)\n" + C4D, 64, 8192, 2),
+            "or": (DFA_OR, 8, 8192, 2), "fused": (DFA_FUSED, 8, 4096, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(DFA_APPS))
+def test_dfa_kernels_match_plain(cuda, name, monkeypatch):
+    """K11 and K4's `dfa` mode (with K1, K3, K5) equal to their plain
+    versions on every block the `dfa` plan ran: flat, an (L, F) grid of
+    keys, a logical pair, and a fused group's shared row; no mask tree
+    built for a chase node; rows equal to the CPU run's."""
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    from siddhi_tpu_torch.replay import check_dfa_block
+    app, keys, n, flushes = DFA_APPS[name]
+    tape = make_tape(n * flushes, n, keys, seed=29)
+    blocks = []
+    orig = ParallelChainKernel.run_block
+
+    def rec(self, ev, M):
+        blocks.append((self, ev, M))
+        return orig(self, ev, M)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec)
+    reset_launches()
+    got, rt = _run_stream(app, tape, keys, cuda)
+    assert rt.plans()[0].family == "dfa"
+    assert LAUNCHES["dfa_tables"] > 0 and LAUNCHES["scan_chase:dfa"] > 0
+    assert LAUNCHES["scan_chase"] == 0 and LAUNCHES["nfa_block"] == 0
+    assert blocks
+    for k, ev, M in blocks:
+        assert all(t.node is None or t.node not in k.dfa_nodes
+                   for t in k.trees)
+        err = check_dfa_block(k, ev, M)
+        assert max(v for key, v in err.items() if key != "matches") == 0.0
+    blocks.clear()
+    want, _rt = _run_stream(app, tape, keys, "cpu")
+    assert got == want and got

@@ -90,11 +90,15 @@ def port_run(app: str, sends, marks=(), anchor=True, every=1):
 
 def both(body: str, sends, marks=(), jax_body=None, anchor=True, every=1):
     """The port's rows for HEAD + body, asserted equal to the JAX device
-    block's for HEAD + (jax_body or body)."""
-    want, _ = jax_run(HEAD + (jax_body or body), sends, marks, anchor, every)
+    block's for HEAD + (jax_body or body), on the JAX package's family
+    (`seq` for init slots and absent states, `chunk` for a within-bounded
+    `every` chain)."""
+    want, jrt = jax_run(HEAD + (jax_body or body), sends, marks, anchor,
+                        every)
     got, rt = port_run(HEAD + body, sends, marks, anchor, every)
     assert got == want, (len(got), len(want), got[:4], want[:4])
-    assert rt.plans()[0].family == "seq"
+    jfam = [p.family for p in jrt._plans if isinstance(p, JPlan)]
+    assert [rt.plans()[0].family] == jfam
     return got, rt
 
 

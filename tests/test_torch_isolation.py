@@ -103,16 +103,21 @@ def test_kernel_wrappers_refuse_other_devices():
         expr_eval([col], None, [], 4, use="filter")
 
 
-@pytest.mark.parametrize("which", ["seg_tree", "scan_chase", "scan_compact"])
+@pytest.mark.parametrize("which", ["seg_tree", "scan_chase", "scan_compact",
+                                   "dfa_tables"])
 def test_scan_wrappers_refuse_other_devices(which):
-    """K3-K5 take their plain versions only for CPU tensors: a block on
-    any other device that is not CUDA is refused before anything runs."""
-    from siddhi_tpu_torch.kernels import scan_chase, scan_compact, seg_tree
+    """K3-K5 and K11 take their plain versions only for CPU tensors: a
+    block on any other device that is not CUDA is refused before anything
+    runs."""
+    from siddhi_tpu_torch.kernels import (dfa_tables, scan_chase,
+                                          scan_compact, seg_tree)
     g = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     ev = {"__flat.__ts__": g, "__flat.__seq__": g}
     with pytest.raises(ValueError, match="unsupported device"):
         if which == "seg_tree":
             seg_tree.seg_tree(None, ev, [])
+        elif which == "dfa_tables":
+            dfa_tables.dfa_tables(None, ev, [])
         elif which == "scan_chase":
             scan_chase.scan_chase(None, ev, [], [])
         else:

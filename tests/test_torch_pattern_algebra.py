@@ -8,8 +8,7 @@ Every case runs through `siddhi_tpu` (`@app:devicePatterns('always')`,
 its device NFA) and through the port at device="cpu"; the rows must be
 equal with NULLs (None) in place, tolerance 0 (prices on the quarter
 grid are exact in float32), and the port must pick the JAX package's
-family (the port has no `chunk` yet: where JAX picks it, the port runs
-`seq`).  Also: a final count whose emissions outrun the E lanes (the
+family (`chunk` included: where JAX picks it, so does the port).  Also: a final count whose emissions outrun the E lanes (the
 plan doubles E and re-runs the block), slot state carried over from a
 JAX plan mid-tape (`weights.nfa_state_from_jax`, counters, fill bits and
 presence rows included), the shapes once refused (init slots, forks,
@@ -62,7 +61,9 @@ def run_port(app: str, sends, out: str = "O"):
 
 
 def port_family(jax_family: str) -> str:
-    return "seq" if jax_family == "chunk" else jax_family
+    """The port's family for the JAX package's: the same, every family
+    being ported."""
+    return jax_family
 
 
 def both(app: str, sends, out: str = "O"):
@@ -329,7 +330,7 @@ def test_logical_after_count_never_completes_like_the_jax_device():
             "insert into O;")
     sends = r4_sends(3, 300)
     got, fam, _rt = both(body, sends)
-    assert fam == "seq" and got == []
+    assert fam == "chunk" and got == []
     host_rt = siddhi_tpu.SiddhiManager().create_app_runtime(
         "@app:devicePatterns('never')\n" + body)
     host: list = []

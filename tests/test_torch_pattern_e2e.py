@@ -295,7 +295,21 @@ def test_unsupported_shapes_raise_at_create(body, feature):
     ("@app:patternFamily('dfa')\n", "family"),
 ])
 def test_unsupported_options_raise_at_create(head, feature):
+    """f64 raises at create.  A `dfa` request is ported: C4 has no static
+    chase node, so it warns with the JAX package's reason and runs `scan`,
+    as the JAX package does."""
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    if feature == "family":
+        with pytest.warns(RuntimeWarning, match="'dfa' is not eligible"):
+            plan = mgr.create_app_runtime(head + APPS["c4"]).plans()[0]
+        with pytest.warns(RuntimeWarning, match="'dfa' is not eligible"):
+            jrt = siddhi_tpu.SiddhiManager().create_app_runtime(
+                "@app:devicePatterns('prefer')\n" + head + APPS["c4"])
+        jplan = next(p for p in jrt._plans if isinstance(p, JPlan))
+        assert plan.families["dfa"] == jplan.families["dfa"]
+        assert "no static transition" in plan.families["dfa"]
+        assert plan.family == jplan.family == "scan"
+        return
     with pytest.raises(PlanError, match=feature):
         mgr.create_app_runtime(head + APPS["c4"])
 

@@ -221,8 +221,8 @@ def test_family_matches_jax(name):
     if name in ("c3", "c4", "sequence", "two_stream", "c3s",
                 "one_shot_within", "le_long"):
         assert pplan.family == "scan"
-    if jplan.families["scan"] is True:
-        assert "later slice" in pplan.families["dfa"]
+    assert pplan.families["dfa"] == jplan.families["dfa"]
+    assert pplan.families["chunk"] == jplan.families["chunk"]
 
 
 def test_forced_families():

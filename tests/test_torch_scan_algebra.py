@@ -271,8 +271,7 @@ def test_scan_refusals_keep_the_jax_family(body, reason):
     tplan = trt.plans()[0]
     assert reason in tplan.families["scan"]
     assert tplan.families["scan"] == jplan.families["scan"]
-    assert tplan.family == ("seq" if jplan.family == "chunk"
-                            else jplan.family)
+    assert tplan.family == jplan.family
     assert got == want
 
 
