@@ -152,7 +152,13 @@ Phases (any failure exits non-zero; nothing is caught):
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
      where one PyTorch call computes the same function, that call's
-     time; the card's name and power limit; then the last line
+     time, graph-timed like the kernels (K6's scans also
+     `library_flat_ms`: a 1-D cumsum of the same entries and one
+     subtraction, PyTorch's fastest form of that work); K10's entries
+     also `chain_ms`,
+     one thread doing the longest segment's dependent f64 adds from
+     registers (the chain that bounds a global rollup); the card's name
+     and power limit; then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Every comparison has tolerance 0: the kernels are built with --fmad=false
 and compute what the plain versions compute.  App texts, the tape and the
@@ -290,16 +296,22 @@ def graph_ms(torch, call, prepare, reps: int = 20) -> tuple:
     return start.elapsed_time(end) / reps, host_ms
 
 
-def event_ms(torch, fn, reps: int = 20) -> float:
-    """Device ms per eager call of `fn` between CUDA events, for a call
-    that synchronises inside (and so cannot be captured in a graph)."""
+def library_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call of the PyTorch call `fn` (a yardstick, used
+    nowhere in the port), timed as the kernels are: `reps` calls captured
+    in one CUDA graph, replayed between CUDA events."""
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -677,8 +689,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
             "ms": ms, "dispatch_ms": host,
             "bytes": nbytes(*[c[1] for c in cols]) + 4 * L * F * len(cols),
             "ops": L * F * len(cols),
-            "library_ms": event_ms(torch, lambda: torch.cumsum(stacked,
-                                                               dim=2)),
+            "library_ms": library_ms(torch, lambda: torch.cumsum(stacked,
+                                                                 dim=2)),
             "plain_ms": wall_ms(torch, lambda: win_scan_plain(
                 cols, L * F, period=F))}
         # K3 rank trees: the rank columns and lane counts read once, every
@@ -710,8 +722,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
             "ms": ms, "dispatch_ms": host,
             "bytes": nbytes(*[c[3] for c in cols]) + 4 * L * F * len(cols),
             "ops": L * F * len(cols),
-            "library_ms": event_ms(torch, lambda: torch.cummax(masked,
-                                                               dim=2)),
+            "library_ms": library_ms(torch, lambda: torch.cummax(masked,
+                                                                 dim=2)),
             "plain_ms": wall_ms(torch, lambda: win_scan_plain(
                 cols, L * F, period=F))}
     # K4: grids, masks, VM columns, trees, ranks and prev pointers read
@@ -738,7 +750,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     # K5: status, candidates, presence, indices, seq/ts grids, ranks and
     # rank trees, the captured columns and the lanes' dedup seqs read once,
     # the n match rows written once; the library yardstick is
-    # torch.nonzero of the candidate mask
+    # torch.nonzero_static of the candidate mask (nonzero's capturable
+    # form: the count taken beforehand; it builds the index list only)
     row_cols = {src[1] for srcs_ in kern.rows.values() for src in srcs_
                 if src[0] in ("col", "cnt")}
     k5_bytes = nbytes(status, idx, cand, pres, ev["__flat.__seq__"],
@@ -747,7 +760,9 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     k5_bytes += n * (4 * out["out_i"].shape[0] + 4 * out["out_f"].shape[0] +
                      8 * out["out_l"].shape[0]) + 8 + 8 * L
     candm = cand.view(-1) != 0
-    lib_ms = event_ms(torch, lambda: torch.nonzero(candm))
+    ncand = int(candm.sum())
+    lib_ms = library_ms(torch, lambda: torch.nonzero_static(candm,
+                                                            size=ncand))
     ms, host = graph_ms(torch, lambda: scan_compact(kern, ev, chase, ranks,
                                                     rheaps, M),
                         lambda: [k5.prepare(kern, ev, chase, ranks, rheaps,
@@ -1357,6 +1372,37 @@ def window_work(name: str, a: tuple, kw: dict, out) -> tuple:
     return nbytes(*distinct(*[c[:n] for c in cols], mask), *outs, k), n
 
 
+def k6_library_ms(torch, a: tuple, kw: dict):
+    """K6's yardsticks on one call: torch.cumsum along the entries of the
+    call's own columns, masked and stacked beforehand ((columns, n) f64),
+    so that it does the same scan work; and that work as PyTorch does it
+    fastest (`flat`): one 1-D cumsum of the stacked entries, then each
+    later column less the total before it (the same sums on exact data;
+    two calls).  (None, None) where no PyTorch call computes the call
+    (segment starts, or a min or max column)."""
+    cols, n = a[0], a[1]
+    valid, flags = (list(a[2:]) + [kw.get("valid"), kw.get("flags")])[:2]
+    if flags is not None or kw.get("period") or \
+            any(op != "sum" for op, *_ in cols):
+        return None, None
+    rows = []
+    for _op, values, masked, *own in cols:
+        x = torch.ones(n, dtype=torch.float64, device="cuda") \
+            if values is None else values[:n].double()
+        vc = own[0] if own else valid
+        if masked and vc is not None:
+            x = torch.where(vc[:n], x, torch.zeros_like(x))
+        rows.append(x)
+    stacked = torch.stack(rows)
+    flat = stacked.flatten()
+
+    def flat_scan():
+        s = torch.cumsum(flat, 0).view(len(rows), n)
+        return torch.sub(s[1:], s[:-1, -1:])
+    return (library_ms(torch, lambda: torch.cumsum(stacked, dim=1)),
+            library_ms(torch, flat_scan))
+
+
 def window_kernel_metrics(torch, calls) -> dict:
     """Device, dispatch, plain and library time, bytes and operations of
     each window kernel (and K1 use) on its largest recorded call."""
@@ -1395,20 +1441,23 @@ def window_kernel_metrics(torch, calls) -> dict:
             mods[name].prepare(*a, **kw)])
         out = fn(*a, **kw)
         nb, ops = window_work(name, a, kw, out)
-        lib = None
+        lib = flat = None
         if name == "win_scan":
-            f64 = torch.zeros(a[1], dtype=torch.float64, device="cuda")
-            lib = event_ms(torch, lambda: torch.cumsum(f64, 0))
+            lib, flat = k6_library_ms(torch, a, kw)
         elif name == "win_compact":
             cols, _fills, n = a[:3]
             mask = a[4] if len(a) > 4 else kw.get("mask")
             keep = torch.ones(n, dtype=torch.bool, device="cuda") \
                 if mask is None else unpack_mask(mask, n)
-            lib = event_ms(torch, lambda: [c.index_select(
-                0, torch.nonzero(keep).flatten()) for c in cols])
+            k = int(keep.sum())
+            lib = library_ms(torch, lambda: [c.index_select(
+                0, torch.nonzero_static(keep, size=k).flatten())
+                for c in cols])
         res[key] = {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
                     "library_ms": lib, "n": size[name](a, kw),
                     "plain_ms": wall_ms(torch, lambda: plain(*a, **kw))}
+        if flat is not None:
+            res[key]["library_flat_ms"] = flat
     return res
 
 
@@ -1693,9 +1742,14 @@ def agg_kernel_metrics(torch, calls) -> dict:
                             device=s_.device).scatter_reduce_(
             0, idx, s_, kind, include_self=False)
             for kind, s_, idx in groups]
+    # the chain bound: one thread doing the longest segment's dependent
+    # adds from registers
+    probe = k10.chain_probe(chain, order.device)
+    chain_ms, _host = graph_ms(torch, probe, lambda: [probe])
     return {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
-            "f64": True, "chain": chain, "n": n, "m": m,
-            "plain_ms": plain_ms, "library_ms": event_ms(torch, library)}
+            "f64": True, "chain": chain, "chain_ms": chain_ms, "n": n,
+            "m": m, "plain_ms": plain_ms,
+            "library_ms": library_ms(torch, library)}
 
 
 def phase_agg(torch, np, label: str, flushes: int, batch: int,
@@ -1777,11 +1831,15 @@ def phase_agg(torch, np, label: str, flushes: int, batch: int,
 
 def kernel_entry(name, source, replaces, launches, err, m) -> dict:
     bound_ms, by = bound(m["bytes"], m["ops"], m.get("f64", False))
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": m["ms"], "dispatch_ms": m["dispatch_ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": m["library_ms"]}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": m["ms"], "dispatch_ms": m["dispatch_ms"],
+             "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+             "bound_by": by, "library_ms": m["library_ms"]}
+    for extra in ("chain_ms", "library_flat_ms"):
+        if extra in m:
+            entry[extra] = m[extra]
+    return entry
 
 
 def check_rows(label: str, dev_out: list, ref_out: list) -> None:
@@ -2129,9 +2187,13 @@ def main() -> int:
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
             f", library {e['library_ms']:.4f} ms"
+        chain = "" if "chain_ms" not in e else \
+            f", chain {e['chain_ms']:.4f} ms ({m['chain']} adds)"
+        if "library_flat_ms" in e:
+            lib += f" (flat 1-D scan {e['library_flat_ms']:.4f} ms)"
         log(f"  {e['name']}: device {e['ms']:.4f} ms, host dispatch "
             f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
-            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}, "
+            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}{chain}, "
             f"{e['launches']} launches")
     for label, ph, names in (
             (f"the C3 flat block (Lt={c3b['Lt']})", c3b,

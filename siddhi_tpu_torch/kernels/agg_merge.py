@@ -23,10 +23,23 @@ min/max follow jnp.minimum / jnp.maximum (K6's `jmin`/`jmax`, MinF/MaxF
 of csrc/win_scan.cuh): NaN propagates, -0.0 is below +0.0 whichever side
 it is on.
 
-Design (csrc/agg_merge.cu): one thread per segment walks its events in
-order for every base (a serial fold: no atomics, no tree), the per-base
-op and row in a device table per launch.  Bound on the H100: bytes, or the
-longest segment's chain of dependent adds (a global rollup's hour bucket).
+Design (csrc/agg_merge.cu): two warps per segment, one for the sums and
+counts, one for min/max, each walking the segment in chunks of 512, 128
+or 32 events (chosen at launch from the mean segment length, as far as
+the stage fits in shared memory), `order` loaded two chunks ahead and
+the value rows its bases read staged one chunk ahead (cp.async into a
+double-buffered shared stage, one row per distinct value row); lane b of
+the sum warp folds base b in event order from the stage (every lane the
+same dependent add, no tree, no atomics); each lane of the min/max warp
+folds its own events of every chunk (any order gives the same value, NaN
+by `isnan`), and one butterfly of warp shuffles reduces them after the
+walk; counts are `hi - lo`; the merge with the ring row follows the
+walk.  Bases go in passes of 64, a launch each over every segment with a
+stage of its own bases' value rows only, so any number of bases fits.
+The per-base op, stage rows and the min/max list sit in a device table
+per launch.  Bound on the H100: bytes, or the longest segment's chain of
+dependent adds (a global rollup's hour bucket), which `chain_probe`
+measures.
 
 `agg_merge_plain` is the same function in torch: it steps k = 0, 1, ...
 and folds the k-th event of every segment that long in one vectorized op,
@@ -43,20 +56,23 @@ import math
 
 import torch
 
-from .build import load
+from .build import check, load
 from .table import DeviceTable, Launch, checked_ptr, stream_of
 from .win_scan import jmax, jmin
 
 OPS = {"sum": 0, "count": 1, "min": 2, "max": 3}
 VEC_MIN = 16        # segments left below which the plain fold goes to the host
+PASS = 64           # bases a pass over the segments (csrc/agg_merge.cu AG_PASS)
 
 
 class _Params(ctypes.Structure):
+    """One pass of at most PASS bases (csrc/agg_merge.cu AggParams)."""
     _fields_ = [("m", ctypes.c_longlong), ("n", ctypes.c_longlong),
-                ("nb", ctypes.c_int), ("pad_", ctypes.c_int)] + [
+                ("nb", ctypes.c_int), ("stride", ctypes.c_int),
+                ("ns", ctypes.c_int * 2), ("n_mm", ctypes.c_int)] + [
         (f, ctypes.c_void_p) for f in (
             "bases", "vals", "order", "seg_off", "slot", "fresh", "op",
-            "row")]
+            "sidx", "srow_sum", "srow_mm", "mm")]
 
 
 def _py_min(a: float, b: float) -> float:
@@ -138,6 +154,26 @@ def agg_merge_plain(bases: torch.Tensor, vals: torch.Tensor,
     return bases
 
 
+def stage_tables(ops: list, rows: list) -> list:
+    """The kernel's tables, one launch a pass of PASS bases: for each pass
+    its bases' ops, the stage rows of the sum warp and of the min/max warp
+    (each distinct value row one of the pass's bases reads), each base's
+    stage row in its warp's stage (`sidx`) and the pass's min/max bases
+    (`mm`, counted from the pass's first base)."""
+    out = []
+    for b0 in range(0, len(ops), PASS):
+        part = list(zip(ops[b0:b0 + PASS], rows[b0:b0 + PASS]))
+        srow = [sorted({r for op, r in part if op == "sum"}),
+                sorted({r for op, r in part if op in ("min", "max")})]
+        out.append({
+            "ops": [op for op, _r in part], "srow": srow,
+            "sidx": [0 if op == "count" else srow[op != "sum"].index(r)
+                     for op, r in part],
+            "mm": [b for b, (op, _r) in enumerate(part)
+                   if op in ("min", "max")]})
+    return out
+
+
 def prepare(bases: torch.Tensor, vals: torch.Tensor, order: torch.Tensor,
             seg_off: torch.Tensor, slot: torch.Tensor, fresh: torch.Tensor,
             ops: list, rows: list) -> Launch:
@@ -156,22 +192,29 @@ def prepare(bases: torch.Tensor, vals: torch.Tensor, order: torch.Tensor,
                          f"{tuple(seg_off.shape)}, {m} slots, {nb} bases")
     keep: list = []
     ptr = checked_ptr(keep, dev, "agg_merge")
-    p = _Params()
-    p.m, p.n, p.nb = m, vals.shape[1], nb
-    p.bases = ptr(bases, torch.float64)
-    p.vals = ptr(vals, torch.float64)
-    p.order = ptr(order, torch.int32)
-    p.seg_off = ptr(seg_off, torch.int32)
-    p.slot = ptr(slot, torch.int32)
-    p.fresh = ptr(fresh, torch.int32)
+    passes = stage_tables(ops, rows)
+    params = (_Params * max(1, len(passes)))()
     tab = DeviceTable()
-    tab.field(p, "op", [OPS[op] for op in ops] or [0], "i4")
-    tab.field(p, "row", [max(r, 0) for r in rows] or [0], "i4")
+    for q, (p, t) in enumerate(zip(params, passes)):
+        p.m, p.n, p.nb, p.stride = m, vals.shape[1], len(t["ops"]), nb
+        p.ns[0], p.ns[1] = len(t["srow"][0]), len(t["srow"][1])
+        p.n_mm = len(t["mm"])
+        p.bases = ptr(bases, torch.float64) + 8 * PASS * q
+        p.vals = ptr(vals, torch.float64)
+        p.order = ptr(order, torch.int32)
+        p.seg_off = ptr(seg_off, torch.int32)
+        p.slot = ptr(slot, torch.int32)
+        p.fresh = ptr(fresh, torch.int32)
+        tab.field(p, "op", [OPS[op] for op in t["ops"]], "i4")
+        tab.field(p, "sidx", t["sidx"], "i4")
+        tab.field(p, "srow_sum", t["srow"][0] or [0], "i4")
+        tab.field(p, "srow_mm", t["srow"][1] or [0], "i4")
+        tab.field(p, "mm", t["mm"] or [0], "i4")
     keep.append(tab.upload(dev))
     fn = load("agg_merge").agg_merge_launch
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
+    return Launch(lambda: fn(params, len(passes), stream_of(dev)),
                   "agg_merge_launch", "agg_merge", keep, bases)
 
 
@@ -185,3 +228,20 @@ def agg_merge(bases: torch.Tensor, vals: torch.Tensor, order: torch.Tensor,
                                rows)
     return prepare(bases, vals, order, seg_off, slot, fresh, ops, rows)()
 
+
+def chain_probe(n: int, device):
+    """A launch of the chain-bound probe (csrc/agg_merge.cu): one thread
+    doing `n` dependent f64 adds from registers, K10's bound at a segment
+    of n events.  Not on any path and not counted; returns a callable
+    that enqueues it on the current stream."""
+    out = torch.empty(1, dtype=torch.float64, device=device)
+    fn = load("agg_merge").agg_chain_probe_launch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        check(fn(n, 1.0, out.data_ptr(), stream_of(device)),
+              "agg_chain_probe_launch")
+        return out
+    return launch

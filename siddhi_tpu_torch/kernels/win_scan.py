@@ -23,12 +23,26 @@ that difference obeys); min/max keep the input dtype and follow
 one at every multiple of `period`.
 
 Design (csrc/win_scan.cu, combine in csrc/win_scan.cuh): the segmented
-pair (flag, value) combine; a three-phase block scan over 1024-entry
-tiles -- per-block totals, one block per column scanning the totals,
-per-block rescan.  Bound on the H100: bytes (each input read once, each
-output written once).  On data whose f64 prefixes are exact every fold
-order gives the same bits, so the kernel equals `win_scan_plain` (a
-log-step Hillis-Steele scan in torch) there with tolerance 0.
+pair (flag, value) combine; one single-pass kernel over 1024-entry tiles
+with a look-back over tile aggregates -- a block takes its tile from an
+atomic counter, stages its entries of every column in shared memory,
+scans them and publishes each column's aggregate (a 16-byte word of
+value and status); its carry is the nearest predecessor's aggregate where
+that tile holds a segment start, else one block scan over the aggregates
+of the earlier tiles of its window of 256 tiles, with the previous
+window's inclusive prefix (published by that window's last tile) in
+front where no start was met; all columns in one walk.  The launch clears
+that state (the tile counter, the words) with a memset before the
+kernel, so a CUDA graph can replay it.  Bound on the H100: bytes (each
+input read once, each output written once).  The association is fixed
+by the data, never by which tiles finished first, so a call gives the
+same bits on every run.  It is not a serial fold's nor `win_scan_plain`'s
+(a log-step Hillis-Steele scan in torch): where f64 rounds, the sums
+differ from `win_scan_plain`'s in the last bits, within the rounding
+bound of a sum; on data whose f64 prefixes are exact (the window, rank,
+prev and `agg` tapes: quarter-grid prices, counts and indices) every
+association gives the same bits, so the kernel equals `win_scan_plain`
+there with tolerance 0.
 
 The `scan` pattern family uses K6 on its (L, F) lane grid, flattened,
 with `period` = F (a segment per lane): `use="rank"` for the inclusive
@@ -65,10 +79,10 @@ I64_MIN = -2 ** 63
 
 class _Params(ctypes.Structure):
     _fields_ = [("n", ctypes.c_longlong), ("n_cols", ctypes.c_int),
-                ("nblocks", ctypes.c_int), ("period", ctypes.c_longlong)] + [
+                ("ntiles", ctypes.c_int), ("period", ctypes.c_longlong)] + [
         (f, ctypes.c_void_p) for f in (
             "valid", "flags", "in_", "out", "in_vt", "out_vt", "op",
-            "masked", "col_valid", "agg", "carry", "blk_flag")]
+            "masked", "col_valid", "scratch")]
 COUNTER = {"window": "win_scan", "rank": "win_scan:rank",
            "prev": "win_scan:prev", "agg": "win_scan:agg"}
 
@@ -172,7 +186,7 @@ def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
     ptr = checked_ptr(keep, dev, "win_scan")
     p = _Params()
     p.n, p.n_cols, p.period = n, len(cols), period
-    p.nblocks = max(1, -(-n // TILE))
+    p.ntiles = max(1, -(-n // TILE))
     if valid is not None:
         p.valid = ptr(valid, torch.bool)
     if flags is not None and period <= 0:
@@ -197,10 +211,12 @@ def prepare(cols: list, n: int, valid: Optional[torch.Tensor] = None,
                        ("col_valid", ptr(own[0], torch.bool) if own
                         else 0)):
             rows[key].append(v)
-    agg = torch.empty(len(cols) * p.nblocks, dtype=torch.int64, device=dev)
-    carry = torch.empty_like(agg)
-    blk_flag = torch.empty(p.nblocks, dtype=torch.uint8, device=dev)
-    p.agg, p.carry, p.blk_flag = ptr(agg), ptr(carry), ptr(blk_flag)
+    # the look-back state, cleared by each launch: the tile counter (two
+    # longs, keeping the words 16-byte aligned), then a (value, status) word
+    # per column and tile
+    scratch = torch.empty(2 + 2 * len(cols) * p.ntiles, dtype=torch.int64,
+                          device=dev)
+    p.scratch = ptr(scratch)
     tab = DeviceTable()
     for key, dt in (("in", "u8"), ("out", "u8"), ("in_vt", "i4"),
                     ("out_vt", "i4"), ("op", "i4"), ("masked", "i4"),

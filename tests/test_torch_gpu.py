@@ -10,8 +10,9 @@ the same match rows (sorted) as its plain version; K3-K5 (the `scan`
 family) must give the same heaps, chase results and match table as
 theirs on every block a run hands them; K6-K8 (the window kernels) the
 same scans, range reductions and compacted columns as theirs on data
-whose f64 prefixes are exact, and the window configs the CPU run's
-rows; K2's EXT instantiation (init slots, forks, absent logical sides)
+whose f64 prefixes are exact (and K6, on raw doubles, the same bits on
+every run, those of the emulation of its association), and the window
+configs the CPU run's rows; K2's EXT instantiation (init slots, forks, absent logical sides)
 the same state and rows as its plain version on the chip_smoke phase
 apps at A = 32, 64 and 256, after fork overflows and on timer ticks; K10 (`agg_merge`) the same ring as its plain version bit for bit
 (NaN and the sign of zero included), K6 use `agg` the same scans, and
@@ -736,7 +737,14 @@ def _win_inputs(cuda, n, seed):
             "rng": rng, "t": t}
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1025, 132_096])
+def _same_scans(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(b))
+        assert torch.equal(torch.isnan(a.double()), torch.isnan(b.double()))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1025, 132_096, (1 << 20) + 3])
 @pytest.mark.parametrize("segmented", [False, True])
 def test_win_scan_kernel_matches_plain(cuda, n, segmented):
     from siddhi_tpu_torch.kernels.win_scan import win_scan, win_scan_plain
@@ -751,10 +759,103 @@ def test_win_scan_kernel_matches_plain(cuda, n, segmented):
     want = win_scan_plain(cols, n, x["valid"], flags)
     torch.cuda.synchronize()
     assert LAUNCHES["win_scan"] == before + 1
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(
-            torch.nan_to_num(a), torch.nan_to_num(b))
-        assert torch.equal(torch.isnan(a.double()), torch.isnan(b.double()))
+    _same_scans(got, want)
+
+
+@pytest.mark.parametrize("case", ["tile_flags", "col_valid", "period322",
+                                  "period1500", "period_col_valid"])
+def test_win_scan_look_back_edges(cuda, case):
+    """K6's look-back against the plain version, tolerance 0: segment
+    starts on and around tile boundaries (a tile whose first entry starts
+    a segment takes no carry), all five ops masked by the shared and by
+    their own valid flags, and `period` mode (322: every tile holds a
+    start, 1500: some do not) with the pattern family's count and index
+    columns."""
+    from siddhi_tpu_torch.kernels.win_scan import TILE, win_scan, \
+        win_scan_plain
+    n = 40 * TILE + 77
+    x = _win_inputs(cuda, n, 11)
+    rng, t = x["rng"], x["t"]
+    own = [t(rng.random(n) < p) for p in (0.5, 0.97, 0.3)]
+    cols = [("sum", x["f64"], True), ("sum", x["i64"], True),
+            ("min", x["f32n"], True), ("max", x["f32n"], True),
+            ("max", x["i32"], True)]
+    flags = period = None
+    if case == "tile_flags":
+        f = np.zeros(n, bool)
+        f[[k * TILE + d for k in range(1, 40) for d in (-1, 0, 1)
+           if k % 3]] = True
+        f[::5 * TILE] = True
+        flags = t(f)
+    if case in ("col_valid", "period_col_valid"):
+        cols = [c + (own[i % 3],) for i, c in enumerate(cols)]
+    if case.startswith("period"):
+        period = 1500 if case == "period1500" else 322
+        cols += [("sum", own[0], False), ("sum", None, True, own[1]),
+                 ("max", None, True, own[2])]
+    kw = {"period": period} if period else {}
+    got = win_scan(cols, n, x["valid"], flags, **kw)
+    want = win_scan_plain(cols, n, x["valid"], flags, **kw)
+    torch.cuda.synchronize()
+    _same_scans(got, want)
+
+
+def test_win_scan_graph_replays_reset_the_look_back(cuda):
+    """One prepared K6 launch captured in a CUDA graph and replayed three
+    times over new inputs copied into the same tensors: each result equals
+    the plain version, so the launch clears the tile counter and status
+    words it left behind (a stale inclusive prefix would carry the last
+    replay's sums)."""
+    from siddhi_tpu_torch.kernels import win_scan as k6
+    n = 132_096
+    x = _win_inputs(cuda, n, 12)
+    vals, valid = x["f64"].clone(), x["valid"].clone()
+    cols = [("sum", None, True), ("sum", vals, True), ("max", vals, True)]
+    launch = k6.prepare(cols, n, valid)
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        launch()
+    for r in range(3):
+        y = _win_inputs(cuda, n, 100 + r)
+        vals.copy_(y["f64"] * (r + 1))
+        valid.copy_(y["valid"])
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_scans(launch.outputs, k6.win_scan_plain(cols, n, valid))
+
+
+@pytest.mark.parametrize("n", [4 * 1024 + 5, 301 * 1024 + 9, (1 << 20) + 3])
+def test_win_scan_repeats_its_bits_on_raw_doubles(cuda, n):
+    """K6's association depends on the data alone, never on which tiles
+    finished first: on raw doubles (where f64 sums round) five runs of one
+    call give the same bits, equal to the CPU emulation of the association
+    (tests/torch_k6_association.py) at 5 tiles, at 302 (two look-back
+    windows) and at 1025 (five), and within the rounding bound of the
+    plain version's sums (2 (i + 1) 2^-53 sum|v| at entry i)."""
+    from torch_k6_association import k6_emulate
+
+    from siddhi_tpu_torch.kernels.win_scan import win_scan, win_scan_plain
+    rng = np.random.default_rng(13)
+    v = torch.from_numpy(rng.uniform(-1, 1, n) * np.exp(rng.uniform(
+        -20, 20, n)))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    cols = [("sum", v, True), ("min", v, True), ("sum", None, True)]
+    dev = [(op, x.to(cuda) if x is not None else None, m)
+           for op, x, m in cols]
+    runs = [win_scan(dev, n, valid.to(cuda)) for _ in range(5)]
+    torch.cuda.synchronize()
+    bits = [[c.cpu().view(torch.int64) for c in r] for r in runs]
+    emulated = [c.view(torch.int64) for c in k6_emulate(cols, n, valid)]
+    for r in bits:
+        assert all(torch.equal(a, b) for a, b in zip(r, emulated))
+    first = [c.cpu() for c in runs[0]]
+    want = win_scan_plain(cols, n, valid)
+    bound = 2 * torch.arange(1, n + 1) * 2.0 ** -53 * torch.cumsum(
+        torch.where(valid, v.abs(), torch.zeros_like(v)), 0)
+    assert bool(((first[0] - want[0]).abs() <= bound).all())
+    _same_scans(first[1:], want[1:])
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -943,7 +1044,7 @@ def test_join_probe_kernel_matches_plain(cuda, M, outer):
         assert same(None if g is None else g.cpu(), w)
 
 
-def _agg_segments(rng, lens, dev):
+def _agg_segments(rng, lens, dev, nrows=2, nb=7):
     """K10 inputs: segments of the given lengths over shuffled events (each
     in increasing event order), value rows with NaN and signed zeros, a
     ring with a pre-state, distinct slots, fresh flags."""
@@ -952,34 +1053,62 @@ def _agg_segments(rng, lens, dev):
     off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     order = np.concatenate([np.sort(perm[off[i]:off[i + 1]])
                             for i in range(m)]).astype(np.int32)
-    vals = rng.uniform(-1, 1, (2, n)) * np.exp(rng.uniform(-30, 30, (2, n)))
+    vals = rng.uniform(-1, 1, (nrows, n)) * \
+        np.exp(rng.uniform(-30, 30, (nrows, n)))
     vals[0, rng.integers(0, n, 3)] = np.nan
     vals[1, rng.integers(0, n, 5)] = -0.0
     vals[1, rng.integers(0, n, 5)] = 0.0
     cap = 2 * m
-    pre = rng.uniform(-5, 5, (cap, 7))
+    pre = rng.uniform(-5, 5, (cap, nb))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     return (t(pre), t(vals), t(order), t(off),
             t(rng.permutation(cap)[:m].astype(np.int32)),
             t((rng.uniform(size=m) < 0.5).astype(np.int32)))
 
 
-@pytest.mark.parametrize("case", ["small", "mixed", "canary", "chain"])
+_AGG_EDGES = [31, 32, 33, 63, 64, 65, 255, 256, 257, 511, 512, 513, 1025]
+
+
+@pytest.mark.parametrize("case", ["small", "mixed", "canary", "chain",
+                                  "edges", "long_and_short", "nan_zero",
+                                  "nb40", "nb70", "nb400"])
 def test_agg_merge_kernel_matches_plain(cuda, case):
     """K10 against its plain version, tolerance 0 (NaN equal to NaN, the
     sign of zero compared too): random short segments, a mix of short and
-    long ones, the [1e16, 1, -1e16, 1] canary, and one segment of 2^17
-    events (a global rollup's hour bucket)."""
+    long ones, the [1e16, 1, -1e16, 1] canary, one segment of 2^17 events
+    (a global rollup's hour bucket), lengths on both sides of the warp and
+    of the 256-event chunk, four 2^15-event segments beside 2000 short
+    ones, an all-NaN and an only-+-0.0 segment, and 40, 70 and 400 bases
+    (two lanes' worth; a second pass over each segment on 70 value rows,
+    whose stage no longer fits 256-event chunks; seven passes on 400
+    value rows, 160 of them min/max rows, more than one stage of all the
+    rows would fit in shared memory)."""
     from siddhi_tpu_torch.kernels.agg_merge import agg_merge, agg_merge_plain
     rng = np.random.default_rng(5)
     lens = {"small": [1, 3, 2, 7, 1] * 500, "mixed": [3] * 2000 + [40, 900],
-            "canary": [4], "chain": [1 << 17]}[case]
-    pre, vals, order, off, slot, fresh = _agg_segments(rng, lens, cuda)
+            "canary": [4], "chain": [1 << 17], "edges": _AGG_EDGES,
+            "long_and_short": [1 << 15] * 4 + [3] * 2000,
+            "nan_zero": [40, 300, 5]}.get(case, _AGG_EDGES + [7, 1])
+    ops = ["sum", "count", "min", "max", "sum", "min", "max"]
+    rows = [0, -1, 1, 0, 1, 0, 1]
+    nrows = 2
+    if case.startswith("nb"):
+        nb = int(case[2:])
+        nrows = 20 if nb == 40 else nb
+        kinds = ["sum", "min", "sum", "max", "count"]
+        ops = [kinds[b % 5] for b in range(nb)]
+        rows = [-1 if op == "count" else b % nrows
+                for b, op in enumerate(ops)]
+    pre, vals, order, off, slot, fresh = _agg_segments(
+        rng, lens, cuda, nrows, len(ops))
     if case == "canary":
         vals[0] = torch.tensor([1e16, 1.0, -1e16, 1.0], dtype=torch.float64)
         order = torch.arange(4, dtype=torch.int32, device=cuda)
-    ops = ["sum", "count", "min", "max", "sum", "min", "max"]
-    rows = [0, -1, 1, 0, 1, 0, 1]
+    if case == "nan_zero":
+        seg0, seg1 = order[:40].long(), order[40:340].long()
+        vals[:, seg0] = float("nan")
+        zeros = torch.from_numpy(np.where(rng.random(300) < 0.5, -0.0, 0.0))
+        vals[:, seg1] = zeros.to(cuda)
     before = LAUNCHES["agg_merge"]
     got = agg_merge(pre.clone(), vals, order, off, slot, fresh, ops, rows)
     want = agg_merge_plain(pre.clone(), vals, order, off, slot, fresh, ops,
@@ -993,6 +1122,44 @@ def test_agg_merge_kernel_matches_plain(cuda, case):
         s = int(slot[0])
         assert float(got[s, 0]) == (1.0 if int(fresh[0]) else
                                     float(pre[s, 0]) + 1.0)
+    if case == "nan_zero":
+        s0, s1 = int(slot[0]), int(slot[1])
+        assert bool(torch.isnan(got[s0, [0, 2, 3]]).all())
+        if int(fresh[1]):
+            assert got[s1, 0] == 0 and got[s1, 2] == 0 and got[s1, 3] == 0
+
+
+def test_agg_merge_graph_time_under_the_chain(cuda):
+    """The chain probe (one thread, 2^17 dependent f64 adds) runs and
+    returns the exact sum, and K10 on one 2^17-event segment takes at most
+    twice the probe's time in a CUDA graph: the design keeps only the
+    ordered add on the chain."""
+    from siddhi_tpu_torch.kernels import agg_merge as k10
+    n = 1 << 17
+    probe = k10.chain_probe(n, cuda)
+    assert float(probe()[0]) == float(n)
+    rng = np.random.default_rng(6)
+    pre, vals, order, off, slot, fresh = _agg_segments(rng, [n], cuda)
+    ops = ["sum", "count", "min", "max", "sum", "min", "max"]
+    rows = [0, -1, 1, 0, 1, 0, 1]
+    launch = k10.prepare(pre, vals, order, off, slot, fresh, ops, rows)
+
+    def graph_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(5):
+                fn()
+        g.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 5
+    assert graph_ms(launch) <= 2 * graph_ms(probe)
 
 
 @pytest.mark.parametrize("n", [7, 4096, 131_072])
