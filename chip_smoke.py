@@ -32,7 +32,7 @@ Phases (any failure exits non-zero; nothing is caught):
      K1 on its filter program against the plain version;
   9. config 5 (bench.py's c5_app(1000): 1000 mixed pattern/sequence
      queries with `not ... for` and `within`, four fused plans of 250
-     lanes, families scan/seq/seq/scan): 4 flushes of 2^13 events 50 ms
+     lanes, families scan/seq/seq/scan): 2 flushes of 2^13 events 50 ms
      apart, then set_time 1 s past the last event, counted (K1-K5 all
      launched) and checked against the CPU run; a second run of the same
      app on the tape's first events leaves deadlines pending for
@@ -131,9 +131,9 @@ Phases (any failure exits non-zero; nothing is caught):
      run of the same tape;
  33. C3X, a capture-dependent conjunction (`e2=S[price > e1.price and
      volume > e1.volume]`), which `scan` refuses and which runs `chunk`
-     with no annotation: 2 flushes of 2^18;
+     with no annotation: 2 flushes of 2^17;
  34. C3E, `every` below the head (K2's EXT step in chunk lanes: forks),
-     `chunk` with no annotation: 2 flushes of 2^17; phases 32-34 each
+     `chunk` with no annotation: 2 flushes of 2^16; phases 32-34 each
      counted, recorded, rows equal to the CPU run in order, every block
      the plan kept equal to its plain version (K2 from fresh state, K1);
  35. C3SD, bench.py's static C3S under @app:patternFamily('dfa'): 2
@@ -147,7 +147,35 @@ Phases (any failure exits non-zero; nothing is caught):
      @app:patternFamily('dfa'): K11 over the (L, F) lane grid; phases 35
      and 36 each counted, recorded, every block's kernels (K11 and K4
      `dfa` included) equal to their plain versions;
- 21. (after 36) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 37. C4F64, the f64 slice at full width: C4's deployment (1000 keys,
+     deviceSlots(32), 4 flushes of 2^18 events 1 ms apart) under
+     @app:devicePrecision('f64') on raw doubles 1e-6 apart
+     (replay.raw_tape), its default `scan`: K3, K4 and K5 launched in
+     their float64 forms (`seg_tree:f64`, `scan_chase:f64`,
+     `scan_compact:f64`), K2 and the float32 forms not; rows equal to the
+     CPU run's; the same tape through C4 in float32 on the card gives
+     other rows; every recorded block's kernels equal to their plain
+     versions; events/s and ms per flush;
+ 38-42. at a smaller depth, each on a raw-double tape in f64, counted,
+     recorded, rows equal to the CPU run's in order, every recorded
+     block's kernels equal to their plain versions: C4 on `seq` (K2's
+     float64 chain instantiation, `nfa_block:f64`), C4F from
+     deviceSlots(4) (EXT, `nfa_block:ext:f64`, A grown after lost
+     clones), C4 `seq` at deviceSlots(256) (the wide instantiation, one
+     flush of 2^17), C3K (`nfa_block:chunk:f64`, 2 flushes of 2^16) and
+     C3SD (`dfa`, `scan_compact:f64`); K2 timed in each of the first
+     four, beside its float32 instantiation on the same block's shapes
+     (`f32_twin_ms`: the DOUBLE grids and capture rows cast to float32);
+ 43. C5's fused groups under f64 (c5_app(1000, frac=1e-6): the price
+     constants DOUBLE literals, float64 lane parameters), one flush of
+     2^13 raw-double events, then set_time: rows equal to the CPU run's,
+     every recorded K2 and `scan` block equal to its plain versions;
+ 44. C2 under f64 on wide-range raw doubles (replay.wide_tape), 2
+     flushes of 2^17: every row within the sum bound of the CPU run's
+     (K6's float64 sums associate otherwise), the number of rows that
+     differ logged; K1, K7, K8 equal to their plain versions on every
+     recorded call, K6's sums within the bound, its other columns equal;
+ 21. (after 44) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -178,11 +206,11 @@ sys.path.insert(0, ROOT)
 from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
     C1, C2, C2_GROUPED, C2B, C3, C3E, C3H, C3K, C3S, C3SD, C3X, C4, C4_HEAD,
     C4_SEQ, C4A, C4D, C4D_BODY, C4F, C4H, C4L_AND, C4L_OR, C4N, C4NS, C4O,
-    C4Z, JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, agg_rows, block_masks,
-    c5_app, check_agg_calls, check_chunk_block, check_dfa_block,
+    C4Z, F64, JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, RAW_STEP, agg_rows,
+    block_masks, c5_app, check_agg_calls, check_chunk_block, check_dfa_block,
     check_join_calls, join_tape, check_scan_block, check_seq_block,
     check_window_calls, make_tape, matrix_tape, max_err, partitioned,
-    scan_inputs, sorted_rows)
+    raw_tape, scan_inputs, sorted_rows, wide_tape)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -192,7 +220,7 @@ C2_FLUSH, C2_FLUSHES, C2_SYMBOLS = 1 << 17, 2, 8
 C2_TIMED = 8            # flushes of the timing run (the first is not steady)
 KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
 SEQ_FLUSHES, C3_FLUSHES = 2, 2
-C5_QUERIES, C5_FLUSH, C5_FLUSHES, C5_DT, C5_SYMBOLS = 1000, 1 << 13, 4, 50, 8
+C5_QUERIES, C5_FLUSH, C5_FLUSHES, C5_DT, C5_SYMBOLS = 1000, 1 << 13, 2, 50, 8
 # the pattern-algebra phases: (label, app, flushes, family, seed)
 # (label, app, flushes, family, seed, kernel uses it must launch beyond
 # its family's, the output column that must hold NULLs or None)
@@ -237,14 +265,33 @@ EXT_TIMED = ("c4h", "c4f", "c4l_or")   # K2 EXT's entries in the kernel line
 STATELESS = (
     ("c3k", "@app:deviceSlots(32)\n" + C3K, 1 << 17, 2, 8, 32, "chunk",
      C4_SEQ + C3),
-    ("c3x", "@app:deviceSlots(64)\n" + C3X, 1 << 18, 2, 8, 33, "chunk",
+    ("c3x", "@app:deviceSlots(64)\n" + C3X, 1 << 17, 2, 8, 33, "chunk",
      None),
-    ("c3e", "@app:deviceSlots(128)\n" + C3E, 1 << 17, 2, 8, 34, "chunk",
+    ("c3e", "@app:deviceSlots(128)\n" + C3E, 1 << 16, 2, 8, 34, "chunk",
      None),
     ("c3sd", C3SD, 1 << 18, 2, 8, 35, "dfa",
      "@app:patternFamily('scan')\n" + C3S),
     ("c4d", C4_HEAD + C4D, 1 << 18, 2, KEYS, 36, "dfa",
      C4_HEAD + partitioned(C4D_BODY)))
+# the f64 phases (@app:devicePrecision('f64'), replay.F64) at a smaller
+# depth than C4F64, each on a raw-double tape (replay.raw_tape): (label,
+# app, events a flush, flushes, keys, seed, the tape's (lo, levels),
+# family, the f64 kernel forms it must launch, K2 timed)
+F64_PHASES = (
+    ("c4 seq f64", F64 + C4_SEQ + C4_HEAD + C4, FLUSH, 2, KEYS, 38,
+     (100.0, 3), "seq", ("nfa_block:f64",), True),
+    ("c4f f64", F64 + "@app:partitionCapacity(1000)\n" + C4F, FLUSH, 2, KEYS,
+     39, (90.0, 40), "seq", ("nfa_block:ext:f64",), True),
+    ("c4 a256 f64", F64 + C4_SEQ + "@app:partitionCapacity(1000)\n"
+     "@app:deviceSlots(256)\n" + C4, FLUSH // 2, 1, KEYS, 40, (100.0, 3),
+     "seq", ("nfa_block:f64",), True),
+    ("c3k f64", F64 + "@app:deviceSlots(32)\n" + C3K, 1 << 16, 2, 8, 41,
+     (90.0, 40), "chunk", ("nfa_block:chunk:f64",), True),
+    ("c3sd f64", F64 + C3SD, 1 << 18, 2, 8, 42, (90.0, 40), "dfa",
+     ("dfa_tables", "scan_chase:dfa", "scan_compact:f64"), False))
+# the float32 forms no f64 phase may launch
+F32_FORMS = ("nfa_block", "nfa_block:ext", "nfa_block:chunk", "scan_compact")
+SCAN_F64_K = ("seg_tree:f64", "scan_chase:f64", "scan_compact:f64")
 CHUNK_K = ("nfa_block:chunk", "expr_eval:pre_mask", "expr_eval:select")
 DFA_K = ("dfa_tables", "scan_chase:dfa", "seg_tree", "scan_compact",
          "expr_eval:pre_mask", "expr_eval:select")
@@ -459,7 +506,7 @@ def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
     return out, per_flush, rt
 
 
-def run_c5(pkg, np, tape, device: str, record: bool = False):
+def run_c5(pkg, np, tape, device: str, record: bool = False, app=None):
     """Config 5 through the facade: the tape flush by flush, then
     `set_time` 1 s past its last event, launch counts from 0 just before
     the first flush and read just after `set_time`.  Returns (rows as
@@ -467,7 +514,8 @@ def run_c5(pkg, np, tape, device: str, record: bool = False):
     launches, runtime, recorded `seq` blocks, recorded `scan` blocks); a
     recorded block is what the plan handed NFAKernel.run_block (kernel,
     state in, event grid, M, meta) or ParallelChainKernel.run_block
-    (kernel, event grid, M), recording launching nothing."""
+    (kernel, event grid, M), recording launching nothing.  `app`
+    replaces c5_app(C5_QUERIES)."""
     import torch
     from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.core.nfa_device import NFAKernel
@@ -487,7 +535,7 @@ def run_c5(pkg, np, tape, device: str, record: bool = False):
         NFAKernel.run_block, ParallelChainKernel.run_block = rec_seq, rec_scan
     try:
         rt = pkg.SiddhiManager(device=device).create_app_runtime(
-            c5_app(C5_QUERIES))
+            app or c5_app(C5_QUERIES))
         batches = []
         for j in range(16):
             rt.add_batch_callback(f"Out{j}",
@@ -757,8 +805,9 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     k5_bytes = nbytes(status, idx, cand, pres, ev["__flat.__seq__"],
                       ev["__flat.__ts__"], ev["__prev_seq__"], *ranks,
                       *rheaps, *[ev[c] for c in row_cols])
-    k5_bytes += n * (4 * out["out_i"].shape[0] + 4 * out["out_f"].shape[0] +
-                     8 * out["out_l"].shape[0]) + 8 + 8 * L
+    k5_bytes += n * (4 * out["out_i"].shape[0] + out["out_f"].element_size()
+                     * out["out_f"].shape[0] + 8 * out["out_l"].shape[0]) + \
+        8 + 8 * L
     candm = cand.view(-1) != 0
     ncand = int(candm.sum())
     lib_ms = library_ms(torch, lambda: torch.nonzero_static(candm,
@@ -868,8 +917,8 @@ def phase_blocks(torch, blocks, label: str = "c4 seq",
     k2_bytes = sum(v.numel() * v.element_size() for v in tensors)
     k2_bytes += sum(w.numel() * 4 for w in pre if w is not None)
     k2_bytes += 2 * sum(v.numel() * v.element_size() for v in state.values())
-    k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) * 4 +
-                     len(kern.rows_l) * 8) + 16
+    k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) *
+                     out["out_f"].element_size() + len(kern.rows_l) * 8) + 16
     lanes = P if ev["__valid__"].shape[1] == 1 else 1
     k2_ops = int(ev["__valid__"].sum()) * kern.A * lanes
     ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
@@ -877,6 +926,9 @@ def phase_blocks(torch, blocks, label: str = "c4 seq",
                         reps=10)
     res["nfa_block"] = {"ms": ms, "dispatch_ms": host, "plain_ms": plain_ms,
                         "bytes": k2_bytes, "ops": k2_ops, "library_ms": None}
+    if kern.f64:
+        res["nfa_block"].update(f64=True, f32_twin_ms=k2_f32_twin_ms(
+            torch, kern, state, ev, M))
     return res
 
 
@@ -1127,8 +1179,8 @@ def phase_chunk_blocks(torch, blocks, label: str, cap: int,
     k2_bytes = sum(v.numel() * v.element_size() for v in tensors)
     k2_bytes += sum(w.numel() * 4 for w in pre if w is not None)
     k2_bytes += 2 * sum(v.numel() * v.element_size() for v in state.values())
-    k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) * 4 +
-                     len(kern.rows_l) * 8) + 20
+    k2_bytes += n * (len(kern.lane_names_i) * 4 + len(kern.rows_f) *
+                     out["out_f"].element_size() + len(kern.rows_l) * 8) + 20
     cells = sum(max(0, min(T, nev - lane * cs)) for lane in range(kern.P))
     ms, host = graph_ms(torch, lambda: nfa_block(kern, state, ev, pre, M),
                         lambda: [k2.prepare(kern, state, ev, pre, M)],
@@ -1138,7 +1190,31 @@ def phase_chunk_blocks(torch, blocks, label: str, cap: int,
     res["nfa_block:chunk"] = {"ms": ms, "dispatch_ms": host,
                               "plain_ms": plain_ms, "bytes": k2_bytes,
                               "ops": cells * kern.A, "library_ms": None}
+    if kern.f64:
+        res["nfa_block:chunk"].update(f64=True, f32_twin_ms=k2_f32_twin_ms(
+            torch, kern, state, ev, M))
     return res
+
+
+def k2_f32_twin_ms(torch, kern, state, ev, M) -> float:
+    """Device ms of K2's float32 instantiation on an f64 block's shapes:
+    the same chain with f64 off, its DOUBLE grids and capture rows cast
+    to float32 (other values, the same work), graph-timed as the f64
+    launch is."""
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.kernels import nfa_block as k2
+    twin = NFAKernel(kern.spec, kern.sel_fns, kern.having, kern.P, kern.A,
+                     kern.params, kern.broadcast, kern.playback, kern.E,
+                     kern.init_on_tick)
+    ev32 = {k: v.float() if torch.is_tensor(v) and v.dtype == torch.float64
+            else v for k, v in ev.items()}
+    st32 = dict(state, caps_f=state["caps_f"].float())
+    pre = twin.pre_masks(ev32)
+    ms, _host = graph_ms(torch, lambda: k2.nfa_block(twin, st32, ev32, pre,
+                                                     M),
+                         lambda: [k2.prepare(twin, st32, ev32, pre, M)],
+                         reps=10)
+    return ms
 
 
 def time_k3_k4(torch, kern, ev, pre, heaps, tables=None) -> dict:
@@ -1299,6 +1375,211 @@ def phase_stateless(torch, np, pkg, label: str, app: str, n: int,
         f"{blk['blocks']} blocks equal to plain")
     res.update({"events_per_s": eps, "blocks": blk})
     return res
+
+
+def phase_c4f64(torch, np, pkg) -> dict:
+    """Phase 37: the slice at full width -- C4's deployment (1000 keys,
+    deviceSlots(32), 4 flushes of 2^18 events 1 ms apart) under
+    @app:devicePrecision('f64') on the raw-double tape, its default
+    `scan` family: K3, K4 and K5 launched in their float64 forms (K2 and
+    the float32 forms of K5 not), rows equal to the CPU run's, every
+    recorded block's kernels equal to their plain versions, the last
+    block timed; the same tape through C4 in float32 on the card gives
+    other rows (the phase tests precision)."""
+    app = F64 + C4_HEAD + C4
+    tape = raw_tape(FLUSH * N_FLUSH, FLUSH, KEYS, seed=37)
+    rows, per_flush, launches, rt, blocks, _ = run_recorded(pkg, np, app,
+                                                             tape)
+    plan = rt.plans()[0]
+    if plan.family != "scan" or not plan.f64:
+        raise SystemExit(f"[c4f64] planned {plan.family!r} (f64 "
+                         f"{plan.f64}), expected `scan` in f64")
+    need_launches("c4f64", launches,
+                  SCAN_F64_K + ("expr_eval:pre_mask", "expr_eval:select"),
+                  F32_FORMS + ("nfa_block:f64", "seg_tree", "scan_chase"))
+    ref, cpu_flush, _rt = run_app(pkg, np, app, tape, KEYS, "cpu")
+    if rows != ref:
+        raise SystemExit(f"[c4f64] rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    check_rows("C4F64", rows, ref)
+    f32_rows, f32_flush, _rt = run_app(pkg, np, C4_HEAD + C4, tape, KEYS,
+                                       "cuda")
+    if sorted(f32_rows) == sorted(rows):
+        raise SystemExit("[c4f64] float32 gives the f64 rows: the tape does "
+                         "not test precision")
+    blk = phase_scan_blocks(torch, blocks, "c4f64")
+    for key in ("seg_tree", "scan_chase", "scan_compact"):
+        blk[key]["f64"] = True
+    steady = per_flush[1:]
+    eps = FLUSH / (sum(steady) / len(steady) / 1e3)
+    log(f"[c4f64] {len(rows)} rows equal to the CPU run (float32 on the "
+        f"card: {len(f32_rows)} rows, other values); family {plan.family}; "
+        f"launches { {k: v for k, v in launches.items() if v} }; per flush "
+        f"ms {[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}; float32 "
+        f"{[round(x, 1) for x in f32_flush]}); {eps:.0f} events/s; "
+        f"{blk['blocks']} blocks equal to plain")
+    return {"rows": len(rows), "f32_rows": len(f32_rows),
+            "ms_per_flush": per_flush, "cpu_ms_per_flush": cpu_flush,
+            "f32_ms_per_flush": f32_flush, "events_per_s": eps,
+            "flush_events": FLUSH, "launches": launches, "blocks": blk}
+
+
+def phase_f64(torch, np, pkg, label: str, app: str, n: int, flushes: int,
+              keys: int, seed: int, band: tuple, family: str, need,
+              timed: bool) -> dict:
+    """Phases 38-42: an f64 app at a smaller depth on a raw-double tape:
+    its family in f64, its float64 kernel forms launched and no float32
+    form of K2 or K5, rows equal to the CPU run's in order, every
+    recorded block's kernels equal to their plain versions (K2 timed on
+    the last when `timed`); C4F must grow A after clones without a free
+    slot, the A = 256 run must take the wide instantiation."""
+    tape = raw_tape(n * flushes, n, keys, seed=seed, lo=band[0],
+                    levels=band[1])
+    rows, per_flush, launches, rt, scan_b, seq_b = run_recorded(
+        pkg, np, app, tape, keys)
+    plan = rt.plans()[0]
+    if plan.family != family or not plan.f64:
+        raise SystemExit(f"[{label}] planned {plan.family!r} (f64 "
+                         f"{plan.f64}), expected {family!r} in f64")
+    unused = F32_FORMS + (() if family == "dfa" else
+                          ("seg_tree", "scan_chase") + SCAN_F64_K)
+    need_launches(label, launches, tuple(need) + ("expr_eval:pre_mask",
+                                                  "expr_eval:select"),
+                  unused)
+    ref, cpu_flush, _rt = run_app(pkg, np, app, tape, keys, "cpu")
+    if rows != ref or not rows:
+        raise SystemExit(f"[{label}] rows differ from the CPU run: "
+                         f"{len(rows)} vs {len(ref)}")
+    extra = ""
+    if family == "seq":
+        A = plan.kernel.A
+        if label == "c4f f64" and (A <= 4 or not plan.growths["forks"]):
+            raise SystemExit(f"[{label}] A={A}, growths {plan.growths}: no "
+                             f"growth after a fork overflow")
+        if label == "c4 a256 f64" and A <= 128:
+            raise SystemExit(f"[{label}] A={A}: not the wide instantiation")
+        blk = phase_blocks(torch, seq_b, label, timed_k2=timed)
+        extra = f"; A={A} growths {plan.growths}"
+    elif family == "chunk":
+        blk = phase_chunk_blocks(torch, seq_b, label, plan.A_CAP, timed)
+        extra = f"; K, CS, H, T = {plan.chunk_geometry}, A={plan._chunk_A}"
+    else:
+        err: dict = {}
+        for b, (kern, ev, M) in enumerate(scan_b):
+            e = check_dfa_block(kern, ev, M)
+            merge_err(err, e)
+            log(f"  [{label}] block {b}: matches={e['matches']}: "
+                f"{sorted(k for k in e if k != 'matches')} equal to their "
+                f"plain versions")
+        blk = {"blocks": len(scan_b), "err": err}
+    steady = per_flush[1:] or per_flush
+    eps = n / (sum(steady) / len(steady) / 1e3)
+    log(f"[{label}] {len(rows)} rows equal to the CPU run; family "
+        f"{plan.family}{extra}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; per flush ms "
+        f"{[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); {eps:.0f} events/s; "
+        f"{blk['blocks']} blocks equal to plain")
+    return {"rows": len(rows), "family": plan.family,
+            "ms_per_flush": per_flush, "cpu_ms_per_flush": cpu_flush,
+            "events_per_s": eps, "launches": launches, "blocks": blk}
+
+
+def phase_c5f64(torch, np, pkg) -> dict:
+    """Phase 43: config 5's fused groups under f64 (c5_app(1000) with its
+    price constants made DOUBLE literals, `frac` = 1e-6: float64 lane
+    parameters), one flush of 2^13 raw-double events 50 ms apart, then
+    set_time: K1 over f64 lane parameters, K2 f64, K3-K5 in their float64
+    forms launched; rows equal to the CPU run's; every recorded block's
+    kernels equal to their plain versions, the last `scan` block timed."""
+    app = F64 + c5_app(C5_QUERIES, frac=RAW_STEP)
+    tape = raw_tape(C5_FLUSH, C5_FLUSH, C5_SYMBOLS, seed=43,
+                    dt_ms=C5_DT, lo=90.0, levels=40)
+    rows, per_flush, set_ms, launches, rt, seq_b, scan_b = run_c5(
+        pkg, np, tape, "cuda", record=True, app=app)
+    plans = rt.plans()
+    if [getattr(p, "n_queries", 0) for p in plans] != [250] * 4 or \
+            not all(p.inner.f64 for p in plans):
+        raise SystemExit(f"C5 f64 planned {[p.name for p in plans]}")
+    if not any(v.dtype == torch.float64 for p in plans
+               for v in p.inner.params.values):
+        raise SystemExit("C5 f64: no float64 lane parameter")
+    need_launches("C5 f64", launches, ("expr_eval:pre_mask",
+                                       "expr_eval:select", "nfa_block:f64")
+                  + SCAN_F64_K, F32_FORMS)
+    ref = run_c5(pkg, np, tape, "cpu", app=app)[0]
+    check_c5_rows("C5 f64", rows, ref)
+    k2 = phase_blocks(torch, seq_b, "c5 f64", timed_k2=False)
+    scan = phase_scan_blocks(torch, scan_b, "c5 f64")
+    log(f"[c5 f64] {len(rows)} rows equal to the CPU run; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; per flush ms "
+        f"{[round(x, 1) for x in per_flush]}, set_time {set_ms:.1f} ms; "
+        f"{k2['blocks']} K2 and {scan['blocks']} scan blocks equal to plain")
+    return {"rows": len(rows), "ms_per_flush": per_flush,
+            "set_time_ms": set_ms, "launches": launches, "k2": k2,
+            "scan": scan}
+
+
+def phase_c2f64(torch, np) -> dict:
+    """Phase 44: C2 under f64 on raw doubles over a wide range
+    (replay.wide_tape: signed, magnitudes e^-20 to e^20), 2 flushes of
+    2^17: the window path sums the raw doubles in f64, where K6's
+    association differs from the CPU run's plain scans.  Every row's `ap`
+    within the sum bound of the CPU run's (the prefix sums' rounding
+    bound of tests/test_torch_gpu.py, 2 (i + 1) 2^-53 sum|v| at entry i
+    of a step's N = C + T entries, taken at i = N for both prefixes of a
+    window, over the window's count, plus one rounding of the quotient);
+    K1, K7 and K8 equal to their plain versions on every recorded call,
+    K6's sums within that bound of theirs, its other columns equal."""
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import run_window
+    app = F64 + C2
+    tape = wide_tape(C2_FLUSH * C2_FLUSHES, C2_FLUSH, C2_SYMBOLS, seed=44)
+    calls: list = []
+    kernels.reset_launches()
+    rows, per_flush, rt = run_window(app, tape, "cuda", calls)
+    launches = dict(kernels.LAUNCHES)
+    ref, cpu_flush, _rt = run_window(app, tape, "cpu")
+    plan = rt.plans()[0]
+    if not plan.f64:
+        raise SystemExit("[c2 f64] the window plan is not in f64")
+    need_launches("c2 f64", launches, (
+        "expr_eval:window_args", "expr_eval:window_select", "win_scan",
+        "win_range", "win_compact"))
+    if [t for t, _r in rows] != [t for t, _r in ref] or not rows:
+        raise SystemExit(f"[c2 f64] rows differ from the CPU run in number "
+                         f"or order: {len(rows)} vs {len(ref)}")
+    got = np.array([r[0] for _t, r in rows])
+    want = np.array([r[0] for _t, r in ref])
+    p = np.abs(np.concatenate([f["price"] for f in tape]))
+    n_call = plan.C + C2_FLUSH
+    flush_of = np.arange(len(p)) // C2_FLUSH
+    per = np.array([p[max(0, (f - 1) * C2_FLUSH):(f + 1) * C2_FLUSH].sum()
+                    for f in range(C2_FLUSHES)])
+    count = np.minimum(np.arange(1, len(p) + 1), 1000)
+    bound = 4 * n_call * 2.0 ** -53 * per[flush_of] / count + \
+        2.0 ** -52 * np.abs(want)
+    diff = np.abs(got - want)
+    if len(got) != len(p) or not bool((diff <= bound).all()):
+        raise SystemExit(f"[c2 f64] ap outside the sum bound: "
+                         f"{int((diff > bound).sum())} rows")
+    differ = int((got != want).sum())
+    err = check_window_calls(calls, raw_sums=True)
+    log(f"[c2 f64] {len(rows)} rows within the sum bound of the CPU run's, "
+        f"{differ} differ (largest |diff| {float(diff.max()):.6g}, largest "
+        f"|diff| / bound {float((diff / bound).max()):.6g}, median bound "
+        f"{float(np.median(bound)):.6g}); C={plan.C}; launches {launches}; "
+        f"ms per flush {[round(x, 1) for x in per_flush]} (cpu "
+        f"{[round(x) for x in cpu_flush]}); {len(calls)} kernel calls: "
+        f"{sorted(err)} equal to their plain versions (K6 sums within "
+        f"the bound, largest |diff| {err.get('win_scan:f64_sum', 0.0):.6g})")
+    return {"rows": len(rows), "differ": differ,
+            "max_abs_diff": float(diff.max()),
+            "max_diff_over_bound": float((diff / bound).max()),
+            "median_bound": float(np.median(bound)),
+            "ms_per_flush": per_flush, "cpu_ms_per_flush": cpu_flush,
+            "launches": launches, "err": err, "C": plan.C}
 
 
 def phase_c1(torch, np, pkg) -> dict:
@@ -1836,7 +2117,7 @@ def kernel_entry(name, source, replaces, launches, err, m) -> dict:
              "ms": m["ms"], "dispatch_ms": m["dispatch_ms"],
              "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
              "bound_by": by, "library_ms": m["library_ms"]}
-    for extra in ("chain_ms", "library_flat_ms"):
+    for extra in ("chain_ms", "library_flat_ms", "f32_twin_ms"):
         if extra in m:
             entry[extra] = m[extra]
     return entry
@@ -2035,6 +2316,27 @@ def main() -> int:
                                     keys, seed, family, cmp_app)
         log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
 
+    # 37-44. @app:devicePrecision('f64'): C4F64 at full width (`scan`,
+    #        K3-K5 in float64), then at a smaller depth C4 on `seq`, C4F
+    #        (EXT), C4 at A = 256 (wide), C3K (`chunk`), C3SD (`dfa`), C5's
+    #        fused groups (float64 lane parameters) and C2's window on
+    #        wide-range raw doubles
+    t0 = time.perf_counter()
+    f64 = {"c4f64": phase_c4f64(torch, np, pkg)}
+    log(f"[c4f64 phase] {time.perf_counter() - t0:.1f} s")
+    for label, app, n, flushes, keys, seed, band, family, need, timed in \
+            F64_PHASES:
+        t0 = time.perf_counter()
+        f64[label] = phase_f64(torch, np, pkg, label, app, n, flushes, keys,
+                               seed, band, family, need, timed)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f64["c5 f64"] = phase_c5f64(torch, np, pkg)
+    log(f"[c5 f64 phase] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f64["c2 f64"] = phase_c2f64(torch, np)
+    log(f"[c2 f64 phase] {time.perf_counter() - t0:.1f} s")
+
     # 21. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
     win = "siddhi_tpu/core/window_device.py"
@@ -2183,6 +2485,43 @@ def main() -> int:
             entries.append((what, f"{CSRC}/{src}", f"{PAR}:{line}",
                             sl[label]["launches"][key], e_,
                             sl[label]["blocks"][key]))
+    # the float64 forms (@app:devicePrecision('f64'), nfa_device.py:404-426
+    # and the f64 ParallelChainKernel, nfa_parallel.py:624)
+    c4f64 = f64["c4f64"]["blocks"]
+    for key, what, src, line in (
+            ("seg_tree", "seg_tree:f64", "seg_tree.cu", f"{PAR}:499"),
+            ("scan_chase", "scan_chase:f64", "scan_chase.cu", f"{PAR}:796"),
+            ("scan_compact", "scan_compact:f64", "scan_compact.cu",
+             f"{PAR}:1165"),
+            ("select", "expr_eval:select (f64)", None, f"{nfa_dev}:1619")):
+        entries.append((what, K1_SRC if src is None else f"{CSRC}/{src}",
+                        line, f64["c4f64"]["launches"][
+                            "expr_eval:select" if src is None else what],
+                        c4f64["err"].get(
+                            "expr_eval:select" if src is None else key, 0.0),
+                        c4f64[key]))
+    k2f_err = max([f64[x]["blocks"]["err"].get("nfa_block", 0.0)
+                   for x in ("c4 seq f64", "c4f f64", "c4 a256 f64",
+                             "c3k f64")] +
+                  [f64["c5 f64"]["k2"]["err"].get("nfa_block", 0.0)])
+    for label, what, use, key, line in (
+            ("c4 seq f64", "nfa_block:f64", "nfa_block:f64", "nfa_block",
+             f"{nfa_dev}:1560"),
+            ("c4f f64", "nfa_block:ext:f64 (stream fork)",
+             "nfa_block:ext:f64", "nfa_block", f"{nfa_dev}:1004"),
+            ("c4 a256 f64", "nfa_block:f64 (wide, A = 256)",
+             "nfa_block:f64", "nfa_block", f"{nfa_dev}:1560"),
+            ("c3k f64", "nfa_block:chunk:f64", "nfa_block:chunk:f64",
+             "nfa_block:chunk", f"{plan_py}:886")):
+        entries.append((what, f"{CSRC}/nfa_block.cuh", line,
+                        f64[label]["launches"][use], k2f_err,
+                        f64[label]["blocks"][key]))
+    entries.append(("expr_eval:pre_mask (f64 lane params)", K1_SRC,
+                    "siddhi_tpu/core/multi_query.py:215",
+                    f64["c5 f64"]["launches"]["expr_eval:pre_mask"],
+                    f64["c5 f64"]["scan"]["err"].get(
+                        "expr_eval:pre_mask", 0.0),
+                    f64["c5 f64"]["scan"]["pre_mask"]))
     res = {"kernels": [kernel_entry(*e) for e in entries]}
     for e, (*_rest, m) in zip(res["kernels"], entries):
         lib = "" if e["library_ms"] is None else \
@@ -2191,6 +2530,8 @@ def main() -> int:
             f", chain {e['chain_ms']:.4f} ms ({m['chain']} adds)"
         if "library_flat_ms" in e:
             lib += f" (flat 1-D scan {e['library_flat_ms']:.4f} ms)"
+        if "f32_twin_ms" in e:
+            lib += f", float32 on its shapes {e['f32_twin_ms']:.4f} ms"
         log(f"  {e['name']}: device {e['ms']:.4f} ms, host dispatch "
             f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
             f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}{chain}, "
@@ -2233,7 +2574,7 @@ def main() -> int:
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
               "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
-              **alg, **joins, **aggs, **ext, **sl}
+              **alg, **joins, **aggs, **ext, **sl, **f64}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

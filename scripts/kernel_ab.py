@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of K2 (`nfa_block`), K6 (`win_scan`) and K10
-(`agg_merge`) on the calls their main paths make, checkout by checkout.
+"""Device times of K2 (`nfa_block`), K5 (`scan_compact`), K6 (`win_scan`)
+and K10 (`agg_merge`) on the calls their main paths make, checkout by
+checkout.
 
     python3 scripts/kernel_ab.py ROOT [ROOT ...]
 
@@ -9,8 +10,9 @@ siddhi_tpu_torch) in a subprocess of its own, in the order given (repeat
 them to interleave, e.g. parent, change, change, parent, so that a drift
 of the card shows).  Each run builds that checkout's kernels and drives
 chip_smoke.py's phases through its own facade on the card, recording what
-the plans hand the kernels: C4 under @app:patternFamily('seq') (2
-flushes of 2^18 events over 1000 keys) and config 5 (c5_app(1000), 4
+the plans hand the kernels: C4 under @app:patternFamily('seq') and at
+its default `scan` (2 flushes of 2^18 events over 1000 keys each) and
+config 5 (c5_app(1000), 4
 flushes of 2^13 events 50 ms apart, then set_time), C2 (2 flushes of
 2^17 events), C4N and C4A (4 and 2 flushes of 2^18), A7 (24 flushes of
 4096 events over 1024 keys), A7W and A7G (4 flushes of 2^17, A7G without
@@ -18,6 +20,7 @@ flushes of 2^13 events 50 ms apart, then set_time), C2 (2 flushes of
 @app:deviceAggregations('always')).  It then times the call chip_smoke.py
 times for each kernel use: K2 on the last accepted C4 `seq` block that
 is not a timer tick and on config 5's widest block of its absent group;
+K5 on the last C4 `scan` block (its chase from K4's plain version);
 K6 on C2's widest window call (`window`), on the last C4N block's rank
 columns (`rank`), on the last C4A block's prev columns (`prev`) and on
 A7A's widest call (`agg`); K10 on the widest call of A7, A7W and A7G (on
@@ -43,7 +46,10 @@ def one(root: str) -> dict:
     from siddhi_tpu_torch.kernels import agg_merge as k10
     from siddhi_tpu_torch.kernels import build
     from siddhi_tpu_torch.kernels import nfa_block as k2
+    from siddhi_tpu_torch.kernels import scan_compact as k5
     from siddhi_tpu_torch.kernels import win_scan as k6
+    from siddhi_tpu_torch.kernels.scan_chase import scan_chase_plain
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree
     from siddhi_tpu_torch.replay import (MATRIX_APP, matrix_tape, run_agg,
                                          run_window)
     build.build_all()
@@ -67,8 +73,18 @@ def one(root: str) -> dict:
     tape = cs.make_tape(cs.FLUSH * cs.SEQ_FLUSHES, cs.FLUSH, cs.KEYS)
     out["k2_c4_seq"] = k2_ms(cs.run_recorded(
         pkg, np, cs.C4_SEQ + cs.C4_HEAD + cs.C4, tape)[5])
-    tape = cs.make_tape(cs.C5_FLUSH * cs.C5_FLUSHES, cs.C5_FLUSH,
-                        cs.C5_SYMBOLS, seed=5, dt_ms=cs.C5_DT)
+    kern, ev, m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
+    pre = kern.pre_masks(ev)
+    masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
+    heaps = seg_tree(kern, ev, pre)
+    rheaps = seg_tree(kern, ev, pre, kern.rank_trees, rcols) if ranks \
+        else []
+    chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps, prevs)
+    out["k5_c4"] = best(
+        lambda: k5.scan_compact(kern, ev, chase, ranks, rheaps, m),
+        lambda: [k5.prepare(kern, ev, chase, ranks, rheaps, m)])
+    tape = cs.make_tape(cs.C5_FLUSH * 4, cs.C5_FLUSH, cs.C5_SYMBOLS,
+                        seed=5, dt_ms=cs.C5_DT)
     c5 = cs.run_c5(pkg, np, tape, "cuda", record=True)[5]
     out["k2_c5"] = k2_ms(sorted(c5, key=lambda b: (
         b[0].has_absent, b[2]["__ts__"].shape[0])))

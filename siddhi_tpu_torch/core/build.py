@@ -22,6 +22,9 @@ since the host matcher is a later slice.  `@app:deviceJoins`: 'auto'
 and 'always' plan the device join; a shape it refuses raises PlanError
 with the refusal's reason (under 'always' with the JAX package's
 message), and 'never' raises, since the host join is a later slice.
+`@app:durability` (but 'off') and `@app:strictAnalysis` raise PlanError:
+the write-ahead log and the deploy-time analysis they ask for are later
+slices, and an app must not run as if it had them.
 Every other construct raises PlanError naming the slice it belongs to.
 """
 from __future__ import annotations
@@ -43,6 +46,18 @@ def build_app(rt) -> None:
                        ("script functions", app.function_definitions)):
         if defs:
             raise PlanError(f"{what}: {_LATER}")
+    # promises the JAX runtime keeps and the port cannot yet: a
+    # write-ahead log of admitted frames (siddhi_tpu/core/runtime.py:262;
+    # 'off' promises none) and the deploy-time analysis that refuses a
+    # failing app (:411)
+    dur = ast.find_annotation(app.annotations, "app:durability")
+    policy = None if dur is None else str(dur.element() or "batch").lower()
+    if policy not in (None, "off"):
+        raise PlanError(f"@app:durability({policy!r}) (the write-ahead log "
+                        f"of admitted frames) {_LATER}")
+    if ast.find_annotation(app.annotations, "app:strictAnalysis") is not None:
+        raise PlanError(f"@app:strictAnalysis (the deploy-time static "
+                        f"analysis) {_LATER}")
     from .aggregation import AggregationRuntime
     for aid, ad in app.aggregation_definitions.items():
         if aid in rt.schemas:

@@ -199,7 +199,7 @@ class MultiQueryDevicePatternPlan:
 
     def __init__(self, name, rt, q, state_input, param_types, param_values,
                  targets, out_names, query_names):
-        from .nfa_device import NFAKernel
+        from .nfa_device import f64_mode, pattern_np_dtype
         from .pattern_plan import DevicePatternPlan
         from .schema import StreamSchema
 
@@ -211,13 +211,14 @@ class MultiQueryDevicePatternPlan:
         P = len(param_values)
         extra = {f"__qparam{i}": (f"__qparam{i}", t)
                  for i, t in enumerate(param_types)}
-        # parameters in the device pattern path's types: DOUBLE as float32
-        # (the port refuses @app:devicePrecision('f64') in the plan below);
-        # a selector over maybe-absent refs, which would need NULL
-        # routing, is refused by the plan's kernel
+        # parameters in the device pattern path's types: DOUBLE as float32,
+        # or float64 under @app:devicePrecision('f64') (multi_query.py:
+        # 215-217 of the JAX package); a selector over maybe-absent refs,
+        # which would need NULL routing, is refused by the plan's kernel
+        f64 = f64_mode(rt.app)
         params = {f"__qparam{i}": np.asarray(
                       [v[i] for v in param_values]).astype(
-                      NFAKernel.np_dtype(t))
+                      pattern_np_dtype(t, f64))
                   for i, t in enumerate(param_types)}
         self.inner = DevicePatternPlan(
             name, rt, q, state_input, target=targets[0], partitions=P,

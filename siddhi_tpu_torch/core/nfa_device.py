@@ -57,7 +57,15 @@ beyond, selectors deriving a value from a maybe-absent ref, NULL routing
 in a fused group, and the JAX refusals of `lower_chain` (`every` around a
 logical or count below the head or around an absent-logical or
 optional-count head, an optional-count run landing on a non-stream
-state).  `@app:devicePrecision('f64')` raises too (its own ROADMAP item).
+state).
+
+Precision (`f64`, `@app:devicePrecision('f64')`; the JAX package's
+`NFAKernel(..., f64=True)`): DOUBLE travels, computes, captures and
+emits in float32 by default (`F32_MODE`) and in float64 under f64.
+FLOAT stays float32 in both modes, so under f64 the one `f` capture
+group holds widened FLOAT rows beside DOUBLE rows, as `caps_f` does in
+the JAX package; a program reads a FLOAT row as a float64 load cast back
+to float32 (exact: the value was a widened float32).
 
 State (a dict of tensors, partition axis P minor, as in the JAX package):
   occ (A, P) i32        0 = free, p = stationed at position p-1,
@@ -69,7 +77,8 @@ State (a dict of tensors, partition axis P minor, as in the JAX package):
   narm (Kc, A, P) bool  successor armed (set at the exact min crossing,
                         consumed by the successor's match)
   fl (Kl, A, P) i32     logical fill bits (1 = left side, 2 = right)
-  caps_f (Kf, A, P) f32, caps_i (Ki, A, P) i32, caps_l (Kl', A, P) i64
+  caps_f (Kf, A, P) f32 (f64 under f64), caps_i (Ki, A, P) i32,
+  caps_l (Kl', A, P) i64
                         capture rows (only the columns something reads);
                         caps_i also holds presence rows and the parked
                         completion's ts/seq
@@ -92,10 +101,10 @@ import numpy as np
 import torch
 
 from ..query import ast
-from .expr import (F32_MODE, VT_BOOL, VT_OF_TORCH, CompiledExpr, ExprError,
-                   LaneParams, MultiStreamContext, Node, compile_expression,
-                   compute_dtypes, emit_program, subst, timestamp_node,
-                   torch_dtype)
+from .expr import (F32_MODE, VT_BOOL, VT_F32, VT_F64, VT_OF_TORCH,
+                   CompiledExpr, ExprError, LaneParams, MultiStreamContext,
+                   Node, compile_expression, compute_dtypes, emit_program,
+                   subst, timestamp_node, torch_dtype)
 from .planner import PlanError
 from .schema import StringTable, dtype_of
 
@@ -370,6 +379,20 @@ def pow2_at_least(n: int, lo: int = 8) -> int:
     return max(lo, 1 << max(0, math.ceil(math.log2(max(1, n)))))
 
 
+def f64_mode(app) -> bool:
+    """Does the app ask for `@app:devicePrecision('f64')`?"""
+    prec = ast.find_annotation(app.annotations, "app:devicePrecision")
+    return prec is not None and str(prec.element()).lower() == "f64"
+
+
+def pattern_np_dtype(t: ast.AttrType, f64: bool):
+    """Grid and parameter dtype of an attribute on the pattern path:
+    DOUBLE travels as float32 unless the plan runs in f64."""
+    if t == ast.AttrType.DOUBLE and not f64:
+        return np.float32
+    return dtype_of(t)
+
+
 def _and_all(conjs: list) -> Optional[Node]:
     out = None
     for ce in conjs:
@@ -408,14 +431,20 @@ class NFAKernel:
     emission lanes per step, and `init_on_tick` lets an init-slot chain
     arm a lane's slot on a timer tick as well as on its first event (an
     unpartitioned plan; its blocks then carry the START anchor as the int
-    "__anchor__", the deadline base of the armed slot)."""
+    "__anchor__", the deadline base of the armed slot).  `f64` is the
+    plan's precision (see the module docstring): `out_f` and `caps_f` are
+    then float64."""
 
     def __init__(self, spec: ChainSpec, sel_fns: dict,
                  having: Optional[CompiledExpr], P: int, A: int,
                  params: Optional[LaneParams] = None,
                  broadcast: bool = False, playback: bool = False,
-                 E: Optional[int] = None, init_on_tick: bool = False):
+                 E: Optional[int] = None, init_on_tick: bool = False,
+                 f64: bool = False):
         self.spec = spec
+        self.f64 = f64
+        self.mode = None if f64 else F32_MODE
+        self.fdt = torch.float64 if f64 else torch.float32
         self.sel_fns = sel_fns
         self.having = having
         self.P, self.A = P, A
@@ -526,7 +555,7 @@ class NFAKernel:
             refpart, attr = k.split(".", 1)
             self._key_type[k] = spec.schemas[_base_ref(refpart)[0]].type_of(
                 attr)
-        with compute_dtypes(F32_MODE):
+        with compute_dtypes(self.mode):
             grp = {k: "i" if k.startswith("__present__.") else
                    self._group_of(torch_dtype(t))
                    for k, t in self._key_type.items()}
@@ -597,9 +626,14 @@ class NFAKernel:
 
         # ---- VM programs ---------------------------------------------------
         C = len(self.grid_keys)
-        grid_vt = {k: VT_OF_TORCH[torch.from_numpy(np.zeros(
-            0, self.np_dtype(t))).dtype]
+        grid_vt = {k: VT_OF_TORCH[self.grid_dtype(t)]
             for k, (_s, _a, t) in zip(self.grid_keys, self.grid_attrs)}
+        fvt = VT_F64 if f64 else VT_F32
+        # under f64 a FLOAT capture sits widened in the float64 group: its
+        # programs read it as a float64 load cast back to float32
+        narrow = {k: Node("cast", ast.AttrType.FLOAT, (Node(
+            "var", ast.AttrType.DOUBLE, key=k),)) for k in self.rows_f
+            if f64 and self._key_type[k] == ast.AttrType.FLOAT}
         cap_slot = {}
         for k, (g, r) in self._row_of.items():
             if k.startswith("__") and not k.startswith("__present__."):
@@ -607,7 +641,7 @@ class NFAKernel:
             off = {"f": C, "i": C + len(self.rows_f),
                    "l": C + len(self.rows_f) + len(self.rows_i)}[g]
             vt = VT_BOOL if self._key_type[k] == ast.AttrType.BOOL else \
-                {"f": 3, "i": 1, "l": 2}[g]
+                {"f": fvt, "i": 1, "l": 2}[g]
             cap_slot[k] = (off + r, vt)
         self.ts_slot = C + len(self.rows_f) + len(self.rows_i) + \
             len(self.rows_l)
@@ -620,7 +654,7 @@ class NFAKernel:
             return out
 
         try:
-            with compute_dtypes(F32_MODE):
+            with compute_dtypes(self.mode):
                 self.pre_progs = []
                 for n in spec.all_nodes:
                     tree = _and_all(n.pre_conjs)
@@ -635,7 +669,7 @@ class NFAKernel:
                 for n in spec.all_nodes:
                     tree = _and_all(n.step_conjs)
                     if tree is not None:
-                        tree = subst(tree, TS_SUBST)
+                        tree = subst(tree, {**TS_SUBST, **narrow})
                         slots = dict(cap_slot)
                         slots.update(own_slots(n))
                         self.step_progs.append(emit_program(tree, slots))
@@ -652,21 +686,22 @@ class NFAKernel:
                                   ast.AttrType.BOOL else 1)
                     col += 1
                 for k in self.rows_f:
-                    msl[k] = (col, 3)
+                    msl[k] = (col, fvt)
                     col += 1
                 for k in self.rows_l:
                     msl[k] = (col, 2)
                     col += 1
                 msl["__comp_ts__"] = (self.lane_names_i.index("__comp_ts__"),
                                       1)
-                mts = {"__timestamp__": timestamp_node("__comp_ts__")}
+                mts = {"__timestamp__": timestamp_node("__comp_ts__"),
+                       **narrow}
                 self.sel_names = list(sel_fns)
-                sel_trees = [subst(ce.node, mts) for ce in sel_fns.values()]
-                self.sel_progs = [emit_program(t, msl) for t in sel_trees]
+                raw = [ce.node for ce in sel_fns.values()]
+                self.sel_progs = [emit_program(subst(t, mts), msl)
+                                  for t in raw]
                 self.having_prog = None
                 if having is not None:
-                    h = subst(having.node, dict(zip(self.sel_names,
-                                                    sel_trees)))
+                    h = subst(having.node, dict(zip(self.sel_names, raw)))
                     self.having_prog = emit_program(subst(h, mts), msl)
         except ExprError as e:
             raise DeviceNFAUnsupported(f"not in the device VM: {e}") from None
@@ -792,17 +827,22 @@ class NFAKernel:
             return "l"
         return "i"
 
-    @staticmethod
-    def np_dtype(t: ast.AttrType):
-        """Grid dtype: DOUBLE travels as float32 on the pattern path."""
-        return np.float32 if t == ast.AttrType.DOUBLE else dtype_of(t)
+    def np_dtype(self, t: ast.AttrType):
+        """Grid dtype: DOUBLE travels as float32 unless the kernel runs
+        in f64."""
+        return pattern_np_dtype(t, self.f64)
+
+    def grid_dtype(self, t: ast.AttrType) -> torch.dtype:
+        """`np_dtype` as a torch dtype."""
+        return torch.from_numpy(np.zeros(0, self.np_dtype(t))).dtype
 
     def with_shape(self, P: int, A: int, E: Optional[int] = None
                    ) -> "NFAKernel":
         """The same chain at another partition/slot count (or E)."""
         return NFAKernel(self.spec, self.sel_fns, self.having, P, A,
                          self.params, self.broadcast, self.playback,
-                         self.E if E is None else E, self.init_on_tick)
+                         self.E if E is None else E, self.init_on_tick,
+                         self.f64)
 
     def comp_rows(self) -> tuple:
         """caps_i rows of the parked completion's ts and seq (-1 when the
@@ -829,7 +869,7 @@ class NFAKernel:
                 "cnt_on": z((self.Kc, A, P), torch.bool),
                 "narm": z((self.Kc, A, P), torch.bool),
                 "fl": z((self.Kl, A, P), torch.int32),
-                "caps_f": z((len(self.rows_f), A, P), torch.float32),
+                "caps_f": z((len(self.rows_f), A, P), self.fdt),
                 "caps_i": z((len(self.rows_i), A, P), torch.int32),
                 "caps_l": z((len(self.rows_l), A, P), torch.int64),
                 "dl": torch.full((self.Ka, A, P), NO_DEADLINE,

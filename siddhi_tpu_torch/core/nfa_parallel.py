@@ -37,18 +37,20 @@ instances of a fused multi-query group: those share ONE row of events
 (the JAX package's shared leaves, nfa_parallel.py:646-672) with its
 replay tail and dedup seq, and differ in their `__qparam` constants and
 one-shot flags; K5 tags each match with its lane's `__qid__`.  No kernel bounds the chain: programs,
-trees, loads and row sources travel in device tables.
+trees, loads and row sources travel in device tables.  The block takes
+its precision from the NFA kernel (`nfak.f64`, the JAX package's
+nfa_parallel.py:624-625): under f64 the DOUBLE grids, a threshold tree
+over them (K3, K4) and the match table's float rows (K5) are float64.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..query import ast
-from .expr import (F32_MODE, VT_OF_TORCH, ExprError, Program,
+from .expr import (VT_OF_TORCH, ExprError, Program,
                    compile_expression, compute_dtypes, emit_program, subst,
                    torch_dtype)
 from .nfa_device import (TS_SUBST, UNBOUNDED, ChainSpec, NFAKernel,
@@ -383,12 +385,6 @@ def _classify_prog(prog: ParallelProgram) -> dict:
     return out
 
 
-def grid_dtype(t: ast.AttrType) -> torch.dtype:
-    """Torch dtype of an attribute's (L, F) grid (DOUBLE travels as
-    float32 on the pattern path)."""
-    return torch.from_numpy(np.zeros(0, NFAKernel.np_dtype(t))).dtype
-
-
 def lane_grid(ev: dict, key: str) -> torch.Tensor:
     """An event grid as (L, F): a fused group's one shared row of events
     expanded (a view) to every lane."""
@@ -535,7 +531,10 @@ class ParallelChainKernel:
                 self.loads.append((key, loc))
             return self.loads.index((key, loc))
 
-        key_vt = {f"__flat.{si}.{a}": VT_OF_TORCH[grid_dtype(t)]
+        # the grids' types follow the NFA kernel's precision (the JAX
+        # ParallelChainKernel takes f64 and its mode from it, :624-625)
+        self.f64 = nfak.f64
+        key_vt = {f"__flat.{si}.{a}": VT_OF_TORCH[nfak.grid_dtype(t)]
                   for si, a, t in nfak.grid_attrs}
         key_vt["__flat.__ts__"] = VT_OF_TORCH[torch.int32]
 
@@ -578,7 +577,7 @@ class ParallelChainKernel:
             self.trees.append(TreeSpec(VT_OF_TORCH[torch.int64], "max",
                                        "__flat.__ts__", None))
         try:
-            with compute_dtypes(F32_MODE):
+            with compute_dtypes(nfak.mode):
                 for pi in range(1, S):
                     pos = prog.positions[pi]
                     gi = self.pos_node[pi]
@@ -622,7 +621,7 @@ class ParallelChainKernel:
                         th = hop.threshold
                         own_key = col_key(hop.ref,
                                           th.own_key.split(".", 1)[1])
-                        vt = tree_vt(grid_dtype(th.own_type),
+                        vt = tree_vt(nfak.grid_dtype(th.own_type),
                                      torch_dtype(th.rhs.type))
                         rhs = emit_program(th.rhs.node,
                                            capture_slots(th.rhs.reads, None))

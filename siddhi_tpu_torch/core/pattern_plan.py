@@ -64,6 +64,10 @@ runtime clock at the first flush or wakeup, or the earliest buffered
 event under playback before the clock is set), which every block of
 such a plan carries as `__anchor__` and `state_dict()` keeps.
 
+`@app:devicePrecision('f64')` (`plan.f64`) builds every kernel of the
+plan in float64 for DOUBLE, as the JAX package does: the grids, capture
+rows, programs and selector outputs; FLOAT stays float32 (nfa_device.py).
+
 Timestamps and seqs travel as i32 offsets from per-plan bases; the plan
 rebases the slot state before offsets can overflow.  Partition growth
 doubles P as keys arrive; slot exhaustion (a head, or a clone of an
@@ -85,8 +89,8 @@ from .batch import EventBatch
 from .expr import ExprError, MultiStreamContext, compile_expression
 from .expr import LaneParams
 from .nfa_device import (LOCAL_SPAN, NO_DEADLINE, ChainSpec,
-                         DeviceNFAUnsupported, NFAKernel, lower_chain,
-                         pow2_at_least)
+                         DeviceNFAUnsupported, NFAKernel, f64_mode,
+                         lower_chain, pow2_at_least)
 from .nfa_parallel import (ARM_RESOLVED, ParallelChainKernel,
                            ParallelUnsupported, classify_parallel,
                            lower_parallel)
@@ -153,10 +157,10 @@ class DevicePatternPlan(QueryPlan):
         cap = ast.find_annotation(rt.app.annotations, "app:deviceSlotCap")
         if cap is not None:
             self.A_CAP = int(cap.element())
-        prec = ast.find_annotation(rt.app.annotations, "app:devicePrecision")
-        if prec is not None and str(prec.element()).lower() == "f64":
-            raise DeviceNFAUnsupported(
-                "@app:devicePrecision('f64') is a later slice")
+        # DOUBLE in f64 through every kernel the plan builds
+        # (`@app:devicePrecision('f64')`, pattern_plan.py:76-77 of the JAX
+        # package); FLOAT stays float32
+        self.f64 = f64_mode(rt.app)
         from .autotune import chunk_lanes_for, pattern_family_for
         want = pattern_family_for(rt, q)
         self.output_target = target
@@ -217,7 +221,8 @@ class DevicePatternPlan(QueryPlan):
         self.kernel = NFAKernel(self.spec, dict(zip(names, fns)), having,
                                 self.P, slots, self.params, broadcast_events,
                                 rt._playback,
-                                init_on_tick=self._init_on_tick)
+                                init_on_tick=self._init_on_tick,
+                                f64=self.f64)
         self.state = self.kernel.init_state(self.device)
         self._start_anchor: Optional[int] = None     # init-slot arm time
         self.growths = {"heads": 0, "forks": 0}     # A doublings, by cause
@@ -466,7 +471,7 @@ class DevicePatternPlan(QueryPlan):
         part = np.empty(N, dtype=_I32)
         cols: dict = {}
         for si, attr, t in self.kernel.grid_attrs:
-            cols[f"{si}.{attr}"] = np.zeros(N, dtype=NFAKernel.np_dtype(t))
+            cols[f"{si}.{attr}"] = np.zeros(N, dtype=self.kernel.np_dtype(t))
         o = 0
         for sid, b in bufs:
             si = self._scode[sid]
@@ -661,7 +666,8 @@ class DevicePatternPlan(QueryPlan):
                 self._chunk_E is not None and kern.E != self._chunk_E):
             kern = self._kern_by_p[K] = NFAKernel(
                 self.spec, self.kernel.sel_fns, self.kernel.having, K,
-                self._chunk_A, playback=self.rt._playback, E=self._chunk_E)
+                self._chunk_A, playback=self.rt._playback, E=self._chunk_E,
+                f64=self.f64)
         return kern
 
     def _dispatch_chunk(self, ev: dict, tsmono, W: int, ts_base: int,
@@ -936,8 +942,7 @@ class DevicePatternPlan(QueryPlan):
             ev["__scode__"] = full(-1, torch.int32)
         for si, attr, t in self.kernel.grid_attrs:
             ev[f"{si}.{attr}"] = torch.zeros(
-                (1, G), dtype=torch.from_numpy(np.zeros(
-                    0, NFAKernel.np_dtype(t))).dtype, device=self.device)
+                (1, G), dtype=self.kernel.grid_dtype(t), device=self.device)
         chunks = self._run_chunks([(ev, 1)])
         if self.broadcast_events:
             self._tick_chunks += [c for c in chunks if c is not None]
@@ -975,7 +980,16 @@ class DevicePatternPlan(QueryPlan):
                     f"pattern {self.name!r} runs the stateless "
                     f"{self.family!r} family: a `seq` plan's slot state "
                     f"cannot continue it")
-            self._lane_tail = d.get("lane_tail")
+            tail = d.get("lane_tail")
+            for si, attr, t in (self.kernel.grid_attrs if tail else ()):
+                have = tail["cols"][f"{si}.{attr}"].dtype
+                if have != self.kernel.np_dtype(t):
+                    raise ValueError(
+                        f"pattern {self.name!r}: replay tail column "
+                        f"{si}.{attr} is {have}, the plan's grids "
+                        f"{np.dtype(self.kernel.np_dtype(t))} (the "
+                        f"saving plan ran another devicePrecision)")
+            self._lane_tail = tail
             self._lane_prev = np.array(d["lane_prev"], dtype=np.int64)
             if d.get("arm_done") is not None:
                 self._arm_done = np.array(d["arm_done"], dtype=bool)

@@ -1,8 +1,10 @@
 // K2 nfa_block: the sequential batched NFA over one (T, P) event block --
 // the kernel template, shared by nfa_block.cu (1-4 slots a thread, A up
-// to 128), nfa_block_wide.cu (8 or 16 slots a thread, A up to 512) and
-// their EXT twins nfa_block_ext.cu and nfa_block_wide_ext.cu: four
-// sources, so nvcc builds the instantiations in parallel.
+// to 128), nfa_block_wide.cu (8 or 16 slots a thread, A up to 512), their
+// EXT twins nfa_block_ext.cu and nfa_block_wide_ext.cu, chunk mode's
+// nfa_block_chunk.cu and nfa_block_chunk_ext.cu, and the float64 twin of
+// each (`_f64`, @app:devicePrecision('f64')): twelve sources, so nvcc
+// builds the instantiations in parallel.
 //
 // Replaces the jitted _block_impl of siddhi_tpu/core/nfa_device.py (:1486,
 // :1560): lax.scan over T of _step (:726) with _alloc_head (:1328) and the
@@ -80,6 +82,32 @@
 #pragma once
 #include "expr_vm.cuh"
 
+// The float capture and output rows' type, capf_t: float, or double in
+// the `_f64` sources (the JAX package's caps_f at fdt, nfa_device.py:
+// 604-605, and its separate float pack, :1655-1680), which define NFA_F64
+// before including this header and get a namespace of their own, so that
+// no kernel name is shared with a float32 library.  A FLOAT capture then
+// sits widened in a double row; its programs read it as a double load
+// cast back to float (core/nfa_device.py).  A per-source type and not a
+// template parameter: the float32 sources compile the code they compiled
+// before (as a template parameter FT, the float32 chain instantiation
+// took 9% longer at config 5's block on an H100: same registers, other
+// scheduling).
+#ifdef NFA_F64
+typedef double capf_t;
+#define CAP_VT VT_F64
+#define CAP_WORDS 2               // 4-byte words of one float row entry
+#define VM_CAP vm_d
+#define CAP_VAL(v) (v).d
+namespace nfa_f64 {
+#else
+typedef float capf_t;
+#define CAP_VT VT_F32
+#define CAP_WORDS 1
+#define VM_CAP vm_f
+#define CAP_VAL(v) (v).f
+#endif
+
 #define NO_FIRST (1 << 30)
 #define NO_DEADLINE 0x7fffffff
 #define FULL 0xffffffffu
@@ -136,7 +164,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   const unsigned char* con_in;
   const unsigned char* narm_in;
   const int* fl_in;
-  const float* capf_in;
+  const capf_t* capf_in;
   const int* capi_in;
   const long long* capl_in;
   const int* dl_in;
@@ -151,7 +179,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   unsigned char* con_out;
   unsigned char* narm_out;
   int* fl_out;
-  float* capf_out;
+  capf_t* capf_out;
   int* capi_out;
   long long* capl_out;
   int* dl_out;
@@ -160,7 +188,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   int* ofl_out;
   unsigned char* init_out;
   int* out_i;
-  float* out_f;
+  capf_t* out_f;
   long long* out_l;
   int* meta;
   const long long* consts;
@@ -172,7 +200,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
 };
 
 struct Caps {  // one warp's capture, deadline and counter rows, [K][A]
-  float* f;
+  capf_t* f;
   int* i;
   long long* l;
   int* d;
@@ -195,7 +223,7 @@ struct SlotEnv {
       return vm_as(vm_read(p.ev[slot], have, idx), have, vt);
     }
     slot -= p.C;
-    if (slot < p.Kf) return vm_f(c.f[slot * p.A + a]);
+    if (slot < p.Kf) return VM_CAP(c.f[slot * p.A + a]);
     slot -= p.Kf;
     if (slot < p.Ki) return vm_as(vm_i(c.i[slot * p.A + a]), VT_I32, vt);
     slot -= p.Ki;
@@ -225,7 +253,7 @@ __device__ void apply_writes(const NfaParams& p, int off, int len, int newc, lon
                              int a, Caps c, bool comp, int cts, int cseq) {
   for (int w = off; w < off + len; ++w) {
     const int r = p.w_row[w], g = p.w_group[w], mode = p.w_mode[w];
-    const int gt = g == 0 ? VT_F32 : (g == 1 ? VT_I32 : VT_I64);
+    const int gt = g == 0 ? CAP_VT : (g == 1 ? VT_I32 : VT_I64);
     void* base = g == 0 ? static_cast<void*>(c.f) : (g == 1 ? static_cast<void*>(c.i)
                                                              : static_cast<void*>(c.l));
     const long long at = static_cast<long long>(r) * p.A + a;
@@ -313,13 +341,13 @@ __device__ void emit_single(const NfaParams& p, long long idx, int ts, int seq, 
   const long long M = p.M;
   for (int w = p.node_cw_off[0]; w < p.node_cw_off[0] + p.node_cw_len[0]; ++w) {
     const int g = p.w_group[w], r = p.w_row[w];
-    const int gt = g == 0 ? VT_F32 : (g == 1 ? VT_I32 : VT_I64);
+    const int gt = g == 0 ? CAP_VT : (g == 1 ? VT_I32 : VT_I64);
     VmVal v = vm_cast(vm_i(1), VT_I32, gt);
     if (p.w_mode[w] == W_SRC) {
       const int vt = p.ev_vt[p.w_src[w]];
       v = vm_cast(vm_read(p.ev[p.w_src[w]], vt, idx), vt, gt);
     }
-    if (g == 0) p.out_f[r * M + pos] = v.f;
+    if (g == 0) p.out_f[r * M + pos] = CAP_VAL(v);
     else if (g == 1) p.out_i[r * M + pos] = v.i;
     else p.out_l[r * M + pos] = v.l;
   }
@@ -848,11 +876,11 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   const int n_nodes = p.pos_node[S - 1] + (p.pos_kind[S - 1] == K_LOGICAL ? 2 : 1);
   const unsigned all_nodes = n_nodes >= 32 ? 0xffffffffu : ((1u << n_nodes) - 1u);
   const size_t per_warp = static_cast<size_t>(p.Kl) * A +
-                          (static_cast<size_t>(p.Kf + p.Ki + p.Ka + p.Kc + (EXT ? 7 : 0)) * A +
-                           1) / 2;
-  Caps c;
-  c.l = smem + p.prog_bytes / 8 + wib * per_warp;
-  c.f = reinterpret_cast<float*>(c.l + static_cast<size_t>(p.Kl) * A);
+                          (static_cast<size_t>(p.Kf * CAP_WORDS + p.Ki + p.Ka + p.Kc +
+                                               (EXT ? 7 : 0)) * A + 1) / 2;
+  Caps c;                                // the f rows follow the 8-byte l
+  c.l = smem + p.prog_bytes / 8 + wib * per_warp;   // rows: doubles stay aligned
+  c.f = reinterpret_cast<capf_t*>(c.l + static_cast<size_t>(p.Kl) * A);
   c.i = reinterpret_cast<int*>(c.f + static_cast<size_t>(p.Kf) * A);
   c.d = c.i + static_cast<size_t>(p.Ki) * A;
   c.c = c.d + static_cast<size_t>(p.Ka) * A;
@@ -1272,13 +1300,14 @@ static int launch(NfaParams& p, size_t per_warp, cudaStream_t stream) {
 }
 
 // The launch's shared memory per warp (8-byte units) and warps per block;
-// -1 when the slot rows cannot fit.
+// -1 when the slot rows cannot fit (a double row takes CAP_WORDS = 2
+// words, so the `_f64` sources reach the limits at a smaller A).
 static long long nfa_setup(NfaParams& p) {
   if (p.Kc > 32 || p.Klog > 16) return -1;
   p.prog_bytes = (p.prog_bytes + 7) / 8 * 8;
   const size_t per_warp = static_cast<size_t>(p.Kl) * p.A +
-                          (static_cast<size_t>(p.Kf + p.Ki + p.Ka + p.Kc + (p.ext ? 7 : 0)) *
-                               p.A + 1) / 2;
+                          (static_cast<size_t>(p.Kf * CAP_WORDS + p.Ki + p.Ka + p.Kc +
+                                               (p.ext ? 7 : 0)) * p.A + 1) / 2;
   int wpb = 4;
   while (wpb > 1 && p.prog_bytes + per_warp * 8 * wpb > 96 * 1024) wpb >>= 1;
   if (p.prog_bytes + per_warp * 8 > 200 * 1024) return -1;
@@ -1315,3 +1344,7 @@ static int launch_wide(const NfaParams* params, cudaStream_t stream) {
   if (nj <= 16) return launch<16, EXT, true>(p, per_warp, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef NFA_F64
+}  // namespace nfa_f64
+#endif

@@ -32,6 +32,10 @@
 // takes the lane's query id (lane_qid[lane], nfa_parallel.py:1146).
 // A chain with no count or logical position (alg 0) runs passes 1 and 3
 // without candidates (C = 1) and without the count and presence rows.
+// Under @app:devicePrecision('f64') (f64 = 1) the float rows of the match
+// table are double (FT, the scatter's template parameter): a DOUBLE
+// column is copied, a FLOAT one widened (the JAX package's caps_f at f64,
+// nfa_parallel.py:1079-1175 in f64 mode).
 // Python side: kernels/scan_compact.py.
 #include "seg_tree.cuh"
 
@@ -49,7 +53,7 @@ enum CntMode { CNT_COMP = 0, CNT_Q = 1, CNT_FIXED = 2 };
 enum { ARM_NONE = 0, ARM_PENDING = 1, ARM_RESOLVED = 2 };
 
 struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
-  int L, F, S, M, single, ntiles, n_rows, ev_stride, C, Lt, alg;
+  int L, F, S, M, single, ntiles, n_rows, ev_stride, C, Lt, alg, f64;
   const int* seq;
   const int* ts;
   const int* prev;
@@ -72,7 +76,7 @@ struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
   int* arm;
   int* meta;
   int* out_i;
-  float* out_f;
+  void* out_f;            // float, double when f64
   long long* out_l;
   const void* const* row_col;
   const int* row_vt;
@@ -241,7 +245,7 @@ __device__ VmVal count_row(const CompactParams& p, int r, int lane, long long ro
   }
 }
 
-template <bool ALG>
+template <bool ALG, class FT>
 __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
   const int lane = static_cast<int>(blockIdx.x / p.ntiles);
   const int tile = static_cast<int>(blockIdx.x % p.ntiles);
@@ -285,7 +289,12 @@ __global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
         const long long o = static_cast<long long>(p.row_index[r]) * p.M + pos;
         switch (p.row_group[r]) {
           case 0: p.out_i[o] = v.i; break;
-          case 1: p.out_f[o] = v.f; break;
+          case 1:
+            if constexpr (sizeof(FT) == 8)
+              static_cast<double*>(p.out_f)[o] = vm_cast(v, p.row_vt[r], VT_F64).d;
+            else
+              static_cast<float*>(p.out_f)[o] = v.f;
+            break;
           default: p.out_l[o] = v.l; break;
         }
       }
@@ -318,9 +327,13 @@ extern "C" int scan_compact_launch(const CompactParams* params, cudaStream_t str
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   offsets_kernel<<<1, CP_THREADS, 0, stream>>>(*params);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (params->alg)
-    scatter_kernel<true><<<blocks, CP_THREADS, 0, stream>>>(*params);
+  if (params->alg && params->f64)
+    scatter_kernel<true, double><<<blocks, CP_THREADS, 0, stream>>>(*params);
+  else if (params->alg)
+    scatter_kernel<true, float><<<blocks, CP_THREADS, 0, stream>>>(*params);
+  else if (params->f64)
+    scatter_kernel<false, double><<<blocks, CP_THREADS, 0, stream>>>(*params);
   else
-    scatter_kernel<false><<<blocks, CP_THREADS, 0, stream>>>(*params);
+    scatter_kernel<false, float><<<blocks, CP_THREADS, 0, stream>>>(*params);
   return static_cast<int>(cudaGetLastError());
 }

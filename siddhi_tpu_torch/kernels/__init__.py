@@ -21,14 +21,22 @@ absent sides of and/or) as `nfa_block:ext`, a launch over a `chunk`
 block's own-chunks as `nfa_block:chunk`, any other as `nfa_block`.  The
 `dfa` family adds K11 `dfa_tables` (its stride-4 symbol tables) and
 counts K4's launches in its table-lookup mode as `scan_chase:dfa`.
+Under `@app:devicePrecision('f64')` the float64 forms count apart, with
+`:f64` after the name: K2's float64 instantiations (`nfa_block:f64`,
+`nfa_block:ext:f64`, `nfa_block:chunk:f64`), K5's float64 rows
+(`scan_compact:f64`), and K3 and K4 where they build or descend a
+float64 tree (`seg_tree:f64`, `scan_chase:f64`, `scan_chase:dfa:f64`).
 """
 LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "expr_eval:select": 0, "expr_eval:window_args": 0,
             "expr_eval:window_select": 0, "expr_eval:join_filter": 0,
             "join_probe": 0, "nfa_block": 0, "nfa_block:ext": 0,
-            "nfa_block:chunk": 0, "seg_tree": 0, "seg_tree:rank": 0,
-            "scan_chase": 0, "scan_chase:dfa": 0, "dfa_tables": 0,
-            "scan_compact": 0,
+            "nfa_block:chunk": 0, "nfa_block:f64": 0,
+            "nfa_block:ext:f64": 0, "nfa_block:chunk:f64": 0,
+            "seg_tree": 0, "seg_tree:rank": 0, "seg_tree:f64": 0,
+            "scan_chase": 0, "scan_chase:dfa": 0, "scan_chase:f64": 0,
+            "scan_chase:dfa:f64": 0, "dfa_tables": 0,
+            "scan_compact": 0, "scan_compact:f64": 0,
             "win_scan": 0, "win_scan:rank": 0, "win_scan:prev": 0,
             "win_scan:agg": 0, "win_range": 0, "win_compact": 0,
             "agg_merge": 0}

@@ -21,7 +21,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("expr_eval", "nfa_block", "nfa_block_wide", "nfa_block_ext",
            "nfa_block_wide_ext", "nfa_block_chunk", "nfa_block_chunk_ext",
-           "seg_tree",
+           "nfa_block_f64", "nfa_block_wide_f64", "nfa_block_ext_f64",
+           "nfa_block_wide_ext_f64", "nfa_block_chunk_f64",
+           "nfa_block_chunk_ext_f64", "seg_tree",
            "scan_chase", "scan_compact", "win_scan", "win_range",
            "win_compact", "join_probe", "agg_merge", "dfa_tables")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

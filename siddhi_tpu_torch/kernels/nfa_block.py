@@ -21,7 +21,10 @@ Design (csrc/nfa_block.cuh, launched from csrc/nfa_block.cu for up to 4
 slots a thread and csrc/nfa_block_wide.cu for 8 or 16, from
 nfa_block_ext.cu and nfa_block_wide_ext.cu for EXT, and in chunk mode up
 to 4 slots a thread from nfa_block_chunk.cu and nfa_block_chunk_ext.cu,
-so the `seq` blocks' instantiations carry none of its code): one warp per
+so the `seq` blocks' instantiations carry none of its code; each of the
+six has an `_f64` twin for `@app:devicePrecision('f64')`, the float
+capture rows and `out_f` in float64, a type each source fixes so that
+the float32 instantiations keep their code): one warp per
 partition lane, one thread per slot (a thread loops over A/32 slots when
 slot growth took A past 32).  Three instantiations a slot width, chosen
 at launch from the chain: the chain step (stream and absent positions),
@@ -130,8 +133,7 @@ def _alloc_out(k, M: int, dev, rows=torch.zeros) -> dict:
     emissions, clones of this block that found no free slot]."""
     return {"out_i": rows((len(k.lane_names_i), M), dtype=torch.int32,
                           device=dev),
-            "out_f": rows((len(k.rows_f), M), dtype=torch.float32,
-                          device=dev),
+            "out_f": rows((len(k.rows_f), M), dtype=k.fdt, device=dev),
             "out_l": rows((len(k.rows_l), M), dtype=torch.int64, device=dev),
             "meta": torch.tensor([0, 0, NO_DEADLINE, 0, 0],
                                  dtype=torch.int32, device=dev)}
@@ -193,6 +195,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
         raise ValueError("nfa_block: grid/state shape does not match kernel")
     if k.A > MAX_A:
         raise ValueError(f"nfa_block: A={k.A} exceeds {MAX_A} slots")
+    if state["caps_f"].dtype != k.fdt:
+        raise ValueError(f"nfa_block: caps_f is {state['caps_f'].dtype}, "
+                         f"the kernel's float rows {k.fdt}")
     p = _Params()
     p.T, p.P, p.A, p.S, p.E = T, k.P, k.A, spec.S, k.E
     p.is_seq, p.every_head = int(spec.is_sequence), int(spec.every_head)
@@ -299,12 +304,13 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
                                          ptr(out["out_l"]),
                                          ptr(out["meta"]))
     keep.append(tab.upload(dev))
-    # csrc/nfa_block[_chunk|_wide][_ext].cu: 8-16 slots a thread past A =
-    # 128 (chunk mode or not); up to 128, chunk mode and the EXT
-    # instantiation each apart from the others
+    # csrc/nfa_block[_chunk|_wide][_ext][_f64].cu: 8-16 slots a thread
+    # past A = 128 (chunk mode or not); up to 128, chunk mode and the EXT
+    # instantiation each apart from the others; float64 capture rows
+    # (f64) in sources of their own
     name = "nfa_block" + ("_wide" if k.A > 128 else
                           "_chunk" if chunk is not None else "") + \
-        ("_ext" if k.ext else "")
+        ("_ext" if k.ext else "") + ("_f64" if k.f64 else "")
     fn = getattr(load(name), f"{name}_launch")
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -312,8 +318,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     def run():
         out["meta"].copy_(meta0)
         return fn(ctypes.byref(p), stream_of(dev))
-    use = "nfa_block:chunk" if chunk is not None else \
-        "nfa_block:ext" if k.ext else "nfa_block"
+    use = ("nfa_block:chunk" if chunk is not None else
+           "nfa_block:ext" if k.ext else "nfa_block") + \
+        (":f64" if k.f64 else "")
     return Launch(run, "nfa_block_launch", use, keep + [meta0], (new, out))
 
 
@@ -321,9 +328,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
 # plain version
 # ---------------------------------------------------------------------------
 
-def _eval(tree: Node, env: dict):
-    from ..core.expr import F32_MODE, compute_dtypes, eval_node
-    with compute_dtypes(F32_MODE):
+def _eval(tree: Node, env: dict, mode):
+    from ..core.expr import compute_dtypes, eval_node
+    with compute_dtypes(mode):
         return eval_node(tree, env)
 
 
@@ -405,7 +412,7 @@ def nfa_block_plain(k, state: dict, ev: dict, masks: list, M: int):
             e2.update(own_env(nodes[gi], t))
             e2["__ts__"] = ts_g[t]
             e2["__base_ts__"] = base
-            m = m & _eval(k.step_trees[gi], e2).expand(A, P)
+            m = m & _eval(k.step_trees[gi], e2, k.mode).expand(A, P)
         return m
 
     def write(mask, span: tuple, t: int, newc=None, comp=None):

@@ -356,8 +356,10 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     fn = lib.scan_chase_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    # a launch that descends a float64 tree (a threshold hop over DOUBLE
+    # under @app:devicePrecision('f64')) counts apart
+    use = ("scan_chase:dfa" if tables is not None else "scan_chase") + (
+        ":f64" if any(h.dtype == torch.float64 for h in heaps) else "")
     return Launch(lambda: fn(ctypes.byref(p), smem, stream_of(dev)),
-                  "scan_chase_launch",
-                  "scan_chase:dfa" if tables is not None else "scan_chase",
-                  keep,
+                  "scan_chase_launch", use, keep,
                   (status, idx[:k.n_idx], cand, pres))

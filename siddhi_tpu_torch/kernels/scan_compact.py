@@ -33,7 +33,9 @@ comp indices and seq read once per candidate, each match row written
 once.
 
 Outputs: `out_i` (len(lane_names_i), M) int32, `out_f` (len(rows_f), M)
-float32, `out_l` (len(rows_l), M) int64 (the first meta[0] columns
+float32 (float64 under @app:devicePrecision('f64'): a DOUBLE column is
+copied, a FLOAT column widened), `out_l` (len(rows_l), M) int64 (the
+first meta[0] columns
 written), `meta` [matches, 0], `lane_n` (L,) matches per lane and `arm`
 (L,) the one-shot flag (ARM_NONE / ARM_PENDING / ARM_RESOLVED).
 `scan_compact()` launches the kernel for CUDA tensors and runs
@@ -56,14 +58,13 @@ TILE = 1024                         # csrc/scan_compact.cu CP_TILE
 ARM_NONE, ARM_PENDING, ARM_RESOLVED = 0, 1, 2
 _KIND = {"col": 0, "comp_ts": 1, "comp_seq": 2, "head_seq": 3, "qid": 4,
          "cnt": 5, "pres_bit": 6, "pres_cnt": 7, "one": 8}
-_GROUP = {"i": (0, torch.int32), "f": (1, torch.float32),
-          "l": (2, torch.int64)}
+_GROUP = {"i": 0, "f": 1, "l": 2}
 
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "L", "F", "S", "M", "single", "ntiles", "n_rows", "ev_stride",
-        "C", "Lt", "alg")] + [
+        "C", "Lt", "alg", "f64")] + [
         (n, ctypes.c_void_p) for n in (
             "seq", "ts", "prev", "arm_done", "lane_qid", "status", "idx",
             "cand", "pres", "comp_row", "rank", "rank_heap", "cnt_rank",
@@ -77,7 +78,7 @@ def _alloc(k, M: int, L: int, dev, rows=torch.zeros) -> dict:
     nfak = k.nfak
     return {"out_i": rows((len(nfak.lane_names_i), M), dtype=torch.int32,
                           device=dev),
-            "out_f": rows((len(nfak.rows_f), M), dtype=torch.float32,
+            "out_f": rows((len(nfak.rows_f), M), dtype=nfak.fdt,
                           device=dev),
             "out_l": rows((len(nfak.rows_l), M), dtype=torch.int64,
                           device=dev),
@@ -222,6 +223,7 @@ def prepare(k, ev: dict, chase, ranks: list, rheaps: list,
     p.C, p.Lt = k.C, k.leaves(F)
     p.alg = int(k.head is not None or any(
         h.kind in ("logical", "count", "final") for h in k.hops))
+    p.f64 = int(k.f64)
     p.seq = ptr(seq, torch.int32)
     p.ts = ptr(ev["__flat.__ts__"], torch.int32)
     p.prev = ptr(ev["__prev_seq__"], torch.int32)
@@ -244,14 +246,18 @@ def prepare(k, ev: dict, chase, ranks: list, rheaps: list,
                                  ptr(out["out_l"]))
     rows = {"col": [], "vt": [], "kind": [], "pos": [], "group": [],
             "index": [], "cnt": [], "mode": [], "arg": []}
+    # the column types each row group takes (a FLOAT column widens into
+    # a float64 row under f64)
+    takes = {"i": (torch.int32, torch.bool), "l": (torch.int64,),
+             "f": (torch.float32, torch.float64) if k.f64 else
+             (torch.float32,)}
     for g, srcs in k.rows.items():
-        gi, want = _GROUP[g]
+        gi = _GROUP[g]
         for ri, src in enumerate(srcs):
             col_p, vt, pos, cnt, mode, arg = 0, 0, 0, 0, 0, 0
             if src[0] in ("col", "cnt"):
                 col = ev[src[1]]
-                if col.dtype != want and not (g == "i" and col.dtype ==
-                                              torch.bool):
+                if col.dtype not in takes[g]:
                     raise ValueError(f"scan_compact: {src[1]} is "
                                      f"{col.dtype}, row group {g!r}")
                 col_p, vt = ptr(col), VT_OF_TORCH[col.dtype]
@@ -297,5 +303,6 @@ def prepare(k, ev: dict, chase, ranks: list, rheaps: list,
     def run():
         h0.copy_(h0_init)
         return fn(ctypes.byref(p), stream_of(dev))
-    return Launch(run, "scan_compact_launch", "scan_compact",
+    return Launch(run, "scan_compact_launch",
+                  "scan_compact:f64" if k.f64 else "scan_compact",
                   keep + [h0_init], out)

@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from ..core.expr import TORCH_OF_VT, VT_OF_TORCH
+from ..core.expr import TORCH_OF_VT, VT_F64, VT_OF_TORCH
 from ..core.nfa_parallel import lane_grid
 from .build import load
 from .expr_eval import unpack_mask
@@ -243,6 +243,9 @@ def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
     fn = lib.seg_tree_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    # a launch that builds a float64 tree (a threshold hop over DOUBLE
+    # under @app:devicePrecision('f64')) counts apart
+    use = "seg_tree:rank" if use_rank else "seg_tree:f64" if any(
+        t.vt == VT_F64 for t in trees) else "seg_tree"
     return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
-                  "seg_tree_launch",
-                  "seg_tree:rank" if use_rank else "seg_tree", keep, heaps)
+                  "seg_tree_launch", use, keep, heaps)

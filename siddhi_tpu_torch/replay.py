@@ -20,7 +20,11 @@ tests (tests/test_torch_gpu.py):
     outer and unidirectional variants (`JOIN_OUTER`, `JOIN_UNI`), and the
     fused lanes' parameter app (`PARAM_APP`);
   * `make_tape`, the benchmark tape: uniform keys, prices on the quarter
-    grid, flushes of `batch` events `dt_ms` apart;
+    grid, flushes of `batch` events `dt_ms` apart; `raw_tape`, the same
+    shape on raw doubles 1e-6 apart (closer than float32's step: the
+    `F64` header's apps, `@app:devicePrecision('f64')`, give other rows
+    than float32 on it), and `wide_tape`, signed prices over a wide
+    range (the window path's f64 sums round there);
   * `join_tape`, bench.py's config 6 tape (`bench_join`), and
     `run_join`, a join app through it, each flush one `send_batch` per
     side and one `flush()`; with `record` (a list) every join plan
@@ -209,13 +213,17 @@ PARAM_APP = "@app:playback\n" + "\n".join(
      for i in range(10, 20)])
 
 
-def c5_app(n_queries=1000):
+def c5_app(n_queries=1000, frac=None):
     """bench.py:226-266 (BASELINE config 5), copied: 1k concurrent mixed
     pattern/sequence queries with `not`/`within` over one shared input
-    stream, under @app:playback."""
+    stream, under @app:playback.  With `frac`, every price constant gains
+    that fraction and is a DOUBLE literal (lifted to a DOUBLE lane
+    parameter: float64 under @app:devicePrecision('f64'))."""
     parts = ["@app:playback\n" + STOCK]   # historical tape: event-time
     for i in range(n_queries):            # deadlines fire in-scan, not via
         lo = 123 + (i % 6)                # the wall-clock pump
+        if frac is not None:
+            lo += frac
         shape = i % 4
         if shape == 0:
             parts.append(
@@ -241,10 +249,10 @@ def c5_app(n_queries=1000):
     return "\n".join(parts) + "\n"
 
 
-def make_tape(n_events: int, batch: int, keys: int, seed: int = 0,
-              dt_ms: int = 1) -> list:
-    """The benchmark tape shape: uniform keys, prices on the quarter grid
-    (exact in float32), volumes, dt_ms apart, one dict per flush."""
+def _tape(n_events: int, batch: int, keys: int, seed: int, dt_ms: int,
+          prices) -> list:
+    """Uniform keys, `prices(rng, n)`, volumes, dt_ms apart, one dict per
+    flush of `batch` events."""
     rng = np.random.default_rng(seed)
     tape = []
     ts0 = 1_700_000_000_000
@@ -252,10 +260,43 @@ def make_tape(n_events: int, batch: int, keys: int, seed: int = 0,
         n = min(batch, n_events - start)
         tape.append({
             "sym_idx": rng.integers(0, keys, size=n).astype(np.int32),
-            "price": np.round(rng.uniform(90.0, 130.0, size=n) * 4) / 4,
+            "price": prices(rng, n),
             "volume": rng.integers(1, 1000, size=n).astype(np.int32),
             "ts": ts0 + np.arange(start, start + n, dtype=np.int64) * dt_ms})
     return tape
+
+
+def make_tape(n_events: int, batch: int, keys: int, seed: int = 0,
+              dt_ms: int = 1) -> list:
+    """The benchmark tape shape: uniform keys, prices on the quarter grid
+    (exact in float32), volumes, dt_ms apart, one dict per flush."""
+    return _tape(n_events, batch, keys, seed, dt_ms, lambda rng, n: np.round(
+        rng.uniform(90.0, 130.0, size=n) * 4) / 4)
+
+
+F64 = "@app:devicePrecision('f64')\n"   # DOUBLE in float64 on the device
+RAW_STEP = 1e-6         # raw_tape's price step: below float32's 2^-17 at 100
+
+
+def raw_tape(n_events: int, batch: int, keys: int, seed: int = 0,
+             dt_ms: int = 1, lo: float = 100.0, levels: int = 3) -> list:
+    """make_tape's shape on raw doubles, for the f64 apps: prices lo + j +
+    k RAW_STEP (j < levels, k < 1000, both uniform).  Neighbouring prices
+    lie 1e-6 apart, closer than float32's step there (2^-17 near 100,
+    about 7.6e-6), so float32 ties or reorders prices that float64 keeps
+    apart; lo = 90 and 40 levels span make_tape's range."""
+    return _tape(n_events, batch, keys, seed, dt_ms, lambda rng, n: (
+        lo + rng.integers(0, levels, size=n) +
+        rng.integers(0, 1000, size=n) * RAW_STEP))
+
+
+def wide_tape(n_events: int, batch: int, keys: int, seed: int = 0,
+              dt_ms: int = 1) -> list:
+    """make_tape's shape with prices at full double resolution over a
+    wide range (signed, magnitudes e^-20 to e^20), where float64 sums
+    round: the window path's f64 sums on raw doubles."""
+    return _tape(n_events, batch, keys, seed, dt_ms, lambda rng, n: (
+        rng.uniform(-1, 1, n) * np.exp(rng.uniform(-20, 20, n))))
 
 
 def join_tape(n_events: int, batch: int, keys: int = 1000,
@@ -481,10 +522,41 @@ def _agree(err: dict, key: str, got, want, what: str) -> None:
     err[key] = max(err.get(key, 0.0), e)
 
 
-def check_window_calls(calls: list) -> dict:
+def _sum_bound(err: dict, key: str, got, want, a: tuple, kw: dict,
+               what: str) -> None:
+    """K6's float sums within 2 (i + 1) 2^-53 sum|v| of the plain
+    version's at entry i (each column's masked magnitudes summed from the
+    call's first entry; tests/test_torch_gpu.py's bound for raw doubles),
+    every other column equal."""
+    cols, n = a[0], a[1]
+    valid = kw.get("valid", a[2] if len(a) > 2 else None)
+    for (op, values, masked, *own), g, w in zip(cols, got, want):
+        if op != "sum" or values is None or \
+                not values.dtype.is_floating_point:
+            _agree(err, key, g, w, what)
+            continue
+        x = values[:n].double().abs()
+        vc = own[0] if own else valid
+        if masked and vc is not None:
+            x = torch.where(vc[:n], x, torch.zeros_like(x))
+        bound = 2 * torch.arange(1, n + 1, device=x.device) * 2.0 ** -53 * \
+            torch.cumsum(x, 0)
+        d = (g[:n].double() - w[:n].double()).abs()
+        if g.shape != w.shape or not bool((d <= bound).all()):
+            raise KernelMismatch(f"{key} f64 sums outside the rounding "
+                                 f"bound of the plain version's ({what})")
+        err[f"{key}:f64_sum"] = max(err.get(f"{key}:f64_sum", 0.0),
+                                    float(d.max()) if n else 0.0)
+
+
+def check_window_calls(calls: list, raw_sums: bool = False) -> dict:
     """K1 (window uses), K6, K7 and K8 against their plain versions on
     every call a window run recorded, tolerance 0 (NaN equal to NaN);
-    returns the largest |kernel - plain| per kernel name or K1 use."""
+    returns the largest |kernel - plain| per kernel name or K1 use.  With
+    `raw_sums` (raw doubles under @app:devicePrecision('f64'), where K6's
+    association is not the plain version's and f64 sums round), K6's
+    float sum columns are held to the rounding bound instead (their
+    largest difference under `win_scan:f64_sum`)."""
     from .core.window_device import KERNELS
     from .kernels.expr_eval import expr_eval_plain
     from .kernels.win_compact import win_compact_plain
@@ -502,7 +574,10 @@ def check_window_calls(calls: list) -> dict:
             key = name
             want = plain[name](*a, **kw)
         torch.cuda.synchronize()
-        _agree(err, key, got, want, f"call {j}")
+        if raw_sums and name == "win_scan":
+            _sum_bound(err, key, got, want, a, kw, f"call {j}")
+        else:
+            _agree(err, key, got, want, f"call {j}")
     return err
 
 

@@ -50,7 +50,8 @@ _KEYS = ("occ", "first_ts", "head_seq", "cnt", "cnt_on", "narm", "fl",
          "of_lanes")
 _DTYPES = {"occ": np.int32, "first_ts": np.int32, "head_seq": np.int32,
            "cnt": np.int32, "cnt_on": np.bool_, "narm": np.bool_,
-           "fl": np.int32, "caps_f": np.float32, "caps_i": np.int32,
+           "fl": np.int32, "caps_f": (np.float32, np.float64),
+           "caps_i": np.int32,
            "caps_l": np.int64, "dl": np.int32, "armed0": np.bool_,
            "of_slots": np.int32, "of_lanes": np.int32}
 
@@ -59,7 +60,9 @@ def nfa_state_from_jax(np_state: dict, device) -> dict:
     """JAX `seq`-family slot state (numpy) -> the port's state tensors:
     stations, captures and presence rows, count rows (`cnt`, `cnt_on`,
     `narm`), logical fill bits (`fl`), deadlines, the lane counters and,
-    for an init-slot chain, the lanes' `init` flags."""
+    for an init-slot chain, the lanes' `init` flags.  `caps_f` keeps the
+    JAX state's dtype: float32, or float64 from a plan under
+    @app:devicePrecision('f64')."""
     missing = [k for k in _KEYS if k not in np_state]
     if missing:
         raise ValueError(f"not a `seq`-family NFA state (missing {missing}); "
@@ -67,10 +70,12 @@ def nfa_state_from_jax(np_state: dict, device) -> dict:
     out = {}
     for k in _KEYS:
         a = np.asarray(np_state[k])
-        if a.dtype != _DTYPES[k]:
+        want = _DTYPES[k] if isinstance(_DTYPES[k], tuple) else \
+            (_DTYPES[k],)
+        if a.dtype not in want:
             raise ValueError(f"state leaf {k!r} has dtype {a.dtype}, "
-                             f"expected {np.dtype(_DTYPES[k])} (an f64-mode "
-                             f"plan is not in this slice)")
+                             f"expected one of "
+                             f"{[np.dtype(w).name for w in want]}")
         out[k] = torch.from_numpy(np.array(a, copy=True)).to(device)
     if np_state.get("init") is not None:
         out["init"] = torch.from_numpy(np.array(
@@ -91,13 +96,7 @@ def _tail(t, part: bool):
     out = {k: np.array(t[k], copy=True) for k in ("ts", "seq", "scode")}
     out["part"] = (np.array(t["part"], copy=True) if part else
                    np.zeros(len(out["ts"]), dtype=np.int32))
-    out["cols"] = {}
-    for c, v in t["cols"].items():
-        a = np.array(v, copy=True)
-        if a.dtype == np.float64:
-            raise ValueError(f"tail column {c!r} is float64: an f64-mode "
-                             f"plan is not in this slice")
-        out["cols"][c] = a
+    out["cols"] = {c: np.array(v, copy=True) for c, v in t["cols"].items()}
     return out
 
 

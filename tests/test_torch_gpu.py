@@ -34,7 +34,8 @@ from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
 from siddhi_tpu_torch.kernels import LAUNCHES, reset_launches
 from siddhi_tpu_torch.query import parse, parse_expression
 from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C3E, C3H, C3K,
-                                     C3SD, C3X, C4A_BODY, C4D, C4F, C4F_BODY,
+                                     C3SD, C3X, C4, C4A_BODY, C4D, C4F,
+                                     C4F_BODY,
                                      C4H, C4L_AND, C4L_OR, C4N_BODY,
                                      C4NS_BODY, C4O_BODY, C4Z, CHUNK, DFA,
                                      PARAM_APP, PLAYBACK, STOCK, c5_app,
@@ -1338,4 +1339,137 @@ def test_dfa_kernels_match_plain(cuda, name, monkeypatch):
         assert max(v for key, v in err.items() if key != "matches") == 0.0
     blocks.clear()
     want, _rt = _run_stream(app, tape, keys, "cpu")
+    assert got == want and got
+
+
+# @app:devicePrecision('f64'): name -> (app, keys, events a flush, flushes,
+# ms between events, the raw tape's (lo, levels), family, the float64
+# kernel forms it must launch).  K2's chain, EXT, wide (A = 256) and chunk instantiations in
+# float64, K3/K4 on float64 trees, K5's float64 rows, float64 lane
+# parameters, and a FLOAT capture widened beside DOUBLE ones (both
+# families)
+C4_SMALL = "@app:partitionCapacity(64)\n@app:deviceSlots(32)\n" + C4
+F64_TYPES = ("define stream StockStream (symbol string, price double, "
+             "volume int, f float);\npartition with (symbol of StockStream) "
+             "begin @info(name='q') from every e1=StockStream[price > 100] "
+             "-> e2=StockStream[price > e1.price and f >= e1.f] -> "
+             "e3=StockStream[f > e2.price - 100.0] within 10 sec select "
+             "e1.price as p1, e1.f as f1, e3.f - e1.f as df, e3.price as p3 "
+             "insert into Out; end;")
+F64_TYPES_SCAN = F64_TYPES.replace(" and f >= e1.f", "")
+F64_FUSED = STOCK + "\n".join(
+    f"@info(name='q{i}') from every e1=StockStream[price > "
+    f"{100 + 1e-5 * (i + 1):.5f}] -> e2=StockStream[price > e1.price] "
+    f"within 40 ms select e1.price as a{i}, e2.price as b{i} "
+    f"insert into Out;" for i in range(8))
+F64_APPS = {
+    "c4": (C4_SMALL, 64, 8192, 2, 1, (100.0, 3), "scan",
+           ("seg_tree:f64", "scan_chase:f64", "scan_compact:f64")),
+    "c4_seq": ("@app:patternFamily('seq')\n" + C4_SMALL, 64, 8192, 2, 1,
+               (100.0, 3), "seq", ("nfa_block:f64",)),
+    "c4_a256": ("@app:patternFamily('seq')\n@app:deviceSlots(256)\n" +
+                C4_SMALL, 64, 4096, 1, 1, (100.0, 3), "seq",
+                ("nfa_block:f64",)),
+    "c4f": ("@app:partitionCapacity(16)\n" + C4F, 4, 1200, 2, 25,
+            (90.0, 40), "seq", ("nfa_block:ext:f64",)),
+    "c3k": (C3K, 8, 8192, 2, 1, (90.0, 40), "chunk",
+            ("nfa_block:chunk:f64",)),
+    "c3e": (C3E, 8, 8192, 2, 1, (90.0, 40), "chunk",
+            ("nfa_block:chunk:f64",)),
+    "c3sd": (C3SD, 8, 8192, 2, 1, (90.0, 40), "dfa",
+             ("dfa_tables", "scan_chase:dfa", "scan_compact:f64")),
+    "c4d": ("@app:partitionCapacity(64)\n" + C4D, 64, 8192, 2, 1,
+            (90.0, 40), "dfa", ("dfa_tables", "scan_chase:dfa:f64", "seg_tree:f64",
+                    "scan_compact:f64")),
+    "fused": (F64_FUSED, 8, 4096, 2, 1, (100.0, 3), "scan",
+              ("seg_tree:f64", "scan_chase:f64", "scan_compact:f64")),
+    "types_seq": ("@app:partitionCapacity(64)\n" + F64_TYPES, 64, 8192, 2,
+                  1, (100.0, 3), "seq", ("nfa_block:f64",)),
+    "types_scan": ("@app:partitionCapacity(64)\n" + F64_TYPES_SCAN, 64,
+                   8192, 2, 1, (100.0, 3), "scan",
+                   ("seg_tree:f64", "scan_chase:f64", "scan_compact:f64")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F64_APPS))
+def test_f64_kernels_match_plain(cuda, name, monkeypatch):
+    """Under @app:devicePrecision('f64') on a raw-double tape: the plan's
+    family in float64, its float64 kernel forms launched and no float32
+    form of K2 or K5; every block it ran (K2: state, meta and sorted rows;
+    `scan`/`dfa`: K1, K3, K6, K4, K5) equal to the plain versions,
+    tolerance 0; rows equal to the CPU run's."""
+    from siddhi_tpu_torch.core.nfa_device import NFAKernel
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    from siddhi_tpu_torch.replay import (F64, check_chunk_block,
+                                         check_scan_block, check_seq_block,
+                                         raw_tape)
+    app, keys, n, flushes, dt, (lo, levels), family, uses = F64_APPS[name]
+    app = F64 + app
+    tape = raw_tape(n * flushes, n, keys, seed=31, dt_ms=dt, lo=lo,
+                    levels=levels)
+    if name.startswith("types"):
+        rng = np.random.default_rng(3)      # float32, near price - 100
+        for f in tape:
+            f["f"] = (rng.integers(0, 1024, len(f["price"])) *
+                      2.0 ** -20).astype(np.float32)
+    seq_b, scan_b = [], []
+    run_seq, run_scan = NFAKernel.run_block, ParallelChainKernel.run_block
+
+    def rec_seq(self, state, ev, M):
+        new, out = run_seq(self, state, ev, M)
+        seq_b.append((self, state, ev, M, int(out["meta"][0])))
+        return new, out
+
+    def rec_scan(self, ev, M):
+        scan_b.append((self, ev, M))
+        return run_scan(self, ev, M)
+    monkeypatch.setattr(NFAKernel, "run_block", rec_seq)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec_scan)
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(
+            device=device).create_app_runtime(app)
+        out = []
+        rt.add_callback("Out", lambda evs: out.extend(
+            (e.timestamp, e.data) for e in evs))
+        h = rt.input_handler("StockStream")
+        codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                         dtype=np.int32)
+        for f in tape:
+            cols = {"symbol": codes[f["sym_idx"]], "price": f["price"],
+                    "volume": f["volume"]}
+            if "f" in f:
+                cols["f"] = f["f"]
+            h.send_batch(cols, f["ts"])
+            rt.flush()
+        return out, rt
+    reset_launches()
+    got, rt = run(cuda)
+    plan = rt.plans()[0]
+    inner = getattr(plan, "inner", plan)
+    assert inner.f64 and inner.family == family
+    assert all(LAUNCHES[u] > 0 for u in uses), LAUNCHES
+    assert all(LAUNCHES[u] == 0 for u in ("nfa_block", "nfa_block:ext",
+                                          "nfa_block:chunk", "scan_compact"))
+    if name == "c4_a256":
+        assert inner.kernel.A > 128
+    if name == "c4f":
+        assert inner.kernel.A > 4 and inner.growths["forks"] > 0
+    if name == "fused":
+        assert all(v.dtype == torch.float64 for v in inner.params.values)
+    for kern, state, ev, M, n_found in seq_b:
+        if n_found > M:
+            continue                # an M overflow's first try
+        assert kern.fdt == torch.float64
+        err = check_chunk_block(kern, ev, M) if "__chunk__" in ev else \
+            check_seq_block(kern, state, ev, M)
+        assert max(v for key, v in err.items()
+                   if key not in ("matches", "lost")) == 0.0
+    for k, ev, M in scan_b:
+        err = check_scan_block(k, ev, M)
+        assert max(v for key, v in err.items() if key != "matches") == 0.0
+    assert seq_b or scan_b
+    seq_b.clear()
+    scan_b.clear()
+    want, _rt = run("cpu")
     assert got == want and got

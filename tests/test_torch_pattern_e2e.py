@@ -7,14 +7,15 @@ otherwise) and with the sequential `seq` family forced in both; slot
 growth and match-buffer retries are forced with tiny slot counts on
 `seq`; slot state carried over from the JAX package continues to the JAX
 package's result; the shapes once refused at create (init slots, forks,
-absent `and` sides) give the JAX package's rows; options outside the
-port raise when the app is created.  The JAX package's rows and the port's are
+absent `and` sides) give the JAX package's rows; the options once
+refused at create (f64, a `dfa` request) plan.  The JAX package's rows and the port's are
 computed once per app and tape (`jax_rows`, `port_rows`) and shared by
 the tests that compare them."""
 import functools
 
 import numpy as np
 import pytest
+import torch
 
 import siddhi_tpu
 from siddhi_tpu.core.pattern_plan import DevicePatternPlan as JPlan
@@ -295,7 +296,9 @@ def test_unsupported_shapes_raise_at_create(body, feature):
     ("@app:patternFamily('dfa')\n", "family"),
 ])
 def test_unsupported_options_raise_at_create(head, feature):
-    """f64 raises at create.  A `dfa` request is ported: C4 has no static
+    """Both options once raised at create and are ported now.  f64 plans
+    C4 in float64 (`plan.f64`, float64 capture rows; rows against the JAX
+    package in tests/test_torch_f64.py).  A `dfa` request: C4 has no static
     chase node, so it warns with the JAX package's reason and runs `scan`,
     as the JAX package does."""
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
@@ -310,8 +313,9 @@ def test_unsupported_options_raise_at_create(head, feature):
         assert "no static transition" in plan.families["dfa"]
         assert plan.family == jplan.family == "scan"
         return
-    with pytest.raises(PlanError, match=feature):
-        mgr.create_app_runtime(head + APPS["c4"])
+    plan = mgr.create_app_runtime(head + APPS["c4"]).plans()[0]
+    assert plan.f64 and plan.kernel.f64 and plan.family == "scan"
+    assert plan.kernel.rows_f and plan.kernel.fdt == torch.float64
 
 
 @pytest.mark.parametrize("name", ["c3", "c4", "fused"])
