@@ -185,7 +185,9 @@ Phases (any failure exits non-zero; nothing is caught):
      subtraction, PyTorch's fastest form of that work); K10's entries
      also `chain_ms`,
      one thread doing the longest segment's dependent f64 adds from
-     registers (the chain that bounds a global rollup); the card's name
+     registers (the chain that bounds a global rollup); K2's entries also
+     `step_ns` (device ns / T) and the event stage's `tt` and `wpb` (the
+     steps a tile and warps a block its launch chose); the card's name
      and power limit; then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Every comparison has tolerance 0: the kernels are built with --fmad=false
@@ -925,7 +927,9 @@ def phase_blocks(torch, blocks, label: str = "c4 seq",
                         lambda: [k2.prepare(kern, state, ev, pre, M)],
                         reps=10)
     res["nfa_block"] = {"ms": ms, "dispatch_ms": host, "plain_ms": plain_ms,
-                        "bytes": k2_bytes, "ops": k2_ops, "library_ms": None}
+                        "bytes": k2_bytes, "ops": k2_ops, "library_ms": None,
+                        **k2_geometry(torch, k2, kern, state, ev, pre, M,
+                                      ms, T)}
     if kern.f64:
         res["nfa_block"].update(f64=True, f32_twin_ms=k2_f32_twin_ms(
             torch, kern, state, ev, M))
@@ -1189,11 +1193,25 @@ def phase_chunk_blocks(torch, blocks, label: str, cap: int,
                 "matches": n})
     res["nfa_block:chunk"] = {"ms": ms, "dispatch_ms": host,
                               "plain_ms": plain_ms, "bytes": k2_bytes,
-                              "ops": cells * kern.A, "library_ms": None}
+                              "ops": cells * kern.A, "library_ms": None,
+                              **k2_geometry(torch, k2, kern, state, ev, pre,
+                                            M, ms, T)}
     if kern.f64:
         res["nfa_block:chunk"].update(f64=True, f32_twin_ms=k2_f32_twin_ms(
             torch, kern, state, ev, M))
     return res
+
+
+def k2_geometry(torch, k2, kern, state, ev, pre, M, ms: float,
+                T: int) -> dict:
+    """K2's time a step (device ns / T) and the event stage's TT and
+    warps a block that one launch on the block chose (csrc/nfa_block.cuh
+    nfa_setup)."""
+    launch = k2.prepare(kern, state, ev, pre, M)
+    launch()
+    torch.cuda.synchronize()
+    return {"step_ns": ms * 1e6 / T, "tt": launch.params.tt,
+            "wpb": launch.params.wpb}
 
 
 def k2_f32_twin_ms(torch, kern, state, ev, M) -> float:
@@ -2117,7 +2135,8 @@ def kernel_entry(name, source, replaces, launches, err, m) -> dict:
              "ms": m["ms"], "dispatch_ms": m["dispatch_ms"],
              "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
              "bound_by": by, "library_ms": m["library_ms"]}
-    for extra in ("chain_ms", "library_flat_ms", "f32_twin_ms"):
+    for extra in ("chain_ms", "library_flat_ms", "f32_twin_ms", "step_ns",
+                  "tt", "wpb"):
         if extra in m:
             entry[extra] = m[extra]
     return entry
@@ -2532,6 +2551,9 @@ def main() -> int:
             lib += f" (flat 1-D scan {e['library_flat_ms']:.4f} ms)"
         if "f32_twin_ms" in e:
             lib += f", float32 on its shapes {e['f32_twin_ms']:.4f} ms"
+        if "step_ns" in e:
+            lib += (f", {e['step_ns']:.1f} ns a step (TT {e['tt']}, "
+                    f"{e['wpb']} warps a block)")
         log(f"  {e['name']}: device {e['ms']:.4f} ms, host dispatch "
             f"{m['dispatch_ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
             f"bound {e['bound_ms']:.5f} ms ({e['bound_by']}){lib}{chain}, "

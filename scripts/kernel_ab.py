@@ -3,7 +3,7 @@
 and K10 (`agg_merge`) on the calls their main paths make, checkout by
 checkout.
 
-    python3 scripts/kernel_ab.py ROOT [ROOT ...]
+    python3 scripts/kernel_ab.py [--k2] ROOT [ROOT ...]
 
 Runs each checkout (a directory holding chip_smoke.py and
 siddhi_tpu_torch) in a subprocess of its own, in the order given (repeat
@@ -17,18 +17,26 @@ flushes of 2^13 events 50 ms apart, then set_time), C2 (2 flushes of
 2^17 events), C4N and C4A (4 and 2 flushes of 2^18), A7 (24 flushes of
 4096 events over 1024 keys), A7W and A7G (4 flushes of 2^17, A7G without
 `group by`) and A7A (2 flushes of 2^17 under
-@app:deviceAggregations('always')).  It then times the call chip_smoke.py
-times for each kernel use: K2 on the last accepted C4 `seq` block that
-is not a timer tick and on config 5's widest block of its absent group;
-K5 on the last C4 `scan` block (its chase from K4's plain version);
+@app:deviceAggregations('always')), and for K2 also C4Ns and C4O (2
+flushes of 2^18), C4F (2 flushes of 2^18 under playback), C3K and C3X
+(2 flushes of 2^17 over 8 keys, `chunk`) and C4 `seq` under
+@app:devicePrecision('f64') (chip_smoke's raw-double tape).  It then
+times the call chip_smoke.py times for each kernel use: K2 on the last
+accepted C4 `seq`, C4Ns, C4O and C4 `seq` f64 block that is not a timer
+tick, on C4F's widest block, on the last chunk block C3K and C3X kept
+(from fresh state) and on config 5's widest block of its absent group
+(where K2 stages its events, with the TT and warps a block its launch
+chose, `geometry`); K5 on the last C4 `scan` block (its chase from K4's plain version);
 K6 on C2's widest window call (`window`), on the last C4N block's rank
 columns (`rank`), on the last C4A block's prev columns (`prev`) and on
 A7A's widest call (`agg`); K10 on the widest call of A7, A7W and A7G (on
 a copy of the ring) -- each a CUDA graph of prepared launches (10 for
 K2, 20 else) replayed between CUDA events (chip_smoke.graph_ms), the
-least of three graphs.  Prints one JSON line per run: the checkout, the
-card's name and power limit, and the device times in ms.  Needs a CUDA
-card.
+least of three graphs.  `--k2` times K2 alone (no K5, K6 or K10 run).
+Prints one JSON line per run: the checkout, the card's name and power
+limit, the device times in ms and `ptxas`, each K2 source's kernels with
+their registers and spill stores and loads (nvcc -Xptxas -v).  Needs a
+CUDA card.
 """
 import json
 import os
@@ -36,7 +44,25 @@ import subprocess
 import sys
 
 
-def one(root: str) -> dict:
+def ptxas(log: str) -> list:
+    """(kernel, registers, spill stores, spill loads) of each entry
+    function in one nvcc -Xptxas -v log."""
+    rows, name, props = [], None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            rows.append([name, None, None, None])
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and rows and props == name:
+            rows[-1][2:] = [int(w) for w in line.replace(",", " ").split()
+                            if w.isdigit()][1:3]
+        elif "Used" in line and "registers" in line and rows:
+            rows[-1][1] = int(line.split("Used")[1].split()[0])
+    return rows
+
+
+def one(root: str, k2_only: bool = False) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -53,6 +79,8 @@ def one(root: str) -> dict:
     from siddhi_tpu_torch.replay import (MATRIX_APP, matrix_tape, run_agg,
                                          run_window)
     build.build_all()
+    regs = {name: ptxas(log) for name, log in build.BUILD_LOG.items()
+            if name.startswith("nfa_block")}
 
     def best(call, prepare, reps=20) -> float:
         return min(cs.graph_ms(torch, call, prepare, reps)[0]
@@ -62,87 +90,134 @@ def one(root: str) -> dict:
         return best(lambda: k6.win_scan(*a, **kw),
                     lambda: [k6.prepare(*a, **kw)])
 
-    def k2_ms(blocks) -> float:
-        acc = [b[:4] for b in blocks if int(b[4][0]) <= b[3]]
-        kern, state, ev, m = [b for b in acc if "__tick__" not in b[2]][-1]
+    def k2_block_ms(key, kern, state, ev, m) -> None:
+        """out[key]: K2 on one block; in a checkout whose K2 stages its
+        events, also the TT and warps a block its launch chose
+        (out["geometry"][key])."""
         pre = kern.pre_masks(ev)
-        return best(lambda: k2.nfa_block(kern, state, ev, pre, m),
-                    lambda: [k2.prepare(kern, state, ev, pre, m)], reps=10)
+        out[key] = best(lambda: k2.nfa_block(kern, state, ev, pre, m),
+                        lambda: [k2.prepare(kern, state, ev, pre, m)],
+                        reps=10)
+        launch = k2.prepare(kern, state, ev, pre, m)
+        launch()
+        params = getattr(launch, "params", None)
+        if params is not None:
+            out.setdefault("geometry", {})[key] = {
+                "tt": params.tt, "wpb": params.wpb,
+                "T": ev["__chunk__"][0] if "__chunk__" in ev
+                else ev["__ts__"].shape[0]}
+
+    def k2_ms(key, blocks, widest=False) -> None:
+        acc = [b[:4] for b in blocks if int(b[4][0]) <= b[3]]
+        acc = [b for b in acc if "__tick__" not in b[2]]
+        if widest:
+            acc.sort(key=lambda b: b[0].A)
+        k2_block_ms(key, *acc[-1])
+
+    def k2_chunk_ms(key, blocks, cap) -> None:
+        kern, _st, ev, m, _meta = [b for b in blocks if cs.chunk_kept(
+            b[0], b[4].cpu(), b[3], cap)][-1]
+        k2_block_ms(key, kern, kern.init_state(ev["__ts__"].device), ev, m)
 
     out = {"root": root}
     tape = cs.make_tape(cs.FLUSH * cs.SEQ_FLUSHES, cs.FLUSH, cs.KEYS)
-    out["k2_c4_seq"] = k2_ms(cs.run_recorded(
+    k2_ms("k2_c4_seq", cs.run_recorded(
         pkg, np, cs.C4_SEQ + cs.C4_HEAD + cs.C4, tape)[5])
-    kern, ev, m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
-    pre = kern.pre_masks(ev)
-    masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
-    heaps = seg_tree(kern, ev, pre)
-    rheaps = seg_tree(kern, ev, pre, kern.rank_trees, rcols) if ranks \
-        else []
-    chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps, prevs)
-    out["k5_c4"] = best(
-        lambda: k5.scan_compact(kern, ev, chase, ranks, rheaps, m),
-        lambda: [k5.prepare(kern, ev, chase, ranks, rheaps, m)])
+    for label, app, flushes, family, seed, _x, _n in cs.ALGEBRA:
+        if family == "seq":
+            tape = cs.make_tape(cs.FLUSH * flushes, cs.FLUSH, cs.KEYS,
+                                seed=seed)
+            k2_ms(f"k2_{label}", cs.run_recorded(pkg, np, app, tape)[5])
+    label, app, seed = [x for x in cs.EXT if x[0] == "c4f"][0]
+    tape = cs.make_tape(cs.FLUSH * cs.EXT_FLUSHES, cs.FLUSH, cs.KEYS,
+                        seed=seed)
+    k2_ms("k2_c4f", cs.run_recorded(pkg, np, app, tape)[5], widest=True)
+    for label, app, n, flushes, keys, seed, _f, _c in cs.STATELESS:
+        if label in ("c3k", "c3x"):
+            tape = cs.make_tape(n * flushes, n, keys, seed=seed)
+            rt, seq_b = cs.run_recorded(pkg, np, app, tape, keys)[3:6:2]
+            k2_chunk_ms(f"k2_{label}", seq_b, rt.plans()[0].A_CAP)
+    label, app, n, flushes, keys, seed, band = [
+        x for x in cs.F64_PHASES if x[0] == "c4 seq f64"][0][:7]
+    tape = cs.raw_tape(n * flushes, n, keys, seed=seed, lo=band[0],
+                       levels=band[1])
+    k2_ms("k2_c4_seq_f64", cs.run_recorded(pkg, np, app, tape, keys)[5])
+    if not k2_only:
+        kern, ev, m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
+        pre = kern.pre_masks(ev)
+        masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
+        heaps = seg_tree(kern, ev, pre)
+        rheaps = seg_tree(kern, ev, pre, kern.rank_trees, rcols) if ranks \
+            else []
+        chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps, prevs)
+        out["k5_c4"] = best(
+            lambda: k5.scan_compact(kern, ev, chase, ranks, rheaps, m),
+            lambda: [k5.prepare(kern, ev, chase, ranks, rheaps, m)])
     tape = cs.make_tape(cs.C5_FLUSH * 4, cs.C5_FLUSH, cs.C5_SYMBOLS,
                         seed=5, dt_ms=cs.C5_DT)
     c5 = cs.run_c5(pkg, np, tape, "cuda", record=True)[5]
-    out["k2_c5"] = k2_ms(sorted(c5, key=lambda b: (
+    k2_ms("k2_c5", sorted(c5, key=lambda b: (
         b[0].has_absent, b[2]["__ts__"].shape[0])))
-    calls: list = []
-    tape = cs.make_tape(cs.C2_FLUSH * cs.C2_FLUSHES, cs.C2_FLUSH,
-                        cs.C2_SYMBOLS, seed=20)
-    run_window(cs.C2, tape, "cuda", calls)
-    _n, a, kw = max((c for c in calls if c[0] == "win_scan"),
-                    key=lambda c: c[1][1])
-    out["k6_window"] = k6_ms(a, kw)
-    for label, use, cols_of in (("c4n", "rank", "rank_cols"),
-                                ("c4a", "prev", "prev_cols")):
-        _l, app, flushes, _f, seed, _e, _n = [
-            x for x in cs.ALGEBRA if x[0] == label][0]
-        tape = cs.make_tape(cs.FLUSH * flushes, cs.FLUSH, cs.KEYS,
-                            seed=seed)
-        blocks = cs.run_recorded(pkg, np, app, tape)[4]
-        kern, ev, _m = blocks[-1]
-        L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
-        masks = cs.scan_inputs(kern, ev, kern.pre_masks(ev))[0]
-        cols = getattr(kern, cols_of)(masks)
-        out[f"k6_{use}"] = k6_ms((cols, L * F), {"use": use, "period": F})
-    for label, flushes, batch, grouped, _q, always in cs.AGGS:
-        if label == "a7m":
-            continue
-        calls = []
-        head = "@app:deviceAggregations('always')\n" if always else ""
-        run_agg(MATRIX_APP(head, grouped),
-                matrix_tape(flushes, batch, cs.AGG_KEYS), "cuda", calls)
-        if always:
-            _n, a, kw = max(calls, key=lambda c: c[1][1])
-            out["k6_agg"] = k6_ms(a, kw)
-            continue
-        # the widest call: segments x bases plus the longest segment
-        _n, a, kw = max(calls, key=lambda c: c[1][4].shape[0] * len(
-            c[2]["ops"]) + cs.agg_merge_work(torch, c[1], c[2])[2])
-        scratch = a[0].clone()
-        out[f"k10_{label}"] = best(
-            lambda: k10.agg_merge(scratch, *a[1:], **kw),
-            lambda: [k10.prepare(scratch, *a[1:], **kw)])
+    if not k2_only:
+        calls: list = []
+        tape = cs.make_tape(cs.C2_FLUSH * cs.C2_FLUSHES, cs.C2_FLUSH,
+                            cs.C2_SYMBOLS, seed=20)
+        run_window(cs.C2, tape, "cuda", calls)
+        _n, a, kw = max((c for c in calls if c[0] == "win_scan"),
+                        key=lambda c: c[1][1])
+        out["k6_window"] = k6_ms(a, kw)
+        for label, use, cols_of in (("c4n", "rank", "rank_cols"),
+                                    ("c4a", "prev", "prev_cols")):
+            _l, app, flushes, _f, seed, _e, _n = [
+                x for x in cs.ALGEBRA if x[0] == label][0]
+            tape = cs.make_tape(cs.FLUSH * flushes, cs.FLUSH, cs.KEYS,
+                                seed=seed)
+            blocks = cs.run_recorded(pkg, np, app, tape)[4]
+            kern, ev, _m = blocks[-1]
+            L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
+            masks = cs.scan_inputs(kern, ev, kern.pre_masks(ev))[0]
+            cols = getattr(kern, cols_of)(masks)
+            out[f"k6_{use}"] = k6_ms((cols, L * F), {"use": use, "period": F})
+        for label, flushes, batch, grouped, _q, always in cs.AGGS:
+            if label == "a7m":
+                continue
+            calls = []
+            head = "@app:deviceAggregations('always')\n" if always else ""
+            run_agg(MATRIX_APP(head, grouped),
+                    matrix_tape(flushes, batch, cs.AGG_KEYS), "cuda", calls)
+            if always:
+                _n, a, kw = max(calls, key=lambda c: c[1][1])
+                out["k6_agg"] = k6_ms(a, kw)
+                continue
+            # the widest call: segments x bases plus the longest segment
+            _n, a, kw = max(calls, key=lambda c: c[1][4].shape[0] * len(
+                c[2]["ops"]) + cs.agg_merge_work(torch, c[1], c[2])[2])
+            scratch = a[0].clone()
+            out[f"k10_{label}"] = best(
+                lambda: k10.agg_merge(scratch, *a[1:], **kw),
+                lambda: [k10.prepare(scratch, *a[1:], **kw)])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    return {"card": smi, **out}
+    return {"card": smi, **out, "ptxas": regs}
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(one(os.path.abspath(sys.argv[2]))), flush=True)
+    args = sys.argv[1:]
+    k2_only = "--k2" in args
+    args = [a for a in args if a != "--k2"]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(one(os.path.abspath(args[1]), k2_only)),
+              flush=True)
         return 0
-    if len(sys.argv) < 2:
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
-    for root in sys.argv[1:]:
+    for root in args:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True,
-                              text=True)
+                               "--one", root] + ["--k2"] * k2_only,
+                              capture_output=True, text=True)
         lines = proc.stdout.strip().splitlines()
         if proc.returncode or not lines:
             print(f"kernel_ab: {root} failed ({proc.returncode}):\n"

@@ -3,6 +3,6 @@
 // Python side: kernels/nfa_block.py.
 #include "nfa_block.cuh"
 
-extern "C" int nfa_block_launch(const NfaParams* params, cudaStream_t stream) {
+extern "C" int nfa_block_launch(NfaParams* params, cudaStream_t stream) {
   return launch_narrow<false, false>(params, stream);
 }

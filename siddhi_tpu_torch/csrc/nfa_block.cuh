@@ -79,6 +79,49 @@
 // capture-write tables, column pointers and programs come in a device
 // table; each block stages the programs in shared memory ahead of the
 // warps' rows.
+//
+// What bounds K2 on the H100: not bytes (a block moves a few MB, microseconds
+// at 3.35 TB/s) but the latency of the T-step chain each warp walks alone.
+// Every step used to load its event -- ts, seq, valid, tick, stream code,
+// one pre-mask word per node tested, the columns its programs and capture
+// writes read -- from device memory, each load behind the branch before
+// it, with nothing else of the warp in flight.  The event stage takes
+// them off the chain: each warp keeps a ring of NST = 2 tiles of TT = 64
+// steps in shared memory ahead of its slot rows.  At the start of tile k
+// (the hand-over) a warp waits for tile k's copies (cp.async.wait_group
+// 0, __syncwarp), issues tile k + 1's into the slot tile k - 1 held --
+// lane i copies steps t0 + i and t0 + i + 32 with cp.async (4- and 8-byte
+// copies, one commit group a tile), so a tile's copies have a whole tile
+// of steps to land -- and turns its tile's raw words into what a step
+// reads: one node word (bit gi = node gi's pre-mask bit, 1 where the node
+// has none), the valid and tick flags, 0/1 for a BOOL column.  A step then
+// reads only shared memory (ts, seq, stream code, flags, node word, and
+// columns at their own width: 8-byte LONG/DOUBLE columns first, so they
+// stay aligned, then 4-byte ones, BOOL as a 4-byte 0/1).  A tile holds
+// stage_step = 24 + 8 n8 + 4 n4 + 4 n_nodes bytes a step (kernels/
+// nfa_block.py `_stage_layout`); a warp's ring NST * TT * stage_step bytes
+// (C4 `seq`: 40 bytes a step, 5 KB).  TT = 32 measured 0.5-2% slower on
+// every K2 block chip_smoke times, so the ring has one size; a launch
+// whose rows and ring do not fit the block's 227 KB fails.  Fused lanes
+// (bcast) read one broadcast row a step for every warp: the block keeps
+// that ring once (after the stage header), its live threads copy each
+// tile's broadcast fields and columns between them and meet (barrier 1
+// over the live warps) at every hand-over, after their own wait and
+// before the next tile overwrites the slot all warps have left; each
+// warp's own ring then holds its pre-mask words, node words, flags and
+// BOOL columns only, since the pre-mask bits differ lane by lane.  Chunk
+// lanes keep cp.async as well: their own-chunks start at any flat index
+// and clip at F - 1, which the 16-byte spans of a bulk copy do not fit,
+// and the fill is off the chain either way.  Which flat index a step
+// reads is computed as before (stage_index); the step's statements,
+// their order and the drain are unchanged.  Measured on an H100
+// (scripts/k2_phases.py): the hand-over costs 1-2% of a heavy step and no
+// step waits for a tile; the stage saved the one L2 round trip a step of
+// a (T, P) grid's strided reads (5-9%), while chunk lanes and broadcast
+// rows had hit L1 before.  A step is now bound by its own dependent work:
+// the VM's interpretation and the per-position and per-node table loads
+// (55-78% of its cycles), the head (9-27%) and the drain's atomicAdd
+// (8-18%).
 #pragma once
 #include "expr_vm.cuh"
 
@@ -121,6 +164,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   int n_consts, stage, prog_bytes, parked, all_pz_off, all_pz_len;
   int ext, needs_init, init_on_tick, has_anchor, anchor, init_land;
   int chunk, cs, nflat, nev, prev_seq;  // chunk lanes (flat events, halo reads)
+  int tt, stage_step, stage_pre, n_nodes, warp_words;  // the event stage (tt: out)
   const int* ts;
   const int* seq;
   const unsigned char* valid;        // (T, G); chunk lanes derive it
@@ -197,6 +241,7 @@ struct NfaParams {  // layout mirrored by kernels/nfa_block.py _Params
   const int* node_dl;       // deadline row of an absent node, -1 none
   const int* node_wait;     // its waiting time
   const int* node_absent;
+  const int* ev_soff;       // a column's byte offset in a step of the stage
 };
 
 struct Caps {  // one warp's capture, deadline and counter rows, [K][A]
@@ -207,20 +252,283 @@ struct Caps {  // one warp's capture, deadline and counter rows, [K][A]
   int* c;
 };
 
-// VM environment of one slot at one event: grid columns at the event,
+// ---- where a warp's cycles go (scripts/k2_phases.py) ----------------------
+// Built with -DNFA_PHASES, each warp sums its clock between marks into
+// per-phase totals, added over the launch into nfa_phase_cycles: 0 the
+// next tile's copies issued, 1 the slot steps (steps 0-4), 2 the drain, 3
+// the head, 4 the state in and out and the end drain, 5 the wait for a
+// tile (and, for fused lanes, for the block's warps), 6 its hand-over
+// into node words and flags.  The shipped libraries
+// define no NFA_PHASES and carry none of it.
+#ifdef NFA_PHASES
+__device__ unsigned long long nfa_phase_cycles[7];
+#define PHASE_MARK(k)                    \
+  do {                                   \
+    const long long now_ = clock64();    \
+    ph_[k] += now_ - ph_t_;              \
+    ph_t_ = now_;                        \
+  } while (0)
+extern "C" int nfa_block_phases(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, nfa_phase_cycles, sizeof(nfa_phase_cycles));
+  if (e == cudaSuccess) {
+    const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+    e = cudaMemcpyToSymbol(nfa_phase_cycles, zero, sizeof(zero));
+  }
+  return static_cast<int>(e);
+}
+#else
+#define PHASE_MARK(k) \
+  do {                \
+  } while (0)
+#endif
+
+// ---- the event stage ------------------------------------------------------
+constexpr int NST = 2;          // tiles in a ring
+constexpr int TT = 64;          // steps a tile
+constexpr int SPL = TT / 32;    // a lane's steps of a tile
+// byte offsets of the fixed fields in a step (a field's TT entries sit at
+// offset * TT in the tile); the columns follow at ev_soff, the pre-mask
+// words at stage_pre
+#define ST_TS 0
+#define ST_SEQ 4
+#define ST_SC 8
+#define ST_NW 12                // node word
+#define ST_VW 16                // the valid byte's word, then the flags
+#define ST_TW 20                // the tick byte's word
+
+// The block's stage header in shared memory: per column its pointer and
+// (offset of its TT entries in a tile) << 3 | storage type; per node its
+// pre-mask words (null: no pre-mask); in registers, which nodes have one
+// and whether a column is BOOL.
+struct StageHdr {
+  const void* const* col;
+  const unsigned* const* pre;
+  const int* cd;
+  unsigned has_pre;   // bit gi: node gi has a pre-mask
+  bool any_bool;      // a BOOL column
+};
+
+__device__ __host__ __forceinline__ size_t stage_hdr_bytes(const NfaParams& p) {
+  return (static_cast<size_t>(p.C + p.n_nodes) * 8 + static_cast<size_t>(p.C) * 4 + 7) / 8 * 8;
+}
+
+// A ring's bytes; shared memory ahead of the warps' parts: the programs,
+// the header and, for fused lanes, the block's ring of broadcast rows.
+__device__ __host__ __forceinline__ size_t ring_bytes(const NfaParams& p) {
+  return static_cast<size_t>(NST) * TT * p.stage_step;
+}
+
+__device__ __host__ __forceinline__ size_t block_stage_bytes(const NfaParams& p) {
+  return p.prog_bytes + stage_hdr_bytes(p) + (p.bcast ? ring_bytes(p) : 0);
+}
+
+// One staged step: the tile holding its event's fields and columns
+// (`ev`: the block's tile under bcast, else the warp's), the warp's own
+// tile (flags, node word, BOOL columns as 0/1) and the entry.
+struct Ev {
+  const unsigned char* ev;
+  const unsigned char* own;
+  int i;
+  const int* cd;
+};
+
+// Column `col` of the staged step at its storage type (BOOL staged as a
+// 4-byte 0/1); `vt` gets that type.
+__device__ __forceinline__ VmVal ev_read(const Ev& e, int col, int& vt) {
+  const int d = e.cd[col];
+  vt = d & 7;
+  const unsigned char* r = (vt == VT_BOOL ? e.own : e.ev) + (d >> 3);
+  switch (vt) {
+    case VT_BOOL:
+    case VT_I32: return vm_i(reinterpret_cast<const int*>(r)[e.i]);
+    case VT_I64: return vm_l(reinterpret_cast<const long long*>(r)[e.i]);
+    case VT_F32: return vm_f(reinterpret_cast<const float*>(r)[e.i]);
+    default: return vm_d(reinterpret_cast<const double*>(r)[e.i]);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(s))),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(s))),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The block's live warps (`n` threads) meet: fused lanes share the
+// block's ring (a warp past P has left the kernel and is not counted).
+__device__ __forceinline__ void bar_live(int n) {
+  asm volatile("barrier.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// A byte-wide grid entry is copied as the aligned 4-byte word holding it
+// (a word never crosses the allocation the byte lies in) and picked out
+// at the hand-over.
+__device__ __forceinline__ const void* word_of(const unsigned char* b) {
+  return reinterpret_cast<const void*>(reinterpret_cast<unsigned long long>(b) & ~3ull);
+}
+
+__device__ __forceinline__ unsigned byte_of(unsigned w, const unsigned char* b) {
+  return (w >> (8 * (reinterpret_cast<unsigned long long>(b) & 3ull))) & 0xffu;
+}
+
+// The flat index of step t's event (`e`) and of its pre-mask bit (`pi`),
+// and whether a chunk lane's event lies in the flush: the grid's (t,
+// part), the broadcast row t, or a chunk lane's flat event part*cs + t
+// clipped to the last.
+template <bool CH>
+__device__ __forceinline__ void stage_index(const NfaParams& p, int t, int part, long long& e,
+                                            long long& pi, bool& in) {
+  pi = static_cast<long long>(t) * p.P + part;
+  e = p.bcast ? static_cast<long long>(t) : pi;
+  in = true;
+  if constexpr (CH) {
+    if (p.chunk) {
+      const long long f = static_cast<long long>(part) * p.cs + t;
+      e = pi = f < p.nflat ? f : p.nflat - 1;
+      in = f < p.nev;
+    }
+  }
+}
+
+// A thread's steps of a tile, s = first + stride * k (k < SPL), with
+// their flat indices; `ok` marks those in the tile and below T.
+struct Steps {
+  int s[SPL];
+  long long e[SPL], pi[SPL];
+  bool in[SPL], ok[SPL];
+};
+
+template <bool CH>
+__device__ __forceinline__ Steps steps_of(const NfaParams& p, int t0, int part, int first,
+                                          int stride) {
+  Steps st;
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    st.s[k] = first + stride * k;
+    st.ok[k] = st.s[k] < TT && t0 + st.s[k] < p.T;
+    stage_index<CH>(p, t0 + st.s[k], part, st.e[k], st.pi[k], st.in[k]);
+  }
+  return st;
+}
+
+// Issue the copies of steps t0 .. t0 + TT - 1 (those below T): the
+// event's fields and columns into `ev` -- the warp's steps lane, lane + 32
+// or, under bcast, the block's steps `tid`, tid + nthr, ... of the shared
+// broadcast rows -- and the pre-mask words of the warp's lane into `own`;
+// field by field, each field's pointer and place read once a call.
+template <bool CH>
+__device__ void stage_issue(const NfaParams& p, const StageHdr& h, unsigned char* ev,
+                            unsigned char* own, int t0, int part, int lane, int tid, int nthr) {
+  Steps st = steps_of<CH>(p, t0, part, p.bcast ? tid : lane, p.bcast ? nthr : 32);
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    if (!st.ok[k]) continue;
+    const int s = st.s[k];
+    const long long e = st.e[k];
+    cp_async4(ev + ST_TS * TT + 4 * s, p.ts + e);
+    cp_async4(ev + ST_SEQ * TT + 4 * s, p.seq + e);
+    if (p.multi) cp_async4(ev + ST_SC * TT + 4 * s, p.scode + e);
+    if (!(CH && p.chunk)) cp_async4(ev + ST_VW * TT + 4 * s, word_of(p.valid + e));
+    if (p.tick != nullptr) cp_async4(ev + ST_TW * TT + 4 * s, word_of(p.tick + e));
+  }
+  for (int c = 0; c < p.C; ++c) {
+    const int d = h.cd[c];
+    unsigned char* r = ev + (d >> 3);
+    const unsigned char* g = static_cast<const unsigned char*>(h.col[c]);
+    const int vt = d & 7;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      if (!st.ok[k]) continue;
+      const int s = st.s[k];
+      if (vt == VT_BOOL) cp_async4(r + 4 * s, word_of(g + st.e[k]));
+      else if (vt == VT_I64 || vt == VT_F64) cp_async8(r + 8 * s, g + 8 * st.e[k]);
+      else cp_async4(r + 4 * s, g + 4 * st.e[k]);
+    }
+  }
+  if (p.bcast) st = steps_of<CH>(p, t0, part, lane, 32);
+  for (unsigned m = h.has_pre; m != 0u; m &= m - 1u) {
+    const int gi = __ffs(m) - 1;
+    const unsigned* w = h.pre[gi];
+    unsigned char* r = own + (p.stage_pre + 4 * gi) * TT;
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      if (st.ok[k]) cp_async4(r + 4 * st.s[k], w + (st.pi[k] >> 5));
+  }
+  cp_async_commit();
+}
+
+// The hand-over of a landed tile: each lane turns its own steps' raw words
+// into the warp's node word (1 for a node without a pre-mask), flags (bit
+// 0 valid, bit 1 tick) and 0/1 BOOL columns in `own` (in place where
+// `ev` is the warp's own tile).
+template <bool CH>
+__device__ void stage_prep(const NfaParams& p, const StageHdr& h, const unsigned char* ev,
+                           unsigned char* own, int t0, int part, int lane) {
+  const Steps st = steps_of<CH>(p, t0, part, lane, 32);
+  unsigned nw[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) nw[k] = ~h.has_pre;
+  for (unsigned m = h.has_pre; m != 0u; m &= m - 1u) {
+    const int gi = __ffs(m) - 1;
+    const unsigned* r = reinterpret_cast<const unsigned*>(own + (p.stage_pre + 4 * gi) * TT);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) nw[k] |= ((r[st.s[k]] >> (st.pi[k] & 31)) & 1u) << gi;
+  }
+  const unsigned* vw = reinterpret_cast<const unsigned*>(ev + ST_VW * TT);
+  const unsigned* tw = reinterpret_cast<const unsigned*>(ev + ST_TW * TT);
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    if (!st.ok[k]) continue;
+    const int s = st.s[k];
+    const bool valid =
+        (CH && p.chunk) ? st.in[k] : byte_of(vw[s], p.valid + st.e[k]) != 0u;
+    const bool tick = p.tick != nullptr && byte_of(tw[s], p.tick + st.e[k]) != 0u;
+    reinterpret_cast<unsigned*>(own + ST_NW * TT)[s] = nw[k];
+    reinterpret_cast<unsigned*>(own + ST_VW * TT)[s] = (valid ? 1u : 0u) | (tick ? 2u : 0u);
+  }
+  if (!h.any_bool) return;
+  for (int c = 0; c < p.C; ++c) {
+    const int d = h.cd[c];
+    if ((d & 7) != VT_BOOL) continue;
+    const unsigned* raw = reinterpret_cast<const unsigned*>(ev + (d >> 3));
+    unsigned* r = reinterpret_cast<unsigned*>(own + (d >> 3));
+    const unsigned char* g = static_cast<const unsigned char*>(h.col[c]);
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      if (st.ok[k]) r[st.s[k]] = byte_of(raw[st.s[k]], g + st.e[k]) != 0u;
+  }
+}
+
+// VM environment of one slot at one event: the staged event's columns,
 // then the slot's capture rows, then the event's ts offset; lane
 // parameters at the warp's partition lane.
 struct SlotEnv {
   const NfaParams& p;
-  long long idx;
+  Ev ev;
   int a;
   int part;
   Caps c;
   int ts;
   __device__ VmVal load(int slot, int vt) {
     if (slot < p.C) {
-      const int have = p.ev_vt[slot];
-      return vm_as(vm_read(p.ev[slot], have, idx), have, vt);
+      int have;
+      const VmVal v = ev_read(ev, slot, have);
+      return vm_as(v, have, vt);
     }
     slot -= p.C;
     if (slot < p.Kf) return VM_CAP(c.f[slot * p.A + a]);
@@ -235,21 +543,18 @@ struct SlotEnv {
   }
 };
 
-__device__ __forceinline__ bool pre_bit(const unsigned* w, long long idx) {
-  return w == nullptr || ((w[idx >> 5] >> (idx & 31)) & 1u);
-}
-
-// The event's own part of a node match: valid, its stream, its pre-mask.
+// The event's own part of a node match: valid, its stream, its pre-mask
+// (bit gi of the staged node word).
 __device__ __forceinline__ bool base_match(const NfaParams& p, int gi, bool valid, int sc,
-                                           long long pidx) {
-  return valid && (!p.multi || sc == p.node_scode[gi]) && pre_bit(p.node_pre[gi], pidx);
+                                           unsigned nw) {
+  return valid && (!p.multi || sc == p.node_scode[gi]) && ((nw >> gi) & 1u);
 }
 
 // One span of capture writes into slot a (the table of NFAKernel
 // capture_values / count_capture_values): W_PREV entries come first, so
 // [last-1] reads the old [last]; W_IDX and W_PRES_GE read only their own
 // row.  With `comp`, the completion's ts and seq rows too.
-__device__ void apply_writes(const NfaParams& p, int off, int len, int newc, long long idx,
+__device__ void apply_writes(const NfaParams& p, int off, int len, int newc, Ev ev,
                              int a, Caps c, bool comp, int cts, int cseq) {
   for (int w = off; w < off + len; ++w) {
     const int r = p.w_row[w], g = p.w_group[w], mode = p.w_mode[w];
@@ -267,8 +572,9 @@ __device__ void apply_writes(const NfaParams& p, int off, int len, int newc, lon
       v = vm_cast(vm_i(1), VT_I32, gt);
     } else {
       if (mode == W_IDX && newc != p.w_arg[w]) continue;
-      const int vt = p.ev_vt[p.w_src[w]];
-      v = vm_cast(vm_read(p.ev[p.w_src[w]], vt, idx), vt, gt);
+      int vt;
+      const VmVal x = ev_read(ev, p.w_src[w], vt);
+      v = vm_cast(x, vt, gt);
     }
     vm_write(base, gt, at, v);
   }
@@ -335,7 +641,7 @@ __device__ void emit_slot(const NfaParams& p, int pos, int a, int hseq, int part
 }
 
 // Single-position chains emit the head event directly (no slot).
-__device__ void emit_single(const NfaParams& p, long long idx, int ts, int seq, int part) {
+__device__ void emit_single(const NfaParams& p, Ev ev, int ts, int seq, int part) {
   const int pos = atomicAdd(p.meta, 1);
   if (pos >= p.M) return;
   const long long M = p.M;
@@ -344,8 +650,9 @@ __device__ void emit_single(const NfaParams& p, long long idx, int ts, int seq, 
     const int gt = g == 0 ? CAP_VT : (g == 1 ? VT_I32 : VT_I64);
     VmVal v = vm_cast(vm_i(1), VT_I32, gt);
     if (p.w_mode[w] == W_SRC) {
-      const int vt = p.ev_vt[p.w_src[w]];
-      v = vm_cast(vm_read(p.ev[p.w_src[w]], vt, idx), vt, gt);
+      int vt;
+      const VmVal x = ev_read(ev, p.w_src[w], vt);
+      v = vm_cast(x, vt, gt);
     }
     if (g == 0) p.out_f[r * M + pos] = CAP_VAL(v);
     else if (g == 1) p.out_i[r * M + pos] = v.i;
@@ -425,7 +732,7 @@ __device__ int drain(const NfaParams& p, int lane, int part, int (&occ)[NJ],
 // node ahead of the firing.  Returns the slot's new station.
 __device__ __forceinline__ int chain_step(const NfaParams& p, const int* words,
                                           const long long* consts, int a, int part,
-                                          long long eidx, long long pidx, int ts, int seq,
+                                          Ev ev, unsigned nw, int ts, int seq,
                                           bool valid, bool timey, bool dl_fire, int sc, int o,
                                           int fts, Caps c) {
   const int A = p.A, S = p.S;
@@ -458,17 +765,17 @@ __device__ __forceinline__ int chain_step(const NfaParams& p, const int* words,
               static_cast<int>(static_cast<unsigned>(ts) - static_cast<unsigned>(fts)) > w;
   bool trans = false;
   const int gi = p.pos_node[stn];
-  if (!dead && stn >= 1 && base_match(p, gi, valid, sc, pidx)) {
+  if (!dead && stn >= 1 && base_match(p, gi, valid, sc, nw)) {
     bool m = true;
     if (p.node_prog_len[gi] > 0) {
-      SlotEnv env{p, eidx, a, part, c, ts};
+      SlotEnv env{p, ev, a, part, c, ts};
       m = vm_run(words + p.node_prog_off[gi], p.node_prog_len[gi], consts, env).i != 0;
     }
     if (m && p.pos_kind[stn] == K_ABSENT) {
       dead = true;                       // a forbidden arrival
     } else if (m) {
       trans = true;
-      apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, eidx, a, c, true, ts, seq);
+      apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, ev, a, c, true, ts, seq);
       if (stn == S - 1) {
         o = S + 1;
       } else {
@@ -571,7 +878,7 @@ __device__ void fork_slots(const NfaParams& p, int lane, const bool (&src)[NJ], 
 // is its vector form).  `init` is the lane's init-slot flag.
 template <int NJ>
 __device__ void ext_step(const NfaParams& p, const int* words, const long long* consts, int lane,
-                         int part, long long eidx, long long pidx, int ts, int seq, bool valid,
+                         int part, Ev ev, unsigned nw, int ts, int seq, bool valid,
                          bool tick, bool timey, bool dl_fire, int sc, int (&occ)[NJ],
                          int (&fts)[NJ], int (&hsq)[NJ], unsigned (&con)[NJ], unsigned (&nar)[NJ],
                          unsigned (&flb)[NJ], bool (&now)[NJ], bool& init, int& ofs, int& lostf,
@@ -605,9 +912,9 @@ __device__ void ext_step(const NfaParams& p, const int* words, const long long* 
     age[j] = static_cast<int>(static_cast<unsigned>(ts) - static_cast<unsigned>(fts[j]));
     narm0[j] = nar[j];
     for (int gi = 0; gi < n_nodes; ++gi) {
-      bool mm = base_match(p, gi, valid, sc, pidx);
+      bool mm = base_match(p, gi, valid, sc, nw);
       if (mm && p.node_prog_len[gi] > 0) {
-        SlotEnv env{p, eidx, a, part, c, ts};
+        SlotEnv env{p, ev, a, part, c, ts};
         mm = vm_run(words + p.node_prog_off[gi], p.node_prog_len[gi], consts, env).i != 0;
       }
       if (mm) nm[j] |= 1u << gi;
@@ -826,12 +1133,12 @@ __device__ void ext_step(const NfaParams& p, const int* words, const long long* 
       for (int pi = 0; pcc[j] != 0u && pi < S; ++pi) {
         if (p.pos_kind[pi] != K_COUNT || !((pcc[j] >> p.pos_cnt[pi]) & 1u)) continue;
         const int gi = p.pos_node[pi];
-        apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], c.c[p.pos_cnt[pi] * A + a], eidx,
+        apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], c.c[p.pos_cnt[pi] * A + a], ev,
                      a, c, pi == S - 1, ts, seq);
       }
       for (unsigned rest = pcw[j]; rest != 0u; rest &= rest - 1u) {
         const int gi = __ffs(rest) - 1;
-        apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, eidx, a, c, true, ts, seq);
+        apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, ev, a, c, true, ts, seq);
       }
     }
     const bool survivor = final_cnt >= 0 && ((con[j] >> final_cnt) & 1u);
@@ -868,6 +1175,29 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   const int* words = p.words;
   const long long* consts = p.consts;
   if (p.stage) vm_stage(p.words, p.n_words, p.consts, p.n_consts, smem, &words, &consts);
+  // the stage header after the programs: column and pre-mask pointers,
+  // column descriptors
+  StageHdr h;
+  {
+    long long* hb = smem + p.prog_bytes / 8;
+    const void** col = reinterpret_cast<const void**>(hb);
+    const unsigned** pre = reinterpret_cast<const unsigned**>(hb + p.C);
+    int* cd = reinterpret_cast<int*>(hb + p.C + p.n_nodes);
+    for (int i = threadIdx.x; i < p.C; i += blockDim.x) {
+      col[i] = p.ev[i];
+      cd[i] = (p.ev_soff[i] * TT) << 3 | p.ev_vt[i];
+    }
+    for (int i = threadIdx.x; i < p.n_nodes; i += blockDim.x) pre[i] = p.node_pre[i];
+    __syncthreads();
+    h.col = col;
+    h.pre = pre;
+    h.cd = cd;
+    h.has_pre = 0u;
+    h.any_bool = false;
+    for (int i = 0; i < p.n_nodes; ++i)
+      if (p.node_pre[i] != nullptr) h.has_pre |= 1u << i;
+    for (int i = 0; i < p.C; ++i) h.any_bool |= p.ev_vt[i] == VT_BOOL;
+  }
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
   const int part = blockIdx.x * p.wpb + wib;
@@ -875,11 +1205,18 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   const int A = p.A, P = p.P, S = p.S, PARK = S + 1;
   const int n_nodes = p.pos_node[S - 1] + (p.pos_kind[S - 1] == K_LOGICAL ? 2 : 1);
   const unsigned all_nodes = n_nodes >= 32 ? 0xffffffffu : ((1u << n_nodes) - 1u);
-  const size_t per_warp = static_cast<size_t>(p.Kl) * A +
-                          (static_cast<size_t>(p.Kf * CAP_WORDS + p.Ki + p.Ka + p.Kc +
-                                               (EXT ? 7 : 0)) * A + 1) / 2;
+  // the warp's ring of NST tiles, then its rows; fused lanes' broadcast
+  // rows in the block's ring (after the header), read by every warp
+  const int tile_bytes = TT * p.stage_step;
+  long long* wbase = smem + block_stage_bytes(p) / 8 + static_cast<size_t>(wib) * p.warp_words;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(wbase);
+  unsigned char* ev_ring =
+      p.bcast ? reinterpret_cast<unsigned char*>(smem + (p.prog_bytes + stage_hdr_bytes(p)) / 8)
+              : ring;
+  const int rest = P - static_cast<int>(blockIdx.x) * p.wpb;   // live warps
+  const int live = 32 * (rest < p.wpb ? rest : p.wpb);
   Caps c;                                // the f rows follow the 8-byte l
-  c.l = smem + p.prog_bytes / 8 + wib * per_warp;   // rows: doubles stay aligned
+  c.l = wbase + NST * tile_bytes / 8;    // rows: doubles stay aligned
   c.f = reinterpret_cast<capf_t*>(c.l + static_cast<size_t>(p.Kl) * A);
   c.i = reinterpret_cast<int*>(c.f + static_cast<size_t>(p.Kf) * A);
   c.d = c.i + static_cast<size_t>(p.Ki) * A;
@@ -922,31 +1259,51 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
   int ofl = p.ofl_in[part];
   int lostf = 0;
   const int final_cnt = p.pos_kind[S - 1] == K_COUNT ? p.pos_cnt[S - 1] : -1;
+#ifdef NFA_PHASES
+  long long ph_[7] = {0, 0, 0, 0, 0, 0, 0};
+  long long ph_t_ = clock64();
+#endif
 
+  // tile 0 goes out before the first step, tile k + 1 at tile k's start
+  if (p.T > 0) stage_issue<CH>(p, h, ev_ring, ring, 0, part, lane, threadIdx.x, live);
+  const unsigned char *ev_tile = ev_ring, *own = ring;
+
+  PHASE_MARK(4);
   for (int t = 0; t < p.T; ++t) {
-    long long eidx = p.bcast ? static_cast<long long>(t)
-                             : static_cast<long long>(t) * P + part;
-    long long pidx = static_cast<long long>(t) * P + part;
-    bool in_flat = true;
-    if constexpr (CH) {
-      // a chunk lane reads the flat events part*cs + t (clipped to the
-      // last; its pre-masks are over the flat events too)
-      if (p.chunk) {
-        const long long f = static_cast<long long>(part) * p.cs + t;
-        eidx = pidx = f < p.nflat ? f : p.nflat - 1;
-        in_flat = f < p.nev;
-      }
+    PHASE_MARK(3);
+    const int i = t & (TT - 1);          // the step's entry in its tile
+    if (i == 0) {
+      // the hand-over: tile k has landed (every thread's copies, under
+      // bcast, once the block has met), and every warp is done with tile
+      // k - 1, whose slot takes tile k + 1
+      const int k = t / TT;
+      cp_async_wait_all();
+      if (p.bcast) bar_live(live);
+      else __syncwarp();
+      PHASE_MARK(5);
+      const int next = (k + 1) % NST * tile_bytes, cur = k % NST * tile_bytes;
+      if (t + TT < p.T)
+        stage_issue<CH>(p, h, ev_ring + next, ring + next, t + TT, part, lane, threadIdx.x, live);
+      PHASE_MARK(0);
+      stage_prep<CH>(p, h, ev_ring + cur, ring + cur, t, part, lane);
+      __syncwarp();
+      ev_tile = ev_ring + cur;
+      own = ring + cur;
+      PHASE_MARK(6);
     }
-    const int ts = p.ts[eidx];
-    const int seq = p.seq[eidx];
-    const bool valid = (CH && p.chunk) ? in_flat : p.valid[eidx] != 0;
-    const bool tick = p.tick != nullptr && p.tick[eidx] != 0;
+    const Ev ev{ev_tile, own, i, h.cd};
+    const int ts = reinterpret_cast<const int*>(ev_tile + ST_TS * TT)[i];
+    const int seq = reinterpret_cast<const int*>(ev_tile + ST_SEQ * TT)[i];
+    const unsigned fl = reinterpret_cast<const unsigned*>(own + ST_VW * TT)[i];
+    const unsigned nw = reinterpret_cast<const unsigned*>(own + ST_NW * TT)[i];
+    const bool valid = (fl & 1u) != 0u;
+    const bool tick = (fl & 2u) != 0u;
     const bool timey = valid || tick;
     const bool dl_fire = p.playback ? timey : tick;
-    const int sc = p.multi ? p.scode[eidx] : 0;
+    const int sc = p.multi ? reinterpret_cast<const int*>(ev_tile + ST_SC * TT)[i] : 0;
 
     if constexpr (EXT)
-      ext_step<NJ>(p, words, consts, lane, part, eidx, pidx, ts, seq, valid, tick, timey,
+      ext_step<NJ>(p, words, consts, lane, part, ev, nw, ts, seq, valid, tick, timey,
                    dl_fire, sc, occ, fts, hsq, con, nar, flb, now, init, ofs, lostf, c, fk);
 #pragma unroll (NJ <= 4 ? NJ : 1)
     for (int j = 0; j < (EXT ? 0 : NJ); ++j) {
@@ -955,7 +1312,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
       if (a >= A) continue;
       if constexpr (!ALG) {
         if (occ[j] >= 1 && occ[j] <= S)
-          occ[j] = chain_step(p, words, consts, a, part, eidx, pidx, ts, seq, valid, timey,
+          occ[j] = chain_step(p, words, consts, a, part, ev, nw, ts, seq, valid, timey,
                               dl_fire, sc, occ[j], fts[j], c);
         continue;
       }
@@ -981,9 +1338,9 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
       unsigned nm = 0u;
       for (unsigned rest = need; rest != 0u; rest &= rest - 1u) {
         const int gi = __ffs(rest) - 1;
-        bool m = base_match(p, gi, valid, sc, pidx);
+        bool m = base_match(p, gi, valid, sc, nw);
         if (m && p.node_prog_len[gi] > 0) {
-          SlotEnv env{p, eidx, a, part, c, ts};
+          SlotEnv env{p, ev, a, part, c, ts};
           m = vm_run(words + p.node_prog_off[gi], p.node_prog_len[gi], consts, env).i != 0;
         }
         if (m) nm |= 1u << gi;
@@ -1043,7 +1400,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
         const int pc = adj ? p.pos_cnt[pi - 1] : 0;
         const bool ent = adj && at && stn == pi - 1 && ((narm0 >> pc) & 1u) && hit;
         if (collect && !ent && !dead)
-          apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], newc, eidx, a, c, pi == S - 1,
+          apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], newc, ev, a, c, pi == S - 1,
                        ts, seq);
         c.c[cr * A + a] = newc;
         if (!(newc < p.pos_max[pi])) con[j] &= ~(1u << cr);
@@ -1062,7 +1419,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
           else con[j] &= ~(1u << cr);
           zero_rows(p, p.pos_pz_off[pi], p.pos_pz_len[pi], a, c);
           if (!dead)
-            apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], 1, eidx, a, c, pi == S - 1,
+            apply_writes(p, p.node_cc_off[gi], p.node_cc_len[gi], 1, ev, a, c, pi == S - 1,
                          ts, seq);
           if (p.pos_min[pi] <= 1) {
             if (pi == S - 1) complete = true;
@@ -1086,7 +1443,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
             bits |= 1u << ni;
             trans = true;
             if (!dead)
-              apply_writes(p, p.node_cw_off[gi + ni], p.node_cw_len[gi + ni], 0, eidx, a, c,
+              apply_writes(p, p.node_cw_off[gi + ni], p.node_cw_len[gi + ni], 0, ev, a, c,
                            true, ts, seq);
           }
           m = at_pi && (p.pos_or[pi] ? bits != 0u : bits == 3u);
@@ -1104,7 +1461,7 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
           if (m) {
             nar[j] &= ~chain;
             if (!dead)
-              apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, eidx, a, c, true, ts,
+              apply_writes(p, p.node_cw_off[gi], p.node_cw_len[gi], 0, ev, a, c, true, ts,
                            seq);
           }
         }
@@ -1147,22 +1504,24 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
     }
 
     // 5. drain lanes
+    PHASE_MARK(1);
     if (p.parked) {
       const int lost = drain<NJ, ALG, CH>(p, lane, part, occ, hsq, now, c);
       if constexpr (ALG) ofl += __reduce_add_sync(FULL, lost);
     }
+    PHASE_MARK(2);
 
     // 6. head
     // (a disarmed one-shot head reads no pre-mask; an init-slot chain
     // has no head allocation, its entry being the init slot)
     // (a chunk lane arms heads in its own range t < cs only)
     const bool ok0 = !(EXT && p.needs_init) && armed && (!(CH && p.chunk) || t < p.cs) &&
-                     (base_match(p, 0, valid, sc, pidx) ||
-                      (ALG && p.pos_kind[0] == K_LOGICAL && base_match(p, 1, valid, sc, pidx)));
+                     (base_match(p, 0, valid, sc, nw) ||
+                      (ALG && p.pos_kind[0] == K_LOGICAL && base_match(p, 1, valid, sc, nw)));
     if (!ok0) continue;
     if (!p.every_head) armed = false;
     if (!p.parked) {
-      if (lane == 0 && (!CH || seq > p.prev_seq)) emit_single(p, eidx, ts, seq, part);
+      if (lane == 0 && (!CH || seq > p.prev_seq)) emit_single(p, ev, ts, seq, part);
       continue;
     }
     int hot = -1;
@@ -1189,9 +1548,9 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
       if (ALG && kind == K_LOGICAL) {
         unsigned bits = 0u;
         for (int ni = 0; ni < 2; ++ni) {
-          if (!base_match(p, ni, valid, sc, pidx)) continue;
+          if (!base_match(p, ni, valid, sc, nw)) continue;
           bits |= 1u << ni;
-          apply_writes(p, p.node_cw_off[ni], p.node_cw_len[ni], 0, eidx, a, c, true, ts, seq);
+          apply_writes(p, p.node_cw_off[ni], p.node_cw_len[ni], 0, ev, a, c, true, ts, seq);
         }
         const int sh = 2 * p.pos_log[0];
         flb[j] = (flb[j] & ~(3u << sh)) | (bits << sh);
@@ -1211,17 +1570,18 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
           if (p.pos_min[0] <= 1) nar[j] |= 1u << cr;
           else nar[j] &= ~(1u << cr);
         }
-        apply_writes(p, p.node_cc_off[0], p.node_cc_len[0], 1, eidx, a, c, S == 1, ts, seq);
+        apply_writes(p, p.node_cc_off[0], p.node_cc_len[0], 1, ev, a, c, S == 1, ts, seq);
         if (S == 1 && p.pos_min[0] <= 1) o = PARK;
       } else {
         o = land + 1;
-        apply_writes(p, p.node_cw_off[0], p.node_cw_len[0], 0, eidx, a, c, false, ts, seq);
+        apply_writes(p, p.node_cw_off[0], p.node_cw_len[0], 0, ev, a, c, false, ts, seq);
         if (S > 1)
           for (int tp = 1; tp <= land; ++tp) head_enter<ALG, EXT>(p, tp, a, ts, c, con[j], nar[j], flb[j]);
       }
       occ[j] = o;
     }
   }
+  PHASE_MARK(3);
   if (p.parked) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) now[j] = false;
@@ -1267,11 +1627,17 @@ __global__ void nfa_block_kernel(const __grid_constant__ NfaParams p) {
     if (lostf) atomicAdd(p.meta + 4, lostf);
     if (min_dl != NO_DEADLINE) atomicMin(p.meta + 2, min_dl);
   }
+#ifdef NFA_PHASES
+  PHASE_MARK(4);
+  if (lane == 0)
+    for (int k = 0; k < 7; ++k)
+      atomicAdd(nfa_phase_cycles + k, static_cast<unsigned long long>(ph_[k]));
+#endif
 }
 
 template <int NJ, bool ALG, bool EXT, bool CH>
-static int launch_as(NfaParams& p, size_t per_warp, cudaStream_t stream) {
-  const size_t smem = p.prog_bytes + per_warp * 8 * p.wpb;
+static int launch_as(NfaParams& p, cudaStream_t stream) {
+  const size_t smem = block_stage_bytes(p) + static_cast<size_t>(p.warp_words) * 8 * p.wpb;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(nfa_block_kernel<NJ, ALG, EXT, CH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1290,29 +1656,38 @@ static int launch_as(NfaParams& p, size_t per_warp, cudaStream_t stream) {
 // other, the chain step (same results, fewer node matches and no count
 // or fill-bit state).
 template <int NJ, bool EXT, bool CH>
-static int launch(NfaParams& p, size_t per_warp, cudaStream_t stream) {
+static int launch(NfaParams& p, cudaStream_t stream) {
   if constexpr (EXT) {
-    return launch_as<NJ, true, true, CH>(p, per_warp, stream);
+    return launch_as<NJ, true, true, CH>(p, stream);
   } else {
-    if (p.Kc > 0 || p.Klog > 0) return launch_as<NJ, true, false, CH>(p, per_warp, stream);
-    return launch_as<NJ, false, false, CH>(p, per_warp, stream);
+    if (p.Kc > 0 || p.Klog > 0) return launch_as<NJ, true, false, CH>(p, stream);
+    return launch_as<NJ, false, false, CH>(p, stream);
   }
 }
 
-// The launch's shared memory per warp (8-byte units) and warps per block;
-// -1 when the slot rows cannot fit (a double row takes CAP_WORDS = 2
-// words, so the `_f64` sources reach the limits at a smaller A).
-static long long nfa_setup(NfaParams& p) {
-  if (p.Kc > 32 || p.Klog > 16) return -1;
+// The launch's geometry: a warp's shared memory (warp_words, 8-byte
+// units: its ring, then its rows) and the warps a block (up to 4 within
+// 96 KB: one warp a block, spread over more SMs where P is small,
+// measured 2-3% slower at C3K and C3X and no faster at C5); false when
+// the programs, the header, the block's ring (fused lanes), a warp's ring
+// and its rows do not fit the block's 227 KB (a double row takes
+// CAP_WORDS = 2 words, so the `_f64` sources reach the limit at a smaller
+// A) -- the launch then fails, as there is no unstaged form of the kernel.
+static bool nfa_setup(NfaParams& p) {
+  if (p.Kc > 32 || p.Klog > 16 || p.n_nodes > 32 || p.stage_step <= 0) return false;
   p.prog_bytes = (p.prog_bytes + 7) / 8 * 8;
-  const size_t per_warp = static_cast<size_t>(p.Kl) * p.A +
-                          (static_cast<size_t>(p.Kf * CAP_WORDS + p.Ki + p.Ka + p.Kc +
-                                               (p.ext ? 7 : 0)) * p.A + 1) / 2;
+  const size_t rows = static_cast<size_t>(p.Kl) * p.A +
+                      (static_cast<size_t>(p.Kf * CAP_WORDS + p.Ki + p.Ka + p.Kc +
+                                           (p.ext ? 7 : 0)) * p.A + 1) / 2;
+  const size_t base = block_stage_bytes(p);
+  const size_t warp = ring_bytes(p) + rows * 8;
+  if (base + warp > 227 * 1024) return false;
   int wpb = 4;
-  while (wpb > 1 && p.prog_bytes + per_warp * 8 * wpb > 96 * 1024) wpb >>= 1;
-  if (p.prog_bytes + per_warp * 8 > 200 * 1024) return -1;
+  while (wpb > 1 && base + warp * wpb > 96 * 1024) wpb >>= 1;
+  p.tt = TT;
   p.wpb = wpb;
-  return static_cast<long long>(per_warp);
+  p.warp_words = static_cast<int>(warp / 8);
+  return true;
 }
 
 // The launch entries: 1-4 slots a thread (A up to 128) or 8-16 (A from
@@ -1321,27 +1696,30 @@ static long long nfa_setup(NfaParams& p) {
 // (nfa_block[_ext].cu): chunk mode adds a branch to every step and to the
 // drain, which the `seq` blocks' own instantiations leave out.  The wide
 // ones (slot growth past 128 is rare) take both in one instantiation.
+// Each writes the TT and warps a block it chose back into `params`.
 template <bool EXT, bool CH>
-static int launch_narrow(const NfaParams* params, cudaStream_t stream) {
+static int launch_narrow(NfaParams* params, cudaStream_t stream) {
   NfaParams p = *params;
-  const long long per_warp = nfa_setup(p);
-  if (per_warp < 0 || (p.ext != 0) != EXT || (p.chunk != 0) != CH)
+  if (!nfa_setup(p) || (p.ext != 0) != EXT || (p.chunk != 0) != CH)
     return static_cast<int>(cudaErrorInvalidValue);
+  params->tt = p.tt;
+  params->wpb = p.wpb;
   const int nj = (p.A + 31) / 32;
-  if (nj <= 1) return launch<1, EXT, CH>(p, per_warp, stream);
-  if (nj <= 2) return launch<2, EXT, CH>(p, per_warp, stream);
-  if (nj <= 4) return launch<4, EXT, CH>(p, per_warp, stream);
+  if (nj <= 1) return launch<1, EXT, CH>(p, stream);
+  if (nj <= 2) return launch<2, EXT, CH>(p, stream);
+  if (nj <= 4) return launch<4, EXT, CH>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool EXT>
-static int launch_wide(const NfaParams* params, cudaStream_t stream) {
+static int launch_wide(NfaParams* params, cudaStream_t stream) {
   NfaParams p = *params;
-  const long long per_warp = nfa_setup(p);
-  if (per_warp < 0 || (p.ext != 0) != EXT) return static_cast<int>(cudaErrorInvalidValue);
+  if (!nfa_setup(p) || (p.ext != 0) != EXT) return static_cast<int>(cudaErrorInvalidValue);
+  params->tt = p.tt;
+  params->wpb = p.wpb;
   const int nj = (p.A + 31) / 32;
-  if (nj <= 8) return launch<8, EXT, true>(p, per_warp, stream);
-  if (nj <= 16) return launch<16, EXT, true>(p, per_warp, stream);
+  if (nj <= 8) return launch<8, EXT, true>(p, stream);
+  if (nj <= 16) return launch<16, EXT, true>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

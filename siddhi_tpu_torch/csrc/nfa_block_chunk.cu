@@ -4,6 +4,6 @@
 // kernels/nfa_block.py.
 #include "nfa_block.cuh"
 
-extern "C" int nfa_block_chunk_launch(const NfaParams* params, cudaStream_t stream) {
+extern "C" int nfa_block_chunk_launch(NfaParams* params, cudaStream_t stream) {
   return launch_narrow<false, true>(params, stream);
 }

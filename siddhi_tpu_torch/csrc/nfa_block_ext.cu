@@ -3,6 +3,6 @@
 // the kernel of nfa_block.cuh.  Python side: kernels/nfa_block.py.
 #include "nfa_block.cuh"
 
-extern "C" int nfa_block_ext_launch(const NfaParams* params, cudaStream_t stream) {
+extern "C" int nfa_block_ext_launch(NfaParams* params, cudaStream_t stream) {
   return launch_narrow<true, false>(params, stream);
 }

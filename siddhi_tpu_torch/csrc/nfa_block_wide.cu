@@ -3,6 +3,6 @@
 // nfa_block.cuh.  Python side: kernels/nfa_block.py.
 #include "nfa_block.cuh"
 
-extern "C" int nfa_block_wide_launch(const NfaParams* params, cudaStream_t stream) {
+extern "C" int nfa_block_wide_launch(NfaParams* params, cudaStream_t stream) {
   return launch_wide<false>(params, stream);
 }

@@ -4,6 +4,6 @@
 // kernels/nfa_block.py.
 #include "nfa_block.cuh"
 
-extern "C" int nfa_block_wide_ext_launch(const NfaParams* params, cudaStream_t stream) {
+extern "C" int nfa_block_wide_ext_launch(NfaParams* params, cudaStream_t stream) {
   return launch_wide<true>(params, stream);
 }

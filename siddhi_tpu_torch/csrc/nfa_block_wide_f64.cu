@@ -5,6 +5,6 @@
 #define NFA_F64
 #include "nfa_block.cuh"
 
-extern "C" int nfa_block_wide_f64_launch(const nfa_f64::NfaParams* params, cudaStream_t stream) {
+extern "C" int nfa_block_wide_f64_launch(nfa_f64::NfaParams* params, cudaStream_t stream) {
   return nfa_f64::launch_wide<false>(params, stream);
 }

@@ -74,7 +74,13 @@ each block stages the programs in shared memory.
 Bound on the H100: bytes -- the grids, the state in and out and the match
 rows, each moved once, over 3.35 TB/s.  Its real limit is the T-long
 chain of dependent steps inside each warp: the kernel cannot finish
-before one warp has walked T events.
+before one warp has walked T events.  So no step waits on device memory:
+each warp stages its events (ts, seq, flags, stream code, one node word
+of pre-mask bits, the columns) in a ring of 64-step tiles in shared
+memory, filled by cp.async a tile ahead; fused lanes share one ring of
+broadcast rows a block (`_stage_layout` gives a step's layout; the
+launch writes the steps a tile and warps a block it chose back into the
+parameter block, `Launch.params`).
 
 `nfa_block()` launches the kernel for CUDA tensors and runs the plain
 version, `nfa_block_plain()` (a Python loop over T of vector ops on
@@ -113,7 +119,8 @@ class _Params(ctypes.Structure):
         "n_consts", "stage", "prog_bytes", "parked", "all_pz_off",
         "all_pz_len", "ext", "needs_init", "init_on_tick", "has_anchor",
         "anchor", "init_land", "chunk", "cs", "nflat", "nev",
-        "prev_seq")] + [(n, ctypes.c_void_p) for n in (
+        "prev_seq", "tt", "stage_step", "stage_pre", "n_nodes",
+        "warp_words")] + [(n, ctypes.c_void_p) for n in (
         "ts", "seq", "valid", "tick", "scode", "qparams", "ev", "ev_vt",
         "pos_kind", "pos_node", "pos_within", "pos_dl_row", "pos_waiting",
         "pos_min", "pos_max", "pos_cnt", "pos_log", "pos_or", "pos_land",
@@ -123,7 +130,22 @@ class _Params(ctypes.Structure):
         "w_mode", "w_src", "w_arg", "pz_rows",
         *[f"{k}_in" for k in _STATE], *[f"{k}_out" for k in _STATE],
         "out_i", "out_f", "out_l", "meta", "consts", "words",
-        "pos_sticky", "node_dl", "node_wait", "node_absent")]
+        "pos_sticky", "node_dl", "node_wait", "node_absent", "ev_soff")]
+
+
+def _stage_layout(dtypes: list, n_nodes: int) -> tuple:
+    """A step of the event stage (csrc/nfa_block.cuh): 24 bytes of fixed
+    fields (ts, seq, stream code, node word, flags, tick word), the 8-byte
+    columns, the 4-byte ones (a BOOL column as a 4-byte 0/1), then one
+    pre-mask word a node; returns (each column's byte offset, the pre-mask
+    words' offset, bytes a step)."""
+    soff, off = [0] * len(dtypes), 24
+    for wide in (True, False):
+        for c, dt in enumerate(dtypes):
+            if (dt.itemsize == 8) == wide:
+                soff[c] = off
+                off += 8 if wide else 4
+    return soff, off, off + 4 * n_nodes
 
 
 def _alloc_out(k, M: int, dev, rows=torch.zeros) -> dict:
@@ -237,6 +259,10 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     tab.field(p, "ev", [ptr(ev[key]) for key in k.grid_keys] or [0], "u8")
     tab.field(p, "ev_vt", [VT_OF_TORCH[ev[key].dtype]
                            for key in k.grid_keys] or [0], "i4")
+    soff, p.stage_pre, p.stage_step = _stage_layout(
+        [ev[key].dtype for key in k.grid_keys], len(spec.all_nodes))
+    tab.field(p, "ev_soff", soff or [0], "i4")
+    p.n_nodes = len(spec.all_nodes)
     pos = spec.positions
     for name, vals in (
             ("pos_kind", [pos_kind(q) for q in pos]),
@@ -321,7 +347,9 @@ def prepare(k, state: dict, ev: dict, pre: list, M: int) -> Launch:
     use = ("nfa_block:chunk" if chunk is not None else
            "nfa_block:ext" if k.ext else "nfa_block") + \
         (":f64" if k.f64 else "")
-    return Launch(run, "nfa_block_launch", use, keep + [meta0], (new, out))
+    launch = Launch(run, "nfa_block_launch", use, keep + [meta0], (new, out))
+    launch.params = p               # .tt and .wpb: what the last launch chose
+    return launch
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ PORT = os.path.join(ROOT, "siddhi_tpu_torch")
 def _port_files() -> list:
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "torch_c4_profile.py"),
-           os.path.join(ROOT, "scripts", "kernel_ab.py")]
+           os.path.join(ROOT, "scripts", "kernel_ab.py"),
+           os.path.join(ROOT, "scripts", "k2_phases.py"),
+           os.path.join(ROOT, "scripts", "chunk_lanes.py")]
     for d, _dirs, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
