@@ -38,7 +38,9 @@ Phases (any failure exits non-zero; nothing is caught):
      app on the tape's first events leaves deadlines pending for
      set_time's timer ticks; K1-K5 against their plain versions on every
      block both runs recorded (K2 blocks with fired deadlines and tick
-     blocks required); ms per flush, events/s and query-events/s;
+     blocks required); ms per flush, events/s and query-events/s; the
+     trees K3 built against lanes x trees (a `scan` group's lane-invariant
+     trees are built once and read by K4 at lane stride 0);
  10. config 2 (bench.py's C2: `#window.length(1000) select avg(price)`),
      2 flushes of 2^17 events over 8 symbols, counted (K1 `window_args`
      and `window_select`, K6 win_scan, K7 win_range, K8 win_compact) and
@@ -80,7 +82,11 @@ Phases (any failure exits non-zero; nothing is caught):
      read just after), recorded (every K1/K9 call of the plan), rows equal
      to the CPU run in order with NULLs in place, every recorded call equal
      to its plain version, then an unrecorded timing run (ms per flush,
-     the median of the steady flushes, events/s from it);
+     the median of the steady flushes, events/s from it); K9's kernel
+     launches a call (every call of the counted run: 1, 2 under an
+     opposite filter), and on its widest call its probes a tile and
+     window positions a chunk (from the counted run's parameter blocks)
+     and pair tests;
  22. A7, bench.py's aggregation matrix (`--matrix`: `_matrix_app`,
      `_matrix_tape` seed 13, `rollup_k1024`; replay.MATRIX_APP: sum(p * v),
      avg(p), min(p), max(p), count() group by sym at sec, min, hour) at
@@ -667,6 +673,26 @@ _DESCENTS = {"static": 2, "threshold": 2, "count": 2, "logical": 3,
              "strict": 0}
 
 
+def k3_read_bytes(kern, ev: dict, pre: list, F: int) -> int:
+    """The bytes K3 reads building a block's trees, each once: the leaf
+    columns, the lane counts and the pre-mask words of the trees' gating
+    nodes -- lane 0's (its first ceil(F/32) words) and its count alone
+    where only trees the plan marks shared read them (seg_tree.prepare
+    passes pre[t.node]; a shared tree is built from lane 0)."""
+    srcs = {t.src for t in kern.trees if t.src is not None}
+    nb = nbytes(*[ev[c] for c in srcs])
+    nev = ev["__nev__"]
+    nb += nbytes(nev) if any(not t.shared for t in kern.trees) else \
+        nev.element_size()
+    only_shared: dict = {}
+    for t in kern.trees:
+        if t.node is not None and pre[t.node] is not None:
+            only_shared[t.node] = only_shared.get(t.node, True) and t.shared
+    for node, lane0 in only_shared.items():
+        nb += 4 * -(-F // 32) if lane0 else nbytes(pre[node])
+    return nb
+
+
 def phase_scan_blocks(torch, blocks, label: str) -> dict:
     """Phase 5: K1, K3, K6, K3's rank trees, K4 and K5 against their plain
     versions on every block a `scan` run recorded (replay.check_scan_block,
@@ -713,17 +739,23 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
            "blocks": len(blocks), "err": err, "alive": alive}
     pre_used = [w for w in pre if w is not None]
     log2 = max(Lt.bit_length() - 1, 1)
-    # K3: leaf columns, masks and lane counts read once, every heap
-    # written once; one compare per internal node
-    srcs = {t.src for t in kern.trees if t.src is not None}
-    k3_bytes = nbytes(ev["__nev__"], *[ev[c] for c in srcs], *pre_used,
-                      *heaps)
+    # K3: what it reads, every heap written once; one compare per
+    # internal node
+    k3_bytes = k3_read_bytes(kern, ev, pre, F) + nbytes(*heaps)
     ms, host = graph_ms(torch, lambda: seg_tree(kern, ev, pre),
                         lambda: [k3.prepare(kern, ev, pre)])
+    # the trees K3 builds: one for a tree the same in every lane of a
+    # fused group (TreeSpec.shared), one per lane for any other
+    built = sum(h.shape[0] for h in heaps)
     res["seg_tree"] = {"ms": ms, "dispatch_ms": host, "bytes": k3_bytes,
-                       "ops": len(heaps) * L * Lt, "library_ms": None,
+                       "ops": built * Lt, "library_ms": None,
+                       "trees_built": built,
+                       "lanes_x_trees": L * len(heaps),
                        "plain_ms": wall_ms(torch, lambda: seg_tree_plain(
                            kern, ev, masks))}
+    log(f"  [{label}] K3 built {built} trees for {L} lanes x {len(heaps)} "
+        f"trees ({sum(1 for t in kern.trees if getattr(t, 'shared', False))} "
+        f"lane-invariant, built once)")
     if ranks:
         # K6 ranks: each count's node mask read once and an i32 rank
         # column written once (JAX's cumsum is i32; the kernel writes i64),
@@ -1874,23 +1906,30 @@ def join_work(a: tuple, kw: dict, out) -> tuple:
     return nb, ops, tests
 
 
-def join_kernel_metrics(torch, calls) -> dict:
+def join_kernel_metrics(torch, calls, probe_params) -> dict:
     """Device, dispatch, plain time, bytes and operations of K9 on its
     widest recorded call (probes x window) and of K1 `join_filter` on its
-    largest, as `window_kernel_metrics` does for the window kernels."""
+    largest, as `window_kernel_metrics` does for the window kernels; K9's
+    kernel launches, probes a tile and window positions a chunk are those
+    of that call on the main path's run (`probe_params`, the plan's
+    parameter blocks of its recorded K9 launches, in call order)."""
     from siddhi_tpu_torch.kernels import expr_eval as k1
     from siddhi_tpu_torch.kernels import join_probe as k9
     from siddhi_tpu_torch.kernels.expr_eval import expr_eval_plain
     from siddhi_tpu_torch.core.join_device import KERNELS
     best: dict = {}
+    k9_at = 0
     for name, a, kw in calls:
         size = kw["n_p"] * max(kw["Mw"], 1) if name == "join_probe" else a[3]
         key = "join_probe" if name == "join_probe" else \
             f"expr_eval:{kw['use']}"
         if key not in best or size >= best[key][0]:
-            best[key] = (size, name, a, kw)
+            best[key] = (size, name, a, kw,
+                         probe_params[k9_at] if name == "join_probe" else
+                         None)
+        k9_at += name == "join_probe"
     res = {}
-    for key, (_size, name, a, kw) in best.items():
+    for key, (_size, name, a, kw, params) in best.items():
         fn = KERNELS[name]
         if name == "expr_eval":
             cols, mask_p, out_p, n = a
@@ -1907,6 +1946,8 @@ def join_kernel_metrics(torch, calls) -> dict:
         nb, ops, tests = join_work(a, kw, fn(*a, **kw))
         res[key] = {"ms": ms, "dispatch_ms": host, "bytes": nb, "ops": ops,
                     "library_ms": None, "n": kw["n_p"], "pair_tests": tests,
+                    "launches_a_call": params.launched, "tp": params.tp,
+                    "chunk": params.chunk,
                     "plain_ms": wall_ms(torch, lambda: k9.join_probe_plain(
                         *a, **kw))}
     return res
@@ -1936,6 +1977,14 @@ def phase_join(torch, np, label: str, app: str, batch: int, flushes: int,
                          f"{len(rows)} vs {len(ref)}")
     plan = rt.plans()[0]
     probes = dict(plan.probe_calls)
+    # the kernels each K9 call of the run launched: the probe kernel, and
+    # the rank scan first under an opposite filter
+    want = [2 if a[5] is not None else 1 for name, a, _kw in calls
+            if name == "join_probe"]
+    got = [q.launched for q in plan.probe_params]
+    if got != want:
+        raise SystemExit(f"[{label}] K9 kernel launches a call {got}, "
+                         f"wanted {want}")
     if any(probes[k] < flushes for k in sides) or \
             any(probes[k] for k in "LR" if k not in sides) or \
             launches["join_probe"] != sum(probes.values()):
@@ -1963,7 +2012,12 @@ def phase_join(torch, np, label: str, app: str, batch: int, flushes: int,
         f"{[round(x) for x in cpu_flush]}); timing run "
         f"{[round(x, 2) for x in timed]}: median of {len(steady)} steady "
         f"{med:.3f} ms, {eps:.0f} events/s")
-    metrics = join_kernel_metrics(torch, calls)
+    metrics = join_kernel_metrics(torch, calls, plan.probe_params)
+    k9m = metrics["join_probe"]
+    log(f"  [{label}] K9 on its widest call: {k9m['launches_a_call']} kernel "
+        f"launch(es) a call, {k9m['tp']} probes a tile, {k9m['chunk']} "
+        f"window positions a chunk, {k9m['pair_tests']} pair tests, "
+        f"{k9m['ms']:.4f} ms")
     return {"rows": len(rows), "null_rows": nulls, "probe_calls": probes,
             "recorded_ms_per_flush": per_flush, "ms_per_flush": timed,
             "median_steady_ms": med, "events_per_s": eps,
@@ -2136,7 +2190,8 @@ def kernel_entry(name, source, replaces, launches, err, m) -> dict:
              "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
              "bound_by": by, "library_ms": m["library_ms"]}
     for extra in ("chain_ms", "library_flat_ms", "f32_twin_ms", "step_ns",
-                  "tt", "wpb"):
+                  "tt", "wpb", "pair_tests", "launches_a_call", "tp",
+                  "chunk", "trees_built", "lanes_x_trees"):
         if extra in m:
             entry[extra] = m[extra]
     return entry
@@ -2403,6 +2458,12 @@ def main() -> int:
         ("scan_compact (qid)", f"{CSRC}/scan_compact.cu", f"{PAR}:1146",
          c5["launches"]["scan_compact"], er(c5["scan"], key="scan_compact"),
          c5["scan"]["scan_compact"]),
+        ("seg_tree (fused lanes, shared trees)", f"{CSRC}/seg_tree.cu",
+         f"{PAR}:499", c5["launches"]["seg_tree"],
+         er(c5["scan"], key="seg_tree"), c5["scan"]["seg_tree"]),
+        ("scan_chase (fused lanes, shared trees)", f"{CSRC}/scan_chase.cu",
+         f"{PAR}:796", c5["launches"]["scan_chase"],
+         er(c5["scan"], key="scan_chase"), c5["scan"]["scan_chase"]),
         ("win_scan:rank", f"{CSRC}/win_scan.cu", f"{PAR}:843",
          launched("c4n", "win_scan:rank"), er(n4, key="win_scan:rank"),
          n4["win_scan:rank"]),
@@ -2535,6 +2596,12 @@ def main() -> int:
         entries.append((what, f"{CSRC}/nfa_block.cuh", line,
                         f64[label]["launches"][use], k2f_err,
                         f64[label]["blocks"][key]))
+    c5f = f64["c5 f64"]
+    for key, line in (("seg_tree", 499), ("scan_chase", 796)):
+        entries.append((f"{key}:f64 (fused lanes, shared trees)",
+                        f"{CSRC}/{key}.cu", f"{PAR}:{line}",
+                        c5f["launches"][f"{key}:f64"],
+                        c5f["scan"]["err"].get(key, 0.0), c5f["scan"][key]))
     entries.append(("expr_eval:pre_mask (f64 lane params)", K1_SRC,
                     "siddhi_tpu/core/multi_query.py:215",
                     f64["c5 f64"]["launches"]["expr_eval:pre_mask"],

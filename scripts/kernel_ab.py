@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of K2 (`nfa_block`), K5 (`scan_compact`), K6 (`win_scan`)
-and K10 (`agg_merge`) on the calls their main paths make, checkout by
-checkout.
+"""Device times of K2 (`nfa_block`), K3 (`seg_tree`), K4 (`scan_chase`),
+K5 (`scan_compact`), K6 (`win_scan`), K9 (`join_probe`) and K10
+(`agg_merge`) on the calls their main paths make, checkout by checkout.
 
-    python3 scripts/kernel_ab.py [--k2] ROOT [ROOT ...]
+    python3 scripts/kernel_ab.py [--k2] [--k4] [--k9] ROOT [ROOT ...]
 
 Runs each checkout (a directory holding chip_smoke.py and
 siddhi_tpu_torch) in a subprocess of its own, in the order given (repeat
@@ -32,16 +32,29 @@ columns (`rank`), on the last C4A block's prev columns (`prev`) and on
 A7A's widest call (`agg`); K10 on the widest call of A7, A7W and A7G (on
 a copy of the ring) -- each a CUDA graph of prepared launches (10 for
 K2, 20 else) replayed between CUDA events (chip_smoke.graph_ms), the
-least of three graphs.  `--k2` times K2 alone (no K5, K6 or K10 run).
-Prints one JSON line per run: the checkout, the card's name and power
-limit, the device times in ms and `ptxas`, each K2 source's kernels with
-their registers and spill stores and loads (nvcc -Xptxas -v).  Needs a
-CUDA card.
+least of three graphs.  K9 on the last of the widest recorded calls
+(probes x window; chip_smoke.py's choice) of J6, J6W, J6O and J6U (chip_smoke.py's JOINS: bench.py's
+config 6 tape through JOIN_APP, JOIN_OUTER and JOIN_UNI; where the
+checkout's wrapper reports them, also its kernel launches a call and its
+tile geometry, `k9_geometry`); K3 and K4 on C5's widest `scan` block (the
+group with the most trees), on C5 f64's (c5_app(1000, frac=1e-6) on a
+raw-double tape) and on the last C4 `scan` block (per-lane trees, the
+control), K4 over K3's own heaps; with the trees each K3 launch built
+against lanes x trees where the checkout's plan marks shared trees
+(`k3_trees`).  `--k2`, `--k4` and `--k9` time only those kernels (K3
+and K4 for `--k4`); several may be given; none times them all.  Prints
+one JSON line per run: the checkout, the card's name and power limit,
+the device times in ms and `ptxas`, each K2, K3, K4 and K9 source's
+kernels with their registers and spill stores and loads (nvcc -Xptxas
+-v).  Needs a CUDA card.
 """
 import json
 import os
 import subprocess
 import sys
+
+KERNEL_SOURCES = ("nfa_block", "seg_tree", "scan_chase", "join_probe")
+GROUPS = ("--k2", "--k4", "--k9")
 
 
 def ptxas(log: str) -> list:
@@ -62,7 +75,72 @@ def ptxas(log: str) -> list:
     return rows
 
 
-def one(root: str, k2_only: bool = False) -> dict:
+def k9_entries(out: dict, cs, best) -> None:
+    """K9 on the widest recorded call of each join phase of chip_smoke."""
+    from siddhi_tpu_torch.kernels import join_probe as k9
+    from siddhi_tpu_torch.replay import join_tape, run_join
+    for label, app, batch, flushes, _filtered, _sides in cs.JOINS:
+        calls: list = []
+        run_join(app, join_tape(batch * flushes, batch), "cuda", calls)
+        # chip_smoke's call: the last of the widest (probes x window), a
+        # flush past the first, whose windows are full
+        k9_calls = [c for c in calls if c[0] == "join_probe"]
+        widest = max(c[2]["n_p"] * max(c[2]["Mw"], 1) for c in k9_calls)
+        _n, a, kw = [c for c in k9_calls if c[2]["n_p"] * max(
+            c[2]["Mw"], 1) == widest][-1]
+        out[f"k9_{label}"] = best(lambda: k9.join_probe(*a, **kw),
+                                  lambda: [k9.prepare(*a, **kw)])
+        launch = k9.prepare(*a, **kw)
+        launch()
+        params = getattr(launch, "params", None)
+        if params is not None:
+            out.setdefault("k9_geometry", {})[label] = {
+                "launches": params.launched, "tp": params.tp,
+                "chunk": params.chunk, "n_p": kw["n_p"], "Mw": kw["Mw"]}
+
+
+def k34_entries(out: dict, cs, pkg, np, best) -> None:
+    """K3 and K4 on C5's and C5 f64's widest `scan` block and on C4's."""
+    from siddhi_tpu_torch.kernels import scan_chase as k4
+    from siddhi_tpu_torch.kernels import seg_tree as k3
+
+    def timed(key, kern, ev) -> None:
+        pre = kern.pre_masks(ev)
+        out[f"k3_{key}"] = best(lambda: k3.seg_tree(kern, ev, pre),
+                                lambda: [k3.prepare(kern, ev, pre)])
+        heaps = k3.seg_tree(kern, ev, pre)
+        args = (kern, ev, pre, heaps)
+        if kern.counts or kern.prev_nodes:
+            masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
+            args += (ranks, k3.seg_tree(kern, ev, pre, kern.rank_trees,
+                                        rcols), prevs)
+        out[f"k4_{key}"] = best(lambda: k4.scan_chase(*args),
+                                lambda: [k4.prepare(*args)])
+        L = ev["__nev__"].shape[0]
+        out.setdefault("k3_trees", {})[key] = {
+            "built": sum(1 if getattr(t, "shared", False) else L
+                         for t in kern.trees),
+            "lanes_x_trees": L * len(kern.trees)}
+
+    def widest(blocks):
+        return max(blocks, key=lambda b: (len(b[0].trees),
+                                          b[1]["__flat.__ts__"].shape[1]))
+    tape = cs.make_tape(cs.C5_FLUSH * 4, cs.C5_FLUSH, cs.C5_SYMBOLS,
+                        seed=5, dt_ms=cs.C5_DT)
+    kern, ev, _m = widest(cs.run_c5(pkg, np, tape, "cuda", record=True)[6])
+    timed("c5", kern, ev)
+    app = cs.F64 + cs.c5_app(cs.C5_QUERIES, frac=cs.RAW_STEP)
+    tape = cs.raw_tape(cs.C5_FLUSH, cs.C5_FLUSH, cs.C5_SYMBOLS, seed=43,
+                       dt_ms=cs.C5_DT, lo=90.0, levels=40)
+    kern, ev, _m = widest(cs.run_c5(pkg, np, tape, "cuda", record=True,
+                                    app=app)[6])
+    timed("c5_f64", kern, ev)
+    tape = cs.make_tape(cs.FLUSH * 2, cs.FLUSH, cs.KEYS)
+    kern, ev, _m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
+    timed("c4", kern, ev)
+
+
+def one(root: str, only: frozenset = frozenset()) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -78,9 +156,12 @@ def one(root: str, k2_only: bool = False) -> dict:
     from siddhi_tpu_torch.kernels.seg_tree import seg_tree
     from siddhi_tpu_torch.replay import (MATRIX_APP, matrix_tape, run_agg,
                                          run_window)
-    build.build_all()
+    # K9 alone needs K1 (side filters) and K9; everything else builds all
+    build.build_all(("expr_eval", "join_probe") if only == {"--k9"}
+                    else build.SOURCES)
     regs = {name: ptxas(log) for name, log in build.BUILD_LOG.items()
-            if name.startswith("nfa_block")}
+            if name.startswith(KERNEL_SOURCES)}
+    groups_only = bool(only)        # no K5, K6 or K10 when a group is named
 
     def best(call, prepare, reps=20) -> float:
         return min(cs.graph_ms(torch, call, prepare, reps)[0]
@@ -120,6 +201,12 @@ def one(root: str, k2_only: bool = False) -> dict:
         k2_block_ms(key, kern, kern.init_state(ev["__ts__"].device), ev, m)
 
     out = {"root": root}
+    if only and "--k9" in only:
+        k9_entries(out, cs, best)
+    if only and "--k4" in only:
+        k34_entries(out, cs, pkg, np, best)
+    if only and "--k2" not in only:
+        return finish(out, regs)
     tape = cs.make_tape(cs.FLUSH * cs.SEQ_FLUSHES, cs.FLUSH, cs.KEYS)
     k2_ms("k2_c4_seq", cs.run_recorded(
         pkg, np, cs.C4_SEQ + cs.C4_HEAD + cs.C4, tape)[5])
@@ -142,7 +229,7 @@ def one(root: str, k2_only: bool = False) -> dict:
     tape = cs.raw_tape(n * flushes, n, keys, seed=seed, lo=band[0],
                        levels=band[1])
     k2_ms("k2_c4_seq_f64", cs.run_recorded(pkg, np, app, tape, keys)[5])
-    if not k2_only:
+    if not groups_only:
         kern, ev, m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
         pre = kern.pre_masks(ev)
         masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
@@ -158,7 +245,7 @@ def one(root: str, k2_only: bool = False) -> dict:
     c5 = cs.run_c5(pkg, np, tape, "cuda", record=True)[5]
     k2_ms("k2_c5", sorted(c5, key=lambda b: (
         b[0].has_absent, b[2]["__ts__"].shape[0])))
-    if not k2_only:
+    if not groups_only:
         calls: list = []
         tape = cs.make_tape(cs.C2_FLUSH * cs.C2_FLUSHES, cs.C2_FLUSH,
                             cs.C2_SYMBOLS, seed=20)
@@ -196,6 +283,12 @@ def one(root: str, k2_only: bool = False) -> dict:
             out[f"k10_{label}"] = best(
                 lambda: k10.agg_merge(scratch, *a[1:], **kw),
                 lambda: [k10.prepare(scratch, *a[1:], **kw)])
+        k9_entries(out, cs, best)
+        k34_entries(out, cs, pkg, np, best)
+    return finish(out, regs)
+
+
+def finish(out: dict, regs: dict) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -204,11 +297,10 @@ def one(root: str, k2_only: bool = False) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    k2_only = "--k2" in args
-    args = [a for a in args if a != "--k2"]
+    only = frozenset(a for a in args if a in GROUPS)
+    args = [a for a in args if a not in GROUPS]
     if len(args) == 2 and args[0] == "--one":
-        print(json.dumps(one(os.path.abspath(args[1]), k2_only)),
-              flush=True)
+        print(json.dumps(one(os.path.abspath(args[1]), only)), flush=True)
         return 0
     if not args:
         print(__doc__, file=sys.stderr)
@@ -216,7 +308,7 @@ def main() -> int:
     rc = 0
     for root in args:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root] + ["--k2"] * k2_only,
+                               "--one", root] + sorted(only),
                               capture_output=True, text=True)
         lines = proc.stdout.strip().splitlines()
         if proc.returncode or not lines:

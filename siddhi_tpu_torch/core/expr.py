@@ -540,10 +540,12 @@ def bits_const(bits: int, vt: int):
 class Program:
     """Postfix VM program: `words` (opcode, operand) int32 pairs, `consts`
     pool entries (an int of raw bits, or a str naming a launch-time
-    parameter resolved by `resolve_consts`), `vt` of the result."""
+    parameter resolved by `resolve_consts`), `vt` of the result, `depth`
+    the deepest stack it reaches."""
     words: list
     consts: list
     vt: int
+    depth: int
 
     def resolve_consts(self, params: Optional[dict] = None) -> list:
         out = []
@@ -637,7 +639,7 @@ def emit_program(node: Node, slots: dict) -> Program:
     if depth[1] > VM_STACK:
         raise ExprError(f"expression needs a VM stack of {depth[1]} "
                         f"(> {VM_STACK})")
-    return Program(words, consts, vt)
+    return Program(words, consts, vt, depth[1])
 
 
 def qparam_bits(values: np.ndarray) -> np.ndarray:

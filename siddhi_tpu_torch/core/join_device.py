@@ -47,6 +47,7 @@ import torch
 
 from ..kernels.expr_eval import expr_eval
 from ..kernels.join_probe import join_probe
+from ..kernels.join_probe import prepare as prepare_probe
 from ..query import ast
 from .batch import EventBatch
 from .expr import (VT_OF_TORCH, ExprError, F32_MODE, MultiStreamContext,
@@ -278,6 +279,9 @@ class DeviceJoinPlan(QueryPlan):
         # K9 calls per probing side ("L": left probes the right window),
         # an overflow's re-launch included
         self.probe_calls = {"L": 0, "R": 0}
+        # the parameter block of each recorded K9 launch on the card, in
+        # call order (`launched`, `tp`, `chunk`: what it ran)
+        self.probe_params: list = []
 
     def _any_outer(self) -> bool:
         return self.join_type in (ast.JoinType.LEFT_OUTER,
@@ -339,10 +343,18 @@ class DeviceJoinPlan(QueryPlan):
             raise
 
     def _kernel(self, name: str, *a, **kw):
-        """Every kernel call of a flush (recorded when `record` is set)."""
-        if self.record is not None:
-            self.record.append((name, a, kw))
-        return KERNELS[name](*a, **kw)
+        """Every kernel call of a flush (recorded when `record` is set;
+        a recorded K9 launch on the card keeps its parameter block in
+        `probe_params`)."""
+        if self.record is None:
+            return KERNELS[name](*a, **kw)
+        self.record.append((name, a, kw))
+        if name != "join_probe" or a[2].device.type == "cpu":
+            return KERNELS[name](*a, **kw)
+        launch = prepare_probe(*a, **kw)
+        out = launch()
+        self.probe_params.append(launch.params)
+        return out
 
     def _upload(self, side: _Side, cols: dict, ts, seq, n: int) -> dict:
         """One side's batch and mirror on the card, DOUBLE as f32."""

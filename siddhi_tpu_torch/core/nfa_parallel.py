@@ -50,7 +50,7 @@ from typing import Optional
 import torch
 
 from ..query import ast
-from .expr import (VT_OF_TORCH, ExprError, Program,
+from .expr import (VT_OF_TORCH, ExprError, Program, decode_word,
                    compile_expression, compute_dtypes, emit_program, subst,
                    torch_dtype)
 from .nfa_device import (TS_SUBST, UNBOUNDED, ChainSpec, NFAKernel,
@@ -412,13 +412,37 @@ class TreeSpec:
     """One segment tree K3 builds per lane: heap type, max or min, the
     leaf column (None: the constant 1 of a static hop's mask tree), the
     flat chain node whose node mask gates the leaves (None: validity
-    only), and whether the column is a per-lane (L, F) tensor (a rank
-    column) rather than an event grid."""
+    only), whether the column is a per-lane (L, F) tensor (a rank
+    column) rather than an event grid, and whether the tree is the same
+    in every lane, so K3 builds it once, as lane 0, into a (1, 2 Lt)
+    heap and K4 reads it at lane stride 0 (`shared`, see
+    `lane_invariant`)."""
     vt: int
     agg: str
     src: Optional[str]
     node: Optional[int]
     lane: bool = False
+    shared: bool = False
+
+
+def lane_invariant(t: TreeSpec, nfak: NFAKernel) -> bool:
+    """A tree whose leaves cannot differ between the lanes of a block: the
+    lanes share one row of events (a fused group's broadcast row, so one
+    `nev` for all of them and the same stream codes), the leaves read an
+    event column or the constant 1 (not a per-lane rank column), and the
+    gating node has no pre-mask or one whose program reads no lane
+    parameter.  K1 writes a pre-mask word per lane and cell even then, but
+    over the one shared row with no `__qparam` the words of every lane are
+    equal, so lane 0's stand for all (the test is on the program, not on
+    the words)."""
+    if not nfak.broadcast or t.lane:
+        return False
+    if t.node is None:
+        return True
+    prog = nfak.pre_progs[t.node]
+    return prog is None or not any(
+        decode_word(prog.words[i])[0] == "qparam"
+        for i in range(0, len(prog.words), 2))
 
 
 @dataclass
@@ -637,6 +661,8 @@ class ParallelChainKernel:
                                                  tree, dfa=(lane, -1)))
         except ExprError as e:
             raise ParallelUnsupported(f"not in the device VM: {e}") from None
+        for t in self.trees:
+            t.shared = lane_invariant(t, nfak)
         head = prog.positions[0]
         self.head = HopSpec("count", head.within_ms,
                             rank=self.rank_of[0], min_count=head.min_count,

@@ -38,18 +38,30 @@
 // loads, heaps and programs sit in a device table, the programs staged in
 // shared memory.  Event columns are read at lane * ev_stride + i: a fused
 // multi-query group's lanes share one row of events (ev_stride 0), with
-// their own pre-masks, trees and `qparam` values (qparams[i * P + lane]).
+// their own pre-masks and `qparam` values (qparams[i * P + lane]), and
+// their own trees where a lane parameter gates them; a tree that is the
+// same in every lane (the timestamp tree, a hop tree gated by no lane
+// parameter) is one heap read at lane stride 0 (`heap_lane`).
 // In `dfa` mode (the `dfa` family) a static hop's or logical side's first
 // hit is the table lookup of nfa_parallel.py _dfa_next (:777) on K11's
 // tables (dfa_tables.cu): the suffix word at s when s's block has a hit at
 // or after s, else the packed word of the next block with a hit (the
 // block's next pointer), else Lt -- the index a descent of the node's mask
 // tree gives, so K3 builds no tree for those nodes.
+// In a fused group (lanes over one shared row of events, `compact`) a
+// block first moves its live heads -- those passing their lane's head
+// filter, often a tenth -- to its first threads, so the chase runs in
+// full warps; per-lane rows (C4), whose heads are dense, keep a head a
+// thread.  Each of the four instantiations below has a compacting twin
+// (CMP), so the per-lane launches run code without it (with it C4 took
+// 2.9% longer although it never took the branch).
 // A chain with no count or logical position (alg 0) runs an instantiation
 // without the rank, logical and candidate code, so it keeps the register
 // count (and occupancy) of single-position chases.
 // Python side: kernels/scan_chase.py.
 #include "seg_tree.cuh"
+
+#define SC_THREADS 256
 
 enum HopKind {
   HOP_STATIC = 0, HOP_THRESHOLD = 1, HOP_STRICT = 2, HOP_LOGICAL = 3, HOP_COUNT = 4,
@@ -60,6 +72,7 @@ struct ChaseParams {  // layout mirrored by kernels/scan_chase.py _Params
   int L, F, Lt, S, is_seq, ts_tree, n_loads, ev_stride, P, n_words, n_consts, stage;
   int n_idx, C, head_node, head_rank, head_min, head_within, alg;
   int dfa, NB;                  // dfa mode: K11's tables, NB stride-4 blocks a lane
+  int compact;                  // a block's live heads to its first threads
   const int* nev;
   const int* ts;
   const int* scode;
@@ -86,6 +99,7 @@ struct ChaseParams {  // layout mirrored by kernels/scan_chase.py _Params
   const int* prog_len;
   const void* const* heap;
   const int* heap_vt;
+  const int* heap_lane;         // per tree: lane stride, 0 for a shared tree
   const long long* const* rank;       // (L, F) occurrence ranks (K6)
   const long long* const* rank_heap;  // (L, 2 Lt) i64 max-trees (K3)
   const long long* const* prev;       // (L, F) prev-match pointers (K6)
@@ -137,9 +151,12 @@ __device__ __forceinline__ bool node_bit(const ChaseParams& p, int gi, long long
   return w == nullptr || ((w[cell >> 5] >> (cell & 31)) & 1u);
 }
 
+// A lane's heap of tree t: lane stride 1, or 0 for a tree K3 built once
+// for every lane of a fused group (one (1, 2 Lt) heap, read by all).
 __device__ __forceinline__ const void* lane_heap(const ChaseParams& p, int t, int lane) {
   const int esz = (p.heap_vt[t] == VT_I64 || p.heap_vt[t] == VT_F64) ? 8 : 4;
-  return static_cast<const char*>(p.heap[t]) + static_cast<long long>(lane) * 2 * p.Lt * esz;
+  return static_cast<const char*>(p.heap[t]) +
+         static_cast<long long>(lane) * p.heap_lane[t] * 2 * p.Lt * esz;
 }
 
 // rank/select: the first index >= s whose inclusive occurrence rank is at
@@ -168,7 +185,39 @@ __device__ __forceinline__ int clip(const ChaseParams& p, int x) {
   return x < 0 ? 0 : (x > p.F - 1 ? p.F - 1 : x);
 }
 
-template <bool ALG, bool DFA>
+// A fused group's heads: most fail their lane's head filter, so a block
+// moves its live heads to its first threads (a warp of 3 live lanes would
+// hold its slot for the whole chase).  Every thread of the block calls it
+// with its own head j; a failed head's outputs (all 0) are written here.
+// Returns the live head this thread chases, or -1.
+__device__ __forceinline__ int live_head(const ChaseParams& p, int lane, int j) {
+  __shared__ int s_j[SC_THREADS];
+  __shared__ int s_wn[SC_THREADS / 32];
+  const long long row = static_cast<long long>(lane) * p.F;
+  const long long erow = static_cast<long long>(lane) * p.ev_stride;
+  const long long plane = static_cast<long long>(p.L) * p.F;
+  const bool h = j < p.F && node_bit(p, p.head_node, erow, row, j, p.nev[lane]);
+  if (j < p.F && !h) {
+    p.status[row + j] = 0;
+    p.cand[row + j] = 0;
+    p.pres[row + j] = 0;
+    for (int r = 0; r < p.n_idx; ++r) p.idx[r * plane + row + j] = 0;
+  }
+  const unsigned hb = __ballot_sync(0xffffffffu, h);
+  const int wid = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  if (wl == 0) s_wn[wid] = __popc(hb);
+  __syncthreads();
+  int off = 0, n = 0;
+  for (int k = 0; k < SC_THREADS / 32; ++k) {
+    off += k < wid ? s_wn[k] : 0;
+    n += s_wn[k];
+  }
+  if (h) s_j[off + __popc(hb & ((1u << wl) - 1u))] = j;
+  __syncthreads();
+  return static_cast<int>(threadIdx.x) < n ? s_j[threadIdx.x] : -1;
+}
+
+template <bool ALG, bool DFA, bool CMP>
 __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
   extern __shared__ long long smem[];
   const int* words = p.words;
@@ -176,13 +225,19 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
   if (p.stage) vm_stage(p.words, p.n_words, p.consts, p.n_consts, smem, &words, &consts);
   const int tiles = (p.F + blockDim.x - 1) / blockDim.x;
   const int lane = static_cast<int>(blockIdx.x / tiles);
-  const int j = static_cast<int>(blockIdx.x % tiles) * blockDim.x + threadIdx.x;
-  if (j >= p.F) return;
+  int jj = static_cast<int>(blockIdx.x % tiles) * blockDim.x + threadIdx.x;
+  if constexpr (CMP) {
+    jj = live_head(p, lane, jj);
+    if (jj < 0) return;
+  } else {
+    if (jj >= p.F) return;
+  }
+  const int j = jj;
   const long long row = static_cast<long long>(lane) * p.F;
   const long long erow = static_cast<long long>(lane) * p.ev_stride;
   const long long plane = static_cast<long long>(p.L) * p.F;
   const int nev = p.nev[lane];
-  const bool head = node_bit(p, p.head_node, erow, row, j, nev);
+  const bool head = CMP || node_bit(p, p.head_node, erow, row, j, nev);
   bool ok = head, dead = false, live = false;
   const long long hts = static_cast<long long>(p.ts[erow + j]);
   const void* ts_heap = p.ts_tree >= 0 ? lane_heap(p, p.ts_tree, lane) : nullptr;
@@ -302,17 +357,24 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
     for (int r = 0; r < p.n_idx; ++r) p.idx[r * plane + row + j] = 0;
 }
 
-extern "C" int scan_chase_launch(const ChaseParams* params, int smem, cudaStream_t stream) {
-  const int threads = 256;
-  const long long tiles = (params->F + threads - 1) / threads;
-  const unsigned blocks = static_cast<unsigned>(tiles * params->L);
-  if (params->alg && params->dfa)
-    scan_chase_kernel<true, true><<<blocks, threads, smem, stream>>>(*params);
-  else if (params->alg)
-    scan_chase_kernel<true, false><<<blocks, threads, smem, stream>>>(*params);
-  else if (params->dfa)
-    scan_chase_kernel<false, true><<<blocks, threads, smem, stream>>>(*params);
+template <bool CMP>
+static void launch_as(const ChaseParams& p, unsigned blocks, int smem, cudaStream_t stream) {
+  if (p.alg && p.dfa)
+    scan_chase_kernel<true, true, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
+  else if (p.alg)
+    scan_chase_kernel<true, false, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
+  else if (p.dfa)
+    scan_chase_kernel<false, true, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
   else
-    scan_chase_kernel<false, false><<<blocks, threads, smem, stream>>>(*params);
+    scan_chase_kernel<false, false, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
+}
+
+extern "C" int scan_chase_launch(const ChaseParams* params, int smem, cudaStream_t stream) {
+  const long long tiles = (params->F + SC_THREADS - 1) / SC_THREADS;
+  const unsigned blocks = static_cast<unsigned>(tiles * params->L);
+  if (params->compact)
+    launch_as<true>(*params, blocks, smem, stream);
+  else
+    launch_as<false>(*params, blocks, smem, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,17 @@
 // to another stream, its pre-conjuncts fail, or its value is NaN.
 //
 // Pass 1 (from_heap = 0): one 1024-thread block per (1024 leaves, lane,
-// tree; grid x = leaf blocks x lanes, y = trees) computes its leaves,
-// writes them, and reduces them level by level in shared memory, writing
-// every level to the heap up to the block's subtree root.  Later passes (from_heap = 1) treat a level of `cnt`
-// nodes already in the heap as leaves and do the same, until the root.
+// tree; grid x = leaf blocks x the trees' lanes, tree by tree) computes
+// its leaves, writes them, and reduces them level by level in shared
+// memory, writing every level to the heap up to the block's subtree root.
+// A tree has L lanes, or one when the plan marks it shared (`lanes` 1:
+// a fused group's tree whose leaves read the group's one row of events
+// and no lane parameter, the same in every lane -- C5's timestamp and
+// hop trees); such a tree is built once, as lane 0, into a (1, 2 Lt) heap
+// that K4 reads at lane stride 0, so a C5 group's trees take 0.5 MB,
+// which L2 holds, instead of 250 copies.  Later passes (from_heap = 1)
+// treat a level of `cnt` nodes already in the heap as leaves and do the
+// same, until the root.
 // The per-tree arrays (sources, types, pre-masks, heaps) sit in a device
 // table, so no tree count is fixed.  Event columns are read at lane *
 // ev_stride + i: a fused multi-query group's lanes share one row of
@@ -28,7 +35,7 @@
 #define ST_SUB 1024
 
 struct TreeParams {  // layout mirrored by kernels/seg_tree.py _Params
-  int L, F, Lt, n_trees, cnt, from_heap, ev_stride, pad0;
+  int L, F, Lt, n_trees, cnt, from_heap, ev_stride, lane_trees;
   const int* nev;
   const int* scode;
   const void* const* src;
@@ -40,6 +47,8 @@ struct TreeParams {  // layout mirrored by kernels/seg_tree.py _Params
   void* const* heap;
   const int* src_stride;  // per tree: ev_stride for an event column, F
                           // for a per-lane column (a rank column)
+  const int* lanes;       // per tree: L, or 1 for a shared tree;
+                          // lane_trees is their sum
 };
 
 __device__ __forceinline__ bool tree_isnan(int vt, VmVal v) {
@@ -54,8 +63,9 @@ __global__ void seg_tree_kernel(const __grid_constant__ TreeParams p) {
   const int n = p.cnt < ST_SUB ? p.cnt : ST_SUB;   // leaves of this block
   const int nblocks = p.cnt / n;                   // blocks per lane
   const int b = static_cast<int>(blockIdx.x % nblocks);
-  const int lane = static_cast<int>(blockIdx.x / nblocks);
-  const int tr = blockIdx.y;
+  int lane = static_cast<int>(blockIdx.x / nblocks);   // over every tree's lanes
+  int tr = 0;
+  while (lane >= p.lanes[tr]) lane -= p.lanes[tr++];
   const int vt = p.vt[tr];
   const int agg_min = p.agg[tr];
   void* heap = static_cast<char*>(p.heap[tr]) +
@@ -109,7 +119,7 @@ extern "C" int seg_tree_launch(const TreeParams* params, cudaStream_t stream) {
   p.from_heap = 0;
   while (true) {
     const int n = p.cnt < ST_SUB ? p.cnt : ST_SUB;
-    dim3 grid(static_cast<unsigned>(p.cnt / n) * static_cast<unsigned>(p.L), p.n_trees);
+    const unsigned grid = static_cast<unsigned>(p.cnt / n) * static_cast<unsigned>(p.lane_trees);
     seg_tree_kernel<<<grid, ST_SUB, 0, stream>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -38,12 +38,28 @@ indices (-1 past the total), outs one (M,) column per computed program
 else None.
 
 Design (csrc/join_probe.cu): O(T_p * Mw) pair tests instead of JAX's
-dense (T_p, NO + T_o) grid -- a warp per probe walks its visible
-positions, counting in one pass and writing in a second, with K6's block
-scan (csrc/win_scan.cuh) for the prefix counts of the opposite pass bits
-and of the pair counts.  `join_probe_plain` computes the same function
-with torch ops on (chunk, Mw) position grids built by the same rank
-arithmetic; it is used for CPU tensors (the tests) and by the checks.
+dense (T_p, NO + T_o) grid, in one kernel launch a direction (two under
+an opposite filter, whose ranks come first from a single-pass
+look-back scan).  Persistent blocks take tiles of TP consecutive probes
+(TP = 4..32: the most that still gives four tiles a streaming
+multiprocessor, fewer where a tile's match bitmap, TP x (Mw + 32) bits,
+would pass 32 KB; past one probe's worth the bitmaps go to device
+memory), stage the opposite columns of the tile's window 256 positions
+at a time in a cp.async ring in shared memory, run `on` once per
+visible pair from there (four probes a pass, the interpreter's stacks in
+shared memory, as deep as `on` needs: `Program.depth`), keep the match
+bits, take the tile's first pair slot from a decoupled look-back over the
+earlier tiles' counts and write the pairs in (a, then b) order; the last
+block to finish fills the slots past the total and clears the look-back
+state, which each prepared launch holds in a tensor of its own, zeroed
+once, so its replays (a CUDA graph's too) start clean and no two
+launches share it.  `Launch.params` after a launch holds its geometry:
+`tp`, `ntiles`, `chunk` and `group` (the kernel's window positions a
+ring slot and probes a pass, which its launcher checks against CHUNK and
+GROUP, the sizes the shared-memory layout was made for) and `launched`,
+the kernels it launched.  `join_probe_plain` computes the same function with torch ops
+on (chunk, Mw) position grids built by the same rank arithmetic; it is
+used for CPU tensors (the tests) and by the checks.
 """
 from __future__ import annotations
 
@@ -55,22 +71,46 @@ import torch
 from ..core.expr import TORCH_OF_VT, VT_OF_TORCH, Program
 from .build import load
 from .expr_eval import merge_programs, pack_mask, program_table, \
-    unpack_mask, vm_run_plain
+    stage_bytes, unpack_mask, vm_run_plain
 from .table import DeviceTable, Launch, checked_ptr, stream_of
 
-THREADS = 256                   # csrc/win_scan.cuh WS_THREADS
+THREADS = 256                   # a probe block's threads (JP_THREADS)
+CHUNK = 256                     # window positions a ring slot (JP_CHUNK)
+GROUP = 4                       # probes one pass of `on` tests (JP_GROUP)
+RANK_TILE = 256 * 32            # opposite events a rank tile
+BITS_BYTES = 32 * 1024          # a tile's match bitmap in shared memory
+BLOCKS_PER_SM = 4               # persistent probe blocks a multiprocessor
+SMEM_MAX = 227 * 1024
 PLAIN_GRID = 1 << 22            # pair positions per chunk of the plain version
 
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "n_p", "n_o", "Lo", "NO", "Mw", "M", "n_pc", "n_oc", "n_out",
-        "has_on", "n_words", "n_consts", "stage", "nbp", "nbo", "pad0")] + \
+        "has_on", "n_words", "n_consts", "stage", "tp", "rw", "ntiles",
+        "nrt", "chunk", "group", "launched", "off_vt", "off_probe", "off_win", "off_bits",
+        "off_stack", "smem")] + \
         [(n, ctypes.c_void_p) for n in (
             "p_cols", "o_mcols", "o_bcols", "p_vt", "o_vt", "p_seq", "o_seq",
             "p_pass", "o_pass", "outs", "out_vt", "prog_off", "prog_len",
-            "consts", "words", "o_rank", "o_idx", "count", "offset", "blk",
+            "consts", "words", "o_rank", "o_idx", "state", "gbits",
             "total", "pa", "pb", "miss")]
+
+
+def geometry(n_p: int, Mw: int, has_on: bool, sms: int) -> tuple:
+    """(TP, bitmap words a probe, bitmap in shared memory): probes a tile
+    halve from 32 down to 4 until the tiles give every multiprocessor
+    four, and further (down to 1) until a tile's bitmap fits BITS_BYTES;
+    a single probe's that does not fit goes to device memory."""
+    tp = 32
+    while tp > 4 and n_p < BLOCKS_PER_SM * sms * tp:
+        tp //= 2
+    rw = (Mw + 30) // 32 + 1 if Mw > 0 else 1
+    if not has_on:
+        return tp, rw, True
+    while tp > 1 and 4 * tp * rw > BITS_BYTES:
+        tp //= 2
+    return tp, rw, 4 * tp * rw <= BITS_BYTES
 
 
 def _pass_mask(words: Optional[torch.Tensor], n: int, dev) -> torch.Tensor:
@@ -200,15 +240,16 @@ def prepare(p_cols: list, o_cols: list, p_seq, o_seq, p_pass, o_pass, *,
     p.p_seq, p.o_seq = ptr(p_seq), ptr(o_seq)
     p.p_pass = words_of(p_pass, n_p, "p_pass")
     p.o_pass = words_of(o_pass, n_o, "o_pass")
-    p.nbp = -(-n_p // THREADS)
-    p.nbo = max(1, -(-n_o // THREADS))
     progs = ([on] if on is not None else []) + list(outs)
     words, consts, offs, lens = merge_programs(progs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p.tp, p.rw, shared_bits = geometry(n_p, Mw, on is not None, sms)
+    p.ntiles = -(-n_p // p.tp)
+    p.chunk, p.group = CHUNK, GROUP
+    p.nrt = max(1, -(-n_o // RANK_TILE)) if o_pass is not None else 0
+    grid = min(p.ntiles, BLOCKS_PER_SM * sms)
     o_rank = torch.empty(n_o + 1, dtype=torch.int32, device=dev)
     o_idx = torch.empty(max(n_o, 1), dtype=torch.int32, device=dev)
-    count = torch.empty(n_p, dtype=torch.int32, device=dev)
-    offset = torch.empty(n_p, dtype=torch.int64, device=dev)
-    blk = torch.empty(max(p.nbp, p.nbo), dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
     pa = torch.empty(M, dtype=torch.int32, device=dev)
     pb = torch.empty(M, dtype=torch.int32, device=dev)
@@ -216,9 +257,16 @@ def prepare(p_cols: list, o_cols: list, p_seq, o_seq, p_pass, o_pass, *,
                 for prog in outs]
     miss = torch.empty(-(-n_p // 32), dtype=torch.int32, device=dev) \
         if outer else None
-    for name, t in (("o_rank", o_rank), ("o_idx", o_idx), ("count", count),
-                    ("offset", offset), ("blk", blk), ("total", total),
-                    ("pa", pa), ("pb", pb), ("miss", miss)):
+    gbits = None
+    if on is not None and not shared_bits:
+        gbits = torch.empty(grid * p.tp * p.rw, dtype=torch.int32,
+                            device=dev)
+    # the look-back state (two tickets, two finish counters, a word per
+    # rank tile and per probe tile): zeroed here, left zero by each launch
+    state = torch.zeros(4 + p.nrt + p.ntiles, dtype=torch.int64, device=dev)
+    for name, t in (("o_rank", o_rank), ("o_idx", o_idx), ("state", state),
+                    ("gbits", gbits), ("total", total), ("pa", pa),
+                    ("pb", pb), ("miss", miss)):
         if t is not None:
             setattr(p, name, ptr(t))
     tab = DeviceTable()
@@ -242,14 +290,45 @@ def prepare(p_cols: list, o_cols: list, p_seq, o_seq, p_pass, o_pass, *,
     tab.field(p, "prog_off", offs or [0], "i4")
     tab.field(p, "prog_len", lens or [0], "i4")
     program_table(tab, p, words, consts)
+    _smem_layout(p, stage_bytes(words, consts),
+                 on.depth if on is not None else 0, shared_bits)
     keep.append(tab.upload(dev))
     lib = load("join_probe")
     fn = lib.join_probe_launch
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
-                  "join_probe_launch", "join_probe", keep,
-                  (total, pa, pb, out_cols, miss))
+    launch = Launch(lambda: fn(ctypes.byref(p), grid, stream_of(dev)),
+                    "join_probe_launch", "join_probe", keep,
+                    (total, pa, pb, out_cols, miss))
+    launch.params = p     # .tp, .ntiles, .chunk, .group; .launched: the last
+    return launch         # launch's kernels
+
+
+def _smem_layout(p: _Params, prog_bytes: int, depth: int,
+                 shared_bits: bool) -> None:
+    """Byte offsets of the probe kernel's dynamic shared memory: the
+    staged programs, the columns' value types, the tile's probe rows,
+    the two ring slots of staged opposite columns, the match bitmap and
+    the `on` program's stacks (`depth` entries of GROUP values a thread;
+    0 without `on`)."""
+    def up(x: int) -> int:
+        return -(-x // 16) * 16
+    has_on = depth > 0
+    off = up(prog_bytes) if p.stage else 0
+    p.off_vt = off
+    off = up(off + 4 * (p.n_pc + p.n_oc))
+    p.off_probe = off
+    off += 8 * p.n_pc * p.tp if has_on else 0
+    p.off_win = off
+    off += 2 * p.n_oc * CHUNK * 8 if has_on else 0
+    p.off_bits = off
+    off += 4 * p.tp * p.rw if has_on and shared_bits else 0
+    p.off_stack = off
+    off += depth * GROUP * THREADS * 8
+    if off > SMEM_MAX:
+        raise ValueError(f"join_probe: {p.n_oc} opposite columns need "
+                         f"{off} bytes of shared memory a block")
+    p.smem = off
 
 
 def join_probe(p_cols: list, o_cols: list, p_seq, o_seq, p_pass, o_pass,

@@ -29,13 +29,18 @@ per (lane, head), the hop loop in registers; threshold right-hand sides
 and strict step conjunctions run the predicate VM (csrc/expr_vm.cuh) on
 the captures at the indices resolved so far, which the thread keeps in
 its own column of the `idx` output, so no chain length is fixed; a
-fused group's `__qparam` operands read the lane's parameters.  Hop
+fused group's `__qparam` operands read the lane's parameters.  In a
+fused group every lane reads a tree K3 built once for the group
+(`TreeSpec.shared`, a (1, 2 Lt) heap) at lane stride 0, and a block
+first moves its live heads (a tenth of C5's pass their lane's head
+filter) to its first threads, so the chase runs in full warps.  Hop
 tables, loads, heap pointers and programs travel in a device table
 (kernels/table.py), the programs staged in shared memory.  A head stops
 at its first failed hop.  Bound on the H100: bytes -- the timestamp and
 pre-mask grids read once, the status and index grids written once; the
 descents read 2 log2(Lt) tree nodes per query, which stay in the 50 MB
-L2 at the C4 and C3 shapes (16 and 12 MB of trees).
+L2 at the C4 and C3 shapes (16 and 12 MB of trees) and at C5, whose
+shared trees take 0.5 MB a group (250 per-lane copies took 128 MB).
 
 In `dfa` mode (the `dfa` family; launches counted as `scan_chase:dfa`)
 a static hop's or a logical side's first hit is the table lookup of
@@ -78,14 +83,15 @@ class _Params(ctypes.Structure):
         "L", "F", "Lt", "S", "is_seq", "ts_tree", "n_loads", "ev_stride",
         "P", "n_words", "n_consts", "stage", "n_idx", "C", "head_node",
         "head_rank", "head_min", "head_within", "alg", "dfa",
-        "NB")] + [
+        "NB", "compact")] + [
         (n, ctypes.c_void_p) for n in (
             "nev", "ts", "scode", "qparams", "pre", "node_scode",
             "pos_node", "hop_kind", "hop_within", "hop_tree", "hop_op",
             "hop_vt", "hop_tree2", "hop_prev_l", "hop_prev_r",
             "hop_side_l", "hop_side_r", "hop_bit_l", "hop_bit_r",
             "hop_rank", "hop_min", "hop_row", "prog_off", "prog_len",
-            "heap", "heap_vt", "rank", "rank_heap", "prev", "comp_row",
+            "heap", "heap_vt", "heap_lane", "rank", "rank_heap", "prev",
+            "comp_row",
             "load_col", "load_vt", "load_pos", "status", "idx", "cand",
             "pres", "consts", "words", "hop_dfa_l", "hop_dfa_r",
             "dfa_suffix", "dfa_packed", "dfa_nblk")]
@@ -270,6 +276,8 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     p.is_seq, p.ts_tree, p.n_loads = int(k.prog.sequence), k.ts_tree, \
         len(k.loads)
     p.ev_stride = F if G == L else 0
+    # a fused group's lanes (one shared row): compact the live heads
+    p.compact = int(p.ev_stride == 0)
     p.n_idx, p.C = k.n_idx, k.C
     p.head_node = k.pos_node[0]
     if k.head is not None:
@@ -332,6 +340,12 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     tab.field(p, "prog_len", ln, "i4")
     tab.field(p, "heap", [ptr(h) for h in heaps] or [0], "u8")
     tab.field(p, "heap_vt", [VT_OF_TORCH[h.dtype] for h in heaps] or [0],
+              "i4")
+    for h in heaps:
+        if h.shape[0] not in (1, L):
+            raise ValueError(f"scan_chase: a heap of {h.shape[0]} lanes")
+    # a (1, 2 Lt) heap: a tree the same in every lane, read at stride 0
+    tab.field(p, "heap_lane", [int(h.shape[0] == L) for h in heaps] or [0],
               "i4")
     tab.field(p, "rank", [ptr(r, torch.int64) for r in ranks] or [0], "u8")
     tab.field(p, "rank_heap", [ptr(h, torch.int64) for h in rheaps] or [0],

@@ -12,14 +12,18 @@ or whose value is NaN hold the sentinel (-inf / INT_MIN for max trees,
 
 Design (csrc/seg_tree.cu): one launch per level group.  The first builds
 the leaves and the lowest 10 levels: one block of 1024 threads per (1024
-leaves, lane, tree), reduced level by level in shared memory, each level
-written to the heap.  A lane's trees at the C4 shapes (512 leaves) finish
-in that launch; the flat C3 tree (2^19 leaves) takes a second launch that
+leaves, lane, tree) -- one lane only for a tree the plan marks `shared`
+(`TreeSpec.shared`: a fused group's tree whose leaves read the group's
+one row of events, gated by no lane parameter), which K3 builds once
+into a (1, 2 Lt) heap that K4 reads at lane stride 0 -- reduced level by
+level in shared memory, each level written to the heap.  A lane's trees
+at the C4 shapes (512 leaves) finish in that launch; the flat C3 tree (2^19 leaves) takes a second launch that
 reduces the 512 block roots the same way.  The trees' sources, types,
 node masks and heap pointers travel in a device table (kernels/table.py),
 so no tree count is fixed.  A fused multi-query group's lanes share one
-row of events (stride 0) and keep a tree each, gated by their own
-pre-masks.  Bound on the H100: bytes -- the leaf columns and masks read
+row of events (stride 0) and keep a tree each where their own pre-masks
+(lane parameters) gate it; C5's trees (timestamps, `price > e1.price`
+hops) are the same in all 250 lanes and are built once.  Bound on the H100: bytes -- the leaf columns and masks read
 once, each heap (2 Lt entries) written once.
 
 The count positions of the `scan` family add a second launch
@@ -53,12 +57,13 @@ class _Params(ctypes.Structure):
     _fields_ = [("L", ctypes.c_int), ("F", ctypes.c_int),
                 ("Lt", ctypes.c_int), ("n_trees", ctypes.c_int),
                 ("cnt", ctypes.c_int), ("from_heap", ctypes.c_int),
-                ("ev_stride", ctypes.c_int), ("pad0", ctypes.c_int),
+                ("ev_stride", ctypes.c_int), ("lane_trees", ctypes.c_int),
                 ("nev", ctypes.c_void_p), ("scode", ctypes.c_void_p),
                 ("src", ctypes.c_void_p), ("src_vt", ctypes.c_void_p),
                 ("vt", ctypes.c_void_p), ("agg", ctypes.c_void_p),
                 ("pre", ctypes.c_void_p), ("node_scode", ctypes.c_void_p),
-                ("heap", ctypes.c_void_p), ("src_stride", ctypes.c_void_p)]
+                ("heap", ctypes.c_void_p), ("src_stride", ctypes.c_void_p),
+                ("lanes", ctypes.c_void_p)]
 
 
 def sentinel(dt: torch.dtype, agg: str):
@@ -120,6 +125,9 @@ def seg_tree_plain(k, ev: dict, masks: list, trees=None,
         mask = valid.expand_as(masks[0]) if t.node is None else masks[t.node]
         src = None if t.src is None else \
             cols[t.src] if t.lane else lane_grid(ev, t.src)
+        if t.shared:                # lane 0's leaves stand for every lane's
+            mask = mask[:1]
+            src = None if src is None else src[:1]
         out.append(build_heap_plain(src, mask, Lt, t.agg,
                                     TORCH_OF_VT[t.vt]))
     return out
@@ -177,8 +185,10 @@ def first_hit_plain(heap: torch.Tensor, Lt: int, s: torch.Tensor,
 def seg_tree(k, ev: dict, pre: list, trees=None, cols=None) -> list:
     """Trees of ParallelChainKernel `k` for block `ev`: one (L, 2 Lt) heap
     per entry of `trees` (default `k.trees`; `k.rank_trees` with `cols`,
-    their (L, F) rank columns by key, is the `rank` use).  `pre` holds the
-    K1 pre-mask words per chain node (or None)."""
+    their (L, F) rank columns by key, is the `rank` use), (1, 2 Lt) for a
+    tree the plan marks `shared` (the same in every lane of a fused
+    group).  `pre` holds the K1 pre-mask words per chain node (or
+    None)."""
     dev = ev["__flat.__ts__"].device
     if dev.type == "cpu":
         return seg_tree_plain(k, ev, node_masks(k, ev, pre), trees, cols)
@@ -210,6 +220,8 @@ def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
     use_rank = trees is not None
     trees = k.trees if trees is None else trees
     heaps, src, src_vt, pre_p, node_sc, stride = [], [], [], [], [], []
+    if G != 1 and any(t.shared for t in trees):
+        raise ValueError("seg_tree: a shared tree needs one row of events")
     for t in trees:
         if t.src is not None:
             col = cols[t.src] if t.lane else ev[t.src]
@@ -226,8 +238,8 @@ def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
                        and k.multi else -1)
         pre_p.append(ptr(pre[t.node], torch.int32) if t.node is not None
                      and pre[t.node] is not None else 0)
-        heaps.append(torch.empty((L, 2 * Lt), dtype=TORCH_OF_VT[t.vt],
-                                 device=dev))
+        heaps.append(torch.empty((1 if t.shared else L, 2 * Lt),
+                                 dtype=TORCH_OF_VT[t.vt], device=dev))
     tab = DeviceTable()
     tab.field(p, "src", src, "u8")
     tab.field(p, "src_vt", src_vt, "i4")
@@ -237,7 +249,9 @@ def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
     tab.field(p, "node_scode", node_sc, "i4")
     tab.field(p, "heap", [ptr(h) for h in heaps], "u8")
     tab.field(p, "src_stride", stride, "i4")
+    tab.field(p, "lanes", [h.shape[0] for h in heaps], "i4")
     p.n_trees = len(trees)
+    p.lane_trees = sum(h.shape[0] for h in heaps)
     keep.append(tab.upload(dev))
     lib = load("seg_tree")
     fn = lib.seg_tree_launch

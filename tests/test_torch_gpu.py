@@ -516,6 +516,78 @@ def test_c4_scan_end_to_end_on_the_card(cuda):
     assert got == run("cpu") and got
 
 
+def _fused_scan(body: str, n: int = 12, dbl: str = ".0") -> str:
+    """`n` same-shape queries over StockStream, fused into one lane group
+    (constants lifted to lane parameters; `{i}` the query index, `{lo}`
+    its head constant)."""
+    return STOCK + "\n".join(
+        f"@info(name='q{i}') " + body.format(i=i, lo=f"{110 + i % 6}{dbl}")
+        + " insert into Out;" for i in range(n))
+
+
+FUSED_EVERY = ("from every e1=StockStream[price > {lo}] -> "
+               "e2=StockStream[price > e1.price] -> "
+               "e3=StockStream[price > e2.price] within 1 sec "
+               "select e1.price as a, e3.price as b")
+# name -> (app, flushes, events a flush, trees shared)
+SHARED_APPS = {
+    # C5's shape: every tree the same in all lanes, built once
+    "c5_shape": (_fused_scan(FUSED_EVERY), 3, 20000, "all"),
+    # a hop gated by a lane parameter keeps a tree per lane beside the
+    # shared timestamp tree
+    "gated": (_fused_scan(
+        "from every e1=StockStream[price > {lo}] -> "
+        "e2=StockStream[volume > 9{i} and price > e1.price] within 1 sec "
+        "select e1.price as a, e2.price as b"), 3, 20000, "some"),
+    # float64 trees under @app:devicePrecision('f64')
+    "f64": ("@app:devicePrecision('f64')\n" + _fused_scan(
+        FUSED_EVERY, dbl=".000001"), 3, 20000, "all"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARED_APPS))
+def test_shared_trees_match_plain(cuda, name, monkeypatch):
+    """A fused `scan` group's lane-invariant trees: K3 builds each once (a
+    (1, 2 Lt) heap, lanes x trees no longer launched) and K4 reads it at
+    lane stride 0; K3's heaps, K4's chase and K5's table equal their plain
+    versions on every block (tolerance 0), and the rows equal the CPU
+    run's."""
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree
+    from siddhi_tpu_torch.replay import check_scan_block
+    app, flushes, n, which = SHARED_APPS[name]
+    blocks = []
+    orig = ParallelChainKernel.run_block
+
+    def rec(self, ev, M):
+        blocks.append((self, ev, M))
+        return orig(self, ev, M)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec)
+
+    def run(device):
+        rt = siddhi_tpu_torch.SiddhiManager(device=device).create_app_runtime(
+            app)
+        out = []
+        rt.add_callback("Out", lambda evs: out.extend(
+            (e.timestamp, e.data) for e in evs))
+        _feed(rt, 8, flushes, n)
+        assert rt.plans()[0].family == "scan"
+        return out
+    got = run(cuda)
+    assert blocks
+    for k, ev, M in blocks:
+        shared = [t.shared for t in k.trees]
+        assert all(shared) if which == "all" else any(shared) and \
+            not all(shared)
+        L = ev["__nev__"].shape[0]
+        heaps = seg_tree(k, ev, k.pre_masks(ev))
+        assert [h.shape[0] for h in heaps] == [1 if s else L for s in shared]
+        err = check_scan_block(k, ev, M)
+        assert max(v for key, v in err.items() if key != "matches") == 0.0
+    blocks.clear()
+    assert got == run("cpu") and len(got) > 20
+
+
 # ---------------------------------------------------------------------------
 # fused multi-query lanes: lane parameters, broadcast events, deadlines,
 # timer ticks, the __qid__ row
