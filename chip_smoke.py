@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
      all at once), timed;
   3. K1 expr_eval vs its plain version at N = 2^18 rows: C1's filter,
      integer arithmetic with truncating / and %, string equality,
-     and/or/not, float32-mode arithmetic -- masks and columns equal;
+     and/or/not, float32-mode arithmetic -- masks and columns equal; the
+     mask programs together in one launch (expr_masks) -- words equal;
   4. the main path, BASELINE config 4 (partitioned 3-step pattern) at
      default settings, which run the `scan` family: 4 flushes of 2^18
      events over 1000 keys through SiddhiManager(device="cuda")
@@ -20,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught):
      events/s and ms per flush;
   5. K3 seg_tree, K4 scan_chase, K5 scan_compact and K1 (pre-masks,
      selector) against their plain versions on the recorded blocks:
-     heaps, chase status and indices, match tables equal;
+     heaps, chase status and indices, match tables equal; K1's pre-masks
+     timed a launch (every pre-mask program of the block in one launch)
+     and a program;
   6. config 3 unpartitioned (bench.py's C3 text): 2 flushes of 2^18
      events through the flat `scan` block (a 2^19-leaf tree), counted,
      recorded, checked against the CPU run and phase 5's comparisons;
@@ -147,7 +150,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (`scan_chase:dfa`) launched with K1, K3 (the `within` killer's tree
      only: no mask tree for the chase node) and K5, K4's tree mode and
      K2 not; rows equal to the CPU run and to the card's `scan` run of the
-     same tape, whose K3 and K4 are timed beside K11 and K4 `dfa`;
+     same tape, whose K3 and K4 are timed beside K11 and K4 `dfa`; K11's
+     tiles a lane logged;
  36. C4D, C4's partitioned head (1000 keys) with a static hop and a
      threshold hop (`e2=S[price < 100] -> e3=S[price > e1.price]`) under
      @app:patternFamily('dfa'): K11 over the (L, F) lane grid; phases 35
@@ -389,15 +393,18 @@ def bound(nbytes: float, ops: float, f64: bool = False) -> tuple:
                                                            "operations")
 
 
-def k1_work(torch, cols, mask_prog, out_progs, n: int, rows=None) -> tuple:
+def k1_work(torch, cols, mask_prog, out_progs, n: int, rows=None,
+            masks=()) -> tuple:
     """(bytes, operations) K1 needs for rows [0, n): each column element a
     program loads read once (a broadcast or shared column once, not once
-    per lane), each lane parameter once, each output and the mask words
-    written once, one operation per row for each VM instruction other
-    than a load, a parameter or a constant."""
+    per lane, nor once per program), each lane parameter once, each
+    output and each program's mask words written once, one operation per
+    row for each VM instruction other than a load, a parameter or a
+    constant; `masks`: more mask programs of the same launch."""
     from siddhi_tpu_torch.core.expr import TORCH_OF_VT, decode_word
     loaded, qparams, ops = set(), False, 0
-    for prog in [p for p in (mask_prog, *out_progs) if p is not None]:
+    for prog in [p for p in (mask_prog, *out_progs, *masks)
+                 if p is not None]:
         for j in range(0, len(prog.words), 2):
             op = decode_word(prog.words[j])[0]
             if op == "load":
@@ -414,8 +421,7 @@ def k1_work(torch, cols, mask_prog, out_progs, n: int, rows=None) -> tuple:
         nbytes += rows.qparams.bits.numel() * 8
     nbytes += sum(n * torch.empty(0, dtype=TORCH_OF_VT[p.vt]).element_size()
                   for p in out_progs)
-    if mask_prog is not None:
-        nbytes += -(-n // 32) * 4
+    nbytes += -(-n // 32) * 4 * (int(mask_prog is not None) + len(masks))
     return nbytes, ops
 
 
@@ -427,7 +433,9 @@ def phase_k1(torch, np, n: int) -> float:
                                             compute_dtypes, emit_program)
     from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
     from siddhi_tpu_torch.kernels.expr_eval import (expr_eval,
-                                                    expr_eval_plain)
+                                                    expr_eval_plain,
+                                                    expr_masks,
+                                                    expr_masks_plain)
     from siddhi_tpu_torch.query import ast, parse_expression
     rng = np.random.default_rng(1)
     T = ast.AttrType
@@ -485,6 +493,15 @@ def phase_k1(torch, np, n: int) -> float:
             if a.dtype != torch.bool:
                 err = max(err, float((a.double() - b.double()).abs().max()))
         log(f"  K1 {mask_text!r} + {len(outs_p)} outputs: equal")
+    # every case's mask program in one launch (a block's pre-masks)
+    masks = [prog(text) for text, _outs in cases]
+    got = expr_masks(cols, masks, n, use="pre_mask")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, expr_masks_plain(cols, masks, n))):
+        raise SystemExit("K1 masks of one launch differ from the plain "
+                         "version's")
+    log(f"  K1 {len(masks)} mask programs in one launch: equal")
     return err
 
 
@@ -514,6 +531,35 @@ def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
     return out, per_flush, rt
 
 
+# id of a recorded `scan` block's event grid -> the parameter blocks of
+# the K1 pre-mask and K11 launches the main path made on that block
+# (`run_scan_block`): the geometry the kernel line reports
+MAIN_PARAMS: dict = {}
+RECORDED = ("expr_eval:pre_mask", "dfa_tables")
+
+
+def run_scan_block(run_scan, kern, ev, M):
+    """ParallelChainKernel.run_block as the plan calls it, keeping in
+    MAIN_PARAMS the parameter blocks of the K1 pre-mask and K11 launches
+    it made (kernels.PARAMS, recorded while a run's launches count)."""
+    from siddhi_tpu_torch import kernels
+    seen = {c: len(kernels.PARAMS.get(c, ())) for c in RECORDED}
+    out = run_scan(kern, ev, M)
+    MAIN_PARAMS[id(ev)] = {c: kernels.PARAMS.get(c, [])[seen[c]:]
+                           for c in RECORDED}
+    return out
+
+
+def main_params(label: str, ev: dict, counter: str, want: int):
+    """The parameter block of the one launch under `counter` the main
+    path made on the block of `ev`, holding `want` programs (K1)."""
+    got = MAIN_PARAMS.get(id(ev), {}).get(counter, [])
+    if len(got) != 1 or (want and got[0].n_progs != want):
+        raise SystemExit(f"[{label}] {len(got)} {counter} launches on the "
+                         f"block (one of {want or 'its'} programs wanted)")
+    return got[0]
+
+
 def run_c5(pkg, np, tape, device: str, record: bool = False, app=None):
     """Config 5 through the facade: the tape flush by flush, then
     `set_time` 1 s past its last event, launch counts from 0 just before
@@ -538,7 +584,7 @@ def run_c5(pkg, np, tape, device: str, record: bool = False, app=None):
 
     def rec_scan(kern, ev, M):
         scan_blocks.append((kern, ev, M))
-        return run_scan(kern, ev, M)
+        return run_scan_block(run_scan, kern, ev, M)
     if record:
         NFAKernel.run_block, ParallelChainKernel.run_block = rec_seq, rec_scan
     try:
@@ -556,6 +602,7 @@ def run_c5(pkg, np, tape, device: str, record: bool = False, app=None):
             if device == "cuda":
                 torch.cuda.synchronize()
         kernels.reset_launches()
+        kernels.record_params(*RECORDED)
         per_flush = []
         for f in tape:
             t0 = time.perf_counter()
@@ -571,6 +618,7 @@ def run_c5(pkg, np, tape, device: str, record: bool = False, app=None):
         launches = dict(kernels.LAUNCHES)
     finally:
         NFAKernel.run_block, ParallelChainKernel.run_block = run_seq, run_scan
+        kernels.record_params()
     rows = [(j, int(t), row) for j, b in batches
             for t, row in zip(b.timestamps, b.rows(rt.strings))]
     return rows, per_flush, set_ms, launches, rt, seq_blocks, scan_blocks
@@ -691,6 +739,31 @@ def k3_read_bytes(kern, ev: dict, pre: list, F: int) -> int:
     for node, lane0 in only_shared.items():
         nb += 4 * -(-F // 32) if lane0 else nbytes(pre[node])
     return nb
+
+
+def pre_mask_metrics(torch, kern, ev: dict, n: int, params: dict,
+                     label: str) -> dict:
+    """K1 `pre_mask` on one `scan` block: every pre-mask program of the
+    block in one launch, timed a launch (the kernel line's `ms`) and a
+    program (`ms_per_program`); the bound counts each column the
+    programs load once, whichever programs load it.  Its stack, rows a
+    thread, blocks and warps a block are those of the main path's launch
+    on the block (`main_params`)."""
+    from siddhi_tpu_torch.kernels import expr_eval as k1
+    from siddhi_tpu_torch.kernels.expr_eval import expr_masks_plain
+    cols, rows = kern.pre_mask_cols(ev), kern.pre_mask_rows(ev)
+    progs = [p for p in kern.nfak.pre_progs if p is not None]
+    q = main_params(label, ev, "expr_eval:pre_mask", len(progs))
+    nb, ops = k1_work(torch, cols, None, [], n, rows, masks=progs)
+    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev), lambda: [
+        k1.prepare_masks(cols, progs, n, params, use="pre_mask",
+                         rows=rows)])
+    return {"ms": ms, "dispatch_ms": host, "programs": len(progs),
+            "ms_per_program": ms / len(progs), "depth": q.depth,
+            "grid": q.grid, "warps": q.wpb, "rows_a_thread": q.rows,
+            "plain_ms": wall_ms(torch, lambda: expr_masks_plain(
+                cols, progs, n, params, rows)),
+            "bytes": nb, "ops": ops, "library_ms": None}
 
 
 def phase_scan_blocks(torch, blocks, label: str) -> dict:
@@ -856,25 +929,10 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
                                                scan_compact_plain(
                                                    kern, ev, chase, ranks,
                                                    rheaps, M))}
-    # K1 on the scan block: pre-masks over the (L*F,) grid, selector
-    # over the match table
-    cols = kern.pre_mask_cols(ev)
-    rows = kern.pre_mask_rows(ev)
-    progs = [p for p in kern.nfak.pre_progs if p is not None]
-    nb = ops = 0
-    for prog in progs:
-        b_, o_ = k1_work(torch, cols, prog, [], L * F, rows)
-        nb, ops = nb + b_, ops + o_
-    ms, host = graph_ms(torch, lambda: kern.pre_masks(ev), lambda: [
-        k1.prepare(cols, p, [], L * F, params, use="pre_mask", rows=rows)
-        for p in progs])
-    res["pre_mask"] = {
-        "ms": ms / len(progs), "dispatch_ms": host / len(progs),
-        "plain_ms": wall_ms(torch, lambda: [
-            expr_eval_plain(cols, p, [], L * F, params, rows)
-            for p in progs]) / len(progs),
-        "bytes": nb / len(progs), "ops": ops / len(progs),
-        "library_ms": None}
+    # K1 on the scan block: every pre-mask program of the block over the
+    # (L*F,) grid in one launch, selector over the match table
+    res["pre_mask"] = pre_mask_metrics(torch, kern, ev, L * F, params,
+                                       label)
     nfak = kern.nfak
     sel_cols = nfak.select_cols(out)
     sel_rows = nfak.select_rows(out)
@@ -983,7 +1041,7 @@ def run_recorded(pkg, np, app: str, tape, keys: int = KEYS) -> tuple:
 
     def rec_scan(kern, ev, M):
         scan_b.append((kern, ev, M))
-        return run_scan(kern, ev, M)
+        return run_scan_block(run_scan, kern, ev, M)
 
     def rec_seq(kern, state, ev, M):
         new, out = run_seq(kern, state, ev, M)
@@ -992,10 +1050,12 @@ def run_recorded(pkg, np, app: str, tape, keys: int = KEYS) -> tuple:
     ParallelChainKernel.run_block, NFAKernel.run_block = rec_scan, rec_seq
     try:
         kernels.reset_launches()
+        kernels.record_params(*RECORDED)
         rows, per_flush, rt = run_app(pkg, np, app, tape, keys, "cuda")
         launches = dict(kernels.LAUNCHES)
     finally:
         ParallelChainKernel.run_block, NFAKernel.run_block = run_scan, run_seq
+        kernels.record_params()
     return rows, per_flush, launches, rt, scan_b, seq_b
 
 
@@ -1321,6 +1381,7 @@ def phase_dfa_blocks(torch, blocks, label: str, scan_blocks) -> dict:
     pre_chase = [pre[gi] for gi in kern.dfa_nodes if pre[gi] is not None]
     ms, host = graph_ms(torch, lambda: dfa_tables(kern, ev, pre),
                         lambda: [k11.prepare(kern, ev, pre)])
+    geo = main_params(label, ev, "dfa_tables", 0)
     # K11: the chase nodes' pre-mask words, the lane counts and (several
     # streams) the stream codes read once, the suffix words, block words
     # and next pointers written once; a bit test per node and event and a
@@ -1329,7 +1390,8 @@ def phase_dfa_blocks(torch, blocks, label: str, scan_blocks) -> dict:
     res["dfa_tables"] = {
         "ms": ms, "dispatch_ms": host, "library_ms": None,
         "bytes": nbytes(ev["__nev__"], *pre_chase, *scode, *tables),
-        "ops": L * NB * 4 * nk + L * NB * nk,
+        "ops": L * NB * 4 * nk + L * NB * nk, "tiles": geo.T,
+        "warps": geo.W,
         "plain_ms": wall_ms(torch, lambda: dfa_tables_plain(chase_masks))}
     # K4 in `dfa` mode: as K4, the tables in place of the mask trees; per
     # head alive at a hop the killer's descent (2 log2 Lt), a threshold
@@ -1357,6 +1419,8 @@ def phase_dfa_blocks(torch, blocks, label: str, scan_blocks) -> dict:
     spre = skern.pre_masks(sev)
     st = time_k3_k4(torch, skern, sev, spre, seg_tree(skern, sev, spre))
     res["scan_run"] = {"trees": len(skern.trees), **st}
+    log(f"  [{label}] K11 {geo.T} tiles a lane of {32 * geo.W} stride-"
+        f"blocks ({L} lanes of {NB})")
     log(f"  [{label}] K11 {ms:.4f} ms + K4 dfa {t['scan_chase']:.4f} ms + K3 "
         f"{t['seg_tree']:.4f} ms ({len(kern.trees)} trees); the `scan` run: "
         f"K3 {st['seg_tree']:.4f} ms ({len(skern.trees)} trees) + K4 "
@@ -1412,6 +1476,7 @@ def phase_stateless(torch, np, pkg, label: str, app: str, n: int,
     else:
         need_launches(label, launches, DFA_K,
                       ("scan_chase", "nfa_block", "nfa_block:chunk"))
+        one_pre_mask_launch(label, launches, scan_b)
         blk = phase_dfa_blocks(torch, scan_b, label, cmp_scan)
         geo = ""
     steady = per_flush[1:]
@@ -2191,7 +2256,9 @@ def kernel_entry(name, source, replaces, launches, err, m) -> dict:
              "bound_by": by, "library_ms": m["library_ms"]}
     for extra in ("chain_ms", "library_flat_ms", "f32_twin_ms", "step_ns",
                   "tt", "wpb", "pair_tests", "launches_a_call", "tp",
-                  "chunk", "trees_built", "lanes_x_trees"):
+                  "chunk", "trees_built", "lanes_x_trees", "programs",
+                  "ms_per_program", "depth", "grid", "tiles", "warps",
+                  "rows_a_thread"):
         if extra in m:
             entry[extra] = m[extra]
     return entry
@@ -2204,6 +2271,24 @@ def check_rows(label: str, dev_out: list, ref_out: list) -> None:
     for _ts, row in dev_out:
         if not (row[0] > 100 and all(b > a for a, b in zip(row, row[1:]))):
             raise SystemExit(f"{label} row breaks the pattern: {row}")
+
+
+def one_pre_mask_launch(label: str, launches: dict, blocks) -> None:
+    """K1 `pre_mask` launched once for each recorded `scan` block with a
+    pre-mask program, however many programs the block has (each block's
+    launch holding all of them)."""
+    want = progs = 0
+    for k, ev, _m in blocks:
+        n = sum(p is not None for p in k.nfak.pre_progs)
+        if n:
+            main_params(label, ev, "expr_eval:pre_mask", n)
+        want += n > 0
+        progs += n
+    if launches["expr_eval:pre_mask"] != want:
+        raise SystemExit(f"{label}: {launches['expr_eval:pre_mask']} K1 "
+                         f"pre-mask launches for {want} blocks")
+    log(f"  [{label}] K1 pre-masks: {want} launches for {progs} programs "
+        f"over {len(blocks)} blocks")
 
 
 def need_launches(label: str, launches: dict, used, unused=()) -> None:
@@ -2261,6 +2346,7 @@ def main() -> int:
     ref_out, cpu_flush, _ = run_app(pkg, np, C4_HEAD + C4, tape, KEYS, "cpu")
     check_rows("C4", dev_out, ref_out)
     need_launches("C4", c4_launches, scan_k, ("nfa_block",))
+    one_pre_mask_launch("c4", c4_launches, blocks)
     steady = per_flush[1:]
     eps = FLUSH / (sum(steady) / len(steady) / 1e3)
     log(f"[c4] {len(dev_out)} matches equal to the CPU run; family "
@@ -2618,6 +2704,14 @@ def main() -> int:
             lib += f" (flat 1-D scan {e['library_flat_ms']:.4f} ms)"
         if "f32_twin_ms" in e:
             lib += f", float32 on its shapes {e['f32_twin_ms']:.4f} ms"
+        if "programs" in e:
+            lib += (f", {e['programs']} programs a launch "
+                    f"({e['ms_per_program']:.4f} ms a program, register "
+                    f"stack {e['depth'] or 'local'}, {e['rows_a_thread']} "
+                    f"rows a thread, {e['grid']} blocks of {e['warps']} "
+                    f"warps)")
+        elif "tiles" in e:
+            lib += f", {e['tiles']} tiles a lane, {e['warps']} warps a block"
         if "step_ns" in e:
             lib += (f", {e['step_ns']:.1f} ns a step (TT {e['tt']}, "
                     f"{e['wpb']} warps a block)")

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Device times of K2 (`nfa_block`), K3 (`seg_tree`), K4 (`scan_chase`),
-K5 (`scan_compact`), K6 (`win_scan`), K9 (`join_probe`) and K10
-(`agg_merge`) on the calls their main paths make, checkout by checkout.
+"""Device times of K1 (`expr_eval`), K2 (`nfa_block`), K3 (`seg_tree`),
+K4 (`scan_chase`), K5 (`scan_compact`), K6 (`win_scan`), K9
+(`join_probe`), K10 (`agg_merge`) and K11 (`dfa_tables`) on the calls
+their main paths make, checkout by checkout.
 
-    python3 scripts/kernel_ab.py [--k2] [--k4] [--k9] ROOT [ROOT ...]
+    python3 scripts/kernel_ab.py [--k1] [--k2] [--k4] [--k9] [--k11]
+                                 ROOT [ROOT ...]
 
 Runs each checkout (a directory holding chip_smoke.py and
 siddhi_tpu_torch) in a subprocess of its own, in the order given (repeat
@@ -41,20 +43,34 @@ group with the most trees), on C5 f64's (c5_app(1000, frac=1e-6) on a
 raw-double tape) and on the last C4 `scan` block (per-lane trees, the
 control), K4 over K3's own heaps; with the trees each K3 launch built
 against lanes x trees where the checkout's plan marks shared trees
-(`k3_trees`).  `--k2`, `--k4` and `--k9` time only those kernels (K3
-and K4 for `--k4`); several may be given; none times them all.  Prints
-one JSON line per run: the checkout, the card's name and power limit,
-the device times in ms and `ptxas`, each K2, K3, K4 and K9 source's
-kernels with their registers and spill stores and loads (nvcc -Xptxas
--v).  Needs a CUDA card.
+(`k3_trees`).  K1 (`--k1`): the pre-masks of C5's and C5 f64's widest
+`scan` block and of the last C4 `scan` block (`kern.pre_masks`, every
+pre-mask program of the block: one launch where the checkout's K1 takes
+several programs a launch, `prepare_masks`, else one a program; the
+programs and launches a block in `k1_pre`, the time per program beside
+the time per block; each use's host dispatch, one eager wrapper call,
+the least mean of 10 rounds of 50, in `k1_host`), C1's filter on its 2^20-event batch, the selector
+over the last C4 `scan` block's match table (its chase from K4's plain
+version), the widest `window_args` and `window_select` calls of C2 and
+the widest `join_filter` call of J6O.  K11 (`--k11`): the last `dfa`
+block of C3SD (one lane of 2^18 events) and of C4D (1000 lanes), with
+the tiles a lane where the checkout's launch reports them
+(`k11_geometry`).  `--k1`, `--k2`, `--k4`, `--k9` and `--k11` time only
+those kernels (K3 and K4 for `--k4`); several may be given; none times
+them all.  Prints one JSON line per run: the checkout,
+the card's name and power limit, the device times in ms and `ptxas`,
+each K1, K2, K3, K4, K9 and K11 source's kernels with their registers
+and spill stores and loads (nvcc -Xptxas -v).  Needs a CUDA card.
 """
 import json
 import os
 import subprocess
 import sys
+import time
 
-KERNEL_SOURCES = ("nfa_block", "seg_tree", "scan_chase", "join_probe")
-GROUPS = ("--k2", "--k4", "--k9")
+KERNEL_SOURCES = ("expr_eval", "nfa_block", "seg_tree", "scan_chase",
+                  "join_probe", "dfa_tables")
+GROUPS = ("--k1", "--k2", "--k4", "--k9", "--k11")
 
 
 def ptxas(log: str) -> list:
@@ -97,6 +113,108 @@ def k9_entries(out: dict, cs, best) -> None:
             out.setdefault("k9_geometry", {})[label] = {
                 "launches": params.launched, "tp": params.tp,
                 "chunk": params.chunk, "n_p": kw["n_p"], "Mw": kw["Mw"]}
+
+
+def k1_entries(out: dict, cs, pkg, np, torch, best) -> None:
+    """K1 on each of its uses: the pre-masks of C5's, C5 f64's and C4's
+    `scan` blocks, C1's filter, C4's selector, C2's window calls and
+    J6O's side filter; device ms under the use's key, the wrapper's host
+    dispatch ms (one eager call) under k1_host.  `best` returns both."""
+    from siddhi_tpu_torch.kernels import expr_eval as k1
+    from siddhi_tpu_torch.kernels import scan_compact as k5
+    from siddhi_tpu_torch.kernels.scan_chase import scan_chase_plain
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree
+    from siddhi_tpu_torch.replay import join_tape, run_join, run_window
+
+    def pre(key, kern, ev) -> None:
+        cols, rows = kern.pre_mask_cols(ev), kern.pre_mask_rows(ev)
+        progs = [p for p in kern.nfak.pre_progs if p is not None]
+        n = ev["__nev__"].shape[0] * ev["__flat.__ts__"].shape[1]
+        params = {"__base_ts__": ev["__base_ts__"]}
+        if hasattr(k1, "prepare_masks"):
+            def prepare():
+                return [k1.prepare_masks(cols, progs, n, params,
+                                         use="pre_mask", rows=rows)]
+        else:
+            def prepare():
+                return [k1.prepare(cols, p, [], n, params, use="pre_mask",
+                                   rows=rows) for p in progs]
+        ms, host = best(lambda: kern.pre_masks(ev), prepare)
+        out[f"k1_pre_{key}"] = ms
+        out.setdefault("k1_host", {})[f"k1_pre_{key}"] = host
+        out.setdefault("k1_pre", {})[key] = {
+            "rows": n, "programs": len(progs), "launches": len(prepare()),
+            "ms_per_program": ms / len(progs)}
+
+    def k1_call(key, a, kw) -> None:
+        out[key], out.setdefault("k1_host", {})[key] = best(
+            lambda: k1.expr_eval(*a, **kw), lambda: [k1.prepare(*a, **kw)])
+
+    def widest(blocks):
+        return max(blocks, key=lambda b: (len(b[0].trees),
+                                          b[1]["__flat.__ts__"].shape[1]))
+    tape = cs.make_tape(cs.C5_FLUSH * 4, cs.C5_FLUSH, cs.C5_SYMBOLS,
+                        seed=5, dt_ms=cs.C5_DT)
+    pre("c5", *widest(cs.run_c5(pkg, np, tape, "cuda", record=True)[6])[:2])
+    app = cs.F64 + cs.c5_app(cs.C5_QUERIES, frac=cs.RAW_STEP)
+    tape = cs.raw_tape(cs.C5_FLUSH, cs.C5_FLUSH, cs.C5_SYMBOLS, seed=43,
+                       dt_ms=cs.C5_DT, lo=90.0, levels=40)
+    pre("c5_f64", *widest(cs.run_c5(pkg, np, tape, "cuda", record=True,
+                                    app=app)[6])[:2])
+    tape = cs.make_tape(cs.FLUSH * 2, cs.FLUSH, cs.KEYS)
+    kern, ev, m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
+    pre("c4", kern, ev)
+    # the selector over the block's match table
+    pre_w = kern.pre_masks(ev)
+    masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre_w)
+    heaps = seg_tree(kern, ev, pre_w)
+    chase = scan_chase_plain(kern, ev, masks, heaps, ranks, [], prevs)
+    table = k5.scan_compact(kern, ev, chase, ranks, [], m)
+    nfak, n = kern.nfak, int(table["meta"][0])
+    k1_call("k1_select_c4", (nfak.select_cols(table), nfak.having_prog,
+                             nfak.sel_progs, n,
+                             {"__base_ts__": ev["__base_ts__"]}),
+            {"use": "select", "rows": nfak.select_rows(table)})
+    # C1's filter on its batch
+    tape = cs.make_tape(cs.C1_EVENTS, cs.C1_EVENTS, cs.KEYS, seed=2)
+    rt = cs.run_app(pkg, np, cs.C1, tape, cs.KEYS, "cuda")[2]
+    plan = rt.plans()[0]
+    cols = [torch.from_numpy(np.ascontiguousarray(tape[0][k])).cuda()
+            for k in plan._slot_keys]
+    k1_call("k1_filter_c1", (cols, plan._mask_prog, plan._out_progs,
+                             cs.C1_EVENTS), {"use": "filter"})
+    # C2's window calls and J6O's side filter: the widest of each use
+    calls: list = []
+    tape = cs.make_tape(cs.C2_FLUSH * cs.C2_FLUSHES, cs.C2_FLUSH,
+                        cs.C2_SYMBOLS, seed=20)
+    run_window(cs.C2, tape, "cuda", calls)
+    label, app, batch, flushes = [j for j in cs.JOINS if j[0] == "j6o"][0][:4]
+    run_join(app, join_tape(batch * flushes, batch), "cuda", calls)
+    for use in ("window_args", "window_select", "join_filter"):
+        _n, a, kw = max((c for c in calls if c[0] == "expr_eval"
+                         and c[2]["use"] == use), key=lambda c: c[1][3])
+        k1_call(f"k1_{use}", a, kw)
+
+
+def k11_entries(out: dict, cs, pkg, np, best) -> None:
+    """K11 on the last `dfa` block of C3SD and of C4D."""
+    from siddhi_tpu_torch.kernels import dfa_tables as k11
+    for label, app, n, flushes, keys, seed, _f, _c in cs.STATELESS:
+        if label not in ("c3sd", "c4d"):
+            continue
+        tape = cs.make_tape(n * flushes, n, keys, seed=seed)
+        kern, ev, _m = cs.run_recorded(pkg, np, app, tape, keys)[4][-1]
+        pre = kern.pre_masks(ev)
+        out[f"k11_{label}"] = best(lambda: k11.dfa_tables(kern, ev, pre),
+                                   lambda: [k11.prepare(kern, ev, pre)])
+        launch = k11.prepare(kern, ev, pre)
+        launch()
+        geo = {"L": ev["__nev__"].shape[0], "F": ev["__flat.__ts__"].shape[1],
+               "chase_nodes": len(kern.dfa_nodes)}
+        params = getattr(launch, "params", None)
+        if params is not None:
+            geo.update(tiles=params.T, warps=params.W)
+        out.setdefault("k11_geometry", {})[label] = geo
 
 
 def k34_entries(out: dict, cs, pkg, np, best) -> None:
@@ -167,6 +285,23 @@ def one(root: str, only: frozenset = frozenset()) -> dict:
         return min(cs.graph_ms(torch, call, prepare, reps)[0]
                    for _ in range(3))
 
+    def host_ms(call, rounds=10, reps=50) -> float:
+        """The wrapper's host dispatch ms: the least mean of `rounds`
+        rounds of `reps` eager calls (no synchronisation inside one)."""
+        call()
+        least = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            least = min(least, (time.perf_counter() - t0) / reps * 1e3)
+        torch.cuda.synchronize()
+        return least
+
+    def best_and_host(call, prepare) -> tuple:
+        return best(call, prepare), host_ms(call)
+
     def k6_ms(a, kw) -> float:
         return best(lambda: k6.win_scan(*a, **kw),
                     lambda: [k6.prepare(*a, **kw)])
@@ -201,6 +336,10 @@ def one(root: str, only: frozenset = frozenset()) -> dict:
         k2_block_ms(key, kern, kern.init_state(ev["__ts__"].device), ev, m)
 
     out = {"root": root}
+    if not only or "--k1" in only:
+        k1_entries(out, cs, pkg, np, torch, best_and_host)
+    if not only or "--k11" in only:
+        k11_entries(out, cs, pkg, np, best)
     if only and "--k9" in only:
         k9_entries(out, cs, best)
     if only and "--k4" in only:

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextvars
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -541,11 +541,17 @@ class Program:
     """Postfix VM program: `words` (opcode, operand) int32 pairs, `consts`
     pool entries (an int of raw bits, or a str naming a launch-time
     parameter resolved by `resolve_consts`), `vt` of the result, `depth`
-    the deepest stack it reaches."""
+    the deepest stack it reaches, `stack_slots` the stack slot each
+    instruction writes (a push: the new top; an operation: its first
+    operand's).  `decoded` holds K1's instruction records of the program,
+    made by its first launch on the card (kernels/expr_eval.py
+    `decoded`)."""
     words: list
     consts: list
     vt: int
     depth: int
+    stack_slots: list
+    decoded: object = field(default=None, repr=False, compare=False)
 
     def resolve_consts(self, params: Optional[dict] = None) -> list:
         out = []
@@ -577,17 +583,19 @@ def emit_program(node: Node, slots: dict) -> Program:
     key without a column or a tree deeper than the VM stack."""
     words: list = []
     consts: list = []
+    stack_slots: list = []
     depth = [0, 0]
 
-    def push():
+    def push(word: int, arg: int) -> None:
+        words.extend([word, arg])
+        stack_slots.append(depth[0])
         depth[0] += 1
         depth[1] = max(depth[1], depth[0])
 
     def add_const(entry, vt: int) -> int:
         if entry not in consts:
             consts.append(entry)
-        words.extend([encode_word("const", vt), consts.index(entry)])
-        push()
+        push(encode_word("const", vt), consts.index(entry))
         return vt
 
     def rec(n: Node) -> int:
@@ -595,15 +603,13 @@ def emit_program(node: Node, slots: dict) -> Program:
             return add_const(f"{n.key}:{vt_of(n.type)}", vt_of(n.type))
         if n.op == "var" and n.key.startswith(QPARAM) and n.key not in slots:
             vt = vt_of(n.type)
-            words.extend([encode_word("qparam", vt), int(n.key[len(QPARAM):])])
-            push()
+            push(encode_word("qparam", vt), int(n.key[len(QPARAM):]))
             return vt
         if n.op == "var":
             if n.key not in slots:
                 raise ExprError(f"VM: no device column for {n.key!r}")
             slot, vt = slots[n.key]
-            words.extend([encode_word("load", vt), slot])
-            push()
+            push(encode_word("load", vt), slot)
             return vt
         if n.op == "const":
             vt = vt_of(n.type)
@@ -613,6 +619,7 @@ def emit_program(node: Node, slots: dict) -> Program:
             vt = vt_of(n.type)
             if vt != src:
                 words.extend([encode_word("cast", vt, src), 0])
+                stack_slots.append(depth[0] - 1)
             return vt
         vts = [rec(a) for a in n.args]
         if n.op in ("and", "or", "not"):
@@ -633,13 +640,14 @@ def emit_program(node: Node, slots: dict) -> Program:
                                         "ne") else vt
         words.extend([encode_word(n.op, operand_vt), 0])
         depth[0] -= len(vts) - 1
+        stack_slots.append(depth[0] - 1)
         return vt
 
     vt = rec(node)
     if depth[1] > VM_STACK:
         raise ExprError(f"expression needs a VM stack of {depth[1]} "
                         f"(> {VM_STACK})")
-    return Program(words, consts, vt, depth[1])
+    return Program(words, consts, vt, depth[1], stack_slots)
 
 
 def qparam_bits(values: np.ndarray) -> np.ndarray:

@@ -895,21 +895,10 @@ class NFAKernel:
         """K1 over the flattened (T*P,) grid, or once over the F flat
         events of a chunk block (each lane's halo reads the same bits):
         one bit-packed mask per chain node with event-only conjuncts (None
-        where it has none)."""
-        from ..kernels.expr_eval import expr_eval
+        where it has none), every node's program in one launch."""
         n = ev["__ts__"].shape[0] * (1 if "__chunk__" in ev else self.P)
-        cols = self.pre_mask_cols(ev)
-        rows = self.pre_mask_rows(ev)
-        out = []
-        for prog in self.pre_progs:
-            if prog is None:
-                out.append(None)
-                continue
-            words, _ = expr_eval(cols, prog, [], n,
-                                 {"__base_ts__": ev["__base_ts__"]},
-                                 use="pre_mask", rows=rows)
-            out.append(words)
-        return out
+        return pre_mask_words(self.pre_progs, self.pre_mask_cols(ev), n,
+                              ev["__base_ts__"], self.pre_mask_rows(ev))
 
     def pre_mask_cols(self, ev: dict) -> list:
         """K1's input columns for the pre-masks: the flattened grids, then
@@ -944,3 +933,15 @@ class NFAKernel:
     def select_cols(out: dict) -> list:
         """K1's input columns for the selector: every match-table row."""
         return [*out["out_i"], *out["out_f"], *out["out_l"]]
+
+
+def pre_mask_words(progs: list, cols: list, n: int, base_ts,
+                   rows=None) -> list:
+    """K1 `pre_mask`: every program of `progs` (one per chain node, None
+    where a node has no event-only conjunct) over rows [0, n) in ONE
+    launch; the word arrays in `progs`' order, None in place."""
+    from ..kernels.expr_eval import expr_masks
+    live = [p for p in progs if p is not None]
+    words = iter(expr_masks(cols, live, n, {"__base_ts__": base_ts},
+                            use="pre_mask", rows=rows) if live else ())
+    return [None if p is None else next(words) for p in progs]

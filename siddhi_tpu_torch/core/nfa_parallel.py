@@ -55,7 +55,7 @@ from .expr import (VT_OF_TORCH, ExprError, Program, decode_word,
                    torch_dtype)
 from .nfa_device import (TS_SUBST, UNBOUNDED, ChainSpec, NFAKernel,
                          PatternFilterContext, _and_all, _base_ref,
-                         _index_want, pow2_at_least)
+                         _index_want, pow2_at_least, pre_mask_words)
 
 STRIDE = 4                # dfa family: events per precomposed transition
 _OFF_BITS = 3             # bits per packed first-hit offset (0..STRIDE)
@@ -726,21 +726,12 @@ class ParallelChainKernel:
 
     def pre_masks(self, ev: dict) -> list:
         """One bit-packed word array per chain node over the (L*F,)
-        lane grid (None where the node has no event-only conjunct)."""
-        from ..kernels.expr_eval import expr_eval
+        lane grid (None where the node has no event-only conjunct), every
+        node's program in one K1 launch."""
         L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
-        cols = self.pre_mask_cols(ev)
-        rows = self.pre_mask_rows(ev)
-        out = []
-        for prog in self.nfak.pre_progs:
-            if prog is None:
-                out.append(None)
-                continue
-            words, _ = expr_eval(cols, prog, [], L * F,
-                                 {"__base_ts__": ev["__base_ts__"]},
-                                 use="pre_mask", rows=rows)
-            out.append(words)
-        return out
+        return pre_mask_words(self.nfak.pre_progs, self.pre_mask_cols(ev),
+                              L * F, ev["__base_ts__"],
+                              self.pre_mask_rows(ev))
 
     def rank_cols(self, masks: list) -> list:
         """K6 columns of the `rank` use: each count position's node mask

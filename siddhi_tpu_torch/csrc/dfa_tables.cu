@@ -18,12 +18,28 @@
 // nblk[k][b + 1] (nfa_parallel.py _dfa_next :777), instead of a descent
 // of a K3 tree over the node's mask.
 //
-// Design: one CUDA block (up to 512 threads) per lane walks the lane's
-// blocks from right to left in tiles of blockDim.x * R stride-blocks (R =
-// 8, so a thread reads 32 consecutive events); a thread builds the suffix
-// and packed words of its R blocks in registers, a block-wide suffix min (warp shuffles, then
-// one shared row per warp) gives every thread the first hit block after
-// its own, and the carry from the tiles to the right closes the scan.
+// Design: a lane's stride-blocks fall into tiles of 32 W (W warps a CUDA
+// block, up to 8), and the grid is tiles x lanes, so one long lane fills
+// the card.  Thread j of a tile owns stride-block b0 + j: it takes its
+// four symbol bits of every node from the pre-mask words by a shift (one
+// word, two where its cells straddle words; a warp's 32 threads read
+// five words, broadcast), its stream codes with
+// neighbouring threads on neighbouring events, builds its four suffix
+// words by find-first-set on those bits and stores them as one 16-byte
+// vector (a warp's stores are one contiguous 512-byte run), the packed
+// word beside.  nblk comes in two parts: within the tile from each warp's
+// ballot of blocks with a hit (the first set bit at or after the thread's
+// own) and the warps to its right (shared memory); across tiles from a
+// reverse decoupled look-back, one warp a node: a tile publishes its
+// first hit block, then reads the tiles to its right 32 at a time until
+// one that has published its inclusive value (the first hit from there
+// to the lane's end), and publishes its own.  Min is exact and
+// associative, so the result does not depend on which tiles had
+// finished.  Tiles are taken from an atomic ticket, right to left within
+// a lane, so every tile a block waits on is running already.  The last
+// block to finish clears the ticket and the look-back words (each
+// prepared launch's own tensor, zeroed at prepare), so the next replay
+// finds them zero.  A lane of one tile (C4D's 326 events) needs neither.
 // Words are u32 on the device (stored as int32: at most 24 bits).  A
 // fused multi-query group's lanes share one row of events (ev_stride 0)
 // with their own pre-masks.  Bound on the H100: bytes -- the pre-mask
@@ -32,11 +48,14 @@
 // Python side: kernels/dfa_tables.py.
 #include <cuda_runtime.h>
 
-#define DFA_R 8          // stride-blocks a thread per tile
-#define DFA_MAXK 8       // chase nodes (bits of the symbol word)
+#define DFA_MAXK 8    // chase nodes (bits of the symbol word)
+#define DFA_MAXW 8    // warps a CUDA block
+#define DFA_STATUS_AGG (1ull << 62)   // a published word: the tile's own first hit
+#define DFA_STATUS_INC (2ull << 62)   // ... or the first hit from the tile on
+#define DFA_VAL 0xffffffffull
 
 struct DfaParams {  // layout mirrored by kernels/dfa_tables.py _Params
-  int L, F, NB, nk, ev_stride, pad0;
+  int L, F, NB, nk, ev_stride, W, T, pad0;
   const int* nev;
   const int* scode;
   const unsigned* const* pre;  // per chase node, over the (L*F,) lane grid
@@ -44,100 +63,166 @@ struct DfaParams {  // layout mirrored by kernels/dfa_tables.py _Params
   int* suffix;                 // (L, 4 NB)
   int* packed;                 // (L, NB)
   int* nblk;                   // (nk, L, NB)
+  unsigned long long* state;   // T > 1: ticket, finished blocks, then the
+                               // (nk, L, T) look-back words; zero between launches
 };
 
-__device__ __forceinline__ bool chase_bit(const DfaParams& p, int k, long long erow,
-                                          long long row, int i, int nev) {
-  if (i >= nev) return false;
-  if (p.node_scode[k] >= 0 && p.scode[erow + i] != p.node_scode[k]) return false;
-  const unsigned* w = p.pre[k];
-  const long long cell = row + i;
-  return w == nullptr || ((w[cell >> 5] >> (cell & 31)) & 1u);
+__device__ __forceinline__ void dfa_put(unsigned long long* w, unsigned long long v) {
+  asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(w), "l"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(512) dfa_tables_kernel(const __grid_constant__ DfaParams p) {
-  __shared__ int warp_min[DFA_MAXK][32];
-  const int lane = blockIdx.x;
+__device__ __forceinline__ unsigned long long dfa_get(const unsigned long long* w) {
+  unsigned long long v;
+  asm volatile("ld.volatile.global.u64 %0, [%1];" : "=l"(v) : "l"(w) : "memory");
+  return v;
+}
+
+// One whole warp: publishes tile `tile`'s first hit block `mine` (NB:
+// none) among the lane's T tiles' words, returns the first hit block of
+// the tiles to its right and publishes the inclusive value.
+__device__ int dfa_look_back(unsigned long long* words, int tile, int T, int mine, int NB) {
+  const int l = threadIdx.x & 31;
+  if (tile == T - 1) {
+    if (l == 0) dfa_put(words + tile, DFA_STATUS_INC | static_cast<unsigned>(mine));
+    return NB;
+  }
+  if (l == 0) dfa_put(words + tile, DFA_STATUS_AGG | static_cast<unsigned>(mine));
+  int after = NB;
+  for (int start = tile + 1;; start += 32) {
+    const int k = start + l;
+    unsigned long long v = 0;
+    if (k < T) {
+      do {
+        v = dfa_get(words + k);
+      } while ((v >> 62) == 0);
+    }
+    const unsigned inc = __ballot_sync(0xffffffffu, k < T && (v >> 62) == 2);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    int x = (k < T && l <= stop) ? static_cast<int>(v & DFA_VAL) : NB;
+    for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+    after = min(after, x);
+    if (inc) break;
+  }
+  if (l == 0) dfa_put(words + tile, DFA_STATUS_INC | static_cast<unsigned>(min(mine, after)));
+  return after;
+}
+
+__global__ void __launch_bounds__(32 * DFA_MAXW) dfa_tables_kernel(const __grid_constant__ DfaParams p) {
+  __shared__ int warp_first[DFA_MAXK][DFA_MAXW];
+  __shared__ int carry_in[DFA_MAXK];
+  __shared__ int s_ticket;
+  __shared__ int s_last;
+  const int l = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int lane, tile;
+  if (p.T > 1) {
+    if (threadIdx.x == 0) s_ticket = static_cast<int>(atomicAdd(p.state, 1ull));
+    __syncthreads();
+    lane = s_ticket / p.T;
+    tile = p.T - 1 - s_ticket % p.T;
+  } else {
+    lane = blockIdx.x;
+    tile = 0;
+  }
   const int nev = p.nev[lane];
   const long long row = static_cast<long long>(lane) * p.F;
   const long long erow = static_cast<long long>(lane) * p.ev_stride;
-  const long long srow = static_cast<long long>(lane) * p.NB * 4;
   const long long brow = static_cast<long long>(lane) * p.NB;
   const long long plane = static_cast<long long>(p.L) * p.NB;
-  const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = (blockDim.x + 31) >> 5;
-  const int tile = blockDim.x * DFA_R;
-  int carry[DFA_MAXK];
+  const int wb0 = (tile * p.W + w) * 32;  // the warp's first stride-block
+  const int b = wb0 + l;
+  const int i0 = 4 * b;                   // the thread's first event
+  // valid events of the block (bit e: event i0 + e), and their stream codes
+  const int nv = min(max(nev - i0, 0), 4);
+  const unsigned valid = (1u << nv) - 1u;
+  int sc[4] = {-1, -1, -1, -1};
+  if (p.scode != nullptr) {
 #pragma unroll
-  for (int k = 0; k < DFA_MAXK; ++k) carry[k] = p.NB;
-  for (int t0 = (p.NB - 1) / tile * tile; t0 >= 0; t0 -= tile) {
-    const int b0 = t0 + threadIdx.x * DFA_R;
-    unsigned hit[DFA_MAXK];            // bit r: block b0 + r holds a hit of node k
-    int mine[DFA_MAXK];                // the thread's first hit block
+    for (int e = 0; e < 4; ++e)
+      if (e < nv) sc[e] = p.scode[erow + i0 + e];
+  }
+  unsigned acc[4];  // suffix words of the block's four events
+  unsigned hits[DFA_MAXK];  // the warp's blocks with a hit of node k
 #pragma unroll
-    for (int k = 0; k < DFA_MAXK; ++k) {
-      hit[k] = 0u;
-      mine[k] = p.NB;
+  for (int e = 0; e < 4; ++e) acc[e] = 0u;
+#pragma unroll
+  for (int k = 0; k < DFA_MAXK; ++k) {
+    hits[k] = 0u;
+    if (k >= p.nk) continue;
+    unsigned nib = valid;
+    const unsigned* pw = p.pre[k];
+    if (pw != nullptr && nv > 0) {
+      const long long c = row + i0;
+      const unsigned sh = static_cast<unsigned>(c & 31);
+      unsigned x = pw[c >> 5] >> sh;
+      if (sh > 28 && static_cast<int>(32 - sh) < nv) x |= pw[(c >> 5) + 1] << (32 - sh);
+      nib &= x;
     }
-    for (int r = DFA_R - 1; r >= 0; --r) {
-      const int b = b0 + r;
-      if (b >= p.NB) continue;
-      unsigned acc = 0u;               // 3 bits a node: first offset at or after e
-      for (int k = 0; k < p.nk; ++k) acc |= 4u << (3 * k);
-      for (int e = 3; e >= 0; --e) {
-        const int i = 4 * b + e;
-        for (int k = 0; k < p.nk; ++k)
-          if (chase_bit(p, k, erow, row, i, nev))
-            acc = (acc & ~(7u << (3 * k))) | (static_cast<unsigned>(e) << (3 * k));
-        p.suffix[srow + i] = static_cast<int>(acc);
-      }
-      p.packed[brow + b] = static_cast<int>(acc);
+    const int want = p.node_scode[k];
+    if (want >= 0) {
 #pragma unroll
-      for (int k = 0; k < DFA_MAXK; ++k)
-        if (k < p.nk && ((acc >> (3 * k)) & 7u) < 4u) {
-          hit[k] |= 1u << r;
-          mine[k] = b;
-        }
+      for (int e = 0; e < 4; ++e)
+        if (sc[e] != want) nib &= ~(1u << e);
     }
-    // block-wide suffix min of `mine`: first hit block of the threads after
-    // this one (within the tile), then the carry of the tiles to the right
 #pragma unroll
-    for (int k = 0; k < DFA_MAXK; ++k) {
-      if (k >= p.nk) break;
-      int v = mine[k];
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_down_sync(0xffffffffu, v, off);
-        if (wl + off < 32 && o < v) v = o;
-      }
-      if (wl == 0) warp_min[k][wid] = v;
-      int after = __shfl_down_sync(0xffffffffu, v, 1);
-      if (wl == 31) after = p.NB;
-      mine[k] = after;                 // exclusive, within the warp
+    for (int e = 0; e < 4; ++e) {
+      const int f = __ffs(static_cast<int>(nib >> e));
+      acc[e] |= static_cast<unsigned>(f ? e + f - 1 : 4) << (3 * k);
+    }
+    hits[k] = __ballot_sync(0xffffffffu, nib != 0u && b < p.NB);
+    if (l == 0) warp_first[k][w] = hits[k] ? wb0 + __ffs(static_cast<int>(hits[k])) - 1 : p.NB;
+  }
+  if (b < p.NB) {
+    const long long srow = static_cast<long long>(lane) * p.NB * 4;
+    *reinterpret_cast<int4*>(p.suffix + srow + i0) =
+        make_int4(static_cast<int>(acc[0]), static_cast<int>(acc[1]), static_cast<int>(acc[2]),
+                  static_cast<int>(acc[3]));
+    p.packed[brow + b] = static_cast<int>(acc[0]);
+  }
+  __syncthreads();
+  // the first hit block to the right of the tile: one warp a node
+  if (p.T == 1) {
+    if (threadIdx.x < p.nk) carry_in[threadIdx.x] = p.NB;
+  } else if (w < p.nk) {
+    int mine = p.NB;
+    for (int v = 0; v < p.W; ++v) mine = min(mine, warp_first[w][v]);
+    unsigned long long* words = p.state + 2 + (static_cast<long long>(w) * p.L + lane) * p.T;
+    const int after = dfa_look_back(words, tile, p.T, mine, p.NB);
+    if (l == 0) carry_in[w] = after;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < DFA_MAXK; ++k) {
+    if (k >= p.nk) continue;
+    int run = carry_in[k];
+    for (int v = w + 1; v < p.W; ++v) run = min(run, warp_first[k][v]);
+    const unsigned h = hits[k] >> l;  // the warp's blocks from b on
+    if (h) run = b + __ffs(static_cast<int>(h)) - 1;
+    if (b < p.NB) p.nblk[k * plane + brow + b] = run;
+  }
+  if (p.T > 1) {  // the last block to finish clears the look-back state
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      s_last = atomicAdd(p.state + 1, 1ull) == static_cast<unsigned long long>(gridDim.x) - 1;
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < DFA_MAXK; ++k) {
-      if (k >= p.nk) break;
-      int later = carry[k];
-      for (int w = wid + 1; w < nw; ++w) later = min(later, warp_min[k][w]);
-      int run = min(mine[k], later);
-      for (int r = DFA_R - 1; r >= 0; --r) {
-        const int b = b0 + r;
-        if (b >= p.NB) continue;
-        if ((hit[k] >> r) & 1u) run = b;
-        p.nblk[k * plane + brow + b] = run;
+    if (s_last) {
+      __threadfence();
+      const long long nw = static_cast<long long>(p.nk) * p.L * p.T;
+      for (long long k = threadIdx.x; k < nw; k += blockDim.x) p.state[2 + k] = 0ull;
+      if (threadIdx.x == 0) {
+        p.state[0] = 0ull;
+        p.state[1] = 0ull;
       }
-      int tot = carry[k];
-      for (int w = 0; w < nw; ++w) tot = min(tot, warp_min[k][w]);
-      carry[k] = tot;
     }
-    __syncthreads();
   }
 }
 
-extern "C" int dfa_tables_launch(const DfaParams* params, int threads, cudaStream_t stream) {
-  if (params->nk < 1 || params->nk > DFA_MAXK || threads < 32 || threads > 512 ||
-      threads % 32 != 0)
+extern "C" int dfa_tables_launch(const DfaParams* params, cudaStream_t stream) {
+  const DfaParams& p = *params;
+  if (p.nk < 1 || p.nk > DFA_MAXK || p.W < 1 || p.W > DFA_MAXW || p.T < 1 ||
+      static_cast<long long>(p.T) * p.W * 32 < p.NB || (p.T > 1 && (p.W != DFA_MAXW || p.state == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  dfa_tables_kernel<<<params->L, threads, 0, stream>>>(*params);
+  dfa_tables_kernel<<<static_cast<unsigned>(p.L) * p.T, 32 * p.W, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,20 @@ LAUNCHES = {"expr_eval:filter": 0, "expr_eval:pre_mask": 0,
             "agg_merge": 0}
 
 
+# counter -> the parameter block of each launch counted there, in launch
+# order, for the counters named to `record_params`: what a run's launches
+# really ran (K1's grid, warps a block, rows a thread and stack, K11's
+# tiles a lane)
+PARAMS: dict = {}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def record_params(*counters: str) -> None:
+    """From now on keep the parameter block of every launch counted under
+    `counters` (what was kept before is dropped; none: keep nothing)."""
+    PARAMS.clear()
+    PARAMS.update({c: [] for c in counters})

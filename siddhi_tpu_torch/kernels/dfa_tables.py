@@ -21,14 +21,19 @@ the suffix word at s when its block has a hit after s, else the packed
 word of block nblk[k][s // 4 + 1], else Lt (`_dfa_next`), which equals
 the first-hit of a K3 tree over the node's mask.
 
-Design (csrc/dfa_tables.cu): one CUDA block per lane walks the lane's
-blocks right to left in tiles (R = 8 stride-blocks a thread); each
-thread builds its blocks' words in registers, a block-wide suffix min
-(warp shuffles and one shared row per warp) and the carry of the tiles to
-the right give the next pointers.  Words are u32 on the device, stored in
-int32 (24 bits at most); the plain version builds them in int64 and
-masks.  Bound on the H100: bytes -- pre-mask words and stream codes read
-once, 4 bytes an event and 4 (nk + 1) a block written once.
+Design (csrc/dfa_tables.cu): a lane's stride-blocks fall into tiles of
+32 W (W warps a CUDA block, `tile_geometry`), the grid is tiles x lanes,
+and thread j of a tile owns one stride-block: its symbol bits by a shift
+of the pre-mask words, its suffix words by find-first-set, stored as one
+16-byte vector.  `nblk` comes from each warp's ballot of blocks with a
+hit and the warps to its right within the tile, and across tiles from a
+reverse decoupled look-back over each tile's first hit block (min: exact,
+so the result does not depend on which tiles had finished), whose state
+is each prepared launch's own tensor, zeroed here and cleared by the
+launch's last block.  Words are u32 on the device, stored in int32 (24
+bits at most); the plain version builds them in int64 and masks.  Bound
+on the H100: bytes -- pre-mask words and stream codes read once, 4 bytes
+an event and 4 (nk + 1) a block written once.
 
 `dfa_tables()` launches the kernel for CUDA tensors and runs the plain
 version, `dfa_tables_plain()`, for CPU tensors; a failed build or launch
@@ -46,15 +51,23 @@ from .table import DeviceTable, Launch, checked_ptr, stream_of
 STRIDE = 4            # events per precomposed block transition
 OFF_BITS = 3          # bits per packed first-hit offset (0..STRIDE)
 MAX_CHASE = 8         # chase nodes a u32 word holds (3 bits each)
-R = 8                 # csrc/dfa_tables.cu: stride-blocks a thread per tile
+MAX_WARPS = 8         # csrc/dfa_tables.cu DFA_MAXW: warps a CUDA block
 
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
-        "L", "F", "NB", "nk", "ev_stride", "pad0")] + [
+        "L", "F", "NB", "nk", "ev_stride", "W", "T", "pad0")] + [
         (n, ctypes.c_void_p) for n in (
             "nev", "scode", "pre", "node_scode", "suffix", "packed",
-            "nblk")]
+            "nblk", "state")]
+
+
+def tile_geometry(NB: int) -> tuple:
+    """(W, T): warps a CUDA block (a stride-block a thread) and tiles a
+    lane of NB stride-blocks; a lane of more than one tile has full
+    blocks of MAX_WARPS warps."""
+    W = min(MAX_WARPS, max(1, -(-NB // 32)))
+    return W, max(1, -(-NB // (32 * W)))
 
 
 def dfa_tables_plain(masks: list) -> tuple:
@@ -136,6 +149,7 @@ def prepare(k, ev: dict, pre: list) -> Launch:
     ptr = checked_ptr(keep, dev, "dfa_tables")
     p = _Params()
     p.L, p.F, p.NB, p.nk = L, F, NB, nk
+    p.W, p.T = tile_geometry(NB)
     p.ev_stride = F if G == L else 0
     p.nev = ptr(ev["__nev__"], torch.int32)
     if k.multi:
@@ -149,11 +163,17 @@ def prepare(k, ev: dict, pre: list) -> Launch:
     packed = torch.empty((L, NB), dtype=torch.int32, device=dev)
     nblk = torch.empty((nk, L, NB), dtype=torch.int32, device=dev)
     p.suffix, p.packed, p.nblk = ptr(suffix), ptr(packed), ptr(nblk)
+    if p.T > 1:
+        # the look-back state: the ticket, the finished blocks, a word per
+        # node, lane and tile; zero here, cleared by each launch's last block
+        p.state = ptr(torch.zeros(2 + nk * L * p.T, dtype=torch.int64,
+                                  device=dev))
     keep.append(tab.upload(dev))
-    threads = min(512, max(32, -(-NB // (R * 32)) * 32))
     fn = load("dfa_tables").dfa_tables_launch
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return Launch(lambda: fn(ctypes.byref(p), threads, stream_of(dev)),
-                  "dfa_tables_launch", "dfa_tables", keep,
-                  (suffix, packed, nblk))
+    launch = Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
+                    "dfa_tables_launch", "dfa_tables", keep,
+                    (suffix, packed, nblk))
+    launch.params = p        # .W warps a block, .T tiles a lane
+    return launch

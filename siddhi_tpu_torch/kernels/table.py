@@ -69,12 +69,15 @@ class Launch:
         self.counter = counter
         self.keep = keep
         self.outputs = outputs
+        self.params = None      # the wrapper's parameter block, where kept
 
     def __call__(self):
-        from . import LAUNCHES
+        from . import LAUNCHES, PARAMS
         from .build import check
         check(self._fn(), self.what)
         LAUNCHES[self.counter] += 1
+        if self.counter in PARAMS:
+            PARAMS[self.counter].append(self.params)
         return self.outputs
 
 

@@ -1545,3 +1545,233 @@ def test_f64_kernels_match_plain(cuda, name, monkeypatch):
     scan_b.clear()
     want, _rt = run("cpu")
     assert got == want and got
+
+
+# ---------------------------------------------------------------------------
+# K1's tiles (R rows a thread, several programs a launch, the register
+# stacks) and K11's tiles (many blocks a lane, the look-back)
+# ---------------------------------------------------------------------------
+
+TILE_MASKS = ["price > 100", "not flag",
+              "volume < 500 and flag or symbol == 'K3'",
+              "(price + volume) * 2.0 > (big - 3) * (ratio + 4) and "
+              "(price - volume) < big + ratio * 2.0"]
+
+
+def _tile_programs(keys, cols, texts, f32=False, extra=None):
+    types = {"symbol": "string", "price": "double", "volume": "int",
+             "big": "long", "ratio": "float", "flag": "bool",
+             "p64": "double", "p32": "float", "q": "int"}
+    schema = StreamSchema.of(parse(
+        "define stream S (" + ", ".join(f"{k} {types[k]}" for k in keys)
+        + ");").stream_definitions["S"])
+    strings = StringTable()
+    for i in range(8):
+        strings.encode(f"K{i}")
+    ctx = SingleStreamContext(schema, strings, extra=extra or {})
+    progs = []
+    for text in texts:
+        ce = compile_expression(parse_expression(text), ctx)
+        with compute_dtypes(F32_MODE if f32 else None):
+            progs.append(emit_program(ce.node, {
+                k: (i, VT_OF_TORCH[c.dtype])
+                for i, (k, c) in enumerate(zip(keys, cols))}))
+    return progs
+
+
+def _tile_cols(cuda, n, seed):
+    rng = np.random.default_rng(seed)
+    host = {"big": rng.integers(-2**40, 2**40, n),
+            "flag": rng.integers(0, 2, n).astype(bool),
+            "price": np.round(rng.uniform(90, 130, n) * 4) / 4,
+            "ratio": rng.uniform(-3, 3, n).astype(np.float32),
+            "symbol": rng.integers(1, 9, n).astype(np.int32),
+            "volume": rng.integers(-9, 1000, n).astype(np.int32)}
+    host["volume"][::97] = 0
+    keys = sorted(host)
+    return keys, [torch.from_numpy(host[k]).to(cuda) for k in keys]
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 2047, 2048,
+                               2049, 65_537])
+def test_expr_eval_tiles_match_plain(cuda, n):
+    """K1 at the edges of its tiles (8 rows a thread, 256 a warp, 2048 a
+    block): several mask programs in one launch (fused compares alone,
+    the register stack of depth 2, and deeper programs on the
+    local-memory stack), and a mask with output programs (integer / and
+    %, casts, select)."""
+    from siddhi_tpu_torch.kernels.expr_eval import (depth_class, expr_eval,
+                                                    expr_eval_plain,
+                                                    expr_masks,
+                                                    expr_masks_plain)
+    keys, cols = _tile_cols(cuda, n, n)
+    masks = _tile_programs(keys, cols, TILE_MASKS)
+    assert [depth_class(masks[:i + 1]) for i in range(4)] == [-1, 2, 0, 0]
+    for group in (masks[:1], masks[:2], masks[:3], masks):
+        before = LAUNCHES["expr_eval:pre_mask"]
+        got = expr_masks(cols, group, n, use="pre_mask")
+        want = expr_masks_plain(cols, group, n)
+        torch.cuda.synchronize()
+        assert LAUNCHES["expr_eval:pre_mask"] == before + 1
+        for a, b in zip(got, want):
+            assert a.shape == (-(-n // 32),) and torch.equal(a, b)
+    outs = _tile_programs(keys, cols, [
+        "volume / 7 + volume % 5 * 3", "big / volume - big % 3",
+        "ifThenElse(flag, big, volume)", "convert(price, 'int')",
+        "ratio * ratio + ratio"]) + _tile_programs(
+        keys, cols, ["price * 2.5 - ratio / 3.0 + volume"], f32=True)
+    wk, ok = expr_eval(cols, masks[2], outs, n, use="filter")
+    wp, op = expr_eval_plain(cols, masks[2], outs, n)
+    torch.cuda.synchronize()
+    assert torch.equal(wk, wp)
+    for a, b in zip(ok, op):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_expr_eval_last_tile_at_the_row_limit(cuda):
+    """K1 over the most rows a launch takes (2^31 - 1, a lane grid over
+    32-row columns; the last tile's end, 2^31, does not fit an int): the
+    last tile is part-full, so no row at or past n sets a bit, on the
+    stackless kernel and on the register stack."""
+    from siddhi_tpu_torch.kernels.expr_eval import (MAX_ROWS, RowMap,
+                                                    expr_masks,
+                                                    expr_masks_plain)
+    F, n = 32, MAX_ROWS
+    keys, cols = _tile_cols(cuda, F, 7)
+    cols[keys.index("price")][n % F] = 120.0    # row n's element: true
+    cols[keys.index("flag")][n % F] = False
+    masks = _tile_programs(keys, cols, TILE_MASKS[:2])
+    rows = RowMap(col_mod=F)
+    tail = n - (n // 1024 - 4) * 1024       # from a multiple of F on
+    for group in (masks[:1], masks):
+        got = expr_masks(cols, group, n, use="pre_mask", rows=rows)
+        want = expr_masks_plain(cols, group, tail, rows=rows)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.shape == (-(-n // 32),)
+            assert torch.equal(a[-b.shape[0]:], b)
+        del got
+
+
+@pytest.mark.parametrize("f64", [False, True])
+@pytest.mark.parametrize("L,F", [(300, 7), (64, 31), (100, 33), (9, 257),
+                                 (250, 8233)])
+@pytest.mark.parametrize("grid", ["L,F", "T,P", "select"])
+def test_expr_eval_lane_straddles_match_plain(cuda, grid, L, F, f64):
+    """K1 with lane parameters where a thread's 8 rows straddle lanes
+    (F < 32, F not a multiple of 32, F > 256): the lane grid over shared
+    (F,) columns, the (T, P) grid over broadcast columns, match rows
+    with a lane column; float32 and float64 parameters; every program
+    of the block in one launch."""
+    from siddhi_tpu_torch.core.expr import LaneParams
+    from siddhi_tpu_torch.kernels.expr_eval import (RowMap, expr_masks,
+                                                    expr_masks_plain)
+    from siddhi_tpu_torch.query.ast import AttrType
+    rng = np.random.default_rng(L * F)
+    dt = np.float64 if f64 else np.float32
+    params = LaneParams({
+        "__qparam0": (100 + np.round(rng.uniform(0, 20, L) * 4) / 4
+                      ).astype(dt),
+        "__qparam1": rng.integers(-3, 900, L).astype(np.int32)}, cuda)
+    extra = {"__qparam0": ("__qparam0",
+                           AttrType.DOUBLE if f64 else AttrType.FLOAT),
+             "__qparam1": ("__qparam1", AttrType.INT)}
+    n = L * F
+    m = F if grid != "select" else n
+    keys, cols = _tile_cols(cuda, m, F)
+    progs = _tile_programs(keys, cols, [
+        "price > __qparam0", "volume < __qparam1",
+        "price > __qparam0 and volume > __qparam1 or flag"],
+        f32=not f64, extra=extra)
+    if grid == "L,F":
+        rows = RowMap(col_mod=F, lane_div=F, qparams=params)
+    elif grid == "T,P":
+        rows = RowMap(col_div=L, lane_mod=L, qparams=params)
+        n = F * L
+    else:
+        rows = RowMap(lane_col=torch.from_numpy(rng.integers(
+            0, L, n).astype(np.int32)).to(cuda), qparams=params)
+    got = expr_masks(cols, progs, n, use="pre_mask", rows=rows)
+    want = expr_masks_plain(cols, progs, n, None, rows)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _k11_block(cuda, L, F, nk, kind, seed, fused=False):
+    """A synthetic `dfa` block: nk chase nodes' pre-mask words over the
+    (L*F,) lane grid and their plain tables."""
+    import types as _t
+
+    from siddhi_tpu_torch.kernels.dfa_tables import dfa_tables_plain
+    from siddhi_tpu_torch.kernels.expr_eval import pack_mask
+    rng = np.random.default_rng(seed)
+    m = np.zeros((nk, L, F), bool)
+    for k in range(nk):
+        if kind == "first":
+            m[k, :, 0] = True
+        elif kind == "last":
+            m[k, :, F - 1] = True
+        elif kind == "sparse":
+            m[k] = rng.random((L, F)) < 2e-5
+        elif kind == "dense":
+            m[k] = rng.random((L, F)) < 0.3
+    nev = rng.integers(max(F - 50, 0), F + 1, L).astype(np.int32)
+    valid = np.arange(F)[None, :] < nev[:, None]
+    k = _t.SimpleNamespace(dfa_nodes=list(range(nk)), multi=False,
+                           node_scode=[-1] * nk)
+    ev = {"__flat.__ts__": torch.zeros((1 if fused else L, F),
+                                       dtype=torch.int32, device=cuda),
+          "__nev__": torch.from_numpy(nev).to(cuda)}
+    pre = [pack_mask(torch.from_numpy(m[j].reshape(-1))).to(cuda)
+           for j in range(nk)]
+    want = dfa_tables_plain([torch.from_numpy(m[j] & valid).to(cuda)
+                             for j in range(nk)])
+    return k, ev, pre, want
+
+
+@pytest.mark.parametrize("L,F,nk,kind", [
+    (1, 263_145, 1, "first"), (1, 263_145, 2, "none"),
+    (1, 263_147, 3, "last"), (1, 263_145, 4, "sparse"),
+    (3, 20_001, 8, "dense"), (1000, 326, 2, "dense"), (8, 40_003, 1,
+                                                       "first"),
+    (5, 1, 1, "dense"), (2, 1025, 5, "sparse")])
+def test_dfa_tables_tiles_match_plain(cuda, L, F, nk, kind):
+    """K11 over lanes of many tiles (C3SD's 263,145 events: 257 tiles):
+    a lane whose only hit is its first block (the carry crosses every
+    tile), lanes with no hit, a hit only in the last block, sparse and
+    dense hits, F not a multiple of 4, 1-8 chase nodes, lanes of one
+    tile (C4D's shape); the tables equal the plain version's, and again
+    on a second launch and on CUDA-graph replays (the look-back state
+    clears itself)."""
+    from siddhi_tpu_torch.kernels import dfa_tables as k11
+    k, ev, pre, want = _k11_block(cuda, L, F, nk, kind, L * F + nk)
+    launch = k11.prepare(k, ev, pre)
+    W, T = k11.tile_geometry(-(-F // 4))
+    assert (launch.params.W, launch.params.T) == (W, T)
+    for _ in range(2):
+        got = launch()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    for _ in range(3):
+        for t in got:
+            t.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_dfa_tables_fused_lanes_share_a_row(cuda):
+    """K11 over a fused group's lanes (one shared row of events, each
+    lane its own pre-mask words), lanes of several tiles."""
+    from siddhi_tpu_torch.kernels.dfa_tables import dfa_tables
+    k, ev, pre, want = _k11_block(cuda, 12, 3001, 2, "dense", 7, fused=True)
+    got = dfa_tables(k, ev, pre)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
