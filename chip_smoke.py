@@ -532,16 +532,18 @@ def run_app(pkg, np, app: str, tape, keys: int, device: str, stream="Out"):
 
 
 # id of a recorded `scan` block's event grid -> the parameter blocks of
-# the K1 pre-mask and K11 launches the main path made on that block
+# the K1 pre-mask, K11 and K5 launches the main path made on that block
 # (`run_scan_block`): the geometry the kernel line reports
 MAIN_PARAMS: dict = {}
-RECORDED = ("expr_eval:pre_mask", "dfa_tables")
+RECORDED = ("expr_eval:pre_mask", "dfa_tables", "scan_compact",
+            "scan_compact:f64")
 
 
 def run_scan_block(run_scan, kern, ev, M):
     """ParallelChainKernel.run_block as the plan calls it, keeping in
-    MAIN_PARAMS the parameter blocks of the K1 pre-mask and K11 launches
-    it made (kernels.PARAMS, recorded while a run's launches count)."""
+    MAIN_PARAMS the parameter blocks of the K1 pre-mask, K11 and K5
+    launches it made (kernels.PARAMS, recorded while a run's launches
+    count)."""
     from siddhi_tpu_torch import kernels
     seen = {c: len(kernels.PARAMS.get(c, ())) for c in RECORDED}
     out = run_scan(kern, ev, M)
@@ -786,13 +788,21 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
     err: dict = {}
     for b, (kern, ev, M) in enumerate(blocks):
         L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
+        # the main path's one K5 launch on the block: tiles a lane and the
+        # kernels its launcher launched (besides the state's memset)
+        k5p = main_params(label, ev, "scan_compact:f64" if kern.f64
+                          else "scan_compact", 0)
+        if k5p.launched != 1:
+            raise SystemExit(f"[{label}] block {b}: K5 launched "
+                             f"{k5p.launched} kernels, one wanted")
         e = check_scan_block(kern, ev, M)
         merge_err(err, e)
         log(f"  [{label}] block {b}: L={L} F={F} trees={len(kern.trees)} "
             f"rank trees={len(kern.rank_trees)} prev columns="
             f"{len(kern.prev_nodes)} matches={e['matches']}: "
             f"{sorted(k for k in e if k != 'matches')} equal to their plain "
-            f"versions")
+            f"versions; K5 {k5p.launched} kernel launch (and a memset) of "
+            f"{L} x {k5p.ntiles} tiles of {k5.TILE} candidates")
 
     kern, ev, M = blocks[-1]
     L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
@@ -925,6 +935,8 @@ def phase_scan_blocks(torch, blocks, label: str) -> dict:
                                             M)])
     res["scan_compact"] = {"ms": ms, "dispatch_ms": host, "bytes": k5_bytes,
                            "ops": L * F * kern.C, "library_ms": lib_ms,
+                           "tiles": k5p.ntiles, "tile": k5.TILE,
+                           "launches_a_call": k5p.launched,
                            "plain_ms": wall_ms(torch, lambda:
                                                scan_compact_plain(
                                                    kern, ev, chase, ranks,
@@ -1748,18 +1760,20 @@ def window_work(name: str, a: tuple, kw: dict, out) -> tuple:
     if name == "win_range":
         sites = a[0]
         n, m = kw["n"], kw["m"]
-        groups = kw["groups"] or ()
+        groups = kw["groups"]
         n_mm = sum(s[0] in ("min", "max") for s in sites)
-        # `valid` is read only by the min/max tables' build
+        # grouped, the sorted keys alone (slot s holds entry ks[s] % n);
+        # `valid` is read only by the min/max sites
         ins = [kw["vcnt"] if kw["kind"] == "length" else kw["clock"],
-               *groups, kw["valid"] if n_mm else None]
+               groups[0] if groups else None, kw["valid"] if n_mm else None]
         for _op, pfx, cnt, vals, _dt in sites:
             ins += [pfx, cnt, vals]
         outs, start_k = out
-        # plus the two table rows of each min/max site, read at random as
-        # 32-byte sectors
+        # the function's own bytes: the arrays the design writes between
+        # its launches are its cost, not the function's (PERF.md row 8
+        # gives them beside the bound)
         nb = nbytes(*distinct(*[t[:n] for t in ins if t is not None]),
-                    *outs, start_k) + m * n_mm * 2 * 32
+                    *outs, start_k)
         log2n = max(n - 1, 1).bit_length()
         return nb, m * (log2n * (2 if groups else 1) + 2 * len(sites))
     cols, _fills, n = a[:3]
@@ -1868,14 +1882,20 @@ def phase_window(torch, np, label: str, app: str, seed: int,
     flush, the median of its steady flushes and events/s from that median;
     the kernels' times."""
     from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.kernels import win_range as k7
     from siddhi_tpu_torch.replay import run_window
     tape = make_tape(C2_FLUSH * C2_TIMED, C2_FLUSH, C2_SYMBOLS,
                      seed=seed)
     main = tape[:C2_FLUSHES]
     calls: list = []
     kernels.reset_launches()
-    rows, per_flush, rt = run_window(app, main, "cuda", calls)
-    launches = dict(kernels.LAUNCHES)
+    kernels.record_params("win_range")
+    try:
+        rows, per_flush, rt = run_window(app, main, "cuda", calls)
+        launches = dict(kernels.LAUNCHES)
+        k7_params = list(kernels.PARAMS["win_range"])
+    finally:
+        kernels.record_params()
     ref, cpu_flush, _rt = run_window(app, main, "cpu")
     if rows != ref or not rows:
         raise SystemExit(f"{label} rows differ from the CPU run: "
@@ -1899,6 +1919,24 @@ def phase_window(torch, np, label: str, app: str, seed: int,
     log(f"  [{label}] {len(calls)} kernel calls equal to their plain "
         f"versions: {sorted(err)}")
     metrics = window_kernel_metrics(torch, calls)
+    k7_calls = [kw for name, _a, kw in calls if name == "win_range"]
+    if len(k7_params) != len(k7_calls):
+        raise SystemExit(f"[{label}] {len(k7_params)} K7 launches for "
+                         f"{len(k7_calls)} calls")
+    for j, p in enumerate(k7_params):
+        log(f"  [{label}] K7 call {j}: n={p.n}, {p.ntiles} tiles of "
+            f"{k7.TILE}, queries over {p.qtiles} tiles, {p.launched} "
+            f"kernel launches, {p.n_mm * 8 * k7.scratch_size(p.n, p.ntiles)}"
+            f" bytes of min/max arrays between them")
+        if not 1 <= p.launched <= 3:
+            raise SystemExit(f"[{label}] K7 call {j} launched {p.launched} "
+                             f"kernels, 1 to 3 wanted")
+    if k7_params:
+        # the widest call's, as window_kernel_metrics picks it
+        p = k7_params[max(range(len(k7_calls)),
+                          key=lambda j: (k7_calls[j]["n"], j))]
+        metrics["win_range"].update(tiles=p.ntiles, tile=k7.TILE,
+                                    launches_a_call=p.launched)
     return {"rows": len(rows), "recorded_ms_per_flush": per_flush,
             "ms_per_flush": timed, "median_steady_ms": med, "C": plan.C,
             "cpu_ms_per_flush": cpu_flush, "events_per_s": eps,
@@ -2258,7 +2296,7 @@ def kernel_entry(name, source, replaces, launches, err, m) -> dict:
                   "tt", "wpb", "pair_tests", "launches_a_call", "tp",
                   "chunk", "trees_built", "lanes_x_trees", "programs",
                   "ms_per_program", "depth", "grid", "tiles", "warps",
-                  "rows_a_thread"):
+                  "rows_a_thread", "tile"):
         if extra in m:
             entry[extra] = m[extra]
     return entry
@@ -2710,6 +2748,10 @@ def main() -> int:
                     f"stack {e['depth'] or 'local'}, {e['rows_a_thread']} "
                     f"rows a thread, {e['grid']} blocks of {e['warps']} "
                     f"warps)")
+        elif "tile" in e:
+            lib += (f", {e['tiles']} tiles of {e['tile']}"
+                    f"{' a lane' if 'scan_compact' in e['name'] else ''}, "
+                    f"{e['launches_a_call']} kernel launches a call")
         elif "tiles" in e:
             lib += f", {e['tiles']} tiles a lane, {e['warps']} warps a block"
         if "step_ns" in e:

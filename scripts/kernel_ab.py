@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device times of K1 (`expr_eval`), K2 (`nfa_block`), K3 (`seg_tree`),
-K4 (`scan_chase`), K5 (`scan_compact`), K6 (`win_scan`), K9
-(`join_probe`), K10 (`agg_merge`) and K11 (`dfa_tables`) on the calls
+K4 (`scan_chase`), K5 (`scan_compact`), K6 (`win_scan`), K7
+(`win_range`), K8 (`win_compact`), K9 (`join_probe`), K10 (`agg_merge`)
+and K11 (`dfa_tables`) on the calls
 their main paths make, checkout by checkout.
 
-    python3 scripts/kernel_ab.py [--k1] [--k2] [--k4] [--k9] [--k11]
-                                 ROOT [ROOT ...]
+    python3 scripts/kernel_ab.py [--k1] [--k2] [--k4] [--k5] [--k7] [--k9]
+                                 [--k11] ROOT [ROOT ...]
 
 Runs each checkout (a directory holding chip_smoke.py and
 siddhi_tpu_torch) in a subprocess of its own, in the order given (repeat
@@ -55,12 +56,17 @@ version), the widest `window_args` and `window_select` calls of C2 and
 the widest `join_filter` call of J6O.  K11 (`--k11`): the last `dfa`
 block of C3SD (one lane of 2^18 events) and of C4D (1000 lanes), with
 the tiles a lane where the checkout's launch reports them
-(`k11_geometry`).  `--k1`, `--k2`, `--k4`, `--k9` and `--k11` time only
-those kernels (K3 and K4 for `--k4`); several may be given; none times
-them all.  Prints one JSON line per run: the checkout,
-the card's name and power limit, the device times in ms and `ptxas`,
-each K1, K2, K3, K4, K9 and K11 source's kernels with their registers
-and spill stores and loads (nvcc -Xptxas -v).  Needs a CUDA card.
+(`k11_geometry`).  K7 (`--k7`): the widest call of C2 and of C2 grouped,
+with K8 on the widest of each, and K5 (`--k5`): the last `scan` block of
+C4, C4N, C4A and C4F64 and C5's widest fused block, each with its host
+dispatch (`k7_host`, `k8_host`, `k5_host`, timed as `k1_host`) and
+geometry (`k7_geometry`, `k5_geometry`).  `--k1`, `--k2`, `--k4`,
+`--k5`, `--k7`, `--k9` and `--k11` time only those kernels (K3 and K4
+for `--k4`, K8 with `--k7`); several may be given; none times them all.
+Prints one JSON line per run: the checkout, the card's name and power
+limit, the device times in ms and `ptxas`, each K1, K2, K3, K4, K5, K7,
+K9 and K11 source's kernels with their registers and spill stores and
+loads (nvcc -Xptxas -v).  Needs a CUDA card.
 """
 import json
 import os
@@ -69,8 +75,8 @@ import sys
 import time
 
 KERNEL_SOURCES = ("expr_eval", "nfa_block", "seg_tree", "scan_chase",
-                  "join_probe", "dfa_tables")
-GROUPS = ("--k1", "--k2", "--k4", "--k9", "--k11")
+                  "scan_compact", "win_range", "join_probe", "dfa_tables")
+GROUPS = ("--k1", "--k2", "--k4", "--k5", "--k7", "--k9", "--k11")
 
 
 def ptxas(log: str) -> list:
@@ -194,6 +200,94 @@ def k1_entries(out: dict, cs, pkg, np, torch, best) -> None:
         _n, a, kw = max((c for c in calls if c[0] == "expr_eval"
                          and c[2]["use"] == use), key=lambda c: c[1][3])
         k1_call(f"k1_{use}", a, kw)
+
+
+def k7_entries(out: dict, cs, best) -> None:
+    """K7 on the widest call of C2 and of C2 grouped, and K8 on the widest
+    call of each (chip_smoke.py's window tapes, 2 flushes of 2^17): device
+    ms under k7_/k8_<cell>, the wrapper's host dispatch under k7_host /
+    k8_host, and the K7 call's tiles and kernel launches (`k7_geometry`;
+    a checkout without tiles launches a pass per sparse-table level)."""
+    from siddhi_tpu_torch.kernels import win_compact as k8
+    from siddhi_tpu_torch.kernels import win_range as k7
+    from siddhi_tpu_torch.replay import run_window
+    for label, app, seed in (("c2", cs.C2, 20), ("c2g", cs.C2_GROUPED, 21)):
+        calls: list = []
+        tape = cs.make_tape(cs.C2_FLUSH * cs.C2_FLUSHES, cs.C2_FLUSH,
+                            cs.C2_SYMBOLS, seed=seed)
+        run_window(app, tape, "cuda", calls)
+        k7_calls = [c for c in calls if c[0] == "win_range"]
+        _n, a, kw = [c for c in k7_calls if c[2]["n"] == max(
+            x[2]["n"] for x in k7_calls)][-1]
+        out[f"k7_{label}"], out.setdefault("k7_host", {})[f"k7_{label}"] = \
+            best(lambda: k7.win_range(*a, **kw),
+                 lambda: [k7.prepare(*a, **kw)])
+        launch = k7.prepare(*a, **kw)
+        launch()
+        params = launch.params
+        minmax = any(s[0] in ("min", "max") for s in a[0])
+        geo = {"n": kw["n"], "m": kw["m"], "sites": [s[0] for s in a[0]]}
+        if params is not None:
+            # a checkout whose launcher counts its kernels reports them
+            geo.update(tiles=params.ntiles, query_tiles=params.qtiles,
+                       kernel_launches=getattr(params, "launched", None))
+        else:
+            geo["kernel_launches"] = k7.levels_for(kw["n"]) + 1 \
+                if minmax else 1
+        out.setdefault("k7_geometry", {})[label] = geo
+        k8_calls = [c for c in calls if c[0] == "win_compact"]
+        _n, a, kw = max(k8_calls, key=lambda c: c[1][3])
+        out[f"k8_{label}"], out.setdefault("k8_host", {})[f"k8_{label}"] = \
+            best(lambda: k8.win_compact(*a, **kw),
+                 lambda: [k8.prepare(*a, **kw)])
+
+
+def k5_entries(out: dict, cs, pkg, np, best) -> None:
+    """K5 on the last `scan` block of C4, C4N, C4A and C4F64 (2 flushes
+    of 2^18 over 1000 keys each; C4F64 on chip_smoke.py's raw-double
+    tape) and on config 5's widest fused `scan` block (the most
+    candidates), its chase from K4's plain version: device ms under
+    k5_<cell>, the wrapper's host dispatch under k5_host, the block's
+    lanes, candidates a lane and matches under k5_geometry."""
+    from siddhi_tpu_torch.kernels import scan_compact as k5
+    from siddhi_tpu_torch.kernels.scan_chase import scan_chase_plain
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree_plain
+
+    def timed(key, kern, ev, m) -> None:
+        pre = kern.pre_masks(ev)
+        masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
+        heaps = seg_tree_plain(kern, ev, masks)
+        rheaps = seg_tree_plain(kern, ev, masks, kern.rank_trees, rcols) \
+            if ranks else []
+        chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps,
+                                 prevs)
+        args = (kern, ev, chase, ranks, rheaps, m)
+        out[f"k5_{key}"], out.setdefault("k5_host", {})[f"k5_{key}"] = \
+            best(lambda: k5.scan_compact(*args), lambda: [k5.prepare(*args)])
+        L, F = ev["__nev__"].shape[0], ev["__flat.__ts__"].shape[1]
+        launch = k5.prepare(*args)
+        got = launch()
+        out.setdefault("k5_geometry", {})[key] = {
+            "L": L, "F": F, "C": kern.C, "f64": bool(kern.f64),
+            "matches": int(got["meta"][0]),
+            "kernel_launches": getattr(launch.params, "launched", None)}
+
+    tape = cs.make_tape(cs.FLUSH * 2, cs.FLUSH, cs.KEYS)
+    timed("c4", *cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1])
+    for label in ("c4n", "c4a"):
+        _l, app, flushes, _f, seed, _e, _n = [
+            x for x in cs.ALGEBRA if x[0] == label][0]
+        tape = cs.make_tape(cs.FLUSH * min(flushes, 2), cs.FLUSH, cs.KEYS,
+                            seed=seed)
+        timed(label, *cs.run_recorded(pkg, np, app, tape)[4][-1])
+    tape = cs.raw_tape(cs.FLUSH * 2, cs.FLUSH, cs.KEYS, seed=37)
+    timed("c4f64", *cs.run_recorded(pkg, np, cs.F64 + cs.C4_HEAD + cs.C4,
+                                    tape)[4][-1])
+    tape = cs.make_tape(cs.C5_FLUSH * 4, cs.C5_FLUSH, cs.C5_SYMBOLS,
+                        seed=5, dt_ms=cs.C5_DT)
+    blocks = cs.run_c5(pkg, np, tape, "cuda", record=True)[6]
+    timed("c5", *max(blocks, key=lambda b: b[0].C * b[1][
+        "__nev__"].shape[0] * b[1]["__flat.__ts__"].shape[1]))
 
 
 def k11_entries(out: dict, cs, pkg, np, best) -> None:
@@ -340,6 +434,10 @@ def one(root: str, only: frozenset = frozenset()) -> dict:
         k1_entries(out, cs, pkg, np, torch, best_and_host)
     if not only or "--k11" in only:
         k11_entries(out, cs, pkg, np, best)
+    if not only or "--k7" in only:
+        k7_entries(out, cs, best_and_host)
+    if not only or "--k5" in only:
+        k5_entries(out, cs, pkg, np, best_and_host)
     if only and "--k9" in only:
         k9_entries(out, cs, best)
     if only and "--k4" in only:

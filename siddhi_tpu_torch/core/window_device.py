@@ -464,12 +464,10 @@ class DeviceWindowAggPlan(QueryPlan):
 
     @staticmethod
     def _sorted_by(seg: torch.Tensor, N: int) -> tuple:
-        """(order, sorted keys, rank) of the (segment * N + position) keys."""
+        """(order, sorted keys) of the (segment * N + position) keys."""
         key = seg * N + torch.arange(N, device=seg.device)
         ks, order = torch.sort(key)
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(N, device=seg.device)
-        return order, ks, rank
+        return order, ks
 
     def _step_sliding(self, state, bts, clock_b, bcols, valid, vals_all,
                       C, N, k):
@@ -493,8 +491,8 @@ class DeviceWindowAggPlan(QueryPlan):
             keys = {g: torch.cat([state[f"c.{g}"], bcols[g]])
                     for g in self.group_keys}
             seg = self._group_seg(keys, valid, N)
-            order, ks, rank = self._sorted_by(seg, N)
-            groups = (ks, seg, rank)
+            order, ks = self._sorted_by(seg, N)
+            groups = (ks,)
             svalid = valid[order]
             used = {col[i] for i in range(len(self.sites))} - {None}
             svals = {j: vals_all[j][order] for j in used}
@@ -575,7 +573,7 @@ class DeviceWindowAggPlan(QueryPlan):
                                   valid, N)
             segk = torch.where(valid, brel * (N + 1) + seg,
                                torch.full_like(seg, (N + 2) * (N + 1)))
-            order, _ks, _rank = self._sorted_by(segk, N)
+            order, _ks = self._sorted_by(segk, N)
             segk = segk[order]
         else:
             segk = brel

@@ -16,34 +16,53 @@
 // lane's rows c-major and in head order (the order of the JAX cumsum
 // over its (C, F) candidates), so the plan reads it exactly like the
 // sequential kernel's.
-//   pass 0 (one-shot heads only): h0[lane] = first head-mask index
-//           (block min, one atomicMin per block);
-//   pass 1: one block per (1024 of a lane's C * F candidates, lane): live
-//           count per tile;
-//   pass 2: one block: exclusive scan of the tile counts (the match
-//           total lands in meta[0]);
-//   pass 3: one block per tile again: block scan of the live bits, rows
-//           written at tile offset + rank (rows past M are counted, not
-//           written); the first tile of a lane writes its count and its
-//           single-arm flag.
-// The row sources sit in a device table, so no table width is fixed.
+//
+// One launch.  A lane's C * F candidates (q = c * F + j) fall in tiles of
+// CP_TILE; each block takes the next (lane, tile) from a ticket, so the
+// tiles run in table order.  A thread takes candidates base + k * 256 +
+// t (k < 4: a warp's 32 byte loads of a candidate row fall in one
+// sector) and runs the live test once, keeping the result in registers;
+// a warp writes the rows of its live candidates of one k together, its
+// lanes over (row, candidate) pairs, so each row's writes fall on
+// consecutive slots.  A one-shot
+// head first needs h0, the lane's first head: each tile publishes the
+// first head among its c = 0 candidates and takes the minimum over the
+// lane's earlier tiles from a decoupled look-back (exact for the live
+// test: every j below the tile's own is covered by an earlier tile of c
+// = 0).  The tile's live count, per (k, warp) from ballots, then takes
+// its first match slot from a second look-back over every earlier tile
+// of the table (the match total is the last tile's inclusive prefix, in
+// meta[0]).  Rows past M are counted, not written.  A lane's last tile
+// writes its count (its inclusive prefix less the previous lane's last
+// one) and its single-arm flag from the lane's h0.  The look-back state
+// (ticket, two words a tile) is the prepared launch's own; the launcher
+// zeroes it with a memset before each launch (a CUDA graph's replays
+// too), so the kernel leaves it as it is.
+// The row sources are decoded once per kernel on the host
+// (kernels/scan_compact.py); each block stages the first CP_ROWS of them
+// in shared memory.
 // Event columns are read at lane * ev_stride + i: a fused multi-query
 // group's lanes share one row of events (ev_stride 0), and a __qid__ row
 // takes the lane's query id (lane_qid[lane], nfa_parallel.py:1146).
-// A chain with no count or logical position (alg 0) runs passes 1 and 3
-// without candidates (C = 1) and without the count and presence rows.
+// A chain with no count or logical position (alg 0) runs without
+// candidates (C = 1) and without the count and presence rows.
 // Under @app:devicePrecision('f64') (f64 = 1) the float rows of the match
-// table are double (FT, the scatter's template parameter): a DOUBLE
+// table are double (FT, the kernel's template parameter): a DOUBLE
 // column is copied, a FLOAT one widened (the JAX package's caps_f at f64,
 // nfa_parallel.py:1079-1175 in f64 mode).
 // Python side: kernels/scan_compact.py.
 #include "seg_tree.cuh"
 
 #define CP_THREADS 256
+#define CP_WARPS (CP_THREADS / 32)
 #define CP_ITEMS 4
 #define CP_TILE (CP_THREADS * CP_ITEMS)
+#define CP_ROWS 64  // row sources staged in shared memory; the rest read from the table
 #define FULL 0xffffffffu
 #define UNBOUNDED 1000000000
+#define LB_AGG (1ull << 62)  // a published look-back word: the tile's own value
+#define LB_INC (2ull << 62)  // ... or the inclusive value through the tile
+#define LB_VAL ((1ull << 62) - 1)
 
 enum RowKind {
   ROW_COL = 0, ROW_COMP_TS = 1, ROW_COMP_SEQ = 2, ROW_HEAD_SEQ = 3, ROW_QID = 4, ROW_CNT = 5,
@@ -52,8 +71,21 @@ enum RowKind {
 enum CntMode { CNT_COMP = 0, CNT_Q = 1, CNT_FIXED = 2 };
 enum { ARM_NONE = 0, ARM_PENDING = 1, ARM_RESOLVED = 2 };
 
+struct RowSrc {  // one match-table row; layout mirrored by kernels/scan_compact.py ROW
+  const void* col;  // ROW_COL / ROW_CNT: the event column
+  int vt;
+  int kind;
+  int pos;    // ROW_COL: loc (0 head, r + 1 idx row r)
+  int group;  // 0 out_i, 1 out_f, 2 out_l
+  int index;  // row inside its group
+  int cnt;    // ROW_CNT / ROW_PRES_CNT: the count position
+  int mode;   // ROW_CNT: CntMode
+  int arg;    // CNT_Q offset, CNT_FIXED occurrence, bit, want
+};
+
 struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
   int L, F, S, M, single, ntiles, n_rows, ev_stride, C, Lt, alg, f64;
+  int launched;           // out: kernels the last call launched
   const int* seq;
   const int* ts;
   const int* prev;
@@ -70,50 +102,71 @@ struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
   const int* cnt_min;
   const int* cnt_max;
   const int* cnt_entry;   // loc of the entry event, -1 for a count head
-  int* h0;
-  int* tile_off;
+  unsigned long long* state;  // ticket, L * ntiles count words, L * ntiles
+                              // h0 words; zeroed by the launcher
   int* lane_cnt;
   int* arm;
   int* meta;
   int* out_i;
   void* out_f;            // float, double when f64
   long long* out_l;
-  const void* const* row_col;
-  const int* row_vt;
-  const int* row_kind;
-  const int* row_pos;     // ROW_COL: loc (0 head, r + 1 idx row r)
-  const int* row_group;   // 0 out_i, 1 out_f, 2 out_l
-  const int* row_index;   // row inside its group
-  const int* row_cnt;     // ROW_CNT / ROW_PRES_CNT: the count position
-  const int* row_mode;    // ROW_CNT: CntMode
-  const int* row_arg;     // CNT_Q offset, CNT_FIXED occurrence, bit, want
+  const RowSrc* rows;
 };
 
 __device__ __forceinline__ long long plane_of(const CompactParams& p) {
   return static_cast<long long>(p.L) * p.F;
 }
 
+__device__ __forceinline__ void lb_put(unsigned long long* w, unsigned long long v) {
+  asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(w), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long lb_get(const unsigned long long* w) {
+  unsigned long long v;
+  asm volatile("ld.volatile.global.u64 %0, [%1];" : "=l"(v) : "l"(w) : "memory");
+  return v;
+}
+
+// One whole warp: publishes tile g's own value `mine` among `words`,
+// folds (sum, or min when MIN) the values of tiles g - 1, g - 2, ... down
+// to the nearest inclusive one (tile `first` publishes inclusive at once),
+// publishes g's inclusive value and returns the exclusive one.
+template <bool MIN>
+__device__ long long look_back(unsigned long long* words, int g, int first, long long mine,
+                               long long id) {
+  const int l = threadIdx.x & 31;
+  if (g == first) {
+    if (l == 0) lb_put(words + g, LB_INC | static_cast<unsigned long long>(mine));
+    return id;
+  }
+  if (l == 0) lb_put(words + g, LB_AGG | static_cast<unsigned long long>(mine));
+  long long before = id;
+  for (int start = g - 1;; start -= 32) {
+    const int k = start - l;  // lane l: the l-th tile down from `start`
+    unsigned long long v = 0;
+    if (k >= first) {
+      do {
+        v = lb_get(words + k);
+      } while ((v >> 62) == 0);
+    }
+    const unsigned inc = __ballot_sync(FULL, k >= first && (v >> 62) == 2);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    long long x = (k >= first && l <= stop) ? static_cast<long long>(v & LB_VAL) : id;
+    for (int o = 16; o > 0; o >>= 1) {
+      const long long y = __shfl_xor_sync(FULL, x, o);
+      x = MIN ? (y < x ? y : x) : x + y;
+    }
+    before = MIN ? (x < before ? x : before) : before + x;
+    if (inc || start - 31 <= first) break;
+  }
+  const long long incl = MIN ? (mine < before ? mine : before) : before + mine;
+  if (l == 0) lb_put(words + g, LB_INC | static_cast<unsigned long long>(incl));
+  return before;
+}
+
 // Completion index of candidate c of head j.
 __device__ __forceinline__ int comp_of(const CompactParams& p, long long row, int j, int c) {
   return p.idx[p.comp_row[c] * plane_of(p) + row + j];
-}
-
-// Candidate q of a lane (c-major: c = q / F, head j = q % F): live when its
-// chain completed, its completion is new to this flush, and, for a
-// one-shot head, it is the lane's first head and the arm is not resolved.
-template <bool ALG>
-__device__ __forceinline__ bool live_at(const CompactParams& p, int lane, int q) {
-  if (q >= (ALG ? p.C * p.F : p.F)) return false;
-  const int c = ALG ? q / p.F : 0, j = ALG ? q % p.F : q;
-  const long long row = static_cast<long long>(lane) * p.F;
-  if (!((p.cand[row + j] >> c) & 1)) return false;
-  const long long erow = static_cast<long long>(lane) * p.ev_stride;
-  if (p.seq[erow + comp_of(p, row, j, c)] <= p.prev[lane]) return false;
-  if (p.single) {
-    if (j != p.h0[lane]) return false;
-    if (p.arm_done != nullptr && p.arm_done[lane] != 0) return false;
-  }
-  return true;
 }
 
 // The count at position pi for one match: its start s, rank base ra and
@@ -139,201 +192,215 @@ __device__ void count_ctx(const CompactParams& p, int pi, long long row, int j, 
   }
 }
 
-// Exclusive block scan of one int per thread; *total gets the block sum.
-__device__ int block_scan(int v, int* total) {
-  __shared__ int warp_sum[CP_THREADS / 32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sum[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int s = lane < CP_THREADS / 32 ? warp_sum[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < CP_THREADS / 32) warp_sum[lane] = s;
-  }
-  __syncthreads();
-  const int before = w > 0 ? warp_sum[w - 1] : 0;
-  *total = warp_sum[CP_THREADS / 32 - 1];
-  __syncthreads();
-  return before + x - v;
-}
-
-__global__ void h0_kernel(const __grid_constant__ CompactParams p) {
-  __shared__ int best;
-  const int lane = static_cast<int>(blockIdx.x / p.ntiles);
-  const int base = static_cast<int>(blockIdx.x % p.ntiles) * CP_TILE;
-  if (threadIdx.x == 0) best = p.F;
-  __syncthreads();
-  const long long row = static_cast<long long>(lane) * p.F;
-  for (int k = 0; k < CP_ITEMS; ++k) {
-    const int j = base + threadIdx.x * CP_ITEMS + k;
-    if (j < p.F && (p.status[row + j] & 4)) {
-      atomicMin(&best, j);
-      break;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0 && best < p.F) atomicMin(&p.h0[lane], best);
-}
-
-template <bool ALG>
-__global__ void count_kernel(const __grid_constant__ CompactParams p) {
-  const int lane = static_cast<int>(blockIdx.x / p.ntiles);
-  const int base = static_cast<int>(blockIdx.x % p.ntiles) * CP_TILE;
-  int c = 0;
-  for (int k = 0; k < CP_ITEMS; ++k)
-    c += live_at<ALG>(p, lane, base + threadIdx.x * CP_ITEMS + k) ? 1 : 0;
-  int total;
-  block_scan(c, &total);
-  if (threadIdx.x == 0) p.tile_off[blockIdx.x] = total;
-}
-
-// One block: tile counts -> exclusive offsets in place, total at the end.
-__global__ void offsets_kernel(const __grid_constant__ CompactParams p) {
-  const int n = p.L * p.ntiles;
-  int carry = 0;
-  for (int base = 0; base < n; base += CP_THREADS) {
-    const int i = base + threadIdx.x;
-    const int v = i < n ? p.tile_off[i] : 0;
-    int total;
-    const int ex = block_scan(v, &total);
-    if (i < n) p.tile_off[i] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) {
-    p.tile_off[n] = carry;
-    p.meta[0] = carry;
-    p.meta[1] = 0;
-  }
-}
-
 // A count or presence row of one match (ROW_PRES_BIT, ROW_PRES_CNT,
 // ROW_CNT): an `or` side's presence bit, a per-index presence, or a count
 // capture at its occurrence by rank/select.
-__device__ VmVal count_row(const CompactParams& p, int r, int lane, long long row,
+__device__ VmVal count_row(const CompactParams& p, const RowSrc& rs, int lane, long long row,
                            long long erow, int j, int c, int comp) {
-  switch (p.row_kind[r]) {
-    case ROW_PRES_BIT: return vm_i((p.pres[row + j] >> p.row_arg[r]) & 1);
+  switch (rs.kind) {
+    case ROW_PRES_BIT: return vm_i((p.pres[row + j] >> rs.arg) & 1);
     case ROW_PRES_CNT: {
       int s;
       long long ra, qn;
-      count_ctx(p, p.row_cnt[r], row, j, c, comp, s, ra, qn);
-      return vm_i(qn >= p.row_arg[r] ? 1 : 0);
+      count_ctx(p, rs.cnt, row, j, c, comp, s, ra, qn);
+      return vm_i(qn >= rs.arg ? 1 : 0);
     }
     default: {
       int at = comp;
-      if (p.row_mode[r] != CNT_COMP) {
-        const int pi = p.row_cnt[r];
+      if (rs.mode != CNT_COMP) {
+        const int pi = rs.cnt;
         int s;
         long long ra, qn;
         count_ctx(p, pi, row, j, c, comp, s, ra, qn);
-        const long long want = p.row_mode[r] == CNT_Q ? qn + p.row_arg[r] : p.row_arg[r];
+        const long long want = rs.mode == CNT_Q ? qn + rs.arg : rs.arg;
         const long long* heap = p.rank_heap[p.cnt_rank[pi]] +
                                 static_cast<long long>(lane) * 2 * p.Lt;
         at = first_hit(heap, VT_I64, p.Lt, s, vm_l(ra + want), TOP_GE);
         at = at < 0 ? 0 : (at > p.F - 1 ? p.F - 1 : at);
       }
-      return vm_read(p.row_col[r], p.row_vt[r], erow + at);
+      return vm_read(rs.col, rs.vt, erow + at);
     }
   }
 }
 
 template <bool ALG, class FT>
-__global__ void scatter_kernel(const __grid_constant__ CompactParams p) {
-  const int lane = static_cast<int>(blockIdx.x / p.ntiles);
-  const int tile = static_cast<int>(blockIdx.x % p.ntiles);
+__global__ void __launch_bounds__(CP_THREADS, 8) compact_kernel(const __grid_constant__ CompactParams p) {
+  __shared__ RowSrc srows[CP_ROWS];
+  __shared__ int slice[CP_ITEMS][CP_WARPS];  // live counts per (k, warp), then their offsets
+  __shared__ int wq[CP_WARPS][32], wcomp[CP_WARPS][32];  // a warp's live candidates
+  __shared__ int s_g, s_h0, s_base;
+  const int l = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_g = static_cast<int>(atomicAdd(p.state, 1ull));
+  const int staged = p.n_rows < CP_ROWS ? p.n_rows : CP_ROWS;
+  for (int r = threadIdx.x; r < staged; r += CP_THREADS) srows[r] = p.rows[r];
+  if (threadIdx.x == 0) s_h0 = p.F;
+  __syncthreads();
+  const int g = s_g, lane = g / p.ntiles, tile = g - lane * p.ntiles;
+  const int g0 = lane * p.ntiles;  // the lane's first tile
   const int base = tile * CP_TILE;
+  const int nq = ALG ? p.C * p.F : p.F;
   const long long row = static_cast<long long>(lane) * p.F;
   const long long erow = static_cast<long long>(lane) * p.ev_stride;
-  bool live[CP_ITEMS];
-  int cnt = 0;
-  for (int k = 0; k < CP_ITEMS; ++k) {
-    live[k] = live_at<ALG>(p, lane, base + threadIdx.x * CP_ITEMS + k);
-    cnt += live[k] ? 1 : 0;
+  const long long ntot = static_cast<long long>(p.L) * p.ntiles;
+  unsigned long long* cwords = p.state + 1;
+  unsigned long long* hwords = cwords + ntot;
+  if (p.single) {  // the first head among the lane's c = 0 candidates through this tile
+    int own = p.F;
+#pragma unroll
+    for (int k = 0; k < CP_ITEMS; ++k) {
+      const int q = base + k * CP_THREADS + threadIdx.x;
+      if (q < p.F && (p.status[row + q] & 4)) own = min(own, q);
+    }
+    own = __reduce_min_sync(FULL, own);
+    if (l == 0) atomicMin(&s_h0, own);
+    __syncthreads();
+    if (w == 0) {
+      const int mine = s_h0;
+      const long long before = look_back<true>(hwords, g, g0, mine, p.F);
+      if (l == 0) s_h0 = static_cast<int>(before < mine ? before : mine);
+    }
+    __syncthreads();
   }
-  int total;
-  int pos = p.tile_off[blockIdx.x] + block_scan(cnt, &total);
-  const long long plane = plane_of(p);
+  const int h0 = s_h0;
+  const bool done = p.single && p.arm_done != nullptr && p.arm_done[lane] != 0;
+  // the live test, once a candidate: the candidate bits and completion
+  // indices of the four candidates loaded together, then their seqs
+  bool live[CP_ITEMS];
+  int comp[CP_ITEMS], rk[CP_ITEMS];
+  unsigned bal[CP_ITEMS];
+  unsigned char cb[CP_ITEMS];
+  const int prev = p.prev[lane];
+#pragma unroll
   for (int k = 0; k < CP_ITEMS; ++k) {
-    if (!live[k]) continue;
-    const int q = base + threadIdx.x * CP_ITEMS + k;
-    const int c = ALG ? q / p.F : 0, j = ALG ? q % p.F : q;
-    if (pos < p.M) {
-      const int comp = comp_of(p, row, j, c);
-      for (int r = 0; r < p.n_rows; ++r) {
-        VmVal v;
-        switch (p.row_kind[r]) {
-          case ROW_COMP_TS: v = vm_i(p.ts[erow + comp]); break;
-          case ROW_COMP_SEQ: v = vm_i(p.seq[erow + comp]); break;
-          case ROW_HEAD_SEQ: v = vm_i(p.seq[erow + j]); break;
-          case ROW_QID: v = vm_i(p.lane_qid[lane]); break;
-          case ROW_ONE: v = vm_i(1); break;
-          case ROW_PRES_BIT:
-          case ROW_PRES_CNT:
-          case ROW_CNT:
-            v = ALG ? count_row(p, r, lane, row, erow, j, c, comp) : vm_i(0);
-            break;
-          default: {
-            const int at = p.row_pos[r] == 0 ? j
-                           : p.idx[(p.row_pos[r] - 1) * plane + row + j];
-            v = vm_read(p.row_col[r], p.row_vt[r], erow + at);
-          }
+    const int q = base + k * CP_THREADS + threadIdx.x;
+    cb[k] = 0;
+    comp[k] = 0;
+    if (q < nq) {
+      const int c = ALG ? q / p.F : 0, j = ALG ? q - c * p.F : q;
+      cb[k] = static_cast<unsigned char>((p.cand[row + j] >> c) & 1);
+      comp[k] = comp_of(p, row, j, c);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < CP_ITEMS; ++k) {
+    const int q = base + k * CP_THREADS + threadIdx.x;
+    const int j = ALG ? q - (q / p.F) * p.F : q;
+    live[k] = cb[k] && p.seq[erow + comp[k]] > prev && (!p.single || (j == h0 && !done));
+    bal[k] = __ballot_sync(FULL, live[k]);
+    rk[k] = __popc(bal[k] & ((1u << l) - 1u));
+    if (l == 0) slice[k][w] = __popc(bal[k]);
+  }
+  __syncthreads();
+  if (w == 0) {  // offsets in (k, warp) order; the tile's first slot from the look-back
+    const int v = slice[l / CP_WARPS][l % CP_WARPS];
+    int inc = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, o);
+      if (l >= o) inc += y;
+    }
+    slice[l / CP_WARPS][l % CP_WARPS] = inc - v;
+    const int total = __shfl_sync(FULL, inc, 31);
+    const long long before = look_back<false>(cwords, g, 0, total, 0);
+    if (l == 0) {
+      s_base = static_cast<int>(before);
+      const long long incl = before + total;
+      if (tile == p.ntiles - 1) {  // the lane's last tile: its count and flag
+        long long start = 0;
+        if (g0 > 0) {
+          unsigned long long x;
+          do {
+            x = lb_get(cwords + g0 - 1);
+          } while ((x >> 62) != 2);
+          start = static_cast<long long>(x & LB_VAL);
         }
-        const long long o = static_cast<long long>(p.row_index[r]) * p.M + pos;
-        switch (p.row_group[r]) {
-          case 0: p.out_i[o] = v.i; break;
-          case 1:
-            if constexpr (sizeof(FT) == 8)
-              static_cast<double*>(p.out_f)[o] = vm_cast(v, p.row_vt[r], VT_F64).d;
-            else
-              static_cast<float*>(p.out_f)[o] = v.f;
-            break;
-          default: p.out_l[o] = v.l; break;
+        p.lane_cnt[lane] = static_cast<int>(incl - start);
+        int flag = ARM_NONE;
+        if (p.single) {
+          if (h0 < p.F) flag = (p.status[row + h0] & 3) ? ARM_RESOLVED : ARM_PENDING;
+          if (done) flag = ARM_RESOLVED;
         }
+        p.arm[lane] = flag;
+      }
+      if (g == ntot - 1) {
+        p.meta[0] = static_cast<int>(incl);
+        p.meta[1] = 0;
       }
     }
-    ++pos;
   }
-  if (tile == 0 && threadIdx.x == 0) {
-    p.lane_cnt[lane] = p.tile_off[(lane + 1) * p.ntiles] - p.tile_off[lane * p.ntiles];
-    int flag = ARM_NONE;
-    if (p.single) {
-      const int h0 = p.h0[lane];
-      if (h0 < p.F) flag = (p.status[row + h0] & 3) ? ARM_RESOLVED : ARM_PENDING;
-      if (p.arm_done != nullptr && p.arm_done[lane] != 0) flag = ARM_RESOLVED;
+  __syncthreads();
+  // the rows: a warp's live candidates of one k in its shared list, then
+  // its lanes take (row, candidate) pairs row by row, so a row's writes
+  // fall on consecutive slots and a lane gathers one value a round
+  const long long plane = plane_of(p);
+#pragma unroll
+  for (int k = 0; k < CP_ITEMS; ++k) {
+    const int cnt = __popc(bal[k]);
+    if (cnt == 0) continue;
+    if (live[k]) {
+      wq[w][rk[k]] = base + k * CP_THREADS + threadIdx.x;
+      wcomp[w][rk[k]] = comp[k];
     }
-    p.arm[lane] = flag;
+    __syncwarp();
+    const int first = s_base + slice[k][w];
+    for (int t = l; t < cnt * p.n_rows; t += 32) {
+      const int r = t / cnt, i = t - r * cnt;
+      const int pos = first + i;
+      if (pos >= p.M) continue;
+      const int q = wq[w][i], cmp = wcomp[w][i];
+      const int c = ALG ? q / p.F : 0, j = ALG ? q - c * p.F : q;
+      const RowSrc& rs = r < CP_ROWS ? srows[r] : p.rows[r];
+      VmVal v;
+      switch (rs.kind) {
+        case ROW_COMP_TS: v = vm_i(p.ts[erow + cmp]); break;
+        case ROW_COMP_SEQ: v = vm_i(p.seq[erow + cmp]); break;
+        case ROW_HEAD_SEQ: v = vm_i(p.seq[erow + j]); break;
+        case ROW_QID: v = vm_i(p.lane_qid[lane]); break;
+        case ROW_ONE: v = vm_i(1); break;
+        case ROW_PRES_BIT:
+        case ROW_PRES_CNT:
+        case ROW_CNT:
+          v = ALG ? count_row(p, rs, lane, row, erow, j, c, cmp) : vm_i(0);
+          break;
+        default: {
+          const int at = rs.pos == 0 ? j : p.idx[(rs.pos - 1) * plane + row + j];
+          v = vm_read(rs.col, rs.vt, erow + at);
+        }
+      }
+      const long long o = static_cast<long long>(rs.index) * p.M + pos;
+      switch (rs.group) {
+        case 0: p.out_i[o] = v.i; break;
+        case 1:
+          if constexpr (sizeof(FT) == 8)
+            static_cast<double*>(p.out_f)[o] = vm_cast(v, rs.vt, VT_F64).d;
+          else
+            static_cast<float*>(p.out_f)[o] = v.f;
+          break;
+        default: p.out_l[o] = v.l; break;
+      }
+    }
+    __syncwarp();
   }
 }
 
-extern "C" int scan_compact_launch(const CompactParams* params, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>(params->L) * static_cast<unsigned>(params->ntiles);
-  cudaError_t err;
-  if (params->single) {
-    h0_kernel<<<blocks, CP_THREADS, 0, stream>>>(*params);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  if (params->alg)
-    count_kernel<true><<<blocks, CP_THREADS, 0, stream>>>(*params);
+extern "C" int scan_compact_launch(CompactParams* params, cudaStream_t stream) {
+  const CompactParams& p = *params;
+  const long long blocks = static_cast<long long>(p.L) * p.ntiles;
+  params->launched = 0;
+  if (p.L < 1 || p.ntiles < 1 || blocks > 0x7fffffffLL || p.state == nullptr ||
+      static_cast<long long>(p.ntiles) * CP_TILE < (p.alg ? static_cast<long long>(p.C) * p.F : p.F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(p.state, 0, sizeof(unsigned long long) * (1 + 2 * blocks), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (p.alg && p.f64)
+    compact_kernel<true, double><<<grid, CP_THREADS, 0, stream>>>(p);
+  else if (p.alg)
+    compact_kernel<true, float><<<grid, CP_THREADS, 0, stream>>>(p);
+  else if (p.f64)
+    compact_kernel<false, double><<<grid, CP_THREADS, 0, stream>>>(p);
   else
-    count_kernel<false><<<blocks, CP_THREADS, 0, stream>>>(*params);
+    compact_kernel<false, float><<<grid, CP_THREADS, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  offsets_kernel<<<1, CP_THREADS, 0, stream>>>(*params);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (params->alg && params->f64)
-    scatter_kernel<true, double><<<blocks, CP_THREADS, 0, stream>>>(*params);
-  else if (params->alg)
-    scatter_kernel<true, float><<<blocks, CP_THREADS, 0, stream>>>(*params);
-  else if (params->f64)
-    scatter_kernel<false, double><<<blocks, CP_THREADS, 0, stream>>>(*params);
-  else
-    scatter_kernel<false, float><<<blocks, CP_THREADS, 0, stream>>>(*params);
-  return static_cast<int>(cudaGetLastError());
+  params->launched = 1;
+  return 0;
 }

@@ -20,15 +20,21 @@ cumsum's order over its (C, F) candidates), with the rows of the
 NFAKernel's table (`lane_names_i`, `rows_f`, `rows_l`): captured columns,
 presence rows, the completion's ts and seq offsets, the head's seq
 offset.  The selector pass (K1) and the plan's unpack then read it as
-they read the sequential kernel's.  Passes: per-lane first head
-(one-shot heads only), live counts per 1024-candidate tile, one block's
-exclusive scan of the tile counts, and the block-scan scatter, whose
-count captures run a `ge` first-hit on K3's rank tree (csrc/
-seg_tree.cuh).  The row sources travel in a device table
-(kernels/table.py), so no table width is fixed.  A fused multi-query
+they read the sequential kernel's. One kernel launch a call: blocks take
+(lane, tile) tiles of 1024 candidates from a ticket, run the live test
+once a candidate (a one-shot head's h0 from a look-back over the lane's
+earlier tiles), take their first match slot from a decoupled look-back
+over the earlier tiles' counts and write a warp's matches row by row;
+count captures run a `ge` first-hit on K3's rank tree
+(csrc/seg_tree.cuh). The row sources are decoded once per kernel
+(`row_sources`, kept on it) into 40-byte records; a call patches their
+column pointers. The look-back state is each prepared launch's own; the
+launcher zeroes it with a memset before each launch, so a call is one
+kernel launch and one memset (`launched` in the parameter block counts
+the kernels). A fused multi-query
 group's lanes share one row of events (stride 0) and each match row
 carries its lane's `__qid__` (`__lane_qid__[lane]`, the JAX package's
-nfa_parallel.py:1146).  Bound on the H100: bytes -- status, candidates,
+nfa_parallel.py:1146). Bound on the H100: bytes -- status, candidates,
 comp indices and seq read once per candidate, each match row written
 once.
 
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.expr import VT_OF_TORCH
@@ -59,32 +66,94 @@ ARM_NONE, ARM_PENDING, ARM_RESOLVED = 0, 1, 2
 _KIND = {"col": 0, "comp_ts": 1, "comp_seq": 2, "head_seq": 3, "qid": 4,
          "cnt": 5, "pres_bit": 6, "pres_cnt": 7, "one": 8}
 _GROUP = {"i": 0, "f": 1, "l": 2}
+# csrc/scan_compact.cu RowSrc
+ROW = np.dtype([("col", "<u8"), ("vt", "<i4"), ("kind", "<i4"),
+                ("pos", "<i4"), ("group", "<i4"), ("index", "<i4"),
+                ("cnt", "<i4"), ("mode", "<i4"), ("arg", "<i4")])
 
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "L", "F", "S", "M", "single", "ntiles", "n_rows", "ev_stride",
-        "C", "Lt", "alg", "f64")] + [
+        "C", "Lt", "alg", "f64", "launched")] + [
         (n, ctypes.c_void_p) for n in (
             "seq", "ts", "prev", "arm_done", "lane_qid", "status", "idx",
             "cand", "pres", "comp_row", "rank", "rank_heap", "cnt_rank",
-            "cnt_min", "cnt_max", "cnt_entry", "h0", "tile_off",
-            "lane_cnt", "arm", "meta", "out_i", "out_f", "out_l",
-            "row_col", "row_vt", "row_kind", "row_pos", "row_group",
-            "row_index", "row_cnt", "row_mode", "row_arg")]
+            "cnt_min", "cnt_max", "cnt_entry", "state", "lane_cnt", "arm",
+            "meta", "out_i", "out_f", "out_l", "rows")]
 
 
-def _alloc(k, M: int, L: int, dev, rows=torch.zeros) -> dict:
+def tiles_for(k, F: int) -> int:
+    """Tiles of one lane's candidates (C * F, or F without a count or
+    logical position), at least one."""
+    return max(-(-((k.C if alg_of(k) else 1) * F) // TILE), 1)
+
+
+def alg_of(k) -> bool:
+    """The kernel's algebra instantiation: a count or logical position."""
+    return k.head is not None or any(
+        h.kind in ("logical", "count", "final") for h in k.hops)
+
+
+def row_sources(k):
+    """The kernel's row sources, decoded once and kept on it: (the ROW
+    records with the column pointers to patch, [(record, column key,
+    the dtypes its group takes, the group)], the static int sections,
+    whether a row is `__qid__`)."""
+    got = getattr(k, "_k5_rows", None)
+    if got is not None:
+        return got
+    # the column types each row group takes (a FLOAT column widens into
+    # a float64 row under f64)
+    takes = {"i": (torch.int32, torch.bool), "l": (torch.int64,),
+             "f": (torch.float32, torch.float64) if k.f64 else
+             (torch.float32,)}
+    recs, cols = [], []
+    for g, srcs in k.rows.items():
+        for ri, src in enumerate(srcs):
+            pos = cnt = mode = arg = 0
+            if src[0] in ("col", "cnt"):
+                cols.append((len(recs), src[1], takes[g], g))
+                if src[0] == "col":
+                    pos = src[2]
+                else:
+                    cnt, mode, arg = src[2], src[3], src[4]
+            elif src[0] == "pres_bit":
+                arg = src[1]
+            elif src[0] == "pres_cnt":
+                cnt, arg = src[1], src[2]
+            recs.append((0, 0, _KIND[src[0]], pos, _GROUP[g], ri, cnt, mode,
+                         arg))
+    positions = k.prog.positions
+    static = {"comp_row": np.asarray(k.comp_rows, np.int32),
+              "cnt_rank": np.asarray([k.rank_of.get(pi, -1)
+                                      for pi in range(k.S)], np.int32),
+              "cnt_min": np.asarray([q.min_count for q in positions],
+                                    np.int32),
+              "cnt_max": np.asarray([min(q.max_count, UNBOUNDED)
+                                     for q in positions], np.int32),
+              "cnt_entry": np.asarray([count_entry(k, pi)
+                                       for pi in range(k.S)], np.int32)}
+    k._k5_rows = (np.array(recs or [(0,) * 9], dtype=ROW), cols, static,
+                  any(src[0] == "qid" for srcs in k.rows.values()
+                      for src in srcs))
+    return k._k5_rows
+
+
+def _alloc(k, M: int, L: int, dev, rows=torch.zeros, ints=None) -> dict:
+    """The match table; meta, lane_n and arm as views of `ints` (2 + 2 L
+    int32, zeros when not given)."""
     nfak = k.nfak
+    if ints is None:
+        ints = torch.zeros(2 + 2 * L, dtype=torch.int32, device=dev)
     return {"out_i": rows((len(nfak.lane_names_i), M), dtype=torch.int32,
                           device=dev),
             "out_f": rows((len(nfak.rows_f), M), dtype=nfak.fdt,
                           device=dev),
             "out_l": rows((len(nfak.rows_l), M), dtype=torch.int64,
                           device=dev),
-            "meta": torch.zeros(2, dtype=torch.int32, device=dev),
-            "lane_n": torch.zeros(L, dtype=torch.int32, device=dev),
-            "arm": torch.zeros(L, dtype=torch.int32, device=dev)}
+            "meta": ints[:2], "lane_n": ints[2:2 + L],
+            "arm": ints[2 + L:2 + 2 * L]}
 
 
 def count_entry(k, pi: int) -> int:
@@ -204,8 +273,8 @@ def scan_compact(k, ev: dict, chase, ranks: list, rheaps: list,
 
 def prepare(k, ev: dict, chase, ranks: list, rheaps: list,
             M: int) -> Launch:
-    """Allocate the match table and upload the parameter table of one K5
-    launch (see `scan_compact`)."""
+    """Allocate the match table and the look-back state and upload the
+    parameter table of one K5 launch (see `scan_compact`)."""
     status, idx, cand, pres = chase
     seq = ev["__flat.__seq__"]
     dev = seq.device
@@ -215,14 +284,13 @@ def prepare(k, ev: dict, chase, ranks: list, rheaps: list,
     L = ev["__nev__"].shape[0]
     keep: list = []
     ptr = checked_ptr(keep, dev, "scan_compact")
-    ntiles = -(-(k.C * F) // TILE)
+    recs, cols, static, qid = row_sources(k)
     p = _Params()
     p.L, p.F, p.S, p.M = L, F, k.S, M
-    p.single, p.ntiles = int(k.prog.single_arm), ntiles
+    p.single, p.ntiles = int(k.prog.single_arm), tiles_for(k, F)
     p.ev_stride = F if G == L else 0
     p.C, p.Lt = k.C, k.leaves(F)
-    p.alg = int(k.head is not None or any(
-        h.kind in ("logical", "count", "final") for h in k.hops))
+    p.alg = int(alg_of(k))
     p.f64 = int(k.f64)
     p.seq = ptr(seq, torch.int32)
     p.ts = ptr(ev["__flat.__ts__"], torch.int32)
@@ -231,78 +299,51 @@ def prepare(k, ev: dict, chase, ranks: list, rheaps: list,
         p.arm_done = ptr(ev["__arm_done__"], torch.int32)
     if "__lane_qid__" in ev:
         p.lane_qid = ptr(ev["__lane_qid__"], torch.int32)
+    elif qid:
+        raise ValueError("scan_compact: a __qid__ row without __lane_qid__")
     p.status = ptr(status, torch.uint8)
     p.idx = ptr(idx, torch.int32)
     p.cand = ptr(cand, torch.uint8)
     p.pres = ptr(pres, torch.int32)
-    h0 = torch.full((L,), F, dtype=torch.int32, device=dev)
-    h0_init = h0.clone()
-    tile_off = torch.empty(L * ntiles + 1, dtype=torch.int32, device=dev)
-    out = _alloc(k, M, L, dev, torch.empty)
-    p.h0, p.tile_off = ptr(h0), ptr(tile_off)
-    p.lane_cnt, p.arm, p.meta = (ptr(out["lane_n"]), ptr(out["arm"]),
-                                 ptr(out["meta"]))
+    # one buffer: the look-back state (a ticket, a count word and an h0
+    # word a tile; the launcher zeroes it), then meta, lane_n and arm
+    # (int32, written by the kernel)
+    nstate = 1 + 2 * L * p.ntiles
+    buf = torch.empty(nstate + (3 + 2 * L) // 2, dtype=torch.int64,
+                      device=dev)
+    ints = buf[nstate:].view(torch.int32)
+    out = _alloc(k, M, L, dev, torch.empty, ints)
+    p.state = ptr(buf)
+    p.meta = ptr(buf) + 8 * nstate
+    p.lane_cnt, p.arm = p.meta + 8, p.meta + 8 + 4 * L
     p.out_i, p.out_f, p.out_l = (ptr(out["out_i"]), ptr(out["out_f"]),
                                  ptr(out["out_l"]))
-    rows = {"col": [], "vt": [], "kind": [], "pos": [], "group": [],
-            "index": [], "cnt": [], "mode": [], "arg": []}
-    # the column types each row group takes (a FLOAT column widens into
-    # a float64 row under f64)
-    takes = {"i": (torch.int32, torch.bool), "l": (torch.int64,),
-             "f": (torch.float32, torch.float64) if k.f64 else
-             (torch.float32,)}
-    for g, srcs in k.rows.items():
-        gi = _GROUP[g]
-        for ri, src in enumerate(srcs):
-            col_p, vt, pos, cnt, mode, arg = 0, 0, 0, 0, 0, 0
-            if src[0] in ("col", "cnt"):
-                col = ev[src[1]]
-                if col.dtype not in takes[g]:
-                    raise ValueError(f"scan_compact: {src[1]} is "
-                                     f"{col.dtype}, row group {g!r}")
-                col_p, vt = ptr(col), VT_OF_TORCH[col.dtype]
-                if src[0] == "col":
-                    pos = src[2]
-                else:
-                    cnt, mode, arg = src[2], src[3], src[4]
-            elif src[0] == "pres_bit":
-                arg = src[1]
-            elif src[0] == "pres_cnt":
-                cnt, arg = src[1], src[2]
-            elif src[0] == "qid" and not p.lane_qid:
-                raise ValueError("scan_compact: a __qid__ row without "
-                                 "__lane_qid__")
-            for key, v in (("col", col_p), ("vt", vt),
-                           ("kind", _KIND[src[0]]), ("pos", pos),
-                           ("group", gi), ("index", ri), ("cnt", cnt),
-                           ("mode", mode), ("arg", arg)):
-                rows[key].append(v)
-    p.n_rows = len(rows["kind"])
+    rows = recs
+    if cols:
+        rows = recs.copy()
+        for r, key, takes, g in cols:
+            col = ev[key]
+            if col.dtype not in takes:
+                raise ValueError(f"scan_compact: {key} is {col.dtype}, "
+                                 f"row group {g!r}")
+            rows[r]["col"] = ptr(col)
+            rows[r]["vt"] = VT_OF_TORCH[col.dtype]
+    p.n_rows = sum(len(srcs) for srcs in k.rows.values())
     tab = DeviceTable()
-    for key in rows:
-        tab.field(p, f"row_{key}", rows[key] or [0],
-                  "u8" if key == "col" else "i4")
-    positions = k.prog.positions
-    tab.field(p, "comp_row", k.comp_rows, "i4")
+    tab.field(p, "rows", rows.view(np.uint8), np.uint8)
+    for key, a in static.items():
+        tab.field(p, key, a, np.int32)
     tab.field(p, "rank", [ptr(r, torch.int64) for r in ranks] or [0], "u8")
     tab.field(p, "rank_heap", [ptr(h, torch.int64) for h in rheaps] or [0],
               "u8")
-    tab.field(p, "cnt_rank", [k.rank_of.get(pi, -1)
-                              for pi in range(k.S)], "i4")
-    tab.field(p, "cnt_min", [q.min_count for q in positions], "i4")
-    tab.field(p, "cnt_max", [min(q.max_count, UNBOUNDED)
-                             for q in positions], "i4")
-    tab.field(p, "cnt_entry", [count_entry(k, pi) for pi in range(k.S)],
-              "i4")
     keep.append(tab.upload(dev))
     lib = load("scan_compact")
     fn = lib.scan_compact_launch
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-
-    def run():
-        h0.copy_(h0_init)
-        return fn(ctypes.byref(p), stream_of(dev))
-    return Launch(run, "scan_compact_launch",
-                  "scan_compact:f64" if k.f64 else "scan_compact",
-                  keep + [h0_init], out)
+    launch = Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
+                    "scan_compact_launch",
+                    "scan_compact:f64" if k.f64 else "scan_compact", keep,
+                    out)
+    launch.params = p     # .ntiles; .launched: the last call's kernels
+    return launch

@@ -943,8 +943,6 @@ def test_win_range_kernel_matches_plain(cuda, kind, grouped):
                       torch.full((N,), N, device=cuda))
     key = seg * N + torch.arange(N, device=cuda)
     ks, order = torch.sort(key)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(N, device=cuda)
     sv = valid[order] if grouped else valid
     sp = x["f64"][order] if grouped else x["f64"]
     sf = x["f32n"][order] if grouped else x["f32n"]
@@ -963,7 +961,7 @@ def test_win_range_kernel_matches_plain(cuda, kind, grouped):
     kw = dict(n=N, first=C, m=N - C - 77, kind=kind,
               span=1000 if kind == "length" else 700, last=N - 78,
               vcnt=vcnt, clock=clock,
-              groups=(ks, seg, rank) if grouped else None, valid=sv)
+              groups=(ks,) if grouped else None, valid=sv)
     before = LAUNCHES["win_range"]
     got, sk = win_range(sites, **kw)
     want, sp_ = win_range_plain(sites, **kw)
@@ -973,6 +971,208 @@ def test_win_range_kernel_matches_plain(cuda, kind, grouped):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(
             torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+K7_CASES = ("degenerate", "first_mid", "grouped_degenerate", "grouped_large",
+            "grouped_many", "grouped_short", "grouped_straddle", "large",
+            "many_tiles", "short", "two_tiles")
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_win_range_tiles_match_plain(cuda, case):
+    """K7 at the edges of its tiles (tests/torch_k7_cases.py): ranges in
+    one sub-block, in one tile, across two tiles and across some 270 (the
+    tile table's top levels), n off a multiple of the tile, the first
+    output off a tile's start, time(0) ungrouped and grouped, segments
+    straddling tiles, past 2^20 entries (the tile table built from L2)
+    ungrouped and grouped;
+    min/max in f32 and f64 over -0, +0, +-inf and NaN.
+    Every output has the plain version's bits (NaN by position) and each
+    call counts one launch: three kernel launches with a min/max site
+    (two with one tile), one with sums alone."""
+    from torch_k7_cases import CASES, LARGE, make_call, same_bits
+
+    from siddhi_tpu_torch.kernels import win_range as k7
+    sites, kw = make_call(case, 2, cuda)
+    assert set(CASES) | set(LARGE) == set(K7_CASES)
+    for use in (sites, [s for s in sites if s[0] in ("sum", "avg")]):
+        before = LAUNCHES["win_range"]
+        launch = k7.prepare(use, **kw)
+        got, sk = launch()
+        want, sp = k7.win_range_plain(use, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES["win_range"] == before + 1
+        assert torch.equal(sk, sp)
+        assert all(same_bits(a, b) for a, b in zip(got, want))
+        p = launch.params
+        mm = p.n_mm > 0
+        assert p.launched == 1 + mm + (mm and p.tlevels > 1)
+        assert p.ntiles == -(-kw["n"] // k7.TILE)
+        assert p.tlevels == k7.levels_for(p.ntiles)
+        assert p.n_mm == sum(s[0] in ("min", "max") for s in use)
+        assert p.qtiles == (p.ntiles if kw["groups"] is not None else
+                            (kw["first"] + kw["m"] - 1) // k7.TILE
+                            - kw["first"] // k7.TILE + 1)
+
+
+# name -> (app, keys, flushes, events a flush, mutations): lanes over
+# several of K5's 1024-candidate tiles
+K5_APPS = {
+    "c4": ("@app:partitionCapacity(64)\n" + C4_SCAN, 2, 2, 6000,
+           ("empty_tiles", "m_small")),
+    "count_head": ("@app:partitionCapacity(64)\n" + partitioned(C4N_BODY),
+                   2, 2, 6000, ("empty_tiles", "m_small")),
+    "and": ("@app:partitionCapacity(64)\n" + partitioned(C4A_BODY.replace(
+        "volume > 990", "volume > 125")), 2, 2, 6000, ("m_small",)),
+    "final_count": SCAN_APPS["final_count"][:1] + (2, 2, 6000,
+                                                  ("empty_tiles", "m_small")),
+    "one_shot": (C3_SCAN.replace("every ", "").replace(
+        "price > 100", "price > 125"), 1, 1, 5000, ("late_h0",)),
+    "f64": ("@app:devicePrecision('f64')\n@app:partitionCapacity(64)\n"
+            + C4_SCAN, 2, 2, 6000, ("m_small",)),
+}
+
+
+def _k5_blocks(cuda, name, monkeypatch):
+    """The `scan` blocks a card run of K5_APPS[name] (or c5_app(64) on
+    3000-event flushes, `qid`) hands ParallelChainKernel.run_block."""
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    blocks = []
+    orig = ParallelChainKernel.run_block
+
+    def rec(self, ev, M):
+        blocks.append((self, ev, M))
+        return orig(self, ev, M)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec)
+    if name == "qid":
+        rt = siddhi_tpu_torch.SiddhiManager(device=cuda).create_app_runtime(
+            c5_app(64))
+        tape = _c5_head_tape(6000)
+        h = rt.input_handler("StockStream")
+        for lo in range(0, 6000, 3000):
+            h.send_batch({k: tape[k][lo:lo + 3000]
+                          for k in ("symbol", "price", "volume")},
+                         tape["ts"][lo:lo + 3000])
+            rt.flush()
+    else:
+        app, keys, flushes, n, _m = K5_APPS[name]
+        rt = siddhi_tpu_torch.SiddhiManager(device=cuda).create_app_runtime(
+            app)
+        _feed(rt, keys, flushes, n)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", orig)
+    assert blocks
+    return blocks
+
+
+def _k5_inputs(kern, ev):
+    """K4's chase (plain version) and the rank columns and trees of one
+    block, the inputs K5 takes."""
+    from siddhi_tpu_torch.kernels.scan_chase import scan_chase_plain
+    from siddhi_tpu_torch.kernels.seg_tree import seg_tree_plain
+    from siddhi_tpu_torch.replay import scan_inputs
+    pre = kern.pre_masks(ev)
+    masks, ranks, prevs, rcols = scan_inputs(kern, ev, pre)
+    heaps = seg_tree_plain(kern, ev, masks)
+    rheaps = seg_tree_plain(kern, ev, masks, kern.rank_trees, rcols)
+    chase = scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps, prevs)
+    return list(chase), ranks, rheaps
+
+
+def _k5_same(out_k, out_p, M):
+    from siddhi_tpu_torch.replay import same
+    n = int(out_p["meta"][0])
+    for key in ("meta", "lane_n", "arm"):
+        assert torch.equal(out_k[key], out_p[key]), key
+    for key in ("out_i", "out_f", "out_l"):
+        assert same(out_k[key][:, :min(n, M)], out_p[key][:, :min(n, M)]), key
+    return n
+
+
+@pytest.mark.parametrize("name", sorted(K5_APPS) + ["qid"])
+def test_scan_compact_tiles_match_plain(cuda, name, monkeypatch):
+    """K5 on lanes over several of its 1024-candidate tiles (per-lane
+    lanes of 3000+ events; counts and a final count's C candidates a
+    head; `and`; f64 rows; a fused group's shared row with `__qid__`;
+    a one-shot head): each block as the run handed it, and changed so
+    that whole tiles hold no live candidate (`empty_tiles`), the
+    one-shot head's h0 lies in a later tile (`late_h0`) or M is a third
+    of the matches (`m_small`: every match counted, the first M written).
+    Counts, flags and the match table equal the plain version's; each
+    call counts one launch and launches one kernel."""
+    from siddhi_tpu_torch.kernels import scan_compact as k5
+    blocks = _k5_blocks(cuda, name, monkeypatch)
+    muts = ("as_is",) + (K5_APPS[name][4] if name in K5_APPS else
+                         ("empty_tiles", "m_small"))
+    counter = "scan_compact:f64" if blocks[0][0].f64 else "scan_compact"
+    seen = 0
+    for kern, ev, M in blocks:
+        F = ev["__flat.__ts__"].shape[1]
+        chase, ranks, rheaps = _k5_inputs(kern, ev)
+        for mut in muts:
+            status, idx, cand, pres = chase
+            m = M
+            if mut == "empty_tiles":
+                cand = cand.clone()
+                cand[:, :k5.TILE] = 0
+                cand[:, 2 * k5.TILE:3 * k5.TILE] = 0
+            elif mut == "late_h0":
+                status = status.clone()
+                status[:, :min(F - 1, k5.TILE + 100)] &= ~4
+            want = k5.scan_compact_plain(kern, ev, (status, idx, cand, pres),
+                                         ranks, rheaps, M)
+            if mut == "m_small":
+                m = max(int(want["meta"][0]) // 3, 1)
+                want = k5.scan_compact_plain(
+                    kern, ev, (status, idx, cand, pres), ranks, rheaps, m)
+            before = LAUNCHES[counter]
+            launch = k5.prepare(kern, ev, (status, idx, cand, pres), ranks,
+                                rheaps, m)
+            got = launch()
+            torch.cuda.synchronize()
+            assert LAUNCHES[counter] == before + 1
+            assert launch.params.launched == 1
+            seen += _k5_same(got, want, m)
+    assert seen > 0
+    assert max(k5.tiles_for(k, ev["__flat.__ts__"].shape[1])
+               for k, ev, _m in blocks) > 2
+
+
+def test_scan_compact_graph_replays_and_two_streams(cuda, monkeypatch):
+    """A prepared K5 launch captured in a CUDA graph and replayed three
+    times gives the plain version's table each time (the launcher's
+    memset, captured with the kernel, zeroes its ticket and look-back
+    words; the kernel writes meta, lane_n and arm), and two prepared
+    launches in flight at once on two streams each give theirs (each
+    launch owns its look-back state)."""
+    from siddhi_tpu_torch.kernels import scan_compact as k5
+    blocks = _k5_blocks(cuda, "count_head", monkeypatch)
+    (ka, eva, Ma), (kb, evb, Mb) = blocks[-2], blocks[-1]
+    ina, inb = _k5_inputs(ka, eva), _k5_inputs(kb, evb)
+    want_a = k5.scan_compact_plain(ka, eva, *ina, Ma)
+    want_b = k5.scan_compact_plain(kb, evb, *inb, Mb)
+    launch = k5.prepare(ka, eva, *ina, Ma)
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        launch()
+    for _ in range(3):
+        for key in ("meta", "lane_n", "arm"):
+            launch.outputs[key].fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        _k5_same(launch.outputs, want_a, Ma)
+    la, lb = k5.prepare(ka, eva, *ina, Ma), k5.prepare(kb, evb, *inb, Mb)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            la()
+        with torch.cuda.stream(s2):
+            lb()
+        torch.cuda.synchronize()
+        _k5_same(la.outputs, want_a, Ma)
+        _k5_same(lb.outputs, want_b, Mb)
 
 
 @pytest.mark.parametrize("n,T", [(5, 8), (1000, 1024), (131_072, 131_072),

@@ -559,8 +559,6 @@ def test_win_range_plain_matches_brute_force(kind, grouped):
     seg = np.where(valid, rng.integers(0, 4, N), N).astype(np.int64)
     key = seg * N + np.arange(N)
     order = np.argsort(key, kind="stable")
-    rank = np.empty(N, np.int64)
-    rank[order] = np.arange(N)
     sv = valid[order] if grouped else valid
     sp = p[order] if grouped else p
     pfx = np.cumsum(np.where(sv, sp, 0.0))
@@ -574,7 +572,7 @@ def test_win_range_plain_matches_brute_force(kind, grouped):
     outs, start_k = win_range_plain(
         sites, n=N, first=first, m=m, kind=kind, span=span, last=N - 1,
         vcnt=t(vcnt), clock=t(clock),
-        groups=(t(key[order]), t(seg), t(rank)) if grouped else None,
+        groups=(t(key[order]),) if grouped else None,
         valid=t(sv))
     for e in range(m):
         i = first + e
