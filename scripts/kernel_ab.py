@@ -7,6 +7,7 @@ their main paths make, checkout by checkout.
 
     python3 scripts/kernel_ab.py [--k1] [--k2] [--k4] [--k5] [--k7] [--k9]
                                  [--k11] ROOT [ROOT ...]
+    python3 scripts/kernel_ab.py --host PARENT_ROOT CHANGE_ROOT [ROUNDS]
 
 Runs each checkout (a directory holding chip_smoke.py and
 siddhi_tpu_torch) in a subprocess of its own, in the order given (repeat
@@ -39,12 +40,13 @@ least of three graphs.  K9 on the last of the widest recorded calls
 (probes x window; chip_smoke.py's choice) of J6, J6W, J6O and J6U (chip_smoke.py's JOINS: bench.py's
 config 6 tape through JOIN_APP, JOIN_OUTER and JOIN_UNI; where the
 checkout's wrapper reports them, also its kernel launches a call and its
-tile geometry, `k9_geometry`); K3 and K4 on C5's widest `scan` block (the
-group with the most trees), on C5 f64's (c5_app(1000, frac=1e-6) on a
-raw-double tape) and on the last C4 `scan` block (per-lane trees, the
-control), K4 over K3's own heaps; with the trees each K3 launch built
-against lanes x trees where the checkout's plan marks shared trees
-(`k3_trees`).  K1 (`--k1`): the pre-masks of C5's and C5 f64's widest
+tile geometry, `k9_geometry`); K3 and K4 (`--k4`) on C5's widest `scan`
+block (the group with the most trees), on C5 f64's (c5_app(1000,
+frac=1e-6) on a raw-double tape) and on the last `scan` or `dfa` block of
+C4, C4N, C4A, C4F64, C4D, C3 and C3SD (per-lane trees), K4 over K3's
+own heaps, the trees each K3 launch built against lanes x trees
+(`k3_trees`) and the launches' kernel launches, blocks, threads and
+shared bytes (`k34_geometry`).  K1 (`--k1`): the pre-masks of C5's and C5 f64's widest
 `scan` block and of the last C4 `scan` block (`kern.pre_masks`, every
 pre-mask program of the block: one launch where the checkout's K1 takes
 several programs a launch, `prepare_masks`, else one a program; the
@@ -67,15 +69,34 @@ Prints one JSON line per run: the checkout, the card's name and power
 limit, the device times in ms and `ptxas`, each K1, K2, K3, K4, K5, K7,
 K9 and K11 source's kernels with their registers and spill stores and
 loads (nvcc -Xptxas -v).  Needs a CUDA card.
+
+`--host` times K3's and K4's host dispatch (one eager wrapper call:
+pack and upload the parameter table, launch) of two checkouts in ONE
+process: a wrapper's dispatch moves up to 2x between processes while a
+process keeps its level for its whole run, so times taken a checkout a
+process cannot resolve a 10% change.  Both checkouts' siddhi_tpu_torch
+load under two names; the per-lane cells of `--k4` (`k34_cells`) run
+through each checkout's own facade on the card; each use's eager call
+on the run's last `scan` block is then timed in turns (parent, change,
+change, parent every round), the mean of 50 calls a turn, ROUNDS rounds
+(default 10).  Prints one JSON line: the card's name and power limit,
+and per use both checkouts' turns in ms with their medians.
 """
+import importlib
+import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 KERNEL_SOURCES = ("expr_eval", "nfa_block", "seg_tree", "scan_chase",
                   "scan_compact", "win_range", "join_probe", "dfa_tables")
+# the `scan` family's kernels (K1, K3, K4, K5, K6, K11); others build at
+# first use
+K34_SOURCES = ("expr_eval", "seg_tree", "scan_chase", "scan_compact",
+               "win_scan", "dfa_tables")
 GROUPS = ("--k1", "--k2", "--k4", "--k5", "--k7", "--k9", "--k11")
 
 
@@ -311,8 +332,39 @@ def k11_entries(out: dict, cs, pkg, np, best) -> None:
         out.setdefault("k11_geometry", {})[label] = geo
 
 
+def k34_cells(cs) -> list:
+    """The per-lane `scan`/`dfa` cells of `--k4` and `--host`: (label,
+    app, tape, keys) of C4, C4N, C4A, C4F64, C4D, C3SD and C3."""
+    cells = [("c4", cs.C4_HEAD + cs.C4, cs.make_tape(
+        cs.FLUSH * 2, cs.FLUSH, cs.KEYS), cs.KEYS)]
+    for label in ("c4n", "c4a"):
+        _l, app, flushes, _f, seed, _e, _n = [
+            x for x in cs.ALGEBRA if x[0] == label][0]
+        cells.append((label, app, cs.make_tape(
+            cs.FLUSH * min(flushes, 2), cs.FLUSH, cs.KEYS, seed=seed),
+            cs.KEYS))
+    cells.append(("c4f64", cs.F64 + cs.C4_HEAD + cs.C4,
+                  cs.raw_tape(cs.FLUSH * 2, cs.FLUSH, cs.KEYS, seed=37),
+                  cs.KEYS))
+    for label, app, n, flushes, keys, seed, _f, _c in cs.STATELESS:
+        if label in ("c4d", "c3sd"):
+            cells.append((label, app, cs.make_tape(n * flushes, n, keys,
+                                                   seed=seed), keys))
+    cells.append(("c3", cs.C3, cs.make_tape(
+        cs.FLUSH * cs.C3_FLUSHES, cs.FLUSH, cs.KEYS, seed=3), cs.KEYS))
+    return cells
+
+
 def k34_entries(out: dict, cs, pkg, np, best) -> None:
-    """K3 and K4 on C5's and C5 f64's widest `scan` block and on C4's."""
+    """K3 and K4 on C5's and C5 f64's widest `scan` block (fused groups,
+    shared trees) and on the last `scan` or `dfa` block of each of
+    `k34_cells` (per-lane trees; C3 and C3SD one flat lane), K4 over K3's
+    own heaps (and, in `dfa`, K11's tables): device ms under
+    k3_/k4_<cell> (the rank trees under k3r_<cell>), the trees each K3
+    launch built against lanes x trees (`k3_trees`) and, where the
+    checkout's launchers report them, each launch's kernel launches and
+    K4's blocks, threads and shared bytes (`k34_geometry`)."""
+    from siddhi_tpu_torch.kernels import dfa_tables as k11
     from siddhi_tpu_torch.kernels import scan_chase as k4
     from siddhi_tpu_torch.kernels import seg_tree as k3
 
@@ -321,18 +373,34 @@ def k34_entries(out: dict, cs, pkg, np, best) -> None:
         out[f"k3_{key}"] = best(lambda: k3.seg_tree(kern, ev, pre),
                                 lambda: [k3.prepare(kern, ev, pre)])
         heaps = k3.seg_tree(kern, ev, pre)
-        args = (kern, ev, pre, heaps)
+        ranks, rheaps, prevs = [], [], []
         if kern.counts or kern.prev_nodes:
-            masks, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
-            args += (ranks, k3.seg_tree(kern, ev, pre, kern.rank_trees,
-                                        rcols), prevs)
+            _m, ranks, prevs, rcols = cs.scan_inputs(kern, ev, pre)
+        if ranks:
+            rargs = (kern, ev, pre, kern.rank_trees, rcols)
+            out[f"k3r_{key}"] = best(lambda: k3.seg_tree(*rargs),
+                                     lambda: [k3.prepare(*rargs)])
+            rheaps = k3.seg_tree(*rargs)
+        tables = k11.dfa_tables(kern, ev, pre) if kern.dfa_nodes else None
+        args = (kern, ev, pre, heaps, ranks, rheaps, prevs, tables)
         out[f"k4_{key}"] = best(lambda: k4.scan_chase(*args),
                                 lambda: [k4.prepare(*args)])
         L = ev["__nev__"].shape[0]
         out.setdefault("k3_trees", {})[key] = {
-            "built": sum(1 if getattr(t, "shared", False) else L
-                         for t in kern.trees),
+            "built": sum(h.shape[0] for h in heaps),
             "lanes_x_trees": L * len(kern.trees)}
+        l3, l4 = k3.prepare(kern, ev, pre), k4.prepare(*args)
+        l3()
+        l4()
+        p3, p4 = l3.params, l4.params
+        geo = {"L": L, "F": ev["__flat.__ts__"].shape[1],
+               "trees": len(kern.trees), "rank_trees": len(rheaps)}
+        if p3 is not None:
+            geo["k3_launched"] = p3.launched
+        if p4 is not None:
+            geo.update(k4_launched=p4.launched, k4_blocks=p4.blocks,
+                       k4_threads=p4.threads, k4_smem=p4.smem)
+        out.setdefault("k34_geometry", {})[key] = geo
 
     def widest(blocks):
         return max(blocks, key=lambda b: (len(b[0].trees),
@@ -347,9 +415,102 @@ def k34_entries(out: dict, cs, pkg, np, best) -> None:
     kern, ev, _m = widest(cs.run_c5(pkg, np, tape, "cuda", record=True,
                                     app=app)[6])
     timed("c5_f64", kern, ev)
-    tape = cs.make_tape(cs.FLUSH * 2, cs.FLUSH, cs.KEYS)
-    kern, ev, _m = cs.run_recorded(pkg, np, cs.C4_HEAD + cs.C4, tape)[4][-1]
-    timed("c4", kern, ev)
+    for label, app, tape, keys in k34_cells(cs):
+        timed(label, *cs.run_recorded(pkg, np, app, tape, keys)[4][-1][:2])
+
+
+def load_alias(root: str, name: str):
+    """`root`'s siddhi_tpu_torch imported as the package `name`."""
+    path = os.path.join(root, "siddhi_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_calls(cs, np, pkg, app: str, tape, keys: int) -> dict:
+    """use -> a zero-argument eager K3 or K4 wrapper call on the last
+    `scan` block a card run of `app` through the aliased package `pkg`
+    hands its ParallelChainKernel.run_block."""
+    name = pkg.__name__
+    cls = importlib.import_module(f"{name}.core.nfa_parallel") \
+        .ParallelChainKernel
+    blocks, run = [], cls.run_block
+
+    def rec(kern, ev, M):
+        blocks.append((kern, ev))
+        return run(kern, ev, M)
+    cls.run_block = rec
+    try:
+        cs.run_app(pkg, np, app, tape, keys, "cuda")
+    finally:
+        cls.run_block = run
+    kern, ev = blocks[-1]
+    k3 = importlib.import_module(f"{name}.kernels.seg_tree")
+    k4 = importlib.import_module(f"{name}.kernels.scan_chase")
+    k11 = importlib.import_module(f"{name}.kernels.dfa_tables")
+    pre = kern.pre_masks(ev)
+    heaps = k3.seg_tree(kern, ev, pre)
+    ranks, prevs, rheaps = [], [], []
+    out = {"k3": lambda: k3.seg_tree(kern, ev, pre)}
+    if kern.counts or kern.prev_nodes:
+        ranks, prevs = kern.lane_scans(ev, k3.node_masks(kern, ev, pre))
+    if ranks:
+        rcols = {f"__rank.{ci}": r for ci, r in enumerate(ranks)}
+        out["k3r"] = lambda: k3.seg_tree(kern, ev, pre, kern.rank_trees,
+                                         rcols)
+        rheaps = out["k3r"]()
+    tables = k11.dfa_tables(kern, ev, pre) if kern.dfa_nodes else None
+    out["k4"] = lambda: k4.scan_chase(kern, ev, pre, heaps, ranks, rheaps,
+                                      prevs, tables)
+    return out
+
+
+def host(parent: str, change: str, rounds: int) -> dict:
+    """`--host`: K3's and K4's host dispatch of two checkouts in one
+    process, their calls in turns."""
+    sys.path.insert(0, change)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    pkgs = {"parent": load_alias(parent, "siddhi_torch_parent"),
+            "change": load_alias(change, "siddhi_torch_change")}
+    for pkg in pkgs.values():
+        importlib.import_module(f"{pkg.__name__}.kernels.build").build_all(
+            K34_SOURCES)
+
+    def turn(call, reps=50) -> float:
+        """The mean of `reps` eager calls (no synchronisation inside)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    out = {"rounds": rounds, "uses": {}}
+    for label, app, tape, keys in k34_cells(cs):
+        uses: dict = {}
+        for side, pkg in pkgs.items():
+            for use, call in host_calls(cs, np, pkg, app, tape,
+                                        keys).items():
+                call()
+                uses.setdefault(f"{use}_{label}", {})[side] = call
+        for key, by_side in uses.items():
+            got: dict = {"parent": [], "change": []}
+            for _ in range(rounds):
+                for side in ("parent", "change", "change", "parent"):
+                    got[side].append(turn(by_side[side]))
+            out["uses"][key] = {
+                side: {"median": statistics.median(v), "turns": v}
+                for side, v in got.items()}
+        torch.cuda.empty_cache()
+    return finish(out, {})
 
 
 def one(root: str, only: frozenset = frozenset()) -> dict:
@@ -368,8 +529,10 @@ def one(root: str, only: frozenset = frozenset()) -> dict:
     from siddhi_tpu_torch.kernels.seg_tree import seg_tree
     from siddhi_tpu_torch.replay import (MATRIX_APP, matrix_tape, run_agg,
                                          run_window)
-    # K9 alone needs K1 (side filters) and K9; everything else builds all
+    # K9 alone needs K1 (side filters) and K9, K3-K5 the `scan` family's
+    # kernels; everything else builds all
     build.build_all(("expr_eval", "join_probe") if only == {"--k9"}
+                    else K34_SOURCES if only and only <= {"--k4", "--k5"}
                     else build.SOURCES)
     regs = {name: ptxas(log) for name, log in build.BUILD_LOG.items()
             if name.startswith(KERNEL_SOURCES)}
@@ -534,6 +697,11 @@ def finish(out: dict, regs: dict) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
+    if args[:1] == ["--host"] and len(args) in (3, 4):
+        rounds = int(args[3]) if len(args) == 4 else 10
+        print(json.dumps(host(*(os.path.abspath(r) for r in args[1:3]),
+                              rounds)), flush=True)
+        return 0
     only = frozenset(a for a in args if a in GROUPS)
     args = [a for a in args if a not in GROUPS]
     if len(args) == 2 and args[0] == "--one":

@@ -437,12 +437,30 @@ def lane_invariant(t: TreeSpec, nfak: NFAKernel) -> bool:
     the words)."""
     if not nfak.broadcast or t.lane:
         return False
-    if t.node is None:
-        return True
-    prog = nfak.pre_progs[t.node]
-    return prog is None or not any(
+    return t.node is None or not reads_qparam(nfak.pre_progs[t.node])
+
+
+def reads_qparam(prog: Optional[Program]) -> bool:
+    """Whether a program reads a lane parameter (`__qparam<i>`)."""
+    return prog is not None and any(
         decode_word(prog.words[i])[0] == "qparam"
         for i in range(0, len(prog.words), 2))
+
+
+def same_leaves(a: TreeSpec, b: TreeSpec, nfak: NFAKernel) -> bool:
+    """Whether two trees hold the same heap in every lane: the same type,
+    max or min, leaf column and column kind, and gates that select the
+    same leaves -- both ungated, or nodes of the same stream whose
+    pre-masks are both absent or the same program, reading no lane
+    parameter (two lanes' parameters could differ)."""
+    if (a.vt, a.agg, a.src, a.lane) != (b.vt, b.agg, b.src, b.lane):
+        return False
+    if a.node is None or b.node is None:
+        return a.node is None and b.node is None
+    nodes = nfak.spec.all_nodes
+    pa, pb = nfak.pre_progs[a.node], nfak.pre_progs[b.node]
+    return nodes[a.node].scode == nodes[b.node].scode and pa == pb and \
+        not reads_qparam(pa)
 
 
 @dataclass
@@ -574,10 +592,18 @@ class ParallelChainKernel:
                           key_vt[key])
             return out
 
-        def mask_tree(gi: int) -> int:
-            self.trees.append(TreeSpec(VT_OF_TORCH[torch.int32], "max",
-                                       None, gi))
+        def add_tree(t: TreeSpec) -> int:
+            """The index of a tree with t's leaves: one already built
+            (`same_leaves`), else t's, appended."""
+            for i, u in enumerate(self.trees):
+                if same_leaves(u, t, nfak):
+                    return i
+            self.trees.append(t)
             return len(self.trees) - 1
+
+        def mask_tree(gi: int) -> int:
+            return add_tree(TreeSpec(VT_OF_TORCH[torch.int32], "max", None,
+                                     gi))
 
         # `dfa`: the chase nodes' symbol bits (in _chase_lanes order)
         chase = _chase_lanes(prog) if family == "dfa" else []
@@ -649,12 +675,11 @@ class ParallelChainKernel:
                                      torch_dtype(th.rhs.type))
                         rhs = emit_program(th.rhs.node,
                                            capture_slots(th.rhs.reads, None))
-                        self.trees.append(TreeSpec(
+                        tree = add_tree(TreeSpec(
                             vt, "max" if th.op in ("gt", "ge") else "min",
                             own_key, gi))
                         self.hops.append(HopSpec(
-                            "threshold", pos.within_ms, len(self.trees) - 1,
-                            th.op, rhs))
+                            "threshold", pos.within_ms, tree, th.op, rhs))
                     else:
                         tree, lane = hit(pi, 0)
                         self.hops.append(HopSpec("static", pos.within_ms,

@@ -48,20 +48,26 @@
 // or after s, else the packed word of the next block with a hit (the
 // block's next pointer), else Lt -- the index a descent of the node's mask
 // tree gives, so K3 builds no tree for those nodes.
-// In a fused group (lanes over one shared row of events, `compact`) a
-// block first moves its live heads -- those passing their lane's head
-// filter, often a tenth -- to its first threads, so the chase runs in
-// full warps; per-lane rows (C4), whose heads are dense, keep a head a
-// thread.  Each of the four instantiations below has a compacting twin
-// (CMP), so the per-lane launches run code without it (with it C4 took
-// 2.9% longer although it never took the branch).
-// A chain with no count or logical position (alg 0) runs an instantiation
-// without the rank, logical and candidate code, so it keeps the register
-// count (and occupancy) of single-position chases.
+// Per-lane rows (C4, C4N, C4A, C4F64, C4D; C3's one flat lane) run
+// scan_chase_lane: a thread a head in blocks sized to the lane -- one
+// block a lane up to 384 heads, its warps covering the lane's F heads in
+// full warps, past that equal whole-warp tiles (kernels/scan_chase.py
+// lane_geometry); three blocks an SM -- so no tile is mostly empty.  The
+// descents read the lane's heaps through the read-only cache, where they
+// stay between its heads' descents, four levels' nodes at once on the way
+// up and two levels a step on the way down (seg_tree.cuh first_hit_t).
+// In a fused group (lanes over one shared row of events, `compact`; C5)
+// every tree is one heap for all lanes, read from L2, and scan_chase_cmp
+// keeps its form: a 256-thread tile first moves its live heads -- those
+// passing their lane's head filter, often a tenth -- to its first
+// threads, so the chase runs in full warps.  A chain with no count or logical position (alg 0)
+// runs an instantiation without the rank, logical and candidate code, so
+// it keeps the register count (and occupancy) of single-position chases.
 // Python side: kernels/scan_chase.py.
 #include "seg_tree.cuh"
 
-#define SC_THREADS 256
+#define SC_THREADS 256     // a fused group's tile
+#define SC_LANE_MAX 384    // threads of a per-lane block at most (3 blocks an SM)
 
 enum HopKind {
   HOP_STATIC = 0, HOP_THRESHOLD = 1, HOP_STRICT = 2, HOP_LOGICAL = 3, HOP_COUNT = 4,
@@ -73,6 +79,9 @@ struct ChaseParams {  // layout mirrored by kernels/scan_chase.py _Params
   int n_idx, C, head_node, head_rank, head_min, head_within, alg;
   int dfa, NB;                  // dfa mode: K11's tables, NB stride-4 blocks a lane
   int compact;                  // a block's live heads to its first threads
+  int logLt;                    // log2(Lt), for the descents
+  int threads;                  // per-lane launch: threads (heads) a block
+  int launched;                 // written by the launcher: its kernel launches
   const int* nev;
   const int* ts;
   const int* scode;
@@ -159,11 +168,18 @@ __device__ __forceinline__ const void* lane_heap(const ChaseParams& p, int t, in
          static_cast<long long>(lane) * p.heap_lane[t] * 2 * p.Lt * esz;
 }
 
+// A first-hit on tree t of `lane`.
+__device__ __forceinline__ int tree_hit(const ChaseParams& p, int t, int lane, int s, VmVal v,
+                                        int op) {
+  return first_hit(lane_heap(p, t, lane), p.heap_vt[t], p.logLt, p.Lt, s, v, op);
+}
+
 // rank/select: the first index >= s whose inclusive occurrence rank is at
 // least r (Lt when none), a `ge` descent of the count's rank tree.
-__device__ __forceinline__ int rank_select(const ChaseParams& p, int ci, int lane, int s, long long r) {
-  return first_hit(p.rank_heap[ci] + static_cast<long long>(lane) * 2 * p.Lt, VT_I64, p.Lt, s,
-                   vm_l(r), TOP_GE);
+__device__ __forceinline__ int rank_select(const ChaseParams& p, int ci, int lane, int s,
+                                           long long r) {
+  return first_hit(p.rank_heap[ci] + static_cast<long long>(lane) * 2 * p.Lt, VT_I64, p.logLt,
+                   p.Lt, s, vm_l(r), TOP_GE);
 }
 
 // dfa mode: the first index >= s of the lane's row matching chase lane k
@@ -217,36 +233,25 @@ __device__ __forceinline__ int live_head(const ChaseParams& p, int lane, int j) 
   return static_cast<int>(threadIdx.x) < n ? s_j[threadIdx.x] : -1;
 }
 
-template <bool ALG, bool DFA, bool CMP>
-__global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
-  extern __shared__ long long smem[];
-  const int* words = p.words;
-  const long long* consts = p.consts;
-  if (p.stage) vm_stage(p.words, p.n_words, p.consts, p.n_consts, smem, &words, &consts);
-  const int tiles = (p.F + blockDim.x - 1) / blockDim.x;
-  const int lane = static_cast<int>(blockIdx.x / tiles);
-  int jj = static_cast<int>(blockIdx.x % tiles) * blockDim.x + threadIdx.x;
-  if constexpr (CMP) {
-    jj = live_head(p, lane, jj);
-    if (jj < 0) return;
-  } else {
-    if (jj >= p.F) return;
-  }
-  const int j = jj;
+// The chase of head j of `lane` (`head`: its node mask bit), its outputs
+// written.
+template <bool ALG, bool DFA>
+__device__ __forceinline__ void chase_head(const ChaseParams& p, int lane, int j, bool head,
+                                           const int* words, const long long* consts) {
   const long long row = static_cast<long long>(lane) * p.F;
   const long long erow = static_cast<long long>(lane) * p.ev_stride;
   const long long plane = static_cast<long long>(p.L) * p.F;
   const int nev = p.nev[lane];
-  const bool head = CMP || node_bit(p, p.head_node, erow, row, j, nev);
   bool ok = head, dead = false, live = false;
   const long long hts = static_cast<long long>(p.ts[erow + j]);
-  const void* ts_heap = p.ts_tree >= 0 ? lane_heap(p, p.ts_tree, lane) : nullptr;
+  const void* ts_heap = lane_heap(p, p.ts_tree >= 0 ? p.ts_tree : 0, lane);
   unsigned cand = 0u;
   int pres = 0;
   int cur = j;
   int pend = -1;                       // within of a count awaiting its successor
   auto killer = [&](int s, int within) {
-    return first_hit(ts_heap, VT_I64, p.Lt, s, vm_l(hts + static_cast<long long>(within)), TOP_GT);
+    return first_hit(ts_heap, VT_I64, p.logLt, p.Lt, s,
+                     vm_l(hts + static_cast<long long>(within)), TOP_GT);
   };
   auto step = [&](int jn, int kl) {
     const bool good = jn < kl;
@@ -295,7 +300,7 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
                       hvt);
           op = p.hop_op[pi];
         }
-        jn = first_hit(lane_heap(p, t, lane), hvt, p.Lt, s, v, op);
+        jn = tree_hit(p, t, lane, s, v, op);
       }
       step(jn, kl);
       cur = clip(p, jn);
@@ -303,10 +308,10 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
       const VmVal zero = vm_i(0);
       const int jl = (DFA && p.hop_dfa_l[pi] >= 0)
                          ? dfa_next(p, p.hop_dfa_l[pi], lane, s)
-                         : first_hit(lane_heap(p, p.hop_tree[pi], lane), VT_I32, p.Lt, s, zero, TOP_GT);
+                         : tree_hit(p, p.hop_tree[pi], lane, s, zero, TOP_GT);
       const int jr = (DFA && p.hop_dfa_r[pi] >= 0)
                          ? dfa_next(p, p.hop_dfa_r[pi], lane, s)
-                         : first_hit(lane_heap(p, p.hop_tree2[pi], lane), VT_I32, p.Lt, s, zero, TOP_GT);
+                         : tree_hit(p, p.hop_tree2[pi], lane, s, zero, TOP_GT);
       const bool is_or = p.hop_bit_l[pi] >= 0;
       const int jd = is_or ? (jl < jr ? jl : jr)
                            : ((jl < p.F && jr < p.F) ? (jl > jr ? jl : jr) : p.Lt);
@@ -357,24 +362,62 @@ __global__ void scan_chase_kernel(const __grid_constant__ ChaseParams p) {
     for (int r = 0; r < p.n_idx; ++r) p.idx[r * plane + row + j] = 0;
 }
 
-template <bool CMP>
-static void launch_as(const ChaseParams& p, unsigned blocks, int smem, cudaStream_t stream) {
-  if (p.alg && p.dfa)
-    scan_chase_kernel<true, true, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
-  else if (p.alg)
-    scan_chase_kernel<true, false, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
-  else if (p.dfa)
-    scan_chase_kernel<false, true, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
-  else
-    scan_chase_kernel<false, false, CMP><<<blocks, SC_THREADS, smem, stream>>>(p);
+// A fused group's lanes: 256-head tiles, the live heads moved to the
+// first threads, every tree read from device memory (L2).
+template <bool ALG, bool DFA>
+__global__ void scan_chase_cmp(const __grid_constant__ ChaseParams p) {
+  extern __shared__ __align__(16) long long smem[];
+  const int* words = p.words;
+  const long long* consts = p.consts;
+  if (p.stage) vm_stage(p.words, p.n_words, p.consts, p.n_consts, smem, &words, &consts);
+  const int tiles = (p.F + blockDim.x - 1) / blockDim.x;
+  const int lane = static_cast<int>(blockIdx.x / tiles);
+  const int j = live_head(p, lane, static_cast<int>(blockIdx.x % tiles) * blockDim.x + threadIdx.x);
+  if (j < 0) return;
+  chase_head<ALG, DFA>(p, lane, j, true, words, consts);
 }
 
-extern "C" int scan_chase_launch(const ChaseParams* params, int smem, cudaStream_t stream) {
-  const long long tiles = (params->F + SC_THREADS - 1) / SC_THREADS;
-  const unsigned blocks = static_cast<unsigned>(tiles * params->L);
-  if (params->compact)
-    launch_as<true>(*params, blocks, smem, stream);
+// Per-lane rows: a thread a head, blockDim.x heads a block.
+template <bool ALG, bool DFA>
+__global__ void __launch_bounds__(SC_LANE_MAX, 3) scan_chase_lane(const __grid_constant__ ChaseParams p) {
+  extern __shared__ __align__(16) long long smem[];
+  const int* words = p.words;
+  const long long* consts = p.consts;
+  if (p.stage) vm_stage(p.words, p.n_words, p.consts, p.n_consts, smem, &words, &consts);
+  const int tiles = (p.F + blockDim.x - 1) / blockDim.x;
+  const int lane = static_cast<int>(blockIdx.x / tiles);
+  const int j = static_cast<int>(blockIdx.x % tiles) * blockDim.x + threadIdx.x;
+  if (j >= p.F) return;
+  const bool head = node_bit(p, p.head_node, static_cast<long long>(lane) * p.ev_stride,
+                             static_cast<long long>(lane) * p.F, j, p.nev[lane]);
+  chase_head<ALG, DFA>(p, lane, j, head, words, consts);
+}
+
+template <bool ALG, bool DFA>
+static cudaError_t launch_as(const ChaseParams& p, int smem, cudaStream_t stream) {
+  if (p.compact) {
+    const unsigned blocks = static_cast<unsigned>((p.F + SC_THREADS - 1) / SC_THREADS) *
+                            static_cast<unsigned>(p.L);
+    scan_chase_cmp<ALG, DFA><<<blocks, SC_THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  const unsigned blocks = static_cast<unsigned>((p.F + p.threads - 1) / p.threads) *
+                          static_cast<unsigned>(p.L);
+  scan_chase_lane<ALG, DFA><<<blocks, p.threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+extern "C" int scan_chase_launch(ChaseParams* params, int smem, cudaStream_t stream) {
+  const ChaseParams& p = *params;
+  cudaError_t err;
+  if (p.alg && p.dfa)
+    err = launch_as<true, true>(p, smem, stream);
+  else if (p.alg)
+    err = launch_as<true, false>(p, smem, stream);
+  else if (p.dfa)
+    err = launch_as<false, true>(p, smem, stream);
   else
-    launch_as<false>(*params, blocks, smem, stream);
-  return static_cast<int>(cudaGetLastError());
+    err = launch_as<false, false>(p, smem, stream);
+  params->launched = err == cudaSuccess ? 1 : 0;
+  return static_cast<int>(err);
 }

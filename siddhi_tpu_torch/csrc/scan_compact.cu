@@ -215,7 +215,7 @@ __device__ VmVal count_row(const CompactParams& p, const RowSrc& rs, int lane, l
         const long long want = rs.mode == CNT_Q ? qn + rs.arg : rs.arg;
         const long long* heap = p.rank_heap[p.cnt_rank[pi]] +
                                 static_cast<long long>(lane) * 2 * p.Lt;
-        at = first_hit(heap, VT_I64, p.Lt, s, vm_l(ra + want), TOP_GE);
+        at = first_hit(heap, VT_I64, 31 - __clz(p.Lt), p.Lt, s, vm_l(ra + want), TOP_GE);
         at = at < 0 ? 0 : (at > p.F - 1 ? p.F - 1 : at);
       }
       return vm_read(rs.col, rs.vt, erow + at);

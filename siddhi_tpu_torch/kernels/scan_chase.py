@@ -24,23 +24,28 @@ past head ts + W, matching or not):
   * a final count fans out into C = max - min + 1 candidates per head:
     occurrence min + c, live when it lands before the killer.
 
-Design (csrc/scan_chase.cu, descents in csrc/seg_tree.cuh): one thread
-per (lane, head), the hop loop in registers; threshold right-hand sides
-and strict step conjunctions run the predicate VM (csrc/expr_vm.cuh) on
-the captures at the indices resolved so far, which the thread keeps in
-its own column of the `idx` output, so no chain length is fixed; a
-fused group's `__qparam` operands read the lane's parameters.  In a
-fused group every lane reads a tree K3 built once for the group
-(`TreeSpec.shared`, a (1, 2 Lt) heap) at lane stride 0, and a block
-first moves its live heads (a tenth of C5's pass their lane's head
-filter) to its first threads, so the chase runs in full warps.  Hop
-tables, loads, heap pointers and programs travel in a device table
-(kernels/table.py), the programs staged in shared memory.  A head stops
-at its first failed hop.  Bound on the H100: bytes -- the timestamp and
-pre-mask grids read once, the status and index grids written once; the
-descents read 2 log2(Lt) tree nodes per query, which stay in the 50 MB
-L2 at the C4 and C3 shapes (16 and 12 MB of trees) and at C5, whose
-shared trees take 0.5 MB a group (250 per-lane copies took 128 MB).
+Design (csrc/scan_chase.cu, descents in csrc/seg_tree.cuh): a thread a
+(lane, head), the hop loop in registers; threshold right-hand sides and
+strict step conjunctions run the predicate VM (csrc/expr_vm.cuh) on the
+captures at the indices resolved so far, which the thread keeps in its
+own column of the `idx` output, so no chain length is fixed; a fused
+group's `__qparam` operands read the lane's parameters.  A descent is a
+chain of up to 2 log2(Lt) dependent node loads, so latency, not bytes,
+sets the pace: the descent takes four levels' nodes at once on the way
+up and two levels a step on the way down, through the read-only cache,
+where a lane's heaps stay between its heads' descents.  Per-lane rows
+(C4, C4N, C4A, C4F64, C4D, C3): blocks sized to the lane, one block a
+lane up to `LANE_MAX` heads, its warps covering the lane's F heads in
+full warps, past that equal whole-warp tiles (`lane_geometry`; C3's one
+flat lane of 2^19 heads).  In a fused group every lane reads a tree K3 built
+once for the group (`TreeSpec.shared`, a (1, 2 Lt) heap) at lane stride
+0 from L2, and a 256-thread tile first moves its live heads (a tenth of
+C5's pass their lane's head filter) to its first threads, so the chase
+runs in full warps.  Hop tables, loads, heap pointers and programs
+travel in a device table (kernels/table.py), the programs staged in
+shared memory.  A head stops at its first failed hop.  Bound on the
+H100: bytes -- the timestamp and pre-mask grids read once, the status
+and index grids written once.
 
 In `dfa` mode (the `dfa` family; launches counted as `scan_chase:dfa`)
 a static hop's or a logical side's first hit is the table lookup of
@@ -62,6 +67,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.expr import VT_OF_TORCH, decode_word
@@ -83,7 +89,7 @@ class _Params(ctypes.Structure):
         "L", "F", "Lt", "S", "is_seq", "ts_tree", "n_loads", "ev_stride",
         "P", "n_words", "n_consts", "stage", "n_idx", "C", "head_node",
         "head_rank", "head_min", "head_within", "alg", "dfa",
-        "NB", "compact")] + [
+        "NB", "compact", "logLt", "threads", "launched")] + [
         (n, ctypes.c_void_p) for n in (
             "nev", "ts", "scode", "qparams", "pre", "node_scode",
             "pos_node", "hop_kind", "hop_within", "hop_tree", "hop_op",
@@ -95,6 +101,17 @@ class _Params(ctypes.Structure):
             "load_col", "load_vt", "load_pos", "status", "idx", "cand",
             "pres", "consts", "words", "hop_dfa_l", "hop_dfa_r",
             "dfa_suffix", "dfa_packed", "dfa_nblk")]
+
+THREADS = 256               # csrc/scan_chase.cu SC_THREADS: a fused tile
+LANE_MAX = 384              # SC_LANE_MAX: threads of a per-lane block
+
+
+def lane_geometry(F: int) -> int:
+    """Threads (heads) a block of a per-lane launch: the lane's F heads
+    in the fewest blocks of at most LANE_MAX threads, each of equal whole
+    warps (one block a lane up to LANE_MAX heads)."""
+    per = -(-F // -(-F // LANE_MAX))        # heads a block
+    return 32 * -(-per // 32)
 
 
 def _vm_plain(k, prog, ev: dict, at: list, s: torch.Tensor) -> torch.Tensor:
@@ -258,6 +275,53 @@ def scan_chase(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     return prepare(k, ev, pre, heaps, ranks, rheaps, prevs, tables)()
 
 
+def _static_tables(k) -> dict:
+    """The sections of K4's parameter table that depend on the kernel
+    alone -- the hop tables, the programs' offsets and lengths in the
+    merged word array, the loads' locations, the candidates' rows -- as
+    int32 arrays: built on a kernel's first launch and kept on it
+    (`_k4_static`), so a launch packs only what changes."""
+    st = getattr(k, "_k4_static", None)
+    if st is not None:
+        return st
+    S = k.S
+    cols = {"kind": [0] * S, "within": [0] * S, "tree": [0] * S,
+            "dfa_l": [-1] * S, "dfa_r": [-1] * S,
+            "op": [0] * S, "vt": [0] * S, "tree2": [0] * S,
+            "prev_l": [-1] * S, "prev_r": [-1] * S, "side_l": [0] * S,
+            "side_r": [0] * S, "bit_l": [-1] * S, "bit_r": [-1] * S,
+            "rank": [-1] * S, "min": [0] * S, "row": [0] * S}
+    progs, pidx = [], []
+    for pi, hop in enumerate(k.hops, start=1):
+        for key, v in (("kind", _KIND[hop.kind]), ("within", hop.within),
+                       ("tree", max(hop.tree, 0)), ("op", _OP[hop.op]),
+                       ("tree2", max(hop.tree2, 0)),
+                       ("prev_l", hop.prev[0]), ("prev_r", hop.prev[1]),
+                       ("side_l", hop.sides[0]), ("side_r", hop.sides[1]),
+                       ("bit_l", hop.bits[0]), ("bit_r", hop.bits[1]),
+                       ("rank", hop.rank), ("min", hop.min_count),
+                       ("row", k.pos_row[pi]), ("dfa_l", hop.dfa[0]),
+                       ("dfa_r", hop.dfa[1])):
+            cols[key][pi] = v
+        if hop.prog is not None:
+            pidx.append(pi)
+            progs.append(hop.prog)
+            cols["vt"][pi] = hop.prog.vt
+    off, ln, at = [0] * S, [0] * S, 0
+    for pi, prog in zip(pidx, progs):    # merge_programs' layout
+        off[pi], ln[pi] = at, len(prog.words)
+        at += len(prog.words)
+    fields = [("node_scode", [sc if k.multi else -1 for sc in k.node_scode]),
+              ("pos_node", k.pos_node)] + [
+        (f"hop_{key}", v) for key, v in cols.items()] + [
+        ("prog_off", off), ("prog_len", ln), ("comp_row", k.comp_rows),
+        ("load_pos", [loc for _key, loc in k.loads] or [0])]
+    st = {"fields": [(name, np.asarray(v, np.int32)) for name, v in fields],
+          "progs": progs}
+    k._k4_static = st
+    return st
+
+
 def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
             rheaps: list = (), prevs: list = (),
             tables: Optional[tuple] = None) -> Launch:
@@ -295,49 +359,19 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     if k.nfak.params is not None:
         p.qparams = ptr(k.nfak.params.bits, torch.int64)
         p.P = k.nfak.params.P
-    S = k.S
     if tables is not None:
         p.dfa, p.NB = 1, tables[1].shape[1]
         p.dfa_suffix = ptr(tables[0], torch.int32)
         p.dfa_packed = ptr(tables[1], torch.int32)
         p.dfa_nblk = ptr(tables[2], torch.int32)
-    cols = {"kind": [0] * S, "within": [0] * S, "tree": [0] * S,
-            "dfa_l": [-1] * S, "dfa_r": [-1] * S,
-            "op": [0] * S, "vt": [0] * S, "tree2": [0] * S,
-            "prev_l": [-1] * S, "prev_r": [-1] * S, "side_l": [0] * S,
-            "side_r": [0] * S, "bit_l": [-1] * S, "bit_r": [-1] * S,
-            "rank": [-1] * S, "min": [0] * S, "row": [0] * S}
-    progs, pidx = [], []
-    for pi, hop in enumerate(k.hops, start=1):
-        for key, v in (("kind", _KIND[hop.kind]), ("within", hop.within),
-                       ("tree", max(hop.tree, 0)), ("op", _OP[hop.op]),
-                       ("tree2", max(hop.tree2, 0)),
-                       ("prev_l", hop.prev[0]), ("prev_r", hop.prev[1]),
-                       ("side_l", hop.sides[0]), ("side_r", hop.sides[1]),
-                       ("bit_l", hop.bits[0]), ("bit_r", hop.bits[1]),
-                       ("rank", hop.rank), ("min", hop.min_count),
-                       ("row", k.pos_row[pi]), ("dfa_l", hop.dfa[0]),
-                       ("dfa_r", hop.dfa[1])):
-            cols[key][pi] = v
-        if hop.prog is not None:
-            pidx.append(pi)
-            progs.append(hop.prog)
-            cols["vt"][pi] = hop.prog.vt
-    words, consts, offs, lens = merge_programs(
-        progs, {"__base_ts__": ev["__base_ts__"]})
-    off, ln = [0] * S, [0] * S
-    for pi, o, n in zip(pidx, offs, lens):
-        off[pi], ln[pi] = o, n
+    st = _static_tables(k)
+    words, consts, _o, _l = merge_programs(
+        st["progs"], {"__base_ts__": ev["__base_ts__"]})
     tab = DeviceTable()
     tab.field(p, "pre", [0 if w is None else ptr(w, torch.int32)
                          for w in pre], "u8")
-    tab.field(p, "node_scode", [sc if k.multi else -1
-                                for sc in k.node_scode], "i4")
-    tab.field(p, "pos_node", k.pos_node, "i4")
-    for key, v in cols.items():
-        tab.field(p, f"hop_{key}", v, "i4")
-    tab.field(p, "prog_off", off, "i4")
-    tab.field(p, "prog_len", ln, "i4")
+    for name, arr in st["fields"]:
+        tab.field(p, name, arr, "i4")
     tab.field(p, "heap", [ptr(h) for h in heaps] or [0], "u8")
     tab.field(p, "heap_vt", [VT_OF_TORCH[h.dtype] for h in heaps] or [0],
               "i4")
@@ -347,16 +381,16 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     # a (1, 2 Lt) heap: a tree the same in every lane, read at stride 0
     tab.field(p, "heap_lane", [int(h.shape[0] == L) for h in heaps] or [0],
               "i4")
+    p.logLt = p.Lt.bit_length() - 1
+    p.threads = THREADS if p.compact else lane_geometry(F)
     tab.field(p, "rank", [ptr(r, torch.int64) for r in ranks] or [0], "u8")
     tab.field(p, "rank_heap", [ptr(h, torch.int64) for h in rheaps] or [0],
               "u8")
     tab.field(p, "prev", [ptr(v, torch.int64) for v in prevs] or [0], "u8")
-    tab.field(p, "comp_row", k.comp_rows, "i4")
     lcols = [ev[key] for key, _loc in k.loads]
     tab.field(p, "load_col", [ptr(c) for c in lcols] or [0], "u8")
     tab.field(p, "load_vt", [VT_OF_TORCH[c.dtype] for c in lcols] or [0],
               "i4")
-    tab.field(p, "load_pos", [loc for _key, loc in k.loads] or [0], "i4")
     program_table(tab, p, words, consts)
     status = torch.empty((L, F), dtype=torch.uint8, device=dev)
     idx = torch.empty((max(k.n_idx, 1), L, F), dtype=torch.int32, device=dev)
@@ -374,6 +408,10 @@ def prepare(k, ev: dict, pre: list, heaps: list, ranks: list = (),
     # under @app:devicePrecision('f64')) counts apart
     use = ("scan_chase:dfa" if tables is not None else "scan_chase") + (
         ":f64" if any(h.dtype == torch.float64 for h in heaps) else "")
-    return Launch(lambda: fn(ctypes.byref(p), smem, stream_of(dev)),
-                  "scan_chase_launch", use, keep,
-                  (status, idx[:k.n_idx], cand, pres))
+    launch = Launch(lambda: fn(ctypes.byref(p), smem, stream_of(dev)),
+                    "scan_chase_launch", use, keep,
+                    (status, idx[:k.n_idx], cand, pres))
+    # what the launch uses, beside the block (chip_smoke, kernel_ab)
+    p.smem, p.blocks = smem, L * -(-F // p.threads)
+    launch.params = p
+    return launch

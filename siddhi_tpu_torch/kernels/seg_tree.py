@@ -10,21 +10,33 @@ whose node mask is off (padding, another stream, a failed pre-conjunct)
 or whose value is NaN hold the sentinel (-inf / INT_MIN for max trees,
 +inf / INT_MAX for min trees), so NaN never reaches an ancestor.
 
-Design (csrc/seg_tree.cu): one launch per level group.  The first builds
-the leaves and the lowest 10 levels: one block of 1024 threads per (1024
-leaves, lane, tree) -- one lane only for a tree the plan marks `shared`
+Design (csrc/seg_tree.cu): a warp builds a (lane, tree) of up to 1024
+leaves -- one lane only for a tree the plan marks `shared`
 (`TreeSpec.shared`: a fused group's tree whose leaves read the group's
 one row of events, gated by no lane parameter), which K3 builds once
-into a (1, 2 Lt) heap that K4 reads at lane stride 0 -- reduced level by
-level in shared memory, each level written to the heap.  A lane's trees
-at the C4 shapes (512 leaves) finish in that launch; the flat C3 tree (2^19 leaves) takes a second launch that
-reduces the 512 block roots the same way.  The trees' sources, types,
-node masks and heap pointers travel in a device table (kernels/table.py),
-so no tree count is fixed.  A fused multi-query group's lanes share one
-row of events (stride 0) and keep a tree each where their own pre-masks
-(lane parameters) gate it; C5's trees (timestamps, `price > e1.price`
-hops) are the same in all 250 lanes and are built once.  Bound on the H100: bytes -- the leaf columns and masks read
-once, each heap (2 Lt entries) written once.
+into a (1, 2 Lt) heap that K4 reads at lane stride 0.  Rows of 32
+leaves, a leaf a thread, read coalesced with four rows of loads in
+flight, written, and reduced by shuffles over the row's 5 levels, the
+row roots by shuffles over the levels above; no shared memory and no
+block barrier.  Each tree type, max/min and source element size runs its
+own instantiation, which the warp picks from the tree's entry, so no
+type switch is left in the build.  A node keeps its left child on ties, as `build_heap_plain`
+does, so a heap's bytes (+0.0 and -0.0 too) are the plain version's.  A
+lane's trees at the C4 shapes (512 leaves) finish in one launch; a
+larger tree (C3's flat 2^19 leaves, C5's 2^14) builds 1024-leaf
+subtrees, a block of a leaf a thread each (the rows by shuffles, the
+warp roots after one barrier), then a launch reduces their roots the
+same way (`Launch.params.launched` after a
+launch: the kernel launches of the call).  The plan builds each
+distinct tree once (core/nfa_parallel.py `same_leaves`: C4's two hops
+over `price` share one tree).  The trees' sources, types, node masks and
+heap pointers travel in a device table (kernels/table.py), so no tree
+count is fixed.  A fused multi-query group's lanes share one row of
+events (stride 0) and keep a tree each where their own pre-masks (lane
+parameters) gate it; C5's trees (timestamps, `price > e1.price` hops)
+are the same in all 250 lanes and are built once.  Bound on the H100:
+bytes -- the leaf columns and masks read once, each heap (2 Lt entries)
+written once.
 
 The count positions of the `scan` family add a second launch
 (`use="rank"`, counted apart): one i64 max-tree per count position over
@@ -53,11 +65,16 @@ from .expr_eval import unpack_mask
 from .table import DeviceTable, Launch, checked_ptr, stream_of
 
 
+SUB, WARPS = 1024, 8             # csrc/seg_tree.cu ST_SUB, ST_WARPS
+
+
 class _Params(ctypes.Structure):
     _fields_ = [("L", ctypes.c_int), ("F", ctypes.c_int),
                 ("Lt", ctypes.c_int), ("n_trees", ctypes.c_int),
                 ("cnt", ctypes.c_int), ("from_heap", ctypes.c_int),
                 ("ev_stride", ctypes.c_int), ("lane_trees", ctypes.c_int),
+                ("max_lanes", ctypes.c_int),
+                ("launched", ctypes.c_int),
                 ("nev", ctypes.c_void_p), ("scode", ctypes.c_void_p),
                 ("src", ctypes.c_void_p), ("src_vt", ctypes.c_void_p),
                 ("vt", ctypes.c_void_p), ("agg", ctypes.c_void_p),
@@ -103,12 +120,12 @@ def build_heap_plain(vals: Optional[torch.Tensor], mask: torch.Tensor,
     if dt.is_floating_point:
         keep = keep & ~torch.isnan(v)
     v = torch.where(keep, v, torch.full_like(v, sent))
-    red = torch.maximum if agg == "max" else torch.minimum
     lvl = torch.full((L, Lt), sent, dtype=dt, device=mask.device)
     lvl[:, :F] = v
     levels = [lvl]
-    while lvl.shape[1] > 1:
-        lvl = red(lvl[:, 0::2], lvl[:, 1::2])
+    while lvl.shape[1] > 1:     # the right child only where strictly better
+        a, b = lvl[:, 0::2], lvl[:, 1::2]
+        lvl = torch.where(b > a if agg == "max" else b < a, b, a)
         levels.append(lvl)
     return torch.cat([torch.full((L, 1), sent, dtype=dt, device=mask.device)]
                      + levels[::-1], dim=1)
@@ -252,6 +269,7 @@ def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
     tab.field(p, "lanes", [h.shape[0] for h in heaps], "i4")
     p.n_trees = len(trees)
     p.lane_trees = sum(h.shape[0] for h in heaps)
+    p.max_lanes = max((h.shape[0] for h in heaps), default=1)
     keep.append(tab.upload(dev))
     lib = load("seg_tree")
     fn = lib.seg_tree_launch
@@ -261,5 +279,14 @@ def prepare(k, ev: dict, pre: list, trees=None, cols=None) -> Launch:
     # under @app:devicePrecision('f64')) counts apart
     use = "seg_tree:rank" if use_rank else "seg_tree:f64" if any(
         t.vt == VT_F64 for t in trees) else "seg_tree"
-    return Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
-                  "seg_tree_launch", use, keep, heaps)
+    launch = Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
+                    "seg_tree_launch", use, keep, heaps)
+    # the first launch's grid, beside the block (chip_smoke, kernel_ab):
+    # WARPS warps a block, a warp a lane's tree of up to SUB leaves, or a
+    # block of SUB threads a lane's SUB-leaf subtree
+    subs = Lt // min(Lt, SUB)
+    p.blocks = (-(-p.max_lanes // WARPS) if subs == 1 else
+                p.max_lanes * subs) * len(trees)
+    p.warps = p.lane_trees * (1 if subs == 1 else subs * SUB // 32)
+    launch.params = p
+    return launch

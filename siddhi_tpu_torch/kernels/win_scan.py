@@ -36,13 +36,14 @@ that state (the tile counter, the words) with a memset before the
 kernel, so a CUDA graph can replay it.  Bound on the H100: bytes (each
 input read once, each output written once).  The association is fixed
 by the data, never by which tiles finished first, so a call gives the
-same bits on every run.  It is not a serial fold's nor `win_scan_plain`'s
-(a log-step Hillis-Steele scan in torch): where f64 rounds, the sums
-differ from `win_scan_plain`'s in the last bits, within the rounding
-bound of a sum; on data whose f64 prefixes are exact (the window, rank,
-prev and `agg` tapes: quarter-grid prices, counts and indices) every
-association gives the same bits, so the kernel equals `win_scan_plain`
-there with tolerance 0.
+same bits on every run.  `win_scan_plain` folds the float sums in that
+association (`_k6_sums`: per thread a serial fold of 4 entries, warp and
+block Hillis-Steele scans, the look-back windows of 256 tiles, as vector
+ops over the tiles), so the kernel equals it with tolerance 0 on raw
+doubles too; tests/torch_k6_association.py states the association again
+on Python scalars and holds `win_scan_plain` to it bit for bit.  The
+integer sums, counts, min and max, whose association cannot change a
+bit, keep a log-step Hillis-Steele scan.
 
 The `scan` pattern family uses K6 on its (L, F) lane grid, flattened,
 with `period` = F (a segment per lane): `use="rank"` for the inclusive
@@ -73,6 +74,8 @@ from .build import load
 from .table import DeviceTable, Launch, checked_ptr, stream_of
 
 TILE = 1024                     # csrc/win_scan.cuh WS_TILE
+THREADS, ITEMS, WARP = 256, 4, 32   # WS_THREADS, WS_ITEMS, a warp
+LOOKBACK = THREADS              # tiles in a look-back window
 SUM_F, SUM_I, MIN_F, MAX_F, MAX_I = range(5)
 I64_MIN = -2 ** 63
 
@@ -142,6 +145,101 @@ def combine(kop: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.maximum(a, b)
 
 
+def _seg(fa, va, fb, vb):
+    """seg_combine of csrc/win_scan.cuh for float sums: (flag, value)
+    pairs of tensors, b the right operand."""
+    return fa | fb, torch.where(fb, vb, va + vb)
+
+
+def _hillis(f, v):
+    """Inclusive segmented shfl_up scan along the last dim, offsets 1, 2,
+    4, ... as block_seg_scan runs them."""
+    o, n = 1, v.shape[-1]
+    while o < n:
+        nf, nv = _seg(f[..., :-o], v[..., :-o], f[..., o:], v[..., o:])
+        f = torch.cat([f[..., :o], nf], -1)
+        v = torch.cat([v[..., :o], nv], -1)
+        o *= 2
+    return f, v
+
+
+def _block_scan(f, v):
+    """block_seg_scan over the last dim (THREADS elements): each thread's
+    exclusive prefix and the block's total, in the kernel's association
+    (warp scans, then a scan of the warp totals)."""
+    sh = f.shape[:-1]
+    wf, wv = _hillis(f.reshape(*sh, -1, WARP), v.reshape(*sh, -1, WARP))
+    tf, tv = _hillis(wf[..., -1], wv[..., -1])
+    ef = torch.cat([torch.zeros_like(wf[..., :1]), wf[..., :-1]], -1)
+    ev = torch.cat([torch.zeros_like(wv[..., :1]), wv[..., :-1]], -1)
+    xf, xv = _seg(tf[..., :-1, None], tv[..., :-1, None], ef[..., 1:, :],
+                  ev[..., 1:, :])
+    exf = torch.cat([ef[..., :1, :], xf], -2).reshape(*sh, -1)
+    exv = torch.cat([ev[..., :1, :], xv], -2).reshape(*sh, -1)
+    return exf, exv, tf[..., -1], tv[..., -1]
+
+
+def _k6_sums(x: torch.Tensor, f: torch.Tensor,
+             window: int = LOOKBACK) -> torch.Tensor:
+    """Inclusive segmented f64 sums of x (starts at f) in K6's association
+    (csrc/win_scan.cu): tiles of TILE entries, THREADS threads folding
+    ITEMS entries each, the block scan; a tile's carry is its nearest
+    predecessor's aggregate where that tile holds a segment start, else
+    the block scan of the aggregates of the earlier tiles of its
+    look-back window (`window` tiles, padded with the identity to
+    THREADS), behind the previous window's inclusive prefix where no
+    start was met; a tile whose first entry starts a segment, and tile 0,
+    take none.  Windows run in order, the tiles of one window at once."""
+    n, dev = x.shape[0], x.device
+    nt = max(1, -(-n // TILE))
+    pad = nt * TILE - n
+    xv = torch.cat([x, x.new_zeros(pad)]).view(nt, THREADS, ITEMS)
+    fv = torch.cat([f, f.new_zeros(pad)]).view(nt, THREADS, ITEMS)
+    af = torch.zeros((nt, THREADS), dtype=torch.bool, device=dev)
+    av = torch.zeros((nt, THREADS), dtype=x.dtype, device=dev)
+    for k in range(ITEMS):
+        af, av = _seg(af, av, fv[..., k], xv[..., k])
+    exf, exv, known, tot = _block_scan(af, av)
+    known[0] = True
+    runf = torch.zeros(nt, dtype=torch.bool, device=dev)
+    runv = torch.zeros(nt, dtype=x.dtype, device=dev)
+    inc = None                  # the previous window's inclusive prefix
+    for base in range(0, nt, window):
+        hi = min(base + window, nt)
+        if hi - base > 1:       # tiles base + 1 .. hi - 1
+            m = hi - base - 1
+            have = torch.arange(THREADS, device=dev)[None, :] <= \
+                torch.arange(m, device=dev)[:, None]
+            wf = torch.zeros((m, THREADS), dtype=torch.bool, device=dev)
+            wv = torch.zeros((m, THREADS), dtype=x.dtype, device=dev)
+            wf[:, :m] = known[base:hi - 1]
+            wv[:, :m] = tot[base:hi - 1]
+            wf, wv = wf & have, torch.where(have, wv, torch.zeros_like(wv))
+            _xf, _xv, bf, bv = _block_scan(wf, wv)
+            pk = known[base:hi - 1]
+            runf[base + 1:hi] = pk | bf
+            runv[base + 1:hi] = torch.where(pk, tot[base:hi - 1], bv)
+        if inc is not None:
+            rf, rv = runf[base:hi], runv[base:hi]
+            first = torch.arange(base, hi, device=dev) == base
+            runv[base:hi] = torch.where(rf, rv, torch.where(
+                first, inc.expand(hi - base), inc + rv))
+            runf[base:hi] = True
+        last = base + window - 1
+        if last < nt:
+            inc = torch.where(known[last], tot[last], runv[last] + tot[last])
+    none = fv[:, 0, 0].clone()
+    none[0] = True
+    runv = torch.where(none, torch.zeros_like(runv), runv)
+    af = exf
+    av = torch.where(exf, exv, runv[:, None] + exv)
+    out = []
+    for k in range(ITEMS):
+        af, av = _seg(af, av, fv[..., k], xv[..., k])
+        out.append(av)
+    return torch.stack(out, -1).reshape(-1)[:n]
+
+
 def win_scan_plain(cols: list, n: int, valid: Optional[torch.Tensor] = None,
                    flags: Optional[torch.Tensor] = None,
                    period: int = 0) -> list:
@@ -163,6 +261,9 @@ def win_scan_plain(cols: list, n: int, valid: Optional[torch.Tensor] = None,
             x = torch.where(vc[:n], x, torch.full_like(x, _identity(kop)))
         f = flags[:n].clone() if flags is not None else \
             torch.zeros(n, dtype=torch.bool, device=dev)
+        if kop == SUM_F:
+            outs.append(_k6_sums(x, f).to(odt))
+            continue
         d = 1
         while d < n:            # segmented Hillis-Steele: (f, v) pairs
             left, lf = x[:-d], f[:-d]

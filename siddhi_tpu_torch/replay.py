@@ -497,6 +497,13 @@ def same(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def bits(ts: list) -> list:
+    """Float tensors as their bit patterns, so a comparison tells +0.0
+    from -0.0 (K3's heaps must equal the plain version's bytes)."""
+    return [t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
+            if t.dtype.is_floating_point else t for t in ts]
+
+
 def max_err(a, b) -> float:
     """Largest |a - b| over the entries finite in both (0 when none)."""
     a, b = a.double(), b.double()
@@ -522,41 +529,34 @@ def _agree(err: dict, key: str, got, want, what: str) -> None:
     err[key] = max(err.get(key, 0.0), e)
 
 
-def _sum_bound(err: dict, key: str, got, want, a: tuple, kw: dict,
-               what: str) -> None:
-    """K6's float sums within 2 (i + 1) 2^-53 sum|v| of the plain
-    version's at entry i (each column's masked magnitudes summed from the
-    call's first entry; tests/test_torch_gpu.py's bound for raw doubles),
-    every other column equal."""
+def _sum_bound(err: dict, key: str, a: tuple, kw: dict) -> None:
+    """Information, not a check: the largest rounding bound 2 (i + 1)
+    2^-53 sum|v| (at entry i, each column's masked magnitudes summed
+    from the call's first entry) of a K6 call's float sum columns, under
+    `key:f64_bound`: what a sum in another association could be off by."""
     cols, n = a[0], a[1]
     valid = kw.get("valid", a[2] if len(a) > 2 else None)
-    for (op, values, masked, *own), g, w in zip(cols, got, want):
+    for op, values, masked, *own in cols:
         if op != "sum" or values is None or \
-                not values.dtype.is_floating_point:
-            _agree(err, key, g, w, what)
+                not values.dtype.is_floating_point or not n:
             continue
         x = values[:n].double().abs()
         vc = own[0] if own else valid
         if masked and vc is not None:
             x = torch.where(vc[:n], x, torch.zeros_like(x))
-        bound = 2 * torch.arange(1, n + 1, device=x.device) * 2.0 ** -53 * \
-            torch.cumsum(x, 0)
-        d = (g[:n].double() - w[:n].double()).abs()
-        if g.shape != w.shape or not bool((d <= bound).all()):
-            raise KernelMismatch(f"{key} f64 sums outside the rounding "
-                                 f"bound of the plain version's ({what})")
-        err[f"{key}:f64_sum"] = max(err.get(f"{key}:f64_sum", 0.0),
-                                    float(d.max()) if n else 0.0)
+        bound = 2 * n * 2.0 ** -53 * float(x.sum())
+        err[f"{key}:f64_bound"] = max(err.get(f"{key}:f64_bound", 0.0),
+                                      bound)
 
 
 def check_window_calls(calls: list, raw_sums: bool = False) -> dict:
     """K1 (window uses), K6, K7 and K8 against their plain versions on
     every call a window run recorded, tolerance 0 (NaN equal to NaN);
-    returns the largest |kernel - plain| per kernel name or K1 use.  With
-    `raw_sums` (raw doubles under @app:devicePrecision('f64'), where K6's
-    association is not the plain version's and f64 sums round), K6's
-    float sum columns are held to the rounding bound instead (their
-    largest difference under `win_scan:f64_sum`)."""
+    returns the largest |kernel - plain| per kernel name or K1 use.  K6's
+    float sums too: the plain version folds them in K6's association.
+    With `raw_sums` (raw doubles under @app:devicePrecision('f64')), the
+    largest rounding bound of those sums is recorded as information
+    (`win_scan:f64_bound`)."""
     from .core.window_device import KERNELS
     from .kernels.expr_eval import expr_eval_plain
     from .kernels.win_compact import win_compact_plain
@@ -574,10 +574,9 @@ def check_window_calls(calls: list, raw_sums: bool = False) -> dict:
             key = name
             want = plain[name](*a, **kw)
         torch.cuda.synchronize()
+        _agree(err, key, got, want, f"call {j}")
         if raw_sums and name == "win_scan":
-            _sum_bound(err, key, got, want, a, kw, f"call {j}")
-        else:
-            _agree(err, key, got, want, f"call {j}")
+            _sum_bound(err, key, a, kw)
     return err
 
 
@@ -742,7 +741,8 @@ def check_scan_block(k, ev: dict, M: int) -> dict:
                k.pre_mask_rows(ev), ev["__base_ts__"])
     masks, ranks, prevs, rcols = scan_inputs(k, ev, pre)
     heaps = seg_tree_plain(k, ev, masks)
-    _agree(err, "seg_tree", seg_tree(k, ev, pre), heaps, "heaps")
+    _agree(err, "seg_tree", bits(seg_tree(k, ev, pre)), bits(heaps),
+           "heaps")
     for use, cols, want in (("rank", k.rank_cols(masks), ranks),
                             ("prev", k.prev_cols(masks), prevs)):
         if cols:

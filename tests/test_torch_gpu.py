@@ -34,7 +34,8 @@ from siddhi_tpu_torch.core.schema import StreamSchema, StringTable
 from siddhi_tpu_torch.kernels import LAUNCHES, reset_launches
 from siddhi_tpu_torch.query import parse, parse_expression
 from siddhi_tpu_torch.replay import (C2, C2_GROUPED, C2B, C3E, C3H, C3K,
-                                     C3SD, C3X, C4, C4A_BODY, C4D, C4F,
+                                     C3SD, C3X, C4, C4A_BODY, C4D, C4D_BODY,
+                                     C4F,
                                      C4F_BODY,
                                      C4H, C4L_AND, C4L_OR, C4N_BODY,
                                      C4NS_BODY, C4O_BODY, C4Z, CHUNK, DFA,
@@ -905,8 +906,8 @@ def test_win_scan_repeats_its_bits_on_raw_doubles(cuda, n):
     finished first: on raw doubles (where f64 sums round) five runs of one
     call give the same bits, equal to the CPU emulation of the association
     (tests/torch_k6_association.py) at 5 tiles, at 302 (two look-back
-    windows) and at 1025 (five), and within the rounding bound of the
-    plain version's sums (2 (i + 1) 2^-53 sum|v| at entry i)."""
+    windows) and at 1025 (five), and to the plain version's, which folds
+    float sums in the same association, on the CPU and on the card."""
     from torch_k6_association import k6_emulate
 
     from siddhi_tpu_torch.kernels.win_scan import win_scan, win_scan_plain
@@ -924,11 +925,11 @@ def test_win_scan_repeats_its_bits_on_raw_doubles(cuda, n):
     for r in bits:
         assert all(torch.equal(a, b) for a, b in zip(r, emulated))
     first = [c.cpu() for c in runs[0]]
-    want = win_scan_plain(cols, n, valid)
-    bound = 2 * torch.arange(1, n + 1) * 2.0 ** -53 * torch.cumsum(
-        torch.where(valid, v.abs(), torch.zeros_like(v)), 0)
-    assert bool(((first[0] - want[0]).abs() <= bound).all())
-    _same_scans(first[1:], want[1:])
+    for want in (win_scan_plain(cols, n, valid),
+                 [c.cpu() for c in win_scan_plain(dev, n, valid.to(cuda))]):
+        assert torch.equal(first[0].view(torch.int64),
+                           want[0].view(torch.int64))
+        _same_scans(first, want)
 
 
 @pytest.mark.parametrize("grouped", [False, True])
@@ -1975,3 +1976,192 @@ def test_dfa_tables_fused_lanes_share_a_row(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K3 (typed warp-per-tree builds) and K4 (blocks sized to the lane, the
+# shared descent) at the shapes around their edges
+# ---------------------------------------------------------------------------
+
+_K34_W = " within 10 sec "
+# hop kinds, each with its trees: (body, what its trees are)
+K34_BODIES = {
+    # f32 max-tree beside the i64 timestamp tree (f64 under f64)
+    "threshold_max": "from every e1=StockStream[price > 100] -> "
+                     "e2=StockStream[price > e1.price] -> "
+                     "e3=StockStream[price > e2.price]" + _K34_W +
+                     "select e1.price as p1, e3.price as p3 insert into Out;",
+    # i64 min- and max-trees (volume int against volume int)
+    "threshold_i64": "from every e1=StockStream[price > 100] -> "
+                     "e2=StockStream[volume < e1.volume] -> "
+                     "e3=StockStream[volume > e2.volume]" + _K34_W +
+                     "select e1.price as p1, e3.volume as v3 "
+                     "insert into Out;",
+    # an i32 mask tree (static hop) and an f32 (f64) min-tree
+    "static_min": "from every e1=StockStream[price > 120] -> "
+                  "e2=StockStream[volume > 125] -> "
+                  "e3=StockStream[price < e1.price]" + _K34_W +
+                  "select e1.price as p1, e3.price as p3 insert into Out;",
+    "count_head": C4N_BODY,
+    "count_below": "from every e1=StockStream[price > 125] -> "
+                   "e2=StockStream[price < 95]<2:3> -> "
+                   "e3=StockStream[price > e1.price] within 1 sec "
+                   "select e1.price as p1, e2[0].price as q0, "
+                   "e3.price as p3 insert into Out;",
+    "final_count": "from every e1=StockStream[price > 125] -> "
+                   "e2=StockStream[price < 95]<1:3> within 1 sec "
+                   "select e1.price as p1, e2[0].price as q0, "
+                   "e2[last].price as ql insert into Out;",
+    "and": C4A_BODY,
+    "or": C4O_BODY,
+}
+# name -> (lanes, events a lane): Lt 2 ... 2048 per lane (up to 1024 one
+# K4 block a lane, 2048 several; K3 a warp a tree up to 1024 leaves, a
+# block a subtree past it), 2^15 and 2^19 in one flat lane
+K34_SHAPES = {"lt2": (64, 2), "lt32": (64, 32), "lt512": (32, 512),
+              "lt1024": (16, 1024), "lt2048": (8, 2048),
+              "flat15": (1, 1 << 15), "flat19": (1, 1 << 19)}
+K34_CASES = ([(s, "threshold_max", f) for s in K34_SHAPES
+              for f in (False, True)] +
+             [(s, b, f) for s in ("lt32", "lt512", "lt2048", "flat15")
+              for b in K34_BODIES if b != "threshold_max"
+              for f in (False, True)] +
+             [(s, "dfa", False) for s in ("lt32", "lt512", "flat15")])
+
+
+def _k34_app(body: str, f64: bool, lanes: int) -> str:
+    if body == "dfa":
+        head, body = DFA, C4D_BODY
+    else:
+        head, body = "", K34_BODIES[body]
+    head += ("@app:devicePrecision('f64')\n" if f64 else "") + \
+        f"@app:partitionCapacity({max(lanes, 2)})\n"
+    if lanes == 1:
+        return head + STOCK + "@info(name='q') " + body
+    return head + partitioned(body)
+
+
+def _k34_blocks(cuda, app: str, lanes: int, per: int, monkeypatch,
+                seed: int = 1) -> list:
+    """The `scan` blocks of one flush of lanes x per events (event i of
+    key i % lanes, 1 ms apart: `per` events in every lane) on the card."""
+    from siddhi_tpu_torch.core.nfa_parallel import ParallelChainKernel
+    blocks = []
+    orig = ParallelChainKernel.run_block
+
+    def rec(self, ev, M):
+        blocks.append((self, ev, M))
+        return orig(self, ev, M)
+    monkeypatch.setattr(ParallelChainKernel, "run_block", rec)
+    rt = siddhi_tpu_torch.SiddhiManager(device=cuda).create_app_runtime(app)
+    rng = np.random.default_rng(seed)
+    n = lanes * per
+    rt.input_handler("StockStream").send_batch(
+        {"symbol": np.array([f"K{i % lanes}" for i in range(n)]),
+         "price": np.round(rng.uniform(90, 130, n) * 4) / 4,
+         "volume": rng.integers(90, 130, n).astype(np.int32)},
+        1_700_000_000_000 + np.arange(n))
+    rt.flush()
+    monkeypatch.setattr(ParallelChainKernel, "run_block", orig)
+    assert rt.plans()[0].family in ("scan", "dfa") and blocks
+    return blocks
+
+
+@pytest.mark.parametrize("shape,body,f64", K34_CASES)
+def test_k34_kernels_match_plain(cuda, shape, body, f64, monkeypatch):
+    """K3's heaps (their bytes, +0.0 and -0.0 apart) and K4's status,
+    index rows, candidates and presence bits equal their plain versions
+    (tolerance 0) on every block, with K5 and K1 after them
+    (replay.check_scan_block), at Lt 2 ... 2^19, over i32 mask trees, i64,
+    f32 and f64 max- and min-trees, rank trees, threshold, static, count
+    (head, below, final) and logical hops, and `dfa`; K3 launches a kernel
+    per 10 tree levels, K4 one, in blocks of lane_geometry's threads."""
+    from siddhi_tpu_torch.kernels import scan_chase as k4
+    from siddhi_tpu_torch.kernels import seg_tree as k3
+    from siddhi_tpu_torch.replay import check_scan_block, scan_inputs
+    lanes, per = K34_SHAPES[shape]
+    blocks = _k34_blocks(cuda, _k34_app(body, f64, lanes), lanes, per,
+                         monkeypatch)
+    for kern, ev, M in blocks:
+        F = ev["__flat.__ts__"].shape[1]
+        Lt = kern.leaves(F)
+        assert F == per
+        err = check_scan_block(kern, ev, M)
+        assert max(v for key, v in err.items() if key != "matches") == 0.0
+        pre = kern.pre_masks(ev)
+        if kern.trees:
+            l3 = k3.prepare(kern, ev, pre)
+            l3()
+            assert l3.params.launched == -(-(Lt.bit_length() - 1) // 10)
+        heaps = k3.seg_tree(kern, ev, pre)
+        _m, ranks, prevs, rcols = scan_inputs(kern, ev, pre)
+        rheaps = k3.seg_tree(kern, ev, pre, kern.rank_trees, rcols) \
+            if kern.rank_trees else []
+        tables = None
+        if kern.dfa_nodes:
+            from siddhi_tpu_torch.kernels.dfa_tables import dfa_tables
+            tables = dfa_tables(kern, ev, pre)
+        l4 = k4.prepare(kern, ev, pre, heaps, ranks, rheaps, prevs, tables)
+        l4()
+        torch.cuda.synchronize()
+        p = l4.params
+        assert p.launched == 1 and not p.compact
+        assert p.threads == k4.lane_geometry(F)
+        assert p.blocks == lanes * -(-F // p.threads)
+
+
+def test_k34_graph_replays_and_two_streams(cuda, monkeypatch):
+    """Prepared K3 and K4 launches captured in CUDA graphs and replayed
+    three times over outputs filled with garbage give the plain versions'
+    heaps and chase each time (nothing carries between launches), and
+    two blocks' launches in flight at once on two streams each give
+    theirs."""
+    from siddhi_tpu_torch.kernels import scan_chase as k4
+    from siddhi_tpu_torch.kernels import seg_tree as k3
+    from siddhi_tpu_torch.replay import bits, same, scan_inputs
+    cases = []
+    for body, lanes, per in (("count_head", 32, 512),
+                             ("threshold_max", 1, 1 << 15)):
+        kern, ev, _M = _k34_blocks(cuda, _k34_app(body, False, lanes), lanes,
+                                   per, monkeypatch)[-1]
+        pre = kern.pre_masks(ev)
+        masks, ranks, prevs, rcols = scan_inputs(kern, ev, pre)
+        heaps = k3.seg_tree_plain(kern, ev, masks)
+        rheaps = k3.seg_tree_plain(kern, ev, masks, kern.rank_trees, rcols)
+        chase = k4.scan_chase_plain(kern, ev, masks, heaps, ranks, rheaps,
+                                    prevs)
+        cases.append((k3.prepare(kern, ev, pre), heaps,
+                      k4.prepare(kern, ev, pre, heaps, ranks, rheaps, prevs),
+                      chase))
+
+    def check(l3, heaps, l4, chase):
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   zip(bits(l3.outputs), bits(heaps)))
+        assert all(same(a, b) for a, b in zip(l4.outputs, chase))
+    for l3, heaps, l4, chase in cases:
+        l3()
+        l4()
+        check(l3, heaps, l4, chase)
+        g3, g4 = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g3, capture_error_mode="relaxed"):
+            l3()
+        with torch.cuda.graph(g4, capture_error_mode="relaxed"):
+            l4()
+        for _ in range(3):
+            for t in l3.outputs:
+                t.view(torch.uint8).fill_(0xA5)
+            for t in l4.outputs:
+                t.view(torch.uint8).fill_(0x5A)
+            g3.replay()
+            g4.replay()
+            check(l3, heaps, l4, chase)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        for (l3, _h, l4, _c), s in zip(cases, (s1, s2)):
+            with torch.cuda.stream(s):
+                l3()
+                l4()
+        for case in cases:
+            check(*case)

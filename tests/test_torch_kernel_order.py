@@ -12,12 +12,14 @@ aggregates, an association of its own.  These tests hold what makes that right:
   entries, warp and block Hillis-Steele scans, the nearest predecessor's
   aggregate where it holds a segment start, else a block scan over the
   aggregates of the tile's look-back window, behind the previous window's
-  inclusive prefix; `period` mode) equals `win_scan_plain` bit for bit on
-  exact data, and `win_scan_plain` equals the JAX window step's scans
-  there; on raw doubles the two associations differ in the last bits,
-  within the rounding bound of a sum.  The association depends on the
-  data alone, so the kernel's runs agree bit for bit (the card tests hold
-  the kernel to this emulation on raw doubles);
+  inclusive prefix; `period` mode) equals `win_scan_plain` bit for bit,
+  on exact data and on raw doubles (the plain version folds float sums
+  in K6's association), and `win_scan_plain` equals the JAX window
+  step's scans on exact data; on raw doubles K6's association differs
+  from a Hillis-Steele fold in the last bits, within the rounding bound
+  of a sum.  The association depends on the data alone, so the kernel's
+  runs agree bit for bit (the card tests hold the kernel to this
+  emulation on raw doubles);
 - `agg_merge_plain` equals the JAX package's jitted `_make_step` bit for
   bit on raw doubles, at lengths around the warp and the kernel's chunks
   and on one 2^15-event segment.
@@ -167,11 +169,23 @@ def test_plain_scans_equal_the_jax_window_scans_on_exact_data():
         seg, jv, True)))
 
 
+def _hillis_steele_sums(v, flags):
+    """The log-step Hillis-Steele fold `win_scan_plain` ran before it took
+    K6's association: a reference association for the rounding bound."""
+    x, f, d = v.clone(), flags.clone(), 1
+    while d < len(x):
+        x = torch.cat([x[:d], torch.where(f[d:], x[d:], x[:-d] + x[d:])])
+        f = torch.cat([f[:d], f[d:] | f[:-d]])
+        d *= 2
+    return x
+
+
 def test_k6_look_back_association_on_raw_doubles():
-    """Where f64 rounds, K6's association is not the plain version's: the
-    sums differ in the last bits, each within the rounding bound of two
-    folds of the prefix (2 (i + 1) 2^-53 sum|v| at entry i); min, max and
-    the integer columns stay equal."""
+    """Where f64 rounds, `win_scan_plain` folds the sums in K6's
+    association: equal to the Python-scalar emulation bit for bit, and
+    both within the rounding bound of two folds of the prefix (2 (i + 1)
+    2^-53 sum|v| at entry i) of the Hillis-Steele fold, from which they
+    differ in the last bits; min, max and the integer columns equal."""
     n = 4 * TILE + 5
     _rng, v, valid, big = _scan_inputs(n, 9, grid=False)
     v = v * torch.exp(torch.from_numpy(np.random.default_rng(3).uniform(
@@ -179,12 +193,48 @@ def test_k6_look_back_association_on_raw_doubles():
     cols = [("sum", v, True), ("min", v, True), ("sum", big, True)]
     got = k6_emulate(cols, n, valid)
     want = win_scan_plain(cols, n, valid)
-    diff = (got[0] - want[0]).abs()
+    assert torch.equal(got[0].view(torch.int64), want[0].view(torch.int64))
+    vm = torch.where(valid, v, torch.zeros_like(v))
+    old = _hillis_steele_sums(vm, torch.zeros(n, dtype=torch.bool))
+    diff = (want[0] - old).abs()
     bound = 2 * torch.arange(1, n + 1) * 2.0 ** -53 * torch.cumsum(
-        torch.where(valid, v.abs(), torch.zeros_like(v)), 0)
+        vm.abs(), 0)
     assert bool((diff <= bound).all())
     assert bool((diff > 0).any())        # the associations do differ
     assert _same(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("case", ["plain", "segmented", "tile_starts",
+                                  "period322"])
+def test_k6_sums_equal_the_emulation_over_look_back_windows(case, window):
+    """The plain version's K6 fold on raw doubles over a chain of short
+    look-back windows (the kernel's are 256 tiles), bit for bit against
+    the emulation: window-last tiles, carries behind the previous
+    window's prefix, tiles that open with a segment start, f32 input."""
+    from siddhi_tpu_torch.kernels.win_scan import _k6_sums
+    n = 7 * TILE + 300
+    rng, v, valid, _big = _scan_inputs(n, 11, grid=False)
+    v = v * torch.exp(torch.from_numpy(rng.uniform(-20, 20, n)))
+    flags, period = None, 0
+    if case == "segmented":
+        flags = torch.from_numpy(rng.random(n) < 0.0005)
+    if case == "tile_starts":
+        fl = np.zeros(n, bool)
+        fl[[TILE, 2 * TILE - 1, 3 * TILE + 1, 4 * TILE, 6 * TILE]] = True
+        flags = torch.from_numpy(fl)
+    if case.startswith("period"):
+        period = int(case[6:])
+        flags = torch.arange(n) % period == 0
+    f = flags if flags is not None else torch.zeros(n, dtype=torch.bool)
+    for vals, masked in ((v, True), (v.float(), False)):
+        want = k6_emulate([("sum", vals, masked)], n, valid, flags, period,
+                          window)[0]
+        x = vals.double()
+        if masked:
+            x = torch.where(valid, x, torch.zeros_like(x))
+        got = _k6_sums(x, f, window)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
 # ---------------------------------------------------------------------------

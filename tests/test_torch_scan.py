@@ -463,7 +463,10 @@ def test_scan_past_the_old_kernel_limits_runs_scan():
     """A chain past the fixed parameter blocks the scan kernels had (8
     positions, 9 trees, 32 match-table rows) runs the `scan` family in
     both packages -- the kernels take their programs, trees, loads and
-    row sources from device tables now -- with equal rows."""
+    row sources from device tables now -- with equal rows.  Its nine
+    hops' `price` max-trees gate the same leaves (one stream, no
+    pre-mask), so the plan builds one of them beside the timestamp tree
+    (tests/test_torch_k34_tiles.py has a chain of ten distinct trees)."""
     sends = tape("c4", flushes=2, n=300, seed=7)
     jax_out, jrt = run(siddhi_tpu, PREFER + LONG_CHAIN, sends)
     got, rt = run(siddhi_tpu_torch, LONG_CHAIN, sends, device="cpu")
@@ -471,6 +474,7 @@ def test_scan_past_the_old_kernel_limits_runs_scan():
     jplan = next(p for p in jrt._plans if isinstance(p, JPlan))
     assert plan.family == jplan.family == "scan"
     kern = plan._par_kern
-    assert kern.S == 10 and len(kern.trees) == 10
+    assert kern.S == 10 and len(kern.trees) == 2
+    assert {h.tree for h in kern.hops} == {1}
     assert sum(map(len, kern.rows.values())) == 33
     assert got == jax_out and len(got) > 5

@@ -52,10 +52,13 @@ def _kernels(app: str) -> list:
 @pytest.mark.parametrize("f64", [False, True])
 def test_c5_group_trees_are_shared(f64):
     """c5_app(32)'s two `scan` groups: the timestamp tree and the hops'
-    `price > e1.price` / `price > e2.price` trees are lane-invariant."""
+    `price > e1.price` / `price > e2.price` tree are lane-invariant; the
+    second group's two hops gate the same leaves and share one tree."""
     app = F64 + c5_app(32, frac=1e-6) if f64 else c5_app(32)
     kerns = _kernels(app)
-    assert [len(k.trees) for k in kerns] == [2, 3]
+    assert [len(k.trees) for k in kerns] == [2, 2]
+    assert [len(k.hops) for k in kerns] == [1, 2]
+    assert all(h.tree == 1 for k in kerns for h in k.hops)
     for k in kerns:
         assert k.nfak.broadcast and all(t.shared for t in k.trees)
         assert k.trees[k.ts_tree].src == "__flat.__ts__"
