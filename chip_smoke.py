@@ -50,8 +50,11 @@ Phases (any failure exits non-zero; nothing is caught):
      recorded (every kernel call of the window plan, through its `record`
      hook), rows equal to the CPU run and `ap` equal to the exact f64
      sliding mean rounded to f32; every recorded call of K1, K6-K8 equal
-     to its plain version; then a timing run, not recorded, of 8 flushes:
-     the median ms of its 7 steady flushes and events/s from it;
+     to its plain version (K8's outputs and k bit for bit, and one kernel
+     launch a call, read from its launcher); then a timing run, not
+     recorded, of 8 flushes: the median ms of its 7 steady flushes and
+     events/s from it; K8's figures on the widest call of phases 10-12
+     each (C2's without a mask, the others masked);
  11. the grouped, filtered `time(10 sec)` window with min/max/avg/count
      and `having` (its carry grows from 1024 slots through the overflow
      retry), checked the same way;
@@ -1952,11 +1955,12 @@ def phase_window(torch, np, label: str, app: str, seed: int,
     main = tape[:C2_FLUSHES]
     calls: list = []
     kernels.reset_launches()
-    kernels.record_params("win_range")
+    kernels.record_params("win_range", "win_compact")
     try:
         rows, per_flush, rt = run_window(app, main, "cuda", calls)
         launches = dict(kernels.LAUNCHES)
         k7_params = list(kernels.PARAMS["win_range"])
+        k8_params = list(kernels.PARAMS["win_compact"])
     finally:
         kernels.record_params()
     ref, cpu_flush, _rt = run_window(app, main, "cpu")
@@ -2000,6 +2004,19 @@ def phase_window(torch, np, label: str, app: str, seed: int,
                           key=lambda j: (k7_calls[j]["n"], j))]
         metrics["win_range"].update(tiles=p.ntiles, tile=k7.TILE,
                                     launches_a_call=p.launched)
+    # K8: one kernel launch a call, read from its launcher (a memset of
+    # the look-back state besides, masked over more than one tile)
+    k8_calls = [a for name, a, _kw in calls if name == "win_compact"]
+    if len(k8_params) != len(k8_calls) or any(
+            p.launched != 1 for p in k8_params):
+        raise SystemExit(f"[{label}] K8: {len(k8_params)} launches for "
+                         f"{len(k8_calls)} calls, kernels a launch "
+                         f"{sorted({p.launched for p in k8_params})}")
+    if k8_params:
+        memsets = sum(p.state is not None for p in k8_params)
+        log(f"  [{label}] K8: {len(k8_params)} calls, one kernel launch "
+            f"each ({memsets} with a memset of the look-back state)")
+        metrics["win_compact"]["launches_a_call"] = 1
     return {"rows": len(rows), "recorded_ms_per_flush": per_flush,
             "ms_per_flush": timed, "median_steady_ms": med, "C": plan.C,
             "cpu_ms_per_flush": cpu_flush, "events_per_s": eps,
@@ -2697,6 +2714,12 @@ def main() -> int:
         ("win_compact", f"{CSRC}/win_compact.cu", f"{win}:803",
          c2["launches"]["win_compact"], werr("win_compact"),
          c2["kernels"]["win_compact"]),
+        ("win_compact (grouped, masked)", f"{CSRC}/win_compact.cu",
+         f"{win}:835", c2g["launches"]["win_compact"], werr("win_compact"),
+         c2g["kernels"]["win_compact"]),
+        ("win_compact (c2b, masked)", f"{CSRC}/win_compact.cu",
+         f"{win}:835", c2b["launches"]["win_compact"], werr("win_compact"),
+         c2b["kernels"]["win_compact"]),
         ("win_range (grouped)", f"{CSRC}/win_range.cu", f"{win}:148",
          c2g["launches"]["win_range"], werr("win_range"),
          c2g["kernels"]["win_range"]),
@@ -2819,6 +2842,8 @@ def main() -> int:
                     f"{e['launches_a_call']} kernel launches a call")
         elif "tiles" in e:
             lib += f", {e['tiles']} tiles a lane, {e['warps']} warps a block"
+        elif "launches_a_call" in e:
+            lib += f", {e['launches_a_call']} kernel launches a call"
         if "step_ns" in e:
             lib += (f", {e['step_ns']:.1f} ns a step (TT {e['tt']}, "
                     f"{e['wpb']} warps a block)")

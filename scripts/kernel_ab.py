@@ -5,8 +5,8 @@ K4 (`scan_chase`), K5 (`scan_compact`), K6 (`win_scan`), K7
 and K11 (`dfa_tables`) on the calls
 their main paths make, checkout by checkout.
 
-    python3 scripts/kernel_ab.py [--k1] [--k2] [--k4] [--k5] [--k7] [--k9]
-                                 [--k11] ROOT [ROOT ...]
+    python3 scripts/kernel_ab.py [--k1] [--k2] [--k4] [--k5] [--k7] [--k8]
+                                 [--k9] [--k11] ROOT [ROOT ...]
     python3 scripts/kernel_ab.py --host PARENT_ROOT CHANGE_ROOT [ROUNDS]
 
 Runs each checkout (a directory holding chip_smoke.py and
@@ -58,16 +58,18 @@ version), the widest `window_args` and `window_select` calls of C2 and
 the widest `join_filter` call of J6O.  K11 (`--k11`): the last `dfa`
 block of C3SD (one lane of 2^18 events) and of C4D (1000 lanes), with
 the tiles a lane where the checkout's launch reports them
-(`k11_geometry`).  K7 (`--k7`): the widest call of C2 and of C2 grouped,
-with K8 on the widest of each, and K5 (`--k5`): the last `scan` block of
-C4, C4N, C4A and C4F64 and C5's widest fused block, each with its host
-dispatch (`k7_host`, `k8_host`, `k5_host`, timed as `k1_host`) and
-geometry (`k7_geometry`, `k5_geometry`).  `--k1`, `--k2`, `--k4`,
-`--k5`, `--k7`, `--k9` and `--k11` time only those kernels (K3 and K4
-for `--k4`, K8 with `--k7`); several may be given; none times them all.
-Prints one JSON line per run: the checkout, the card's name and power
-limit, the device times in ms and `ptxas`, each K1, K2, K3, K4, K5, K7,
-K9 and K11 source's kernels with their registers and spill stores and
+(`k11_geometry`).  K7 (`--k7`): the widest call of C2 and of C2 grouped;
+K8 (`--k8`): the widest call of C2, C2 grouped and C2B, with its bound
+and a cProfile split of its host dispatch (`k8_geometry`); and K5
+(`--k5`): the last `scan` block of C4, C4N, C4A and C4F64 and C5's
+widest fused block, each with its host dispatch (`k7_host`, `k8_host`,
+`k5_host`, timed as `k1_host`) and geometry (`k7_geometry`,
+`k5_geometry`).  `--k1`, `--k2`, `--k4`, `--k5`, `--k7`, `--k8`, `--k9`
+and `--k11` time only those kernels (K3 and K4 for `--k4`); several may
+be given; none times them all (`--k7` and `--k8` alone build only the
+window path's sources).  Prints one JSON line per run: the checkout, the
+card's name and power limit, the device times in ms and `ptxas`, each
+K1, K2, K3, K4, K5, K7, K8, K9 and K11 source's kernels with their registers and spill stores and
 loads (nvcc -Xptxas -v).  Needs a CUDA card.
 
 `--host` times K3's and K4's host dispatch (one eager wrapper call:
@@ -92,12 +94,15 @@ import sys
 import time
 
 KERNEL_SOURCES = ("expr_eval", "nfa_block", "seg_tree", "scan_chase",
-                  "scan_compact", "win_range", "join_probe", "dfa_tables")
+                  "scan_compact", "win_range", "win_compact", "join_probe",
+                  "dfa_tables")
 # the `scan` family's kernels (K1, K3, K4, K5, K6, K11); others build at
 # first use
 K34_SOURCES = ("expr_eval", "seg_tree", "scan_chase", "scan_compact",
                "win_scan", "dfa_tables")
-GROUPS = ("--k1", "--k2", "--k4", "--k5", "--k7", "--k9", "--k11")
+GROUPS = ("--k1", "--k2", "--k4", "--k5", "--k7", "--k8", "--k9", "--k11")
+# the window path's kernels (K1, K6, K7, K8)
+WINDOW_SOURCES = ("expr_eval", "win_scan", "win_range", "win_compact")
 
 
 def ptxas(log: str) -> list:
@@ -224,12 +229,11 @@ def k1_entries(out: dict, cs, pkg, np, torch, best) -> None:
 
 
 def k7_entries(out: dict, cs, best) -> None:
-    """K7 on the widest call of C2 and of C2 grouped, and K8 on the widest
-    call of each (chip_smoke.py's window tapes, 2 flushes of 2^17): device
-    ms under k7_/k8_<cell>, the wrapper's host dispatch under k7_host /
-    k8_host, and the K7 call's tiles and kernel launches (`k7_geometry`;
-    a checkout without tiles launches a pass per sparse-table level)."""
-    from siddhi_tpu_torch.kernels import win_compact as k8
+    """K7 on the widest call of C2 and of C2 grouped (chip_smoke.py's
+    window tapes, 2 flushes of 2^17): device ms under k7_<cell>, the
+    wrapper's host dispatch under k7_host, and the call's tiles and
+    kernel launches (`k7_geometry`; a checkout without tiles launches a
+    pass per sparse-table level)."""
     from siddhi_tpu_torch.kernels import win_range as k7
     from siddhi_tpu_torch.replay import run_window
     for label, app, seed in (("c2", cs.C2, 20), ("c2g", cs.C2_GROUPED, 21)):
@@ -256,11 +260,68 @@ def k7_entries(out: dict, cs, best) -> None:
             geo["kernel_launches"] = k7.levels_for(kw["n"]) + 1 \
                 if minmax else 1
         out.setdefault("k7_geometry", {})[label] = geo
+
+
+def k8_profile(call, calls: int = 400, top: int = 12) -> dict:
+    """cProfile of `calls` eager calls of one wrapper (the device
+    synchronised once, after them): the total host ms a call and the
+    `top` functions by own time, each as ms a call (own, cumulative)."""
+    import cProfile
+    import pstats
+    import torch
+    call()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        call()
+    prof.disable()
+    torch.cuda.synchronize()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"ms_a_call": st.total_tt / calls * 1e3,
+            "top": [[f"{os.path.basename(f)}:{line}({fn})",
+                     tt / calls * 1e3, ct / calls * 1e3]
+                    for (f, line, fn), (_cc, _nc, tt, ct, _cal) in rows]}
+
+
+def k8_entries(out: dict, cs, best) -> None:
+    """K8 on the widest call of C2, C2 grouped and C2B (chip_smoke.py's
+    window tapes, 2 flushes of 2^17 each; the widest by T, the last of
+    equals, as chip_smoke.py picks it): device ms under k8_<cell>, the
+    wrapper's host dispatch under k8_host, and under k8_geometry the
+    call's n, T, mask, column widths, the kernel launches a call (the
+    launcher's count where the checkout's reports it, else its three
+    passes past one 1024-row tile), the bound (chip_smoke.py's bytes over
+    3.35 TB/s) and a cProfile split of its host dispatch (`k8_profile`)."""
+    from siddhi_tpu_torch.kernels import win_compact as k8
+    from siddhi_tpu_torch.replay import run_window
+    for label, app, seed in (("c2", cs.C2, 20), ("c2g", cs.C2_GROUPED, 21),
+                             ("c2b", cs.C2B, 22)):
+        calls: list = []
+        tape = cs.make_tape(cs.C2_FLUSH * cs.C2_FLUSHES, cs.C2_FLUSH,
+                            cs.C2_SYMBOLS, seed=seed)
+        run_window(app, tape, "cuda", calls)
         k8_calls = [c for c in calls if c[0] == "win_compact"]
-        _n, a, kw = max(k8_calls, key=lambda c: c[1][3])
+        _n, a, kw = [c for c in k8_calls if c[1][3] == max(
+            x[1][3] for x in k8_calls)][-1]
         out[f"k8_{label}"], out.setdefault("k8_host", {})[f"k8_{label}"] = \
             best(lambda: k8.win_compact(*a, **kw),
                  lambda: [k8.prepare(*a, **kw)])
+        launch = k8.prepare(*a, **kw)
+        res = launch()
+        cols, _fills, n, T = a[:4]
+        mask = a[4] if len(a) > 4 else kw.get("mask")
+        nb, _ops = cs.window_work("win_compact", a, kw, res)
+        launched = getattr(launch.params, "launched", None) \
+            if getattr(launch, "params", None) is not None else \
+            (3 if T > 1024 else 1)
+        out.setdefault("k8_geometry", {})[label] = {
+            "n": n, "T": T, "masked": mask is not None,
+            "widths": [c.element_size() for c in cols],
+            "kernel_launches": launched, "bytes": nb,
+            "bound_ms": nb / 3.35e12 * 1e3,
+            "profile": k8_profile(lambda: k8.win_compact(*a, **kw))}
 
 
 def k5_entries(out: dict, cs, pkg, np, best) -> None:
@@ -533,6 +594,7 @@ def one(root: str, only: frozenset = frozenset()) -> dict:
     # kernels; everything else builds all
     build.build_all(("expr_eval", "join_probe") if only == {"--k9"}
                     else K34_SOURCES if only and only <= {"--k4", "--k5"}
+                    else WINDOW_SOURCES if only and only <= {"--k7", "--k8"}
                     else build.SOURCES)
     regs = {name: ptxas(log) for name, log in build.BUILD_LOG.items()
             if name.startswith(KERNEL_SOURCES)}
@@ -599,6 +661,8 @@ def one(root: str, only: frozenset = frozenset()) -> dict:
         k11_entries(out, cs, pkg, np, best)
     if not only or "--k7" in only:
         k7_entries(out, cs, best_and_host)
+    if not only or "--k8" in only:
+        k8_entries(out, cs, best_and_host)
     if not only or "--k5" in only:
         k5_entries(out, cs, pkg, np, best_and_host)
     if only and "--k9" in only:

@@ -16,7 +16,8 @@ hand-written CUDA kernels and torch glue (cat, sort, gathers):
     each aggregate's argument over the raw batch rows;
   * K8 `win_compact`: the filter-passing events to the front (timestamps,
     window clock, the carried columns, the argument values); k is read
-    back once per step;
+    back once per step where a filter or an argument gave a mask (without
+    one, k is the batch's n);
   * K6 `win_scan`: the valid count, the monotone clock, the prefix sums
     (f64 for floats, i64 for integers and counts), the dense group ids,
     and the tumbling kinds' running aggregates with segment resets;
@@ -416,7 +417,9 @@ class DeviceWindowAggPlan(QueryPlan):
         srcs += [env[c] for c in self.row_cols] + list(vals)
         fills += [0] * (len(self.row_cols) + len(vals))
         packed, k_t = self._kernel("win_compact", srcs, fills, n, T, words)
-        k = int(k_t[0])
+        # no filter and no arguments: every row below n is kept (the JAX
+        # mask arange(T) < nvalid), so k needs no read-back
+        k = n if words is None else int(k_t[0])
         if k == 0:
             return None
         bts = packed[0]

@@ -36,10 +36,11 @@
 // to the lane's end), and publishes its own.  Min is exact and
 // associative, so the result does not depend on which tiles had
 // finished.  Tiles are taken from an atomic ticket, right to left within
-// a lane, so every tile a block waits on is running already.  The last
-// block to finish clears the ticket and the look-back words (each
-// prepared launch's own tensor, zeroed at prepare), so the next replay
-// finds them zero.  A lane of one tile (C4D's 326 events) needs neither.
+// a lane, so every tile a block waits on is running already.  The ticket
+// and the look-back words are each prepared launch's own tensor, zeroed by
+// a memset in the launcher before the kernel, so a CUDA graph's replays
+// find them zero and two launches on two streams never share them.  A
+// lane of one tile (C4D's 326 events) needs neither.
 // Words are u32 on the device (stored as int32: at most 24 bits).  A
 // fused multi-query group's lanes share one row of events (ev_stride 0)
 // with their own pre-masks.  Bound on the H100: bytes -- the pre-mask
@@ -55,7 +56,8 @@
 #define DFA_VAL 0xffffffffull
 
 struct DfaParams {  // layout mirrored by kernels/dfa_tables.py _Params
-  int L, F, NB, nk, ev_stride, W, T, pad0;
+  int L, F, NB, nk, ev_stride, W, T;
+  int launched;                // out: kernels the last call launched
   const int* nev;
   const int* scode;
   const unsigned* const* pre;  // per chase node, over the (L*F,) lane grid
@@ -63,8 +65,8 @@ struct DfaParams {  // layout mirrored by kernels/dfa_tables.py _Params
   int* suffix;                 // (L, 4 NB)
   int* packed;                 // (L, NB)
   int* nblk;                   // (nk, L, NB)
-  unsigned long long* state;   // T > 1: ticket, finished blocks, then the
-                               // (nk, L, T) look-back words; zero between launches
+  unsigned long long* state;   // T > 1: the ticket, then the (nk, L, T)
+                               // look-back words; zeroed by the launcher
 };
 
 __device__ __forceinline__ void dfa_put(unsigned long long* w, unsigned long long v) {
@@ -111,7 +113,6 @@ __global__ void __launch_bounds__(32 * DFA_MAXW) dfa_tables_kernel(const __grid_
   __shared__ int warp_first[DFA_MAXK][DFA_MAXW];
   __shared__ int carry_in[DFA_MAXK];
   __shared__ int s_ticket;
-  __shared__ int s_last;
   const int l = threadIdx.x & 31, w = threadIdx.x >> 5;
   int lane, tile;
   if (p.T > 1) {
@@ -185,7 +186,7 @@ __global__ void __launch_bounds__(32 * DFA_MAXW) dfa_tables_kernel(const __grid_
   } else if (w < p.nk) {
     int mine = p.NB;
     for (int v = 0; v < p.W; ++v) mine = min(mine, warp_first[w][v]);
-    unsigned long long* words = p.state + 2 + (static_cast<long long>(w) * p.L + lane) * p.T;
+    unsigned long long* words = p.state + 1 + (static_cast<long long>(w) * p.L + lane) * p.T;
     const int after = dfa_look_back(words, tile, p.T, mine, p.NB);
     if (l == 0) carry_in[w] = after;
   }
@@ -199,30 +200,22 @@ __global__ void __launch_bounds__(32 * DFA_MAXW) dfa_tables_kernel(const __grid_
     if (h) run = b + __ffs(static_cast<int>(h)) - 1;
     if (b < p.NB) p.nblk[k * plane + brow + b] = run;
   }
-  if (p.T > 1) {  // the last block to finish clears the look-back state
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      s_last = atomicAdd(p.state + 1, 1ull) == static_cast<unsigned long long>(gridDim.x) - 1;
-    }
-    __syncthreads();
-    if (s_last) {
-      __threadfence();
-      const long long nw = static_cast<long long>(p.nk) * p.L * p.T;
-      for (long long k = threadIdx.x; k < nw; k += blockDim.x) p.state[2 + k] = 0ull;
-      if (threadIdx.x == 0) {
-        p.state[0] = 0ull;
-        p.state[1] = 0ull;
-      }
-    }
-  }
 }
 
-extern "C" int dfa_tables_launch(const DfaParams* params, cudaStream_t stream) {
+extern "C" int dfa_tables_launch(DfaParams* params, cudaStream_t stream) {
   const DfaParams& p = *params;
+  params->launched = 0;
   if (p.nk < 1 || p.nk > DFA_MAXK || p.W < 1 || p.W > DFA_MAXW || p.T < 1 ||
       static_cast<long long>(p.T) * p.W * 32 < p.NB || (p.T > 1 && (p.W != DFA_MAXW || p.state == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (p.T > 1) {
+    err = cudaMemsetAsync(p.state, 0,
+                          sizeof(unsigned long long) * (1 + static_cast<long long>(p.nk) * p.L * p.T), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   dfa_tables_kernel<<<static_cast<unsigned>(p.L) * p.T, 32 * p.W, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  params->launched = 1;
+  return 0;
 }

@@ -55,10 +55,11 @@
 //          slots >= M are counted and not written (the plan re-launches
 //          with a larger M);
 //      and the last block to finish writes -1 / 0 into the slots from
-//      the total to M (the outputs are a function of the inputs alone)
-//      and clears the look-back state (a prepared launch's own, zeroed
-//      when it was allocated), so the launch's next replay, or a CUDA
-//      graph's, finds it zero.
+//      the total to M (the outputs are a function of the inputs alone).
+//      The look-back state (tickets, the finish counter, a word a tile)
+//      is a prepared launch's own; the launcher zeroes it with a memset
+//      before the kernels, so a CUDA graph's replays find it zero and
+//      two launches on two streams never share it.
 // Bound on the H100: operations -- T_p * Mw pair tests of the `on`
 // program, each a few VM instructions, once the probes outnumber the
 // window; each opposite row is read from L2 once per tile and tested
@@ -75,6 +76,7 @@
 #include <climits>
 
 #include "expr_vm.cuh"
+#include "look_back.cuh"
 #include "win_scan.cuh"
 
 #define JP_THREADS WS_THREADS            // 256
@@ -82,11 +84,9 @@
 #define JP_CHUNK JP_THREADS              // window positions a ring slot holds
 #define JP_SLOT_BYTES (JP_CHUNK * 8)     // a staged column in one ring slot
 #define JP_RANK_TILE (JP_THREADS * 32)   // opposite events a rank tile
-#define JP_HEAD 4                        // look-back state: two tickets and two
-                                         // finish counters, then the tiles' words
-#define JP_AGG (1ull << 62)              // a published tile word: its count
-#define JP_INC (2ull << 62)              // ... or its inclusive prefix
-#define JP_VAL ((1ull << 62) - 1)
+#define JP_HEAD 3                        // look-back state: the probe ticket and
+                                         // finish counter, the rank ticket, then
+                                         // the tiles' words
 
 struct JoinParams {  // layout mirrored by kernels/join_probe.py _Params
   int n_p, n_o, Lo, NO, Mw, M;
@@ -115,7 +115,7 @@ struct JoinParams {  // layout mirrored by kernels/join_probe.py _Params
   const int* words;
   int* o_rank;                 // n_o + 1: passed opposite events before j
   int* o_idx;                  // n_o: batch index of the r-th passed one
-  unsigned long long* state;   // look-back state, zero between launches
+  unsigned long long* state;   // look-back state, zeroed by the launcher
   unsigned* gbits;             // the blocks' bitmaps when a tile's do not
                                // fit in shared memory (null: they do)
   long long* total;            // [0]: pairs of this direction
@@ -149,50 +149,6 @@ __device__ __forceinline__ const char* opp_row(const JoinParams& p, int j, int p
 
 __device__ __forceinline__ int vt_size(int vt) {
   return vt == VT_BOOL ? 1 : (vt == VT_I64 || vt == VT_F64) ? 8 : 4;
-}
-
-__device__ __forceinline__ void put_word(unsigned long long* w, unsigned long long v) {
-  asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(w), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long get_word(const unsigned long long* w) {
-  unsigned long long v;
-  asm volatile("ld.volatile.global.u64 %0, [%1];" : "=l"(v) : "l"(w) : "memory");
-  return v;
-}
-
-// Decoupled look-back, one whole warp: publishes tile `tile`'s count
-// `agg`, returns the sum of the earlier tiles' counts and publishes the
-// inclusive prefix.  The lanes read 32 predecessors at once (lane 0 the
-// nearest), wait until each has published, and stop at the nearest that
-// holds its inclusive prefix; tile 0 publishes its prefix at once.  The
-// counts are integers, so the prefix does not depend on which tiles had
-// finished.
-__device__ long long look_back(unsigned long long* words, int tile, long long agg) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) put_word(words, JP_INC | static_cast<unsigned long long>(agg));
-    return 0;
-  }
-  if (lane == 0) put_word(words + tile, JP_AGG | static_cast<unsigned long long>(agg));
-  long long excl = 0;
-  for (int end = tile - 1;; end -= 32) {
-    const int k = end - lane;
-    unsigned long long v = 0;
-    if (k >= 0) {
-      do {
-        v = get_word(words + k);
-      } while ((v >> 62) == 0);
-    }
-    const unsigned inc = __ballot_sync(0xffffffffu, k >= 0 && (v >> 62) == 2);
-    const int stop = inc ? __ffs(inc) - 1 : 31;
-    long long x = (k >= 0 && lane <= stop) ? static_cast<long long>(v & JP_VAL) : 0;
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    excl += x;
-    if (inc) break;
-  }
-  if (lane == 0) put_word(words + tile, JP_INC | static_cast<unsigned long long>(excl + agg));
-  return excl;
 }
 
 // The first batch event whose seq is not below s, in [l, h] (o_seq
@@ -249,7 +205,7 @@ __global__ void __launch_bounds__(JP_THREADS) rank_kernel(const __grid_constant_
   Seg<SumI> total;
   const Seg<SumI> ex = block_seg_scan<SumI>(Seg<SumI>{false, __popc(bits)}, &total);
   if (threadIdx.x < 32) {
-    const long long base = look_back(words, tile, total.v);
+    const long long base = look_back<false>(words, tile, 0, total.v, 0);
     if (threadIdx.x == 0) s_base = base;
   }
   __syncthreads();
@@ -259,13 +215,6 @@ __global__ void __launch_bounds__(JP_THREADS) rank_kernel(const __grid_constant_
     if ((bits >> j) & 1u) p.o_idx[r++] = static_cast<int>(i0 + j);
   }
   if (tile == p.nrt - 1 && threadIdx.x == 0) p.o_rank[p.n_o] = static_cast<int>(s_base + total.v);
-  if (last_block(st + 3)) {
-    for (int k = threadIdx.x; k < p.nrt; k += JP_THREADS) words[k] = 0ull;
-    if (threadIdx.x == 0) {
-      st[2] = 0ull;
-      st[3] = 0ull;
-    }
-  }
 }
 
 #define JP_GROUP 4  // probes one pass of `on` tests
@@ -572,7 +521,7 @@ __global__ void __launch_bounds__(JP_THREADS) probe_kernel(const __grid_constant
       }
       if (lane < tp) s_pre[lane] = inc - cnt;
       const long long agg = __shfl_sync(0xffffffffu, inc, 31);
-      const long long base = p.ntiles == 1 ? 0 : look_back(words_lb, tile, agg);
+      const long long base = p.ntiles == 1 ? 0 : look_back<false>(words_lb, tile, 0, agg, 0);
       if (lane == 0) {
         s_base = base;
         if (tile == p.ntiles - 1) p.total[0] = base + agg;
@@ -647,11 +596,6 @@ __global__ void __launch_bounds__(JP_THREADS) probe_kernel(const __grid_constant
       p.pb[s] = -1;
       for (int k = 0; k < p.n_out; ++k) vm_write(p.outs[k], p.out_vt[k], s, vm_l(0));
     }
-    for (int k = t; k < p.ntiles; k += JP_THREADS) words_lb[k] = 0ull;
-    if (t == 0) {
-      st[0] = 0ull;
-      st[1] = 0ull;
-    }
   }
 }
 
@@ -662,6 +606,9 @@ extern "C" int join_probe_launch(JoinParams* params, int grid, cudaStream_t stre
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   params->launched = 0;
+  if (p.state == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaMemsetAsync(p.state, 0, sizeof(unsigned long long) * (JP_HEAD + p.nrt + p.ntiles), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (p.o_pass != nullptr) {
     rank_kernel<<<static_cast<unsigned>(p.nrt), JP_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

@@ -27,7 +27,7 @@
 // consecutive slots.  A one-shot
 // head first needs h0, the lane's first head: each tile publishes the
 // first head among its c = 0 candidates and takes the minimum over the
-// lane's earlier tiles from a decoupled look-back (exact for the live
+// lane's earlier tiles from a decoupled look-back (look_back.cuh; exact for the live
 // test: every j below the tile's own is covered by an earlier tile of c
 // = 0).  The tile's live count, per (k, warp) from ballots, then takes
 // its first match slot from a second look-back over every earlier tile
@@ -51,6 +51,7 @@
 // column is copied, a FLOAT one widened (the JAX package's caps_f at f64,
 // nfa_parallel.py:1079-1175 in f64 mode).
 // Python side: kernels/scan_compact.py.
+#include "look_back.cuh"
 #include "seg_tree.cuh"
 
 #define CP_THREADS 256
@@ -60,9 +61,6 @@
 #define CP_ROWS 64  // row sources staged in shared memory; the rest read from the table
 #define FULL 0xffffffffu
 #define UNBOUNDED 1000000000
-#define LB_AGG (1ull << 62)  // a published look-back word: the tile's own value
-#define LB_INC (2ull << 62)  // ... or the inclusive value through the tile
-#define LB_VAL ((1ull << 62) - 1)
 
 enum RowKind {
   ROW_COL = 0, ROW_COMP_TS = 1, ROW_COMP_SEQ = 2, ROW_HEAD_SEQ = 3, ROW_QID = 4, ROW_CNT = 5,
@@ -115,53 +113,6 @@ struct CompactParams {  // layout mirrored by kernels/scan_compact.py _Params
 
 __device__ __forceinline__ long long plane_of(const CompactParams& p) {
   return static_cast<long long>(p.L) * p.F;
-}
-
-__device__ __forceinline__ void lb_put(unsigned long long* w, unsigned long long v) {
-  asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(w), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long lb_get(const unsigned long long* w) {
-  unsigned long long v;
-  asm volatile("ld.volatile.global.u64 %0, [%1];" : "=l"(v) : "l"(w) : "memory");
-  return v;
-}
-
-// One whole warp: publishes tile g's own value `mine` among `words`,
-// folds (sum, or min when MIN) the values of tiles g - 1, g - 2, ... down
-// to the nearest inclusive one (tile `first` publishes inclusive at once),
-// publishes g's inclusive value and returns the exclusive one.
-template <bool MIN>
-__device__ long long look_back(unsigned long long* words, int g, int first, long long mine,
-                               long long id) {
-  const int l = threadIdx.x & 31;
-  if (g == first) {
-    if (l == 0) lb_put(words + g, LB_INC | static_cast<unsigned long long>(mine));
-    return id;
-  }
-  if (l == 0) lb_put(words + g, LB_AGG | static_cast<unsigned long long>(mine));
-  long long before = id;
-  for (int start = g - 1;; start -= 32) {
-    const int k = start - l;  // lane l: the l-th tile down from `start`
-    unsigned long long v = 0;
-    if (k >= first) {
-      do {
-        v = lb_get(words + k);
-      } while ((v >> 62) == 0);
-    }
-    const unsigned inc = __ballot_sync(FULL, k >= first && (v >> 62) == 2);
-    const int stop = inc ? __ffs(inc) - 1 : 31;
-    long long x = (k >= first && l <= stop) ? static_cast<long long>(v & LB_VAL) : id;
-    for (int o = 16; o > 0; o >>= 1) {
-      const long long y = __shfl_xor_sync(FULL, x, o);
-      x = MIN ? (y < x ? y : x) : x + y;
-    }
-    before = MIN ? (x < before ? x : before) : before + x;
-    if (inc || start - 31 <= first) break;
-  }
-  const long long incl = MIN ? (mine < before ? mine : before) : before + mine;
-  if (l == 0) lb_put(words + g, LB_INC | static_cast<unsigned long long>(incl));
-  return before;
 }
 
 // Completion index of candidate c of head j.

@@ -1,5 +1,5 @@
 // Segmented block scans shared by the window kernels (win_scan.cu K6,
-// win_range.cu K7, win_compact.cu K8).
+// win_range.cu K7) and by join_probe.cu K9's rank pass.
 //
 // An element of a segmented scan is a pair (f, v): f says that a segment
 // starts inside the element's range, v is the reduction from the last such

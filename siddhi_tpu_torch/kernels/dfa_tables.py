@@ -29,9 +29,11 @@ of the pre-mask words, its suffix words by find-first-set, stored as one
 hit and the warps to its right within the tile, and across tiles from a
 reverse decoupled look-back over each tile's first hit block (min: exact,
 so the result does not depend on which tiles had finished), whose state
-is each prepared launch's own tensor, zeroed here and cleared by the
-launch's last block.  Words are u32 on the device, stored in int32 (24
-bits at most); the plain version builds them in int64 and masks.  Bound
+is each prepared launch's own tensor, zeroed by a memset in the launcher
+(a lane of more than one tile: one memset and one kernel launch a call;
+`launched` in the parameter block counts the kernels).  Words are u32
+on the device, stored in int32 (24 bits at most); the plain version
+builds them in int64 and masks.  Bound
 on the H100: bytes -- pre-mask words and stream codes read once, 4 bytes
 an event and 4 (nk + 1) a block written once.
 
@@ -56,7 +58,7 @@ MAX_WARPS = 8         # csrc/dfa_tables.cu DFA_MAXW: warps a CUDA block
 
 class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
-        "L", "F", "NB", "nk", "ev_stride", "W", "T", "pad0")] + [
+        "L", "F", "NB", "nk", "ev_stride", "W", "T", "launched")] + [
         (n, ctypes.c_void_p) for n in (
             "nev", "scode", "pre", "node_scode", "suffix", "packed",
             "nblk", "state")]
@@ -164,9 +166,9 @@ def prepare(k, ev: dict, pre: list) -> Launch:
     nblk = torch.empty((nk, L, NB), dtype=torch.int32, device=dev)
     p.suffix, p.packed, p.nblk = ptr(suffix), ptr(packed), ptr(nblk)
     if p.T > 1:
-        # the look-back state: the ticket, the finished blocks, a word per
-        # node, lane and tile; zero here, cleared by each launch's last block
-        p.state = ptr(torch.zeros(2 + nk * L * p.T, dtype=torch.int64,
+        # the look-back state: the ticket, a word per node, lane and tile;
+        # the launch's own, zeroed by a memset in the launcher
+        p.state = ptr(torch.empty(1 + nk * L * p.T, dtype=torch.int64,
                                   device=dev))
     keep.append(tab.upload(dev))
     fn = load("dfa_tables").dfa_tables_launch
@@ -175,5 +177,5 @@ def prepare(k, ev: dict, pre: list) -> Launch:
     launch = Launch(lambda: fn(ctypes.byref(p), stream_of(dev)),
                     "dfa_tables_launch", "dfa_tables", keep,
                     (suffix, packed, nblk))
-    launch.params = p        # .W warps a block, .T tiles a lane
+    launch.params = p        # .W warps a block, .T tiles a lane; .launched
     return launch

@@ -50,16 +50,18 @@ visible pair from there (four probes a pass, the interpreter's stacks in
 shared memory, as deep as `on` needs: `Program.depth`), keep the match
 bits, take the tile's first pair slot from a decoupled look-back over the
 earlier tiles' counts and write the pairs in (a, then b) order; the last
-block to finish fills the slots past the total and clears the look-back
-state, which each prepared launch holds in a tensor of its own, zeroed
-once, so its replays (a CUDA graph's too) start clean and no two
-launches share it.  `Launch.params` after a launch holds its geometry:
-`tp`, `ntiles`, `chunk` and `group` (the kernel's window positions a
-ring slot and probes a pass, which its launcher checks against CHUNK and
-GROUP, the sizes the shared-memory layout was made for) and `launched`,
-the kernels it launched.  `join_probe_plain` computes the same function with torch ops
-on (chunk, Mw) position grids built by the same rank arithmetic; it is
-used for CPU tensors (the tests) and by the checks.
+block to finish fills the slots past the total.  The look-back state is
+each prepared launch's own tensor, zeroed by a memset in the launcher
+before the kernels, so its replays (a CUDA graph's too) start clean and
+no two launches share it: a call is one memset and one kernel launch
+(two under an opposite filter).  `Launch.params` after a launch holds
+its geometry: `tp`, `ntiles`, `chunk` and `group` (the kernel's window
+positions a ring slot and probes a pass, which its launcher checks
+against CHUNK and GROUP, the sizes the shared-memory layout was made
+for) and `launched`, the kernels it launched.  `join_probe_plain`
+computes the same function with torch ops on (chunk, Mw) position grids
+built by the same rank arithmetic; it is used for CPU tensors (the
+tests) and by the checks.
 """
 from __future__ import annotations
 
@@ -261,9 +263,10 @@ def prepare(p_cols: list, o_cols: list, p_seq, o_seq, p_pass, o_pass, *,
     if on is not None and not shared_bits:
         gbits = torch.empty(grid * p.tp * p.rw, dtype=torch.int32,
                             device=dev)
-    # the look-back state (two tickets, two finish counters, a word per
-    # rank tile and per probe tile): zeroed here, left zero by each launch
-    state = torch.zeros(4 + p.nrt + p.ntiles, dtype=torch.int64, device=dev)
+    # the look-back state (the probe ticket and finish counter, the rank
+    # ticket, a word per rank tile and per probe tile): the launch's own,
+    # zeroed by a memset in the launcher before its kernels
+    state = torch.empty(3 + p.nrt + p.ntiles, dtype=torch.int64, device=dev)
     for name, t in (("o_rank", o_rank), ("o_idx", o_idx), ("state", state),
                     ("gbits", gbits), ("total", total), ("pa", pa),
                     ("pb", pb), ("miss", miss)):

@@ -1176,26 +1176,109 @@ def test_scan_compact_graph_replays_and_two_streams(cuda, monkeypatch):
         _k5_same(lb.outputs, want_b, Mb)
 
 
-@pytest.mark.parametrize("n,T", [(5, 8), (1000, 1024), (131_072, 131_072),
-                                 (100_000, 131_072)])
-@pytest.mark.parametrize("masked", [False, True])
-def test_win_compact_kernel_matches_plain(cuda, n, T, masked):
+def _bits(t):
+    """A tensor's bits, as integers of its width (NaN payloads, -0.0 and
+    bool bytes compared exactly)."""
+    return t.view({1: torch.uint8, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def _k8_inputs(cuda, n, density, masked, ncols=6, seed=5):
     from siddhi_tpu_torch.kernels.expr_eval import pack_mask
-    from siddhi_tpu_torch.kernels.win_compact import (win_compact,
-                                                      win_compact_plain)
-    x = _win_inputs(cuda, n, 5)
-    mask = pack_mask(torch.from_numpy(x["rng"].random(n) < 0.4).to(cuda)) \
-        if masked else None
-    cols = [x["clock"], x["f32n"], x["i32"], x["valid"]]
-    fills = [2 ** 62, 0, 0, 0]
+    x = _win_inputs(cuda, max(n, 1), seed)
+    mask = None
+    if masked:
+        keep = torch.from_numpy(x["rng"].random(n) < density)
+        mask = pack_mask(keep).to(cuda) if n else \
+            torch.zeros(1, dtype=torch.int32, device=cuda)
+    base = [(x["clock"], 2 ** 62), (x["f32n"], -0.0), (x["i32"], -7),
+            (x["valid"], True), (x["f64"], float("nan")), (x["i64"], 0)]
+    pairs = [base[j % len(base)] for j in range(ncols)]
+    return [c for c, _f in pairs], [f for _c, f in pairs], mask
+
+
+def _k8_same(got, want):
+    (outs, k), (pouts, pk) = got, want
+    assert torch.equal(k, pk)
+    for a, b in zip(outs, pouts):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("n,T", [(1, 1), (5, 8), (1000, 1024), (1025, 1025),
+                                 (3001, 3001), (131_072, 131_072),
+                                 (100_000, 131_072), (777, 65_536), (0, 64)])
+@pytest.mark.parametrize("masked,density", [(False, 1.0), (True, 0.0),
+                                            (True, 1.0), (True, 0.4)])
+def test_win_compact_kernel_matches_plain(cuda, n, T, masked, density):
+    """K8 against its plain version bit for bit (NaN payloads, -0.0, bool
+    bytes, the per-column pads and k) over 1-, 4- and 8-byte columns:
+    masks of density 0, 1 and 0.4 over many tiles, n off the word grid,
+    T far above n; one kernel launch a call (the launcher's count), a
+    memset besides only in the masked form over more than one tile."""
+    from siddhi_tpu_torch.kernels import win_compact as k8
+    cols, fills, mask = _k8_inputs(cuda, n, density, masked)
     before = LAUNCHES["win_compact"]
-    (got, k), (want, kp) = (win_compact(cols, fills, n, T, mask),
-                            win_compact_plain(cols, fills, n, T, mask))
+    launch = k8.prepare(cols, fills, n, T, mask)
+    got = launch()
     torch.cuda.synchronize()
     assert LAUNCHES["win_compact"] == before + 1
-    assert torch.equal(k, kp)
-    for a, b in zip(got, want):
-        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert launch.params.launched == 1
+    assert (launch.params.state is not None) == (
+        masked and k8.tiles_below(n) > 1)
+    _k8_same(got, k8.win_compact_plain(cols, fills, n, T, mask))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_win_compact_kernel_many_columns(cuda, masked):
+    """More columns than the parameter block carries (their descriptors
+    from a device table), every width mixed, equal to the plain version."""
+    from siddhi_tpu_torch.kernels import win_compact as k8
+    n, T = 40_000, 65_536
+    cols, fills, mask = _k8_inputs(cuda, n, 0.4, masked, ncols=k8.INLINE + 5)
+    launch = k8.prepare(cols, fills, n, T, mask)
+    assert launch.params.table is not None
+    got = launch()
+    torch.cuda.synchronize()
+    _k8_same(got, k8.win_compact_plain(cols, fills, n, T, mask))
+
+
+def test_win_compact_graph_replays_and_two_streams(cuda):
+    """A prepared masked K8 launch over many tiles captured in a CUDA
+    graph and replayed three times gives the plain version's outputs each
+    time (the launcher's memset, captured with the kernel, zeroes the
+    ticket and look-back words), and two prepared launches in flight at
+    once on two streams each give theirs (each launch owns its state)."""
+    from siddhi_tpu_torch.kernels import win_compact as k8
+    ca, fa, ma = _k8_inputs(cuda, 131_072, 0.4, True, seed=8)
+    cb, fb, mb = _k8_inputs(cuda, 100_003, 0.7, True, seed=9)
+    want_a = k8.win_compact_plain(ca, fa, 131_072, 147_456, ma)
+    want_b = k8.win_compact_plain(cb, fb, 100_003, 131_072, mb)
+    launch = k8.prepare(ca, fa, 131_072, 147_456, ma)
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        launch()
+    for _ in range(3):
+        for o in launch.outputs[0]:
+            _bits(o).fill_(0x5A)
+        launch.outputs[1].fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        _k8_same(launch.outputs, want_a)
+    la = k8.prepare(ca, fa, 131_072, 147_456, ma)
+    lb = k8.prepare(cb, fb, 100_003, 131_072, mb)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            la()
+        with torch.cuda.stream(s2):
+            lb()
+        torch.cuda.synchronize()
+        _k8_same(la.outputs, want_a)
+        _k8_same(lb.outputs, want_b)
 
 
 @pytest.mark.parametrize("which", ["c2", "c2_grouped", "c2b"])
@@ -1316,6 +1399,23 @@ def test_join_probe_kernel_matches_plain(cuda, M, outer):
     flat_w = [want[0], want[1], want[2], *want[3], want[4]]
     for g, w in zip(flat_g, flat_w):
         assert same(None if g is None else g.cpu(), w)
+    # two prepared launches in flight at once on two streams, each with
+    # the look-back state its launcher zeroes, each the plain version's
+    from siddhi_tpu_torch.kernels.join_probe import prepare
+    la, lb = prepare(*dev, **kw), prepare(*dev, **kw)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.cuda.stream(s1):
+            ga = la()
+        with torch.cuda.stream(s2):
+            gb = lb()
+        torch.cuda.synchronize()
+        assert la.params.launched == lb.params.launched == 2
+        for got in (ga, gb):
+            flat_g = [got[0], got[1], got[2], *got[3], got[4]]
+            for g, w in zip(flat_g, flat_w):
+                assert same(None if g is None else g.cpu(), w)
 
 
 def _agg_segments(rng, lens, dev, nrows=2, nb=7):
@@ -1943,8 +2043,9 @@ def test_dfa_tables_tiles_match_plain(cuda, L, F, nk, kind):
     tile), lanes with no hit, a hit only in the last block, sparse and
     dense hits, F not a multiple of 4, 1-8 chase nodes, lanes of one
     tile (C4D's shape); the tables equal the plain version's, and again
-    on a second launch and on CUDA-graph replays (the look-back state
-    clears itself)."""
+    on a second launch and on CUDA-graph replays (the launcher's memset,
+    captured with the kernel, zeroes the look-back state), and two
+    launches in flight at once on two streams each give them."""
     from siddhi_tpu_torch.kernels import dfa_tables as k11
     k, ev, pre, want = _k11_block(cuda, L, F, nk, kind, L * F + nk)
     launch = k11.prepare(k, ev, pre)
@@ -1965,6 +2066,19 @@ def test_dfa_tables_tiles_match_plain(cuda, L, F, nk, kind):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+    assert launch.params.launched == 1
+    la, lb = k11.prepare(k, ev, pre), k11.prepare(k, ev, pre)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.cuda.stream(s1):
+            ga = la()
+        with torch.cuda.stream(s2):
+            gb = lb()
+        torch.cuda.synchronize()
+        for got in (ga, gb):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 def test_dfa_tables_fused_lanes_share_a_row(cuda):
