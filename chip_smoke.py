@@ -188,7 +188,27 @@ Phases (any failure exits non-zero; nothing is caught):
      (K6's float64 sums associate otherwise), the number of rows that
      differ logged; K1, K7, K8 equal to their plain versions on every
      recorded call, K6's sums within the bound, its other columns equal;
- 21. (after 44) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
+ 45. the host matcher: C4 (1000 keys, deviceSlots(32)) and C3 under
+     @app:devicePatterns('never') through SiddhiManager(device="cuda"),
+     4 flushes of 2^15 events (phase 4's 2^18 a flush cut so the host
+     runs end near a minute; keys and pattern kept): no kernel launched
+     (C4: a PartitionGroup and one host clone a key), rows equal to the
+     card's `scan` run on the same tape (sorted), which launches K1 and
+     K3-K5; both runs' events/s; one more host flush under cProfile;
+ 46. replay.MIXED: C4's query on the device beside an `e[last-2]`
+     selector and a `group by` aggregate (per-key host clones),
+     `output every 5 events` (the host matcher) and a range-partitioned
+     pattern (clones), 2 flushes of 2^13: each query planned where the
+     routing puts it with one RuntimeWarning per host query, K1 and K3-K5
+     launched and held to their plain versions on every recorded block,
+     every query's rows equal to the device="cpu" run's;
+ 47. C1 under @app:deviceFilters('never') (2^18 events) equal to the
+     card's K1 run, row for row; C2 under @app:deviceWindows('never') on
+     phase 10's tape within rel 2e-5, abs 2e-4 of the device window
+     plan's rows (the number that differ logged); no kernel launched by
+     either host run; one more C2 host flush under cProfile; the host CPU
+     model (lscpu) logged beside the card;
+ 21. (after 47) one JSON line {"kernels": [...]}, one entry per kernel and K1 use:
      launches on its path, error against the plain version, device time
      (a CUDA graph of 20 calls replayed, so the wrappers' host dispatch
      is not in it; that is `dispatch_ms`), plain time, bound and,
@@ -221,11 +241,12 @@ sys.path.insert(0, ROOT)
 from siddhi_tpu_torch.replay import (  # noqa: E402  (the checkout's package)
     C1, C2, C2_GROUPED, C2B, C3, C3E, C3H, C3K, C3S, C3SD, C3X, C4, C4_HEAD,
     C4_SEQ, C4A, C4D, C4D_BODY, C4F, C4H, C4L_AND, C4L_OR, C4N, C4NS, C4O,
-    C4Z, F64, JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, RAW_STEP, agg_rows,
+    C4Z, F64, JOIN_APP, JOIN_OUTER, JOIN_UNI, MATRIX_APP, MIXED,
+    MIXED_QUERIES, NEVER, RAW_STEP, agg_rows,
     block_masks, c5_app, check_agg_calls, check_chunk_block, check_dfa_block,
     check_join_calls, join_tape, check_scan_block, check_seq_block,
-    check_window_calls, make_tape, matrix_tape, max_err, partitioned,
-    raw_tape, scan_inputs, sorted_rows, wide_tape)
+    check_window_calls, make_tape, matrix_tape, max_err, mixed_placement,
+    partitioned, raw_tape, run_mixed, scan_inputs, sorted_rows, wide_tape)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -235,6 +256,23 @@ C2_FLUSH, C2_FLUSHES, C2_SYMBOLS = 1 << 17, 2, 8
 C2_TIMED = 8            # flushes of the timing run (the first is not steady)
 KEYS, FLUSH, N_FLUSH, C1_EVENTS = 1000, 1 << 18, 4, 1 << 20
 SEQ_FLUSHES, C3_FLUSHES = 2, 2
+# the host plans' phases: C4's and C3's 2^18 events a flush cut to 2^15
+# (keys, flushes and the pattern kept) so that phase 45's host runs end
+# near a minute; the mixed app at 2 flushes of 2^13 events; C1's 2^20
+# events cut to 2^18 for its host run
+HOST_FLUSH, MIXED_FLUSH, MIXED_FLUSHES, HOST_C1_EVENTS = \
+    1 << 15, 1 << 13, 2, 1 << 18
+# the host plans' functions whose cumulative ms cProfile reports
+HOST_PATTERN_FNS = ("core/runtime.py:_drain", "core/partition.py:process",
+                    "interp/engine.py:process", "interp/engine.py:finalize",
+                    "interp/nfa.py:on_event", "interp/nfa.py:_eval",
+                    "interp/nfa.py:env_of_captures",
+                    "interp/engine.py:_matches_to_rows",
+                    "interp/engine.py:rows_batch", "core/batch.py:rows")
+HOST_SINGLE_FNS = ("core/runtime.py:_drain", "interp/engine.py:process",
+                   "interp/engine.py:_run_selector",
+                   "interp/windows.py:process",
+                   "interp/engine.py:rows_batch", "core/batch.py:rows")
 C5_QUERIES, C5_FLUSH, C5_FLUSHES, C5_DT, C5_SYMBOLS = 1000, 1 << 13, 2, 50, 8
 # the pattern-algebra phases: (label, app, flushes, family, seed)
 # (label, app, flushes, family, seed, kernel uses it must launch beyond
@@ -1102,12 +1140,14 @@ def phase_blocks(torch, blocks, label: str = "c4 seq",
     return res
 
 
-def run_recorded(pkg, np, app: str, tape, keys: int = KEYS) -> tuple:
+def run_recorded(pkg, np, app: str, tape, keys: int = KEYS,
+                 runner=None) -> tuple:
     """An app through the facade on the card, launch counts from 0 just
     before its first flush and read just after its last, recording every
     block its plan hands ParallelChainKernel.run_block (kernel, event
     grid, M) or NFAKernel.run_block (kernel, state in, event grid, M,
-    meta); recording launches nothing.  Returns (rows, ms per flush,
+    meta); recording launches nothing.  `runner` (run_app's signature)
+    feeds the tape, run_app by default.  Returns (rows, ms per flush,
     launches, runtime, scan blocks, seq blocks)."""
     from siddhi_tpu_torch import kernels
     from siddhi_tpu_torch.core.nfa_device import NFAKernel
@@ -1127,7 +1167,8 @@ def run_recorded(pkg, np, app: str, tape, keys: int = KEYS) -> tuple:
     try:
         kernels.reset_launches()
         kernels.record_params(*RECORDED)
-        rows, per_flush, rt = run_app(pkg, np, app, tape, keys, "cuda")
+        rows, per_flush, rt = (runner or run_app)(pkg, np, app, tape, keys,
+                                                  "cuda")
         launches = dict(kernels.LAUNCHES)
     finally:
         ParallelChainKernel.run_block, NFAKernel.run_block = run_scan, run_seq
@@ -2365,6 +2406,242 @@ def phase_agg(torch, np, label: str, flushes: int, batch: int,
             "kernels": agg_kernel_metrics(torch, calls) if calls else None}
 
 
+def host_cpu() -> str:
+    """The host CPU as lscpu names it: its `Model name` (which a virtual
+    machine may give as `unknown`) with the vendor, family, model and CPU
+    count (/proc/cpuinfo's fields where lscpu is missing)."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except OSError:
+        out = ""
+    fields = {}
+    for line in out.splitlines():           # newer lscpu indents fields
+        k, _, v = line.strip().partition(":")
+        fields.setdefault(k.strip(), v.strip())
+    if not fields:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                k, _, v = line.partition(":")
+                fields.setdefault(k.strip(), v.strip())
+        fields = {"Model name": fields.get("model name"),
+                  "Vendor ID": fields.get("vendor_id"),
+                  "CPU family": fields.get("cpu family"),
+                  "Model": fields.get("model")}
+    return ", ".join(f"{k} {fields[k]}" for k in (
+        "Model name", "Vendor ID", "CPU family", "Model", "CPU(s)")
+        if fields.get(k)) or "unknown"
+
+
+def host_profile(fn, names) -> dict:
+    """Run fn() under cProfile; the cumulative ms of each function named
+    `file suffix:function` in `names`, keyed `file suffix:function:line`
+    (a file may define two functions of one name), and the profiled wall
+    ms as `total`."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    out = {"total": (time.perf_counter() - t0) * 1e3}
+    for (path, line, func), (_cc, _nc, _tt, ct, _callers) in \
+            pstats.Stats(prof).stats.items():
+        for nm in names:
+            suffix, f = nm.split(":")
+            if func == f and path.replace(os.sep, "/").endswith(suffix):
+                out[f"{nm}:{line}"] = ct * 1e3
+    return out
+
+
+def feed_flush(rt, np, f: dict, keys: int) -> None:
+    """One flush of a make_tape tape into StockStream, as run_app and
+    replay.run_window send it."""
+    codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                     dtype=np.int32)
+    rt.input_handler("StockStream").send_batch(
+        {"symbol": codes[f["sym_idx"]], "price": f["price"],
+         "volume": f["volume"]}, f["ts"])
+    rt.flush()
+
+
+def no_launches(label: str) -> None:
+    from siddhi_tpu_torch import kernels
+    used = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if used:
+        raise SystemExit(f"{label}: the host run launched kernels {used}")
+
+
+def phase_host_patterns(torch, np, pkg) -> dict:
+    """Phase 45: the flagship C4 (1000 keys, deviceSlots(32)) and C3 under
+    @app:devicePatterns('never') through SiddhiManager(device="cuda"): the
+    host matcher (C4: a PartitionGroup and a clone a key) launches no
+    kernel; the same tape through the device `scan` plan on the card
+    launches K1 and K3-K5 and gives the same rows (sorted: the clones and
+    the lanes interleave keys differently).  events/s of both; one more
+    host flush under cProfile (host ms of the layers)."""
+    from siddhi_tpu_torch import kernels
+    scan_k = ("seg_tree", "scan_chase", "scan_compact",
+              "expr_eval:pre_mask", "expr_eval:select")
+    n = HOST_FLUSH * N_FLUSH
+    log(f"[host] C4 and C3 at {N_FLUSH} flushes of {HOST_FLUSH} events "
+        f"(phase 4's {FLUSH} a flush cut for the host runs), {KEYS} keys")
+    out = {}
+    for label, app, kinds in (
+            ("c4", C4_HEAD + C4, {"PartitionGroup", "InterpPatternQueryPlan"}),
+            ("c3", C3, {"InterpPatternQueryPlan"})):
+        tape = make_tape(n + HOST_FLUSH, HOST_FLUSH, KEYS, seed=45)
+        kernels.reset_launches()
+        host, host_ms, hrt = run_app(pkg, np, NEVER + app, tape[:N_FLUSH],
+                                     KEYS, "cuda")
+        no_launches(f"{label} host")
+        got = {type(p).__name__ for p in hrt.plans()}
+        if got != kinds:
+            raise SystemExit(f"{label} under 'never' planned {got}")
+        kernels.reset_launches()
+        dev, dev_ms, drt = run_app(pkg, np, app, tape[:N_FLUSH], KEYS, "cuda")
+        launches = dict(kernels.LAUNCHES)
+        if drt.plans()[0].family != "scan":
+            raise SystemExit(f"{label} device run planned "
+                             f"{drt.plans()[0].family!r}")
+        need_launches(f"{label} device", launches, scan_k, ("nfa_block",))
+        check_rows(f"{label} host", host, dev)
+        prof = host_profile(lambda: feed_flush(hrt, np, tape[N_FLUSH], KEYS),
+                            HOST_PATTERN_FNS)
+        host_eps = n / (sum(host_ms) / 1e3)
+        dev_eps = n / (sum(dev_ms) / 1e3)
+        log(f"[{label} host] {len(host)} matches equal to the card's `scan` "
+            f"run; {len(hrt.plans())} plans, no kernel launched; host "
+            f"matcher ms per flush {[round(x, 1) for x in host_ms]}, "
+            f"{host_eps:.0f} events/s; device ms per flush "
+            f"{[round(x, 1) for x in dev_ms]}, {dev_eps:.0f} events/s "
+            f"(launches {launches})")
+        log(f"  [{label} host] cProfile of one more flush of {HOST_FLUSH}, "
+            f"cumulative ms: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in prof.items()))
+        out[f"{label}_host"] = {
+            "matches": len(host), "events": n, "plans": len(hrt.plans()),
+            "host_ms_per_flush": host_ms, "host_events_per_s": host_eps,
+            "device_ms_per_flush": dev_ms, "device_events_per_s": dev_eps,
+            "device_launches": launches, "profile_ms": prof}
+    return out
+
+
+def phase_mixed(torch, np, pkg) -> dict:
+    """Phase 46: replay.MIXED on the card -- C4's query on the device
+    beside an `e[last-2]` selector and a `group by` aggregate (per-key
+    host clones in C4's partition), `output every 5 events` (the host
+    matcher) and a range-partitioned pattern (clones): each query planned
+    where the routing puts it, one RuntimeWarning for each host query;
+    the device query launches K1 and K3-K5 and every block it recorded
+    holds them to their plain versions (phase 5's check); every query's
+    rows equal the device="cpu" run's."""
+    scan_k = ("seg_tree", "scan_chase", "scan_compact",
+              "expr_eval:pre_mask", "expr_eval:select")
+    tape = make_tape(MIXED_FLUSH * MIXED_FLUSHES, MIXED_FLUSH, KEYS, seed=46)
+    box = {}
+
+    def runner(_pkg, _np, app, tape_, keys, device):
+        rows, ms, rt, box["warned"] = run_mixed(app, tape_, device, keys)
+        return rows, ms, rt
+    rows, ms, launches, rt, blocks, _ = run_recorded(pkg, np, MIXED, tape,
+                                                     runner=runner)
+    place = mixed_placement(rt)
+    want = {"dev": "device:scan", "last2": "clones", "agg": "clones",
+            "rate": "host", "range": "clones"}
+    if place != want:
+        raise SystemExit(f"mixed: planned {place}, expected {want}")
+    warned = sorted(w.split(" runs on ")[0] for w in box["warned"])
+    if warned != [f"query {q!r}" for q in ("agg", "last2", "range",
+                                           "rate")]:
+        raise SystemExit(f"mixed: warnings {box['warned']}")
+    need_launches("mixed", launches, scan_k, ("nfa_block",))
+    ref, cpu_ms, _rt, _w = run_mixed(MIXED, tape, "cpu")
+    for q in MIXED_QUERIES:
+        if sorted(rows[q]) != sorted(ref[q]) or not rows[q]:
+            raise SystemExit(f"mixed {q}: rows differ from the CPU run: "
+                             f"{len(rows[q])} vs {len(ref[q])}")
+    b = phase_scan_blocks(torch, blocks, "mixed")
+    log(f"[mixed] placement {place}; warnings {box['warned']}; rows "
+        f"{ {q: len(r) for q, r in rows.items()} } equal to the CPU run; "
+        f"launches {launches}; {b['blocks']} device blocks equal to plain; "
+        f"ms per flush {[round(x, 1) for x in ms]} (cpu "
+        f"{[round(x) for x in cpu_ms]})")
+    return {"placement": place, "warnings": box["warned"],
+            "rows": {q: len(r) for q, r in rows.items()},
+            "launches": launches, "ms_per_flush": ms, "blocks": b["blocks"]}
+
+
+def phase_host_single(torch, np, pkg) -> dict:
+    """Phase 47: C1 under @app:deviceFilters('never') (the host
+    interpreter; 2^18 events, C1's 2^20 cut) gives the card's K1 run's
+    rows exactly, in order; C2 under @app:deviceWindows('never') on phase
+    10's tape (2 flushes of 2^17) gives the device window plan's rows
+    within rel 2e-5, abs 2e-4 (the host sums in float64, the device in
+    float32), the number of rows that differ logged; neither host run
+    launches a kernel.  One more C2 host flush under cProfile."""
+    import math
+
+    from siddhi_tpu_torch import kernels
+    from siddhi_tpu_torch.replay import run_window
+    tape = make_tape(HOST_C1_EVENTS, HOST_C1_EVENTS, KEYS, seed=2)
+    kernels.reset_launches()
+    host, host_ms, hrt = run_app(pkg, np, "@app:deviceFilters('never')\n" +
+                                 C1, tape, KEYS, "cuda")
+    no_launches("c1 host")
+    kernels.reset_launches()
+    dev, dev_ms, drt = run_app(pkg, np, C1, tape, KEYS, "cuda")
+    if not kernels.LAUNCHES["expr_eval:filter"]:
+        raise SystemExit("c1 device run launched no K1 filter")
+    kinds = (type(hrt.plans()[0]).__name__, type(drt.plans()[0]).__name__)
+    if kinds != ("InterpSingleQueryPlan", "FilterProjectPlan") or \
+            host != dev or not host:
+        raise SystemExit(f"c1 host: {kinds}, {len(host)} rows vs "
+                         f"{len(dev)} (or not equal)")
+    c1_eps = HOST_C1_EVENTS / (sum(host_ms) / 1e3)
+    log(f"[c1 host] {len(host)} rows equal to the card's K1 run; host "
+        f"{host_ms[0]:.1f} ms ({c1_eps:.0f} events/s), device "
+        f"{dev_ms[0]:.1f} ms for {HOST_C1_EVENTS} events")
+    tape = make_tape(C2_FLUSH * (C2_FLUSHES + 1), C2_FLUSH, C2_SYMBOLS,
+                     seed=20)
+    kernels.reset_launches()
+    host, host_ms, hrt = run_window("@app:deviceWindows('never')\n" + C2,
+                                    tape[:C2_FLUSHES], "cuda")
+    no_launches("c2 host")
+    dev, dev_ms, drt = run_window(C2, tape[:C2_FLUSHES], "cuda")
+    kinds = (type(hrt.plans()[0]).__name__, type(drt.plans()[0]).__name__)
+    if kinds != ("InterpSingleQueryPlan", "DeviceWindowAggPlan") or \
+            len(host) != len(dev) or not host:
+        raise SystemExit(f"c2 host: {kinds}, {len(host)} rows vs {len(dev)}")
+    differ, worst = 0, 0.0
+    for (th, rh), (td, rd) in zip(host, dev):
+        if th != td or len(rh) != len(rd):
+            raise SystemExit(f"c2 host row at {th} vs {td}")
+        for a, b in zip(rh, rd):
+            if not math.isclose(b, a, rel_tol=2e-5, abs_tol=2e-4):
+                raise SystemExit(f"c2 host {rh} vs device {rd} at {th}: "
+                                 f"outside rel 2e-5, abs 2e-4")
+            worst = max(worst, abs(a - b))
+        differ += rh != rd
+    # replay.run_window encodes K0..K63
+    prof = host_profile(lambda: feed_flush(hrt, np, tape[C2_FLUSHES], 64),
+                        HOST_SINGLE_FNS)
+    c2_eps = C2_FLUSH * C2_FLUSHES / (sum(host_ms) / 1e3)
+    log(f"[c2 host] {len(host)} rows within rel 2e-5, abs 2e-4 of the "
+        f"device window plan's, {differ} differ (largest |host - device| "
+        f"{worst:.3g}); host ms per flush {[round(x, 1) for x in host_ms]} "
+        f"({c2_eps:.0f} events/s), device {[round(x, 2) for x in dev_ms]}")
+    log(f"  [c2 host] cProfile of one more flush of {C2_FLUSH}, cumulative "
+        f"ms: " + ", ".join(f"{k} {v:.1f}" for k, v in prof.items()))
+    return {"c1": {"rows": len(host), "events": HOST_C1_EVENTS,
+                   "host_ms": host_ms, "device_ms": dev_ms,
+                   "host_events_per_s": c1_eps},
+            "c2": {"rows": len(host), "differ": differ, "max_abs": worst,
+                   "host_ms_per_flush": host_ms, "device_ms_per_flush": dev_ms,
+                   "host_events_per_s": c2_eps, "profile_ms": prof}}
+
+
 def kernel_entry(name, source, replaces, launches, err, m) -> dict:
     bound_ms, by = bound(m["bytes"], m["ops"], m.get("f64", False))
     entry = {"name": name, "route": "cuda", "source": source,
@@ -2616,6 +2893,19 @@ def main() -> int:
     t0 = time.perf_counter()
     f64["c2 f64"] = phase_c2f64(torch, np)
     log(f"[c2 f64 phase] {time.perf_counter() - t0:.1f} s")
+
+    # 45-47. the host plans: C4 and C3 on the host matcher against the
+    #        card's `scan` run, a device query beside host queries in one
+    #        app, C1 and C2 on the host interpreter against the card's runs
+    cpu_model = host_cpu()
+    log(f"[host] host CPU: {cpu_model}; card: {smi}")
+    host = {"cpu": cpu_model}
+    for label, fn in (("host patterns", phase_host_patterns),
+                      ("mixed", phase_mixed),
+                      ("host single", phase_host_single)):
+        t0 = time.perf_counter()
+        host[label] = fn(torch, np, pkg)
+        log(f"[{label} phase] {time.perf_counter() - t0:.1f} s")
 
     # 21. results
     nfa_dev = "siddhi_tpu/core/nfa_device.py"
@@ -2889,7 +3179,7 @@ def main() -> int:
                          "matches": len(seq_out), "launches": seq_launches,
                          "blocks": blk},
               "c1": c1, "c5": c5, "c2": c2, "c2_grouped": c2g, "c2b": c2b,
-              **alg, **joins, **aggs, **ext, **sl, **f64}
+              **alg, **joins, **aggs, **ext, **sl, **f64, "host": host}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -51,13 +51,15 @@ and its replay dedup) and, where the plan picks them, `scan` and `dfa`:
     (K1 again).
 
 The JAX device block refuses some shapes and sends them to its host
-matcher, which this port does not have (ROADMAP queue A item 4): they
-raise DeviceNFAUnsupported naming the host matcher -- `e[last-2]` and
-beyond, selectors deriving a value from a maybe-absent ref, NULL routing
-in a fused group, and the JAX refusals of `lower_chain` (`every` around a
-logical or count below the head or around an absent-logical or
-optional-count head, an optional-count run landing on a non-stream
-state).
+matcher; so does this one: they raise DeviceNFAUnsupported naming the
+host matcher -- `e[last-2]` and beyond, selectors deriving a value from a
+maybe-absent ref, NULL routing in a fused group, and the JAX refusals of
+`lower_chain` (`every` around a logical or count below the head or around
+an absent-logical or optional-count head, an optional-count run landing
+on a non-stream state).  `core/build.py` plans such a query on the host
+matcher (`interp/engine.py` InterpPatternQueryPlan) with a RuntimeWarning
+under `@app:devicePatterns('auto')` or `'prefer'`, and lets the refusal
+raise under `'always'`.
 
 Precision (`f64`, `@app:devicePrecision('f64')`; the JAX package's
 `NFAKernel(..., f64=True)`): DOUBLE travels, computes, captures and
@@ -126,8 +128,8 @@ class DeviceNFAUnsupported(PlanError):
     """A pattern shape outside the device algebra."""
 
 
-HOST_MATCHER = (" (the JAX package runs it on its host matcher, which the "
-                "port does not have yet)")
+HOST_MATCHER = (" (the host matcher runs it: interp/engine.py "
+                "InterpPatternQueryPlan)")
 
 
 class PatternFilterContext(MultiStreamContext):

@@ -33,6 +33,12 @@ class PlanError(Exception):
     pass
 
 
+class DeviceFilterUnsupported(PlanError):
+    """A filter or projection the device VM (K1) cannot compile; raised at
+    plan time only, so `core/build.py` can place the query on the host
+    interpreter instead."""
+
+
 def selector_has_aggregators(selector: ast.Selector) -> bool:
     def walk(e) -> bool:
         if isinstance(e, ast.FunctionCall):
@@ -102,10 +108,12 @@ def compile_selector(selector: ast.Selector, ctx,
 class OutputBatch:
     """A produced batch plus where it should go; `callback_name` names the
     query whose callbacks see it when that is not the plan's name (the
-    lanes of a fused multi-query plan)."""
+    lanes of a fused multi-query plan); `is_expired` marks a host plan's
+    expired events (query callbacks get them as removed events)."""
     target: Optional[str]          # stream id, or None for `return`
     batch: EventBatch
     callback_name: Optional[str] = None
+    is_expired: bool = False
 
 
 class QueryPlan:
@@ -176,7 +184,7 @@ class FilterProjectPlan(QueryPlan):
                     raise PlanError(f"filter must be boolean in query {name!r}")
             self._sel = compile_selector(selector, ctx, in_schema)
         except ExprError as e:
-            raise PlanError(f"query {name!r}: {e}") from None
+            raise DeviceFilterUnsupported(f"query {name!r}: {e}") from None
         self.out_schema = self._sel.out_schema(output_target or f"#{name}")
         mask = filt.node if filt is not None else None
         h = self._sel.having_tree()
@@ -198,7 +206,7 @@ class FilterProjectPlan(QueryPlan):
             self._out_progs = [emit_program(t, slots) for t in trees[
                 1 if mask is not None else 0:]]
         except ExprError as e:
-            raise PlanError(f"query {name!r}: {e}") from None
+            raise DeviceFilterUnsupported(f"query {name!r}: {e}") from None
 
     def _host_dtype(self, key: str):
         if key == "__timestamp__":

@@ -13,10 +13,10 @@ due timers (absent-pattern deadlines) in wakeup order, draining after
 each; under `@app:playback` the clock follows the events' timestamps.
 
 Annotations read: `@app:partitionCapacity`, `@app:deviceSlots`,
-`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`,
-`@app:devicePatterns` and `@app:deviceJoins` (core/build.py: 'never'
-raises, as there is no host interpreter yet), and by the window plans
-`@app:deviceWindows` ('never' raises too) and
+`@app:deviceSlotCap`, `@app:playback`, `@app:fusedLanes`, the
+placement modes `@app:devicePatterns`, `@app:deviceWindows`,
+`@app:deviceFilters` ('never' plans the host interpreter, core/build.py)
+and `@app:deviceJoins` ('never' raises: the host join is a later slice),
 `@app:devicePrecision('f64')`, and by the aggregations
 `@app:deviceAggregations` and `@app:aggCapacity`.  Store queries on
 aggregations: `query()` / `query_with_schema()`; `explain()` reports the
@@ -46,9 +46,11 @@ from .schema import StreamSchema, StringTable, dtype_of
 
 @dataclass
 class Event:
-    """Host-side decoded event."""
+    """Host-side decoded event; `uid` (0 = unassigned) is kept by the host
+    windows when they re-stamp an expired event."""
     timestamp: int
     data: tuple
+    uid: int = 0
 
     def __iter__(self):
         return iter(self.data)
@@ -95,6 +97,8 @@ class SiddhiAppRuntime:
         self.device_slots = int(ds.element()) if ds is not None else 16
         self.device_patterns = self._mode(app, "app:devicePatterns")
         self.device_joins = self._mode(app, "app:deviceJoins")
+        self.device_windows = self._mode(app, "app:deviceWindows")
+        self.device_filters = self._mode(app, "app:deviceFilters")
         self.schemas: dict = {sid: StreamSchema.of(sd)
                               for sid, sd in app.stream_definitions.items()}
         self._plans: list = []
@@ -121,7 +125,8 @@ class SiddhiAppRuntime:
     def _register_plan(self, plan: QueryPlan) -> None:
         self._plans.append(plan)
         self._known_query_names.update(
-            getattr(plan, "query_names", None) or [plan.name])
+            getattr(plan, "query_names", None) or
+            [getattr(plan, "callback_name", plan.name)])
         for sid in plan.input_streams:
             self._subscribers[sid].append(plan)
         tgt = plan.output_target
@@ -357,11 +362,16 @@ class SiddhiAppRuntime:
     def _emit(self, plan: QueryPlan, ob: OutputBatch) -> None:
         if ob.batch.n == 0:
             return
-        cbs = self._query_callbacks.get(ob.callback_name or plan.name, ())
+        cbs = self._query_callbacks.get(
+            ob.callback_name or getattr(plan, "callback_name", plan.name), ())
         if cbs:
             ts_last = int(ob.batch.timestamps[-1])
             for cb in cbs:
-                cb(ts_last, self._decode(ob.batch), None)
+                events = self._decode(ob.batch)
+                if ob.is_expired:
+                    cb(ts_last, None, events)
+                else:
+                    cb(ts_last, events, None)
         if ob.target is not None:
             # derived events arrive "now": stamp global seqs so downstream
             # multi-input plans merge them in true order

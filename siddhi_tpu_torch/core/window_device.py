@@ -40,8 +40,10 @@ Rows follow `_materialize` of the JAX package: sliding kinds emit one row
 per filter-passing event, stamped with its arrival timestamp; tumbling
 kinds emit completed buckets, carried events of earlier batches with
 their own timestamps; rows leave in arrival order before `order by`.
-Unsupported shapes raise PlanError: the host interpreter the JAX package
-demotes them to is a later slice of the port.
+Unsupported shapes raise DeviceWindowUnsupported (a PlanError) at plan
+time; `core/build.py` then places the query on the host interpreter
+(`interp/engine.py` InterpSingleQueryPlan) with a RuntimeWarning, as the
+JAX package demotes them, or raises under `@app:deviceWindows('always')`.
 """
 from __future__ import annotations
 
@@ -66,8 +68,11 @@ from .schema import TIMESTAMP_DTYPE, StreamSchema, dtype_of
 
 TS_PAD = 2 ** 62                    # compacted pads (window_device.py:837)
 EXT_START_SENTINEL = -(2 ** 62)     # externalTimeBatch: no anchor yet
-_LATER = "the host interpreter is a later slice of the port"
 _TUMBLING = ("lengthbatch", "externaltimebatch")
+
+
+class DeviceWindowUnsupported(PlanError):
+    """A window query shape outside the device window plan."""
 KERNELS = {"expr_eval": expr_eval, "win_scan": win_scan,
            "win_range": win_range, "win_compact": win_compact}
 
@@ -98,8 +103,8 @@ class DeviceWindowAggPlan(QueryPlan):
         self.fdt = torch.float64 if self.f64 else torch.float32
 
         def unsupported(what: str) -> PlanError:
-            return PlanError(f"query {name!r}: {what} on the device window "
-                             f"plan; {_LATER}")
+            return DeviceWindowUnsupported(
+                f"query {name!r}: {what} on the device window plan")
         if q.rate is not None:
             raise unsupported("output rate limiting")
         if q.output.events_for != ast.OutputEventsFor.CURRENT:

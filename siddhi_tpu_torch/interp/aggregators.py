@@ -10,12 +10,23 @@ argument's type from the port's expression compiler; with a host
 expression context (`interp/expr.py`) it also carries the compiled per-row
 argument (`arg_fns`), `in_type` and `out_type`, as the JAX package's
 sites do for its aggregation runtime.
+
+Below them, the host interpreter's attribute aggregators with the
+current/expired/reset protocol (siddhi_tpu/interp/aggregators.py:15-316):
+sum, count, avg, min/max over a sorted multiset (exact removal),
+minForever/maxForever, stdDev, distinctCount, and/or, unionSet, and
+`make_aggregator`.  The host selector (`interp/engine.py`) keeps one bank
+of them per group key.  Custom aggregators (the JAX package's extension
+registry) are a later slice.
 """
 from __future__ import annotations
 
+import bisect
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..core.expr import ExprError
 from ..core.planner import AGGREGATOR_NAMES
 from ..query import ast
 from ..query.ast import AttrType
@@ -94,3 +105,305 @@ def out_type(name: str, in_type: Optional[AttrType]) -> AttrType:
     if name == "avg":
         return AttrType.DOUBLE
     return in_type
+
+
+# -- host aggregators (siddhi_tpu/interp/aggregators.py:15-316) ------------
+
+class Aggregator:
+    type: AttrType = AttrType.DOUBLE
+
+    def add(self, v):
+        raise NotImplementedError
+
+    def remove(self, v):
+        raise NotImplementedError
+
+    def reset(self):
+        raise NotImplementedError
+
+    def value(self):
+        raise NotImplementedError
+
+    def state(self):
+        return self.__dict__.copy()
+
+    def restore(self, st):
+        self.__dict__.update(st)
+
+
+class SumAgg(Aggregator):
+    def __init__(self, in_type: AttrType):
+        self.type = AttrType.LONG if in_type in (AttrType.INT, AttrType.LONG) \
+            else AttrType.DOUBLE
+        self.s = None
+
+    def add(self, v):
+        if v is None:
+            return
+        self.s = v if self.s is None else self.s + v
+
+    def remove(self, v):
+        if v is None or self.s is None:
+            return
+        self.s -= v
+
+    def reset(self):
+        self.s = None
+
+    def value(self):
+        return self.s
+
+
+class CountAgg(Aggregator):
+    type = AttrType.LONG
+
+    def __init__(self, in_type=None):
+        self.n = 0
+
+    def add(self, v):
+        self.n += 1
+
+    def remove(self, v):
+        self.n -= 1
+
+    def reset(self):
+        self.n = 0
+
+    def value(self):
+        return self.n
+
+
+class AvgAgg(Aggregator):
+    type = AttrType.DOUBLE
+
+    def __init__(self, in_type=None):
+        self.s = 0.0
+        self.n = 0
+
+    def add(self, v):
+        if v is None:
+            return
+        self.s += v
+        self.n += 1
+
+    def remove(self, v):
+        if v is None:
+            return
+        self.s -= v
+        self.n -= 1
+
+    def reset(self):
+        self.s, self.n = 0.0, 0
+
+    def value(self):
+        return None if self.n == 0 else self.s / self.n
+
+
+class _OrderedAgg(Aggregator):
+    """min/max with expiry — sorted multiset (reference keeps deques and
+    recomputes; a sorted list gives O(log n) adds and exact removal)."""
+
+    def __init__(self, in_type: AttrType):
+        self.type = in_type
+        self.vals: list = []
+
+    def add(self, v):
+        if v is None:
+            return
+        bisect.insort(self.vals, v)
+
+    def remove(self, v):
+        if v is None:
+            return
+        i = bisect.bisect_left(self.vals, v)
+        if i < len(self.vals) and self.vals[i] == v:
+            self.vals.pop(i)
+
+    def reset(self):
+        self.vals = []
+
+
+class MinAgg(_OrderedAgg):
+    def value(self):
+        return self.vals[0] if self.vals else None
+
+
+class MaxAgg(_OrderedAgg):
+    def value(self):
+        return self.vals[-1] if self.vals else None
+
+
+class MinForeverAgg(Aggregator):
+    def __init__(self, in_type: AttrType):
+        self.type = in_type
+        self.m = None
+
+    def add(self, v):
+        if v is not None and (self.m is None or v < self.m):
+            self.m = v
+
+    def remove(self, v):      # forever aggregators ignore expiry
+        pass
+
+    def reset(self):
+        pass
+
+    def value(self):
+        return self.m
+
+
+class MaxForeverAgg(MinForeverAgg):
+    def add(self, v):
+        if v is not None and (self.m is None or v > self.m):
+            self.m = v
+
+
+class StdDevAgg(Aggregator):
+    type = AttrType.DOUBLE
+
+    def __init__(self, in_type=None):
+        self.n = 0
+        self.s = 0.0
+        self.sq = 0.0
+
+    def add(self, v):
+        if v is None:
+            return
+        self.n += 1
+        self.s += v
+        self.sq += v * v
+
+    def remove(self, v):
+        if v is None:
+            return
+        self.n -= 1
+        self.s -= v
+        self.sq -= v * v
+
+    def reset(self):
+        self.n, self.s, self.sq = 0, 0.0, 0.0
+
+    def value(self):
+        if self.n < 1:
+            return None
+        mean = self.s / self.n
+        var = max(self.sq / self.n - mean * mean, 0.0)
+        return math.sqrt(var)
+
+
+class DistinctCountAgg(Aggregator):
+    type = AttrType.LONG
+
+    def __init__(self, in_type=None):
+        self.counts: dict = {}
+
+    def add(self, v):
+        self.counts[v] = self.counts.get(v, 0) + 1
+
+    def remove(self, v):
+        c = self.counts.get(v)
+        if c is not None:
+            if c <= 1:
+                del self.counts[v]
+            else:
+                self.counts[v] = c - 1
+
+    def reset(self):
+        self.counts = {}
+
+    def value(self):
+        return len(self.counts)
+
+
+class AndAgg(Aggregator):
+    type = AttrType.BOOL
+
+    def __init__(self, in_type=None):
+        self.false_n = 0
+        self.n = 0
+
+    def add(self, v):
+        self.n += 1
+        if not v:
+            self.false_n += 1
+
+    def remove(self, v):
+        self.n -= 1
+        if not v:
+            self.false_n -= 1
+
+    def reset(self):
+        self.n = self.false_n = 0
+
+    def value(self):
+        return self.false_n == 0
+
+
+class OrAgg(Aggregator):
+    type = AttrType.BOOL
+
+    def __init__(self, in_type=None):
+        self.true_n = 0
+
+    def add(self, v):
+        if v:
+            self.true_n += 1
+
+    def remove(self, v):
+        if v:
+            self.true_n -= 1
+
+    def reset(self):
+        self.true_n = 0
+
+    def value(self):
+        return self.true_n > 0
+
+
+class UnionSetAgg(Aggregator):
+    type = AttrType.OBJECT
+
+    def __init__(self, in_type=None):
+        self.counts: dict = {}
+
+    def add(self, v):
+        if isinstance(v, (set, frozenset, list, tuple)):
+            for x in v:
+                self.counts[x] = self.counts.get(x, 0) + 1
+        elif v is not None:
+            self.counts[v] = self.counts.get(v, 0) + 1
+
+    def remove(self, v):
+        items = v if isinstance(v, (set, frozenset, list, tuple)) else [v]
+        for x in items:
+            c = self.counts.get(x)
+            if c is not None:
+                if c <= 1:
+                    del self.counts[x]
+                else:
+                    self.counts[x] = c - 1
+
+    def reset(self):
+        self.counts = {}
+
+    def value(self):
+        return set(self.counts)
+
+
+AGGREGATOR_CLASSES = {
+    "sum": SumAgg, "count": CountAgg, "avg": AvgAgg, "min": MinAgg,
+    "max": MaxAgg, "minforever": MinForeverAgg, "maxforever": MaxForeverAgg,
+    "stddev": StdDevAgg, "distinctcount": DistinctCountAgg,
+    "and": AndAgg, "or": OrAgg, "unionset": UnionSetAgg,
+}
+
+
+def make_aggregator(name: str, in_type: Optional[AttrType]) -> Aggregator:
+    cls = AGGREGATOR_CLASSES.get(name.lower())
+    if cls is None:
+        raise ExprError(f"unknown aggregator {name!r}")
+    return cls(in_type)
+
+
+def aggregator_out_type(name: str, in_type: Optional[AttrType]) -> AttrType:
+    return make_aggregator(name, in_type).type

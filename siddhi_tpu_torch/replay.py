@@ -53,7 +53,14 @@ tests (tests/test_torch_gpu.py):
     plain version, tolerance 0; they raise `KernelMismatch` on the first
     difference and return the largest |kernel - plain| per kernel use;
   * `sorted_rows`, a match table in (completion seq, head seq, lane)
-    order (a kernel appends matches in no fixed order).
+    order (a kernel appends matches in no fixed order);
+  * the host plans' apps: `NEVER` (`@app:devicePatterns('never')`), and
+    `MIXED`, a device pattern query beside host ones in one app (an
+    `e[last-2]` selector and a `group by` aggregate -- per-key host clones
+    in C4's partition -- `output every 5 events` on the host matcher, and
+    a range-partitioned pattern), with `run_mixed`, its rows per query (`MIXED_QUERIES`) flush
+    by flush, the warnings its planning raised, and `mixed_placement`,
+    where each query was planned.
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ begin
 end;
 """
 C4_HEAD = "@app:partitionCapacity(1000)\n@app:deviceSlots(32)\n"
+NEVER = "@app:devicePatterns('never')\n"      # every pattern on the host
 C4_SEQ = "@app:patternFamily('seq')\n"
 C3 = STOCK + ("@info(name='q') from every e1=StockStream[price > 100] -> "
               "e2=StockStream[price > e1.price] within 1 sec "
@@ -786,3 +794,96 @@ def check_dfa_block(k, ev: dict, M: int) -> dict:
     if k.family != "dfa" or not k.dfa_nodes:
         raise ValueError("not a dfa block")
     return check_scan_block(k, ev, M)
+
+
+# one app holding a device pattern query beside host queries: in C4's
+# partition, C4's query (`scan` on the device) and two the device planner
+# refuses (per-key host clones); unpartitioned, a rate-limited pattern
+# (the host matcher); in a range partition, a pattern the device gets no
+# value key for (host clones)
+MIXED = C4_HEAD + STOCK + """
+partition with (symbol of StockStream)
+begin
+  @info(name='dev')
+  from every e1=StockStream[price > 100] -> e2=StockStream[price > e1.price]
+    -> e3=StockStream[price > e2.price] within 10 sec
+  select e1.price as p1, e2.price as p2, e3.price as p3 insert into DevOut;
+  @info(name='last2')
+  from every e1=StockStream[price > 120]<1:3> -> e2=StockStream[price < 95]
+    within 10 sec
+  select e1[last-2].price as a, e1[last].price as l, e2.price as p
+  insert into Last2Out;
+  @info(name='agg')
+  from every e1=StockStream[price > 125] -> e2=StockStream[price < 95]
+    within 10 sec
+  select e1.symbol as s, count() as n, avg(e2.price) as m, max(e1.price) as hi
+  group by e1.symbol insert into AggOut;
+end;
+@info(name='rate')
+from every e1=StockStream[price > 128] -> e2=StockStream[price > e1.price]
+  within 10 sec
+select e1.price as p1, e2.price as p2 output every 5 events
+insert into RateOut;
+partition with (volume < 300 as 'lo' or volume >= 300 and volume < 700 as
+    'mid' or volume >= 700 as 'hi' of StockStream)
+begin
+  @info(name='range')
+  from every e1=StockStream[price > 129] -> e2=StockStream[price > e1.price]
+    within 100 milliseconds
+  select e1.symbol as s, e1.price as p1, e2.price as p2 insert into RangeOut;
+end;
+"""
+MIXED_QUERIES = ("dev", "last2", "agg", "rate", "range")
+
+
+def run_mixed(app: str, tape: list, device: str, keys: int = 1000) -> tuple:
+    """Feed a `make_tape` tape through `app` (queries `MIXED_QUERIES`) on
+    `device`, one `send_batch` and `flush()` a flush (timed on the host
+    clock around work that ends in `torch.cuda.synchronize()` on a card);
+    returns (rows per query as (ts, row) in output order, ms per flush,
+    runtime, the messages of the RuntimeWarnings its planning raised)."""
+    import warnings
+    from .core.runtime import SiddhiManager
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rt = SiddhiManager(device=device).create_app_runtime(app)
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)]
+    rows: dict = {q: [] for q in MIXED_QUERIES}
+    for q in MIXED_QUERIES:
+        rt.add_query_callback(q, lambda _ts, cur, _exp, q=q: rows[q].extend(
+            (e.timestamp, e.data) for e in cur or ()))
+    h = rt.input_handler("StockStream")
+    codes = np.array([rt.strings.encode(f"K{i}") for i in range(keys)],
+                     dtype=np.int32)
+    per_flush = []
+    for f in tape:
+        t0 = time.perf_counter()
+        h.send_batch({"symbol": codes[f["sym_idx"]], "price": f["price"],
+                      "volume": f["volume"]}, f["ts"])
+        rt.flush()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        per_flush.append((time.perf_counter() - t0) * 1e3)
+    return rows, per_flush, rt, warned
+
+
+def mixed_placement(rt) -> dict:
+    """query name -> where it was planned: `device:<family>` for a
+    DevicePatternPlan, `clones` for a PartitionGroup's host clones,
+    `host` for a host matcher plan of its own."""
+    from .core.partition import PartitionGroup
+    from .core.pattern_plan import DevicePatternPlan
+    from .interp.engine import InterpPatternQueryPlan
+    out = {}
+    for p in rt.plans():
+        if isinstance(p, DevicePatternPlan):
+            out[p.name] = f"device:{p.family}"
+        elif isinstance(p, PartitionGroup):
+            for qi, q in enumerate(p.clone_queries):
+                out[q.name(f"query_p{p.index}_{qi}")] = "clones"
+        elif isinstance(p, InterpPatternQueryPlan) and \
+                not hasattr(p, "callback_name"):
+            out[p.name] = "host"
+    return out
+

@@ -39,6 +39,10 @@ cap.  `stateless_state_from_jax` takes those from a JAX `scan`, `dfa` or
 `chunk` plan's state_dict() into the dict the port's plan loads.  The
 string table travels apart (`rt.strings.state()` / `restore`), as for
 `seq`.
+
+A host plan's state (the host matcher's partial matches, host windows,
+aggregator banks, rate limiters, a partition's key map) is plain Python
+data: `host_state_from_jax` copies it across.
 """
 from __future__ import annotations
 
@@ -165,3 +169,28 @@ def agg_state_from_jax(d: dict, jax_strings, port_strings,
     return {"store": {dv: {key(k): [float(x) for x in v]
                            for k, v in st.items()}
                       for dv, st in d["store"].items()}}
+
+
+def host_state_from_jax(d):
+    """The state_dict() of a JAX host plan -- InterpPatternQueryPlan (its
+    matcher's partial matches, the selector's aggregator banks, the rate
+    limiter), InterpSingleQueryPlan (window, selector, rate limiter) or
+    PartitionGroup (the key -> instance map) -- as the dict the port's
+    plan of the same class loads.  Host states hold decoded values
+    (strings as str, rows as tuples), so no string code needs mapping;
+    what differs is the aggregators' `type`, an AttrType of the JAX
+    package's query AST, which becomes the port's member of the same
+    name.  Containers are copied, so the two plans share nothing."""
+    import enum
+
+    from .query.ast import AttrType
+
+    def conv(v):
+        if isinstance(v, enum.Enum) and type(v).__name__ == "AttrType":
+            return AttrType[v.name]
+        if isinstance(v, dict):
+            return {conv(k): conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple, set)):
+            return type(v)(conv(x) for x in v)
+        return v
+    return conv(d)

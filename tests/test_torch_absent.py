@@ -249,12 +249,33 @@ def test_absent_shapes_of_later_slices_raise(body, what):
     assert rt.plans()[0].kernel.ext
 
 
+MAYBE_ABSENT = ("from every e1=A[x > 2] -> not e2=B for 150 ms select e1.x "
+                "as x, e2.y + 1 as y insert into O;")
+
+
 def test_selector_over_an_absent_ref_is_a_later_slice():
-    """A selector deriving a value from a maybe-absent ref stays refused,
-    as in the JAX device block (its host matcher runs it)."""
+    """A selector deriving a value from a maybe-absent ref stays refused
+    by the device block, as in the JAX device block (its host matcher runs
+    it): under `@app:devicePatterns('always')` the refusal raises."""
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
     with pytest.raises(DeviceNFAUnsupported, match="maybe-absent") as e:
-        mgr.create_app_runtime(AB + "@info(name='q') from e1=A -> not "
+        mgr.create_app_runtime("@app:devicePatterns('always')\n" + AB +
+                               "@info(name='q') from e1=A -> not "
                                "e2=B for 1 sec select e1.x as x, e2.y + 1 "
                                "as y insert into O;")
     assert "host matcher" in str(e.value)
+
+
+def test_selector_over_an_absent_ref_runs_on_the_host_matcher():
+    """Under the default mode the same shape plans the host matcher with a
+    RuntimeWarning and gives the rows of the JAX package's 'prefer' (its
+    host matcher) under playback, the absent ref's column NULL."""
+    from siddhi_tpu_torch.interp.engine import InterpPatternQueryPlan
+    text = "@app:playback\n" + AB + "@info(name='q') " + MAYBE_ABSENT
+    ss = sends("not_for", seed=5)
+    with pytest.warns(RuntimeWarning, match="maybe-absent"):
+        got, rt = run(siddhi_tpu_torch, text, ss, False, device="cpu")
+    assert [type(p) for p in rt.plans()] == [InterpPatternQueryPlan]
+    assert all(row[1] is None for _t, row in got)
+    want, _ = run(siddhi_tpu, PREFER + text, ss, False)
+    assert got == want and got

@@ -1,6 +1,8 @@
 """Single-stream filter/projection queries (BASELINE config 1 and the
 shapes of test_filter_e2e.py) through both packages: the port on the CPU
 (K1's plain version) must emit the JAX package's rows, row for row."""
+import warnings
+
 import numpy as np
 import pytest
 
@@ -98,6 +100,27 @@ def test_chained_queries_and_autoflush():
     "from StockStream[math:log(price) > 4] select * insert into Out;",
 ])
 def test_later_slices_raise_plan_error(query):
-    with pytest.raises(PlanError):
-        siddhi_tpu_torch.SiddhiManager(device="cpu").create_app_runtime(
-            STOCK + query)
+    """These shapes raised PlanError while the host interpreter was a
+    later slice; they plan it now (a window without aggregates and
+    windowless aggregation have no device plan; `math:log` is not in K1's
+    VM, so it demotes with a RuntimeWarning and raises under
+    `@app:deviceFilters('always')`) and emit the JAX package's rows."""
+    from siddhi_tpu_torch.interp.engine import InterpSingleQueryPlan
+    app = STOCK + "@info(name='q') " + query
+    demoted = "math:log" in query
+    if demoted:
+        with pytest.raises(PlanError, match="math:log"):
+            siddhi_tpu_torch.SiddhiManager(device="cpu").create_app_runtime(
+                "@app:deviceFilters('always')\n" + app)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        rt = siddhi_tpu_torch.SiddhiManager(device="cpu").create_app_runtime(
+            app)
+    assert [type(p) for p in rt.plans()] == [InterpSingleQueryPlan]
+    assert bool([x for x in w if "runs on the host interpreter" in
+                 str(x.message)]) == demoted
+    rows = [(f"K{i % 5}", 90.0 + (i % 41), i) for i in range(300)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = _both(app, [("StockStream", "rows", rows, 0)])
+    assert len(got["Out"]) > 100

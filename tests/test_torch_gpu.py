@@ -2279,3 +2279,29 @@ def test_k34_graph_replays_and_two_streams(cuda, monkeypatch):
                 l4()
         for case in cases:
             check(*case)
+
+
+def test_mixed_device_and_host_queries_match_the_cpu_run(cuda):
+    """chip_smoke phase 46's app on the card: the device query plans
+    `scan` and launches K1 and K3-K5, each host query plans where the
+    routing puts it with its RuntimeWarning (per-key host clones for the
+    `e[last-2]` selector, the `group by` aggregate and the range
+    partition, the host matcher for `output every 5 events`), and every
+    query's rows equal the CPU run's."""
+    from siddhi_tpu_torch.replay import (MIXED, MIXED_QUERIES,
+                                         mixed_placement, run_mixed)
+    tape = make_tape(2 * 4096, 4096, 1000, seed=46)
+    reset_launches()
+    got, _ms, rt, warned = run_mixed(MIXED, tape, "cuda")
+    launches = dict(LAUNCHES)
+    assert mixed_placement(rt) == {"dev": "device:scan", "last2": "clones",
+                                   "agg": "clones", "rate": "host",
+                                   "range": "clones"}
+    assert sorted(w.split(" runs on ")[0] for w in warned) == [
+        "query 'agg'", "query 'last2'", "query 'range'", "query 'rate'"]
+    for k in ("seg_tree", "scan_chase", "scan_compact", "expr_eval:pre_mask"):
+        assert launches.get(k, 0) > 0, launches
+    assert not launches.get("nfa_block", 0)
+    want, _ms, _rt, _w = run_mixed(MIXED, tape, "cpu")
+    for q in MIXED_QUERIES:
+        assert sorted(got[q]) == sorted(want[q]) and got[q], q

@@ -39,6 +39,7 @@ from siddhi_tpu_torch.replay import C4O_BODY, partitioned
 from siddhi_tpu_torch.weights import nfa_state_from_jax
 
 PREFER = "@app:devicePatterns('prefer')\n"
+ALWAYS = "@app:devicePatterns('always')\n"
 T0 = 1_000_000
 HEAD = """
 @app:playback
@@ -620,7 +621,7 @@ def test_state_carried_over_mid_tape():
     assert first + got == want and got
 
 
-@pytest.mark.parametrize("body,words", [
+REFUSALS = [
     ("from e1=S1[price>10] -> every (e2=S2[price>20] or e3=S3[price>30]) "
      "select e1.sym as a insert into O;",
      "`every`-wrapped logical/count state below the head"),
@@ -631,15 +632,37 @@ def test_state_carried_over_mid_tape():
      "not S3[price>30] for 1 sec select e1[0].sym as a insert into O;",
      "optional count run after a counting state landing on a non-stream "
      "state"),
-])
+]
+
+
+@pytest.mark.parametrize("body,words", REFUSALS)
 def test_jax_device_refusals_name_the_host_matcher(body, words):
     """The JAX device block's own refusals (`lower_chain`), word for word,
-    now naming the host matcher that runs them there (its `prefer` plans
-    no device block for them)."""
+    naming the host matcher that runs them there (its `prefer` plans no
+    device block for them); the port raises them under
+    `@app:devicePatterns('always')`."""
     from siddhi_tpu_torch.core.planner import PlanError
     with pytest.raises(PlanError) as e:
         siddhi_tpu_torch.SiddhiManager(device="cpu").create_app_runtime(
-            HEAD + body)
+            ALWAYS + HEAD + body)
     assert words in str(e.value) and "host matcher" in str(e.value)
     jrt = siddhi_tpu.SiddhiManager().create_app_runtime(PREFER + HEAD + body)
     assert not any(isinstance(p, JPlan) for p in jrt._plans)
+
+
+@pytest.mark.parametrize("body,words", REFUSALS)
+def test_jax_device_refusals_run_on_the_host_matcher(body, words):
+    """The same texts under the default mode: the port plans its host
+    matcher with a RuntimeWarning naming the query and the refusal, and
+    gives the rows of the JAX package's 'prefer' (its host matcher)."""
+    from siddhi_tpu_torch.interp.engine import InterpPatternQueryPlan
+    sends = [s for seed in range(4) for s in fuzz_sends(
+        seed, n=60, lo=30, hi=400)]
+    sends = [(sid, row, T0 + i * 97) for i, (sid, row, _ts) in
+             enumerate(sends)]
+    with pytest.warns(RuntimeWarning, match=r"runs on the host matcher: "
+                      r".*" + words.split()[0]):
+        got, rt = port_run(HEAD + body, sends)
+    assert [type(p) for p in rt.plans()] == [InterpPatternQueryPlan]
+    want, _ = _run(siddhi_tpu, PREFER + HEAD + body, sends)
+    assert got == want and got

@@ -92,6 +92,11 @@ def test_import_leaves_jax_unloaded():
             "import siddhi_tpu_torch.core.agg_device\n"
             "import siddhi_tpu_torch.core.store\n"
             "import siddhi_tpu_torch.kernels.agg_merge\n"
+            "import siddhi_tpu_torch.interp.engine\n"
+            "import siddhi_tpu_torch.interp.nfa\n"
+            "import siddhi_tpu_torch.interp.windows\n"
+            "import siddhi_tpu_torch.utils.cron\n"
+            "import siddhi_tpu_torch.core.partition\n"
             "bad = sorted(roots() - before)\n"
             "assert not bad, bad\n")
     env = dict(os.environ)

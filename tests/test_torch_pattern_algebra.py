@@ -340,7 +340,7 @@ def test_logical_after_count_never_completes_like_the_jax_device():
     assert host
 
 
-@pytest.mark.parametrize("body,feature", [
+LATER_SHAPES = [
     ("from e1=StockStream[price > 110]<1:3> -> e2=StockStream[price < 95] "
      "select e1[last-2].price as a insert into Out;", "last-2"),
     ("from e1=StockStream[price > 110] -> e2=StockStream[price < 95] or "
@@ -349,14 +349,35 @@ def test_logical_after_count_never_completes_like_the_jax_device():
     ("from e1=StockStream[price > 110] -> e2=StockStream[price < 95] or "
      "e3=StockStream[volume > 990] select e3.volume + 1 as v "
      "insert into Out;", "maybe-absent"),
-])
+]
+
+
+@pytest.mark.parametrize("body,feature", LATER_SHAPES)
 def test_later_slice_shapes_raise_naming_the_feature(body, feature):
     """The shapes the JAX device block refuses too (its host matcher runs
-    them) raise PlanError naming the feature and the host matcher."""
+    them) raise PlanError naming the feature and the host matcher under
+    `@app:devicePatterns('always')`."""
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
     with pytest.raises(PlanError, match=feature) as e:
-        mgr.create_app_runtime(STOCK + "@info(name='q') " + body)
+        mgr.create_app_runtime("@app:devicePatterns('always')\n" + STOCK +
+                               "@info(name='q') " + body)
     assert "host matcher" in str(e.value)
+
+
+@pytest.mark.parametrize("body,feature", LATER_SHAPES)
+def test_later_slice_shapes_run_on_the_host_matcher(body, feature):
+    """Under the default mode the same shapes plan the host matcher with a
+    RuntimeWarning naming the feature, and give the rows of the JAX
+    package's 'prefer' (its host matcher)."""
+    from siddhi_tpu_torch.interp.engine import InterpPatternQueryPlan
+    app = STOCK + "@info(name='q') " + body.replace("from e1", "from every e1")
+    feed = tape_sends(4, 1200, seed=7, flush=300, dt=5)
+    with pytest.warns(RuntimeWarning, match=feature):
+        got, rt = run_tape(siddhi_tpu_torch, app, feed, device="cpu")
+    assert [type(p) for p in rt.plans()] == [InterpPatternQueryPlan]
+    want, _ = run_tape(siddhi_tpu, "@app:devicePatterns('prefer')\n" + app,
+                       feed)
+    assert got == want and got
 
 
 @pytest.mark.parametrize("body,feature", [

@@ -22,7 +22,6 @@ from siddhi_tpu.core.pattern_plan import DevicePatternPlan as JPlan
 
 import siddhi_tpu_torch
 from siddhi_tpu_torch.core.nfa_device import NFAKernel
-from siddhi_tpu_torch.core.planner import PlanError
 from siddhi_tpu_torch.weights import nfa_state_from_jax
 
 STOCK = "define stream StockStream (symbol string, price double, volume int);\n"
@@ -320,16 +319,22 @@ def test_unsupported_options_raise_at_create(head, feature):
 
 @pytest.mark.parametrize("name", ["c3", "c4", "fused"])
 def test_device_patterns_never_raises(name):
-    """`@app:devicePatterns('never')` sends patterns to the JAX package's
-    host matcher, a later slice of the port: creating the app raises
-    PlanError naming it, unpartitioned, partitioned or fusable alike (no
-    device plan is built behind the annotation's back)."""
+    """`@app:devicePatterns('never')` sends patterns to the host matcher,
+    unpartitioned, partitioned (per-key clones) or fusable alike: no
+    device plan is built behind the annotation's back, nothing raises,
+    and the rows equal the JAX package's under 'never', in order."""
+    from siddhi_tpu_torch.core.partition import PartitionGroup
+    from siddhi_tpu_torch.interp.engine import InterpPatternQueryPlan
     app = APPS.get(name) or STOCK + "\n".join(
         f"@info(name='q{i}') from every e1=StockStream[price > {100 + i}] "
         f"-> e2=StockStream[price > e1.price] within 1 sec "
         f"select e1.price as p1 insert into Out;" for i in range(8))
+    never = "@app:devicePatterns('never')\n" + app
+    sends = tape(name, flushes=2, n=300)
+    got, rt = run(siddhi_tpu_torch, never, sends, device="cpu")
+    assert {type(p) for p in rt.plans()} <= {InterpPatternQueryPlan,
+                                             PartitionGroup}
+    want, _ = run(siddhi_tpu, never, sends)
+    assert got == want and len(got) > 5
     mgr = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    with pytest.raises(PlanError, match=r"devicePatterns\('never'\) needs "
-                       r"the host matcher"):
-        mgr.create_app_runtime("@app:devicePatterns('never')\n" + app)
     assert mgr.create_app_runtime("@app:devicePatterns('prefer')\n" + app)

@@ -24,6 +24,8 @@ against numpy brute force."""
 import functools
 import math
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -467,20 +469,36 @@ def test_planning_routes_and_refusals():
           " select avg(price) as ap insert into Out;")
     plan = mgr.create_app_runtime(c2).plans()[0]
     assert isinstance(plan, DeviceWindowAggPlan) and plan.C == 1024
-    for app, what in [
+    # the shapes that raised while the host interpreter was a later slice
+    # plan it now: by annotation or shape without a word, on a device
+    # refusal with a RuntimeWarning (and under 'always' the refusal raises)
+    from siddhi_tpu_torch.interp.engine import InterpSingleQueryPlan
+    always = "@app:deviceWindows('always')\n"
+    for app, refused in [
             ("@app:deviceWindows('never')\n" + HEAD +
              "from S#window.length(3) select sum(p) as s insert into O;",
-             "host interpreter"),
+             None),
             (HEAD + "from S#window.length(3) select sym insert into O;",
-             "host interpreter"),
+             None),
             (HEAD + "from S#window.sort(3, p) select sum(p) as s "
-             "insert into O;", "host interpreter"),
+             "insert into O;", "window sort"),
             (HEAD + "from S#window.length(3) select stddev(p) as s "
-             "insert into O;", "host interpreter"),
+             "insert into O;", "stddev"),
             (HEAD + "from S#window.length(3) select max(sym) as s "
-             "insert into O;", "host interpreter")]:
-        with pytest.raises(PlanError, match=what):
-            mgr.create_app_runtime(app)
+             "insert into O;", "STRING")]:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            rt = mgr.create_app_runtime(app)
+        assert [type(p) for p in rt.plans()] == [InterpSingleQueryPlan]
+        msgs = [str(x.message) for x in w]
+        if refused is None:
+            assert not msgs, msgs
+            continue
+        assert len(msgs) == 1 and "runs on the host interpreter" in msgs[0]
+        assert refused in msgs[0], msgs
+        with pytest.raises(PlanError, match=r"deviceWindows\('always'\) "
+                           r"but unsupported"):
+            mgr.create_app_runtime(always + app)
 
 
 def test_window_state_round_trip():
